@@ -7,25 +7,37 @@ arguments). It needs no JAX and no network, and builds the CUDA kernels from
 
 Phases (any mismatch or error raises, and the run exits non-zero):
   1. Device: the card's name and power limit (``nvidia-smi``), the build.
-  2. Kernels: each of the four kernels of the lockstep serving path against
-     its plain PyTorch version on the card, at the full gemma-2b shapes of
-     that path (B=8, prompt 128, max_new 32), timed beside the plain version
-     and one PyTorch call as a yardstick (never called by the port).
-  3. End to end: ``repro_torch.launch.serve`` lockstep at full gemma-2b width
-     and depth with random weights, greedy then temperature 0.8; the launch
-     counters must show every kernel on the path, the tokens must be in
-     range and repeatable, and the kernel path must agree with the plain one.
+  2. Kernels: each of the five kernels against its plain PyTorch version on
+     the card, at the full gemma-2b shapes of the serving paths (lockstep:
+     B=8, prompt 128, max_new 32; streaming: 8 slots, pages of 16, 256
+     positions, and prefill chunks of 16 queries at an offset), timed beside
+     the plain version and one PyTorch call as a yardstick (never called by
+     the port).
+  3. Lockstep end to end: ``repro_torch.launch.serve --lockstep`` at full
+     gemma-2b width and depth with random weights, greedy then temperature
+     0.8; the launch counters must show every kernel of the path, the tokens
+     must be in range and repeatable, and the kernel path must agree with
+     the plain one.
+  4. Streaming end to end: ``repro_torch.launch.serve`` (the streaming
+     engine, the default path) on the same model, 32 synthetic requests,
+     greedy then 0.8; the launch counters must match the engine's prefill
+     chunks and decode steps, every stream must finish, the same seed must
+     give the same streams, a prefix-cache hit must give the tokens of the
+     cold run, and greedy first tokens must agree with the plain path.
 
-Output: the nvidia-smi line, JSON lines per kernel, a ``{"kernels": [...]}``
-line, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA,
-or outside a checkout, it exits non-zero before printing any result.
+Output: the nvidia-smi line, JSON lines per kernel and per phase, a
+``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
+{...}}``. Without CUDA, or outside a checkout, it exits non-zero before
+printing any result.
 
-``--profile`` also writes a torch.profiler table of one greedy generate to
-``build/profile.txt``.
+``--profile`` also writes torch.profiler tables of one greedy generate and
+of one greedy streaming replay to ``build/profile.txt`` and
+``build/profile_streaming.txt``, and prints the device-busy share of each.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,6 +61,11 @@ B, PROMPT, MAX_NEW = 8, 128, 32
 SMAX = PROMPT + MAX_NEW
 D_MODEL, VOCAB, HEADS, REAL_HEADS, HEAD_DIM = 2048, 256_000, 16, 8, 256
 TIMED_BATCHES = 4
+# the streaming path: the engine's ServingConfig and its synthetic workload
+SLOTS, MAX_LEN, STREAM_NEW, PAGE, N_REQUESTS = 8, 256, 64, 16, 32
+STREAM_FLAGS = ["--slots", str(SLOTS), "--max-len", str(MAX_LEN), "--max-new", str(STREAM_NEW),
+                "--page-size", str(PAGE), "--num-requests", str(N_REQUESTS), "--rate", "20",
+                "--no-realtime"]
 
 BF16_TOL = 2e-2
 LSE_TOL = 1e-3
@@ -160,6 +177,32 @@ def kernel_phase(torch, ops, ref, F):
         ok, err2 = close(ops.flash_attention(qq, kk, vv, **kw),
                          ref.flash_attention(qq, kk, vv, **kw), BF16_TOL)
         require(ok, f"flash_attention {kw} Sq={sq} D={hd}: max abs err {err2}")
+    # the streaming path's prefill chunk: 16 queries at q_offset 32 against
+    # the first 48 positions of 256-wide admission rows (a strided view)
+    R, C, OFF = SLOTS, PAGE, 2 * PAGE
+    qc = randn(R, C, H, HD)
+    qc[:, :, REAL_HEADS:] = 0
+    rows_k, rows_v = randn(R, MAX_LEN, KVH, HD), randn(R, MAX_LEN, KVH, HD)
+    kch, vch = rows_k[:, :OFF + C], rows_v[:, :OFF + C]
+    ok, err_c = close(ops.flash_attention(qc, kch, vch, causal=True, q_offset=OFF),
+                      ref.flash_attention(qc, kch, vch, causal=True, q_offset=OFF), BF16_TOL)
+    require(ok, f"flash_attention chunk (Sq {C}, Sk {OFF + C}, q_offset {OFF}): "
+                f"max abs err {err_c}")
+    pairs_c = C * OFF + C * (C + 1) // 2
+    nbytes = 2 * qc.numel() * 2 + 2 * R * (OFF + C) * KVH * HD * 2
+    bms, by = bound_ms(nbytes, 4 * R * H * HD * pairs_c, BF16_TENSOR_FLOP_PER_S)
+    cmask = (torch.arange(OFF + C, device=dev)[None, :]
+             <= torch.arange(C, device=dev)[:, None] + OFF)
+    records["flash_attention"]["chunk"] = {
+        "shape": {"q": list(qc.shape), "kv": list(kch.shape), "q_offset": OFF,
+                  "kv_batch_stride": kch.stride(0)},
+        "max_abs_err": err_c,
+        "ms": device_ms(lambda: ops.flash_attention(qc, kch, vch, causal=True, q_offset=OFF)),
+        "plain_ms": device_ms(lambda: ref.flash_attention(qc, kch, vch, causal=True,
+                                                          q_offset=OFF)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": device_ms(sdpa(qc.transpose(1, 2), kch.transpose(1, 2),
+                                     vch.transpose(1, 2), attn_mask=cmask))}
     print(json.dumps({"check": "flash_attention", **records["flash_attention"]}), flush=True)
 
     # ---- decode attention: one token against the cache, ragged lengths ----
@@ -192,6 +235,54 @@ def kernel_phase(torch, ops, ref, F):
         "bound_ms": bms, "bound_by": by,
         "library_ms": device_ms(sdpa(qdt, kct, vct, attn_mask=mask))}
     print(json.dumps({"check": "decode_attention", **records["decode_attention"]}), flush=True)
+
+    # ---- paged decode attention: the streaming burst's step, 8 slots over a
+    # pool of 384 pages (+ the sink) in shuffled order, ragged lengths, and
+    # stale table entries past each live span (pages no live span reads) ----
+    T = MAX_LEN // PAGE
+    P = 3 * SLOTS * T + 1
+    pool_k, pool_v = randn(P, PAGE, KVH, HD), randn(P, PAGE, KVH, HD)
+    qp = randn(SLOTS, H, HD)
+    qp[:, REAL_HEADS:] = 0
+    perm = torch.randperm(P - 1, generator=gen, device=dev)
+    tables = perm[: SLOTS * T].reshape(SLOTS, T).to(torch.int32)
+    kv_len = torch.randint(1, MAX_LEN + 1, (SLOTS,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    kv_len[0], kv_len[1], kv_len[2] = MAX_LEN, 1, PAGE + 1
+    live_pages = (kv_len.long() + PAGE - 1) // PAGE
+    stale = torch.arange(T, device=dev)[None, :] >= live_pages[:, None]
+    tables = torch.where(stale, perm[-SLOTS * T:].reshape(SLOTS, T).to(torch.int32), tables)
+    o_k, lse_k = ops.paged_decode_attention(qp, pool_k, pool_v, tables, kv_len)
+    o_r, lse_r = ref.paged_decode_attention(qp, pool_k, pool_v, tables, kv_len)
+    ok, err = close(o_k, o_r, BF16_TOL)
+    ok_l, err_l = close(lse_k, lse_r, LSE_TOL)
+    require(ok and ok_l, f"paged_decode_attention: o err {err}, lse err {err_l}")
+    for hd in (64, 128):  # the other head widths the kernel is built for
+        qq, pk, pv = randn(SLOTS, 8, hd), randn(P, PAGE, 2, hd), randn(P, PAGE, 2, hd)
+        a, b = (f(qq, pk, pv, tables, kv_len) for f in (ops.paged_decode_attention,
+                                                        ref.paged_decode_attention))
+        require(close(a[0], b[0], BF16_TOL)[0] and close(a[1], b[1], LSE_TOL)[0],
+                f"paged_decode_attention D={hd}")
+    live = int(kv_len.sum())
+    nbytes = (2 * qp.numel() * 2 + SLOTS * H * 4 + tables.numel() * 4 + SLOTS * 4
+              + live * KVH * HD * 2 * 2)
+    bms, by = bound_ms(nbytes, 4 * H * HD * live, BF16_TENSOR_FLOP_PER_S)
+    idx = tables.long().reshape(-1)  # SDPA reads pre-gathered K/V: the gather is not timed
+    kg = pool_k[idx].reshape(SLOTS, T * PAGE, KVH, HD).transpose(1, 2)
+    vg = pool_v[idx].reshape(SLOTS, T * PAGE, KVH, HD).transpose(1, 2)
+    pmask = (torch.arange(T * PAGE, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+    records["paged_decode_attention"] = {
+        "shape": {"q": list(qp.shape), "pool": list(pool_k.shape), "tables": list(tables.shape),
+                  "kv_len": kv_len.tolist()},
+        "max_abs_err": err, "lse_max_abs_err": err_l,
+        "ms": device_ms(lambda: ops.paged_decode_attention(qp, pool_k, pool_v, tables, kv_len)),
+        "plain_ms": device_ms(lambda: ref.paged_decode_attention(qp, pool_k, pool_v, tables,
+                                                                 kv_len)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": device_ms(sdpa(qp[:, :, None], kg, vg, attn_mask=pmask)),
+        "library_note": "SDPA on K/V gathered beforehand (the gather excluded)"}
+    print(json.dumps({"check": "paged_decode_attention", **records["paged_decode_attention"]}),
+          flush=True)
 
     # ---- fused sample: head = tied embedding (256000, 2048), never copied ----
     V = VOCAB
@@ -237,24 +328,56 @@ def serve_args(serve, temperature: float):
         "--requests", str(TIMED_BATCHES), "--temperature", str(temperature)])
 
 
-def end_to_end_phase(torch, ops, _build, serve, generate, profile: bool):
-    """Full gemma-2b lockstep serving on the card, through its entry points.
-    Returns (launch counts of the greedy run, summary)."""
-    args = serve_args(serve, 0.0)
+def build_model(torch, serve):
+    """gemma-2b at full width and depth on the card, random bf16 weights
+    from ``--seed 0``, through the serve entry point's own setup."""
     t0 = time.perf_counter()
-    model, params, tok = serve.setup(args)
+    model, params, tok = serve.setup(serve_args(serve, 0.0))
     torch.cuda.synchronize()
     cfg = model.cfg
-    print(f"[e2e] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    print(f"[model] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.padded_heads} heads (padded from {cfg.num_heads}) of {cfg.head_dim}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; weights drawn in "
           f"{time.perf_counter() - t0:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
           flush=True)
+    return model, params, tok
 
+
+def busy_share(torch, fn, table_path: Path):
+    """Profile one call of ``fn`` with torch.profiler: (device ms of the
+    kernels, wall ms of the profiled call); writes the table to
+    ``table_path``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    # device time of the kernels themselves (the operator rows of the table
+    # repeat their kernels' time, so they are not summed)
+    busy_us = sum(e.device_time_total for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
+    table_path.parent.mkdir(exist_ok=True)
+    table_path.write_text(table)
+    print(table[:8000], flush=True)
+    return busy_us / 1e3, wall_s * 1e3
+
+
+def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok):
+    """Full gemma-2b lockstep serving on the card, through its entry points.
+    Returns (launch counts of the greedy run, summary, a function that
+    profiles one greedy generate)."""
+    args = serve_args(serve, 0.0)
+    cfg = model.cfg
     L, steps, gens = cfg.num_layers, MAX_NEW - 1, TIMED_BATCHES + 1
     expected = {"rmsnorm": gens * (2 * L + 1) * (1 + steps),
                 "flash_attention": gens * L,
                 "decode_attention": gens * L * steps,
+                "paged_decode_attention": 0,
                 "fused_sample": gens * steps}
 
     def checked_run(a):
@@ -335,26 +458,164 @@ def end_to_end_phase(torch, ops, _build, serve, generate, profile: bool):
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(json.dumps({"e2e": summary}), flush=True)
 
-    if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_s = gen_s(MAX_NEW)
-        # device time of the kernels themselves (the operator rows of the
-        # table repeat their kernels' time, so they are not summed)
-        busy_us = sum(e.device_time_total for e in prof.events()
-                      if e.device_type == DeviceType.CUDA)
-        events = prof.key_averages()
-        table = events.table(sort_by="self_device_time_total", row_limit=40)
-        (ROOT / "build").mkdir(exist_ok=True)
-        (ROOT / "build" / "profile.txt").write_text(table)
-        print(table[:8000], flush=True)
+    def profile_job():
+        busy_ms, wall_ms = busy_share(torch, lambda: gen_s(MAX_NEW), ROOT / "build" / "profile.txt")
         print(json.dumps({"profile": {
-            "device_busy_ms": busy_us / 1e3, "profiled_generate_ms": wall_s * 1e3,
-            "generate_ms": full * 1e3, "device_busy_share": busy_us / 1e6 / full}}),
+            "device_busy_ms": busy_ms, "profiled_generate_ms": wall_ms,
+            "generate_ms": full * 1e3, "device_busy_share": busy_ms / 1e3 / full}}),
               flush=True)
-    return counts, summary
+
+    return counts, summary, profile_job
+
+
+def stream_args(serve, temperature: float):
+    return serve.parse_args([*ARCH_FLAGS, "--device", DEV, "--seed", "0", *STREAM_FLAGS,
+                             "--temperature", str(temperature)])
+
+
+def streaming_phase(torch, ops, _build, serve, model, params, tok):
+    """The streaming engine, the serve entry point's default path, at full
+    gemma-2b width and depth. Returns (launch counts of the greedy run,
+    summary, a function that profiles one greedy replay)."""
+    import numpy as np
+
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = model.cfg
+    L = cfg.num_layers
+
+    def checked_run(a):
+        _build.reset_launches()
+        out = serve.run_streaming(model, params, tok, a)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        steps = int(out["warmup_stats"]["decode_steps"] + out["stats"]["decode_steps"])
+        chunks = int(out["warmup_stats"]["prefill_chunks"] + out["stats"]["prefill_chunks"])
+        expected = {"rmsnorm": (2 * L + 1) * (chunks + steps), "flash_attention": L * chunks,
+                    "decode_attention": 0, "paged_decode_attention": L * steps,
+                    "fused_sample": steps}
+        require(counts == expected, f"launches {counts}, expected {expected}")
+        require(out["stats"]["requests_finished"] == N_REQUESTS
+                and all(st.finished for st in out["streams"]), "a stream did not finish")
+        for st in out["streams"]:
+            require(1 <= len(st.tokens) <= st.request.max_new, f"stream length {len(st.tokens)}")
+            require(all(0 <= t < cfg.vocab_size for t in st.tokens), "token out of range")
+        return out, counts
+
+    ops.set_mode(None)
+    greedy, counts = checked_run(stream_args(serve, 0.0))
+    sampled, _ = checked_run(stream_args(serve, 0.8))
+    tokens = lambda out: [st.tokens for st in out["streams"]]  # noqa: E731
+    require(tokens(greedy) == tokens(checked_run(stream_args(serve, 0.0))[0]),
+            "two greedy streaming runs with one seed differ")
+    require(tokens(sampled) == tokens(checked_run(stream_args(serve, 0.8))[0]),
+            "two sampled streaming runs with one seed differ")
+    require(tokens(greedy) != tokens(sampled), "temperature 0.8 gave the greedy streams")
+
+    # greedy first tokens against the plain path: each prompt zero-padded to
+    # its page bucket and prefilled in page chunks, as the engine admits it
+    clear = agree = 0
+    with torch.inference_mode():
+        ops.set_mode("ref")
+        for st in greedy["streams"]:
+            prompt = st.request.prompt
+            lb = -(-len(prompt) // PAGE) * PAGE
+            ids = torch.zeros((1, lb), dtype=torch.int32, device=DEV)
+            ids[0, :len(prompt)] = torch.from_numpy(prompt).to(DEV)
+            rows = model.init_caches(1, MAX_LEN)
+            for off in range(0, lb, PAGE):
+                logits, rows = model.prefill_chunk(params, ids[:, off:off + PAGE], rows, offset=off)
+            top2 = logits[0].topk(2).values
+            if float(top2[0] - top2[1]) > 0.05:
+                clear += 1
+                agree += int(int(torch.argmax(logits[0])) == st.tokens[0])
+        ops.set_mode(None)
+    require(agree == clear, f"greedy first tokens: {agree} of {clear} clear rows agree "
+                            "with the plain path")
+
+    # a prefix-cache hit gives the tokens of the cold run (sampled): the card
+    # twin of tests/test_serving.py::test_prefix_hit_bitwise_identical_to_cold
+    scfg = serve.serving_config(stream_args(serve, 0.8))
+    hit = next(st for st in sampled["streams"] if st.matched_prefix_tokens > 0)
+    m = hit.matched_prefix_tokens
+    sib = next(st for st in sampled["streams"] if st is not hit
+               and np.array_equal(st.request.prompt[:m], hit.request.prompt[:m]))
+
+    def again(st, rid, max_new):
+        r = st.request
+        return Request(rid=rid, prompt=r.prompt, max_new=max_new,
+                       temperature=r.temperature, seed=r.seed)
+
+    warm = ServingEngine(model, scfg, params=params, eos_id=tok.eos_id, seed=0)
+    warm.serve([again(sib, 0, 4)], realtime=False)
+    s_warm = warm.serve([again(hit, 1, hit.request.max_new)], realtime=False)[0]
+    cold = ServingEngine(model, dataclasses.replace(scfg, prefix_cache=False), params=params,
+                         eos_id=tok.eos_id, seed=0)
+    s_cold = cold.serve([again(hit, 1, hit.request.max_new)], realtime=False)[0]
+    require(s_warm.matched_prefix_tokens == m and s_cold.matched_prefix_tokens == 0,
+            f"prefix hit of {s_warm.matched_prefix_tokens} tokens, expected {m}")
+    require(s_warm.tokens == s_cold.tokens, f"prefix hit {s_warm.tokens} vs cold {s_cold.tokens}")
+
+    def summary_of(out):
+        st = out["stats"]
+        return {"goodput_tok_per_s": st["goodput_tokens_per_s"], "tokens": st["tokens"],
+                "wall_s": st["wall_s"], "ttft_p50_ms": out["ttft"]["p50"] * 1e3,
+                "ttft_p99_ms": out["ttft"]["p99"] * 1e3, "tpot_p50_ms": out["tpot"]["p50"] * 1e3,
+                "tpot_p99_ms": out["tpot"]["p99"] * 1e3, "prefix_hit_rate": st["prefix_hit_rate"],
+                "prefill_chunks": st["prefill_chunks"], "decode_steps": st["decode_steps"],
+                "bursts": st["bursts"], "slot_occupancy": st["slot_occupancy"]}
+
+    # whether the twin, admitted alone, also gave the tokens the request got
+    # when it was served in a group of lanes (lane-count independence of the
+    # products; reported, not required)
+    summary = {"greedy": summary_of(greedy), "sampled": summary_of(sampled),
+               "first_token_clear_rows": clear, "prefix_hit_twin_tokens": m,
+               "hit_twin_equals_served_stream": s_warm.tokens == hit.tokens,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"[stream] first greedy token agrees with the plain path in {agree}/{clear} clear "
+          f"rows of {N_REQUESTS}; a {m}-token prefix hit gave the cold run's "
+          f"{len(s_cold.tokens)} tokens", flush=True)
+
+    # where the host's time goes: one more greedy replay with the engine's
+    # spans recorded (serving/admit holds serving/prefill; serving/burst
+    # holds the decode steps, each ending in the host read of the exit rule)
+    from repro_torch.obs import Tracer, set_tracer
+
+    eng = greedy["engine"]
+    eng.reset_stats()
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(serve.workload(stream_args(serve, 0.0)), realtime=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        set_tracer(prev)
+    span_ms = {}
+    for ev in tracer.to_events():
+        if ev["ph"] == "X":
+            span_ms[ev["name"]] = span_ms.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    summary["spans"] = {"replay_ms": wall_ms, **{f"{k}_ms": v for k, v in span_ms.items()},
+                        "burst_ms_per_decode_step": span_ms["serving/burst"] / eng.decode_steps,
+                        "prefill_ms_per_chunk": span_ms["serving/prefill"] / eng.prefill_chunks,
+                        "decode_steps": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
+                        "bursts": eng.bursts}
+
+    print(json.dumps({"streaming": summary}), flush=True)
+
+    def profile_job():
+        reqs = serve.workload(stream_args(serve, 0.0), rid_offset=10 * N_REQUESTS)
+        eng.reset_stats()
+        busy_ms, prof_ms = busy_share(torch, lambda: eng.serve(reqs, realtime=False),
+                                      ROOT / "build" / "profile_streaming.txt")
+        print(json.dumps({"profile_streaming": {
+            "device_busy_ms": busy_ms, "profiled_replay_ms": prof_ms, "replay_ms": wall_ms,
+            "device_busy_share": busy_ms / wall_ms, "decode_steps": eng.decode_steps}}),
+              flush=True)
+
+    return counts, summary, profile_job
 
 
 def main(argv=None) -> int:
@@ -396,20 +657,40 @@ def main(argv=None) -> int:
     # ---- phase 2: kernels against their plain versions ----
     records = kernel_phase(torch, ops, ref, F)
 
-    # ---- phase 3: the serving path end to end ----
-    counts, _ = end_to_end_phase(torch, ops, _build, serve, generate, opts.profile)
-    require(all(counts[n] > 0 for n in records), f"a kernel was not launched: {counts}")
+    # ---- phases 3 and 4: the two serving paths end to end, each with the
+    # launch counters set to 0 just before it and read just after ----
+    model, params, tok = build_model(torch, serve)
+    lockstep = end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok)
+    streaming = streaming_phase(torch, ops, _build, serve, model, params, tok)
+    paths = {"lockstep": lockstep[0], "streaming": streaming[0]}
+    if opts.profile:
+        # last, so that no timed phase runs in a process that
+        # torch.profiler has traced
+        lockstep[2]()
+        streaming[2]()
+    on_path = {"lockstep": ("rmsnorm", "flash_attention", "decode_attention", "fused_sample"),
+               "streaming": ("rmsnorm", "flash_attention", "paged_decode_attention",
+                             "fused_sample")}
+    for path, names in on_path.items():
+        require(all(paths[path][n] > 0 for n in names),
+                f"a kernel of the {path} path was not launched: {paths[path]}")
 
     sources = {"rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:42"),
                "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:135"),
                "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:349"),
+               "paged_decode_attention": ("paged_decode_attention.cu",
+                                          "src/repro/kernels/decode_attention.py:453"),
                "fused_sample": ("sampling.cu", "src/repro/kernels/sampling.py:181")}
     kernels = []
     for name, rec in records.items():
         src, replaces = sources[name]
+        # launches: the streaming path's count (the system's default path)
+        # where it runs the kernel, else the lockstep path's
+        path = "streaming" if name in on_path["streaming"] else "lockstep"
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-                 "launches": counts[name], **rec}
+                 "launches": paths[path][name], "launches_path": path,
+                 "launches_by_path": {p: c[name] for p, c in paths.items()}, **rec}
         print(json.dumps(entry), flush=True)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)

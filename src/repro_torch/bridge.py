@@ -46,10 +46,11 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def from_jax(jax_params: Dict[str, Any], *, device="cpu",
+def from_jax(jax_params: Dict[str, Any], *, device,
              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """JAX param pytree (numpy leaves) -> the port's params. ``dtype`` casts
-    every float leaf (``torch.float32`` for the fp32 parity tests)."""
+    """JAX param pytree (numpy leaves) -> the port's params on ``device``
+    (required: there is no default device). ``dtype`` casts every float leaf
+    (``torch.float32`` for the fp32 parity tests)."""
     conv = lambda a: _to_tensor(a, device, dtype)  # noqa: E731
     groups = jax_params["blocks"]  # one stacked dict per pattern position
     P = len(groups)

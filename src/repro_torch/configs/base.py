@@ -1,4 +1,5 @@
-"""Model configuration dataclass (a copy of ``repro.configs.base``'s model part).
+"""Model and serving configuration (a copy of ``repro.configs.base``'s model
+and serving parts).
 
 Every architecture is expressed as a :class:`ModelConfig`: a pure description
 of the layer-kind layout, head counts and MoE/SSM settings. The PyTorch model
@@ -167,3 +168,92 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         base["num_layers"] = 4
     base.update(overrides)
     return dataclasses.replace(cfg, **base)
+
+
+# --------------------------------------------------------------------------- #
+# Request-streaming serving (repro_torch.serving)
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class ServingConfig:
+    """Flags for the streaming serving engine (``repro_torch.serving``).
+
+    The serving engine promotes the continuous rollout engine's slot pool
+    into a request-streaming server: an admission queue of per-request
+    arrival-stamped :class:`repro_torch.serving.Request` objects, a paged KV arena
+    (block tables over fixed-size pages, so resident KV — parked sequences
+    plus cached prefixes — can outgrow the ``num_slots x max_len`` compute
+    staging), a shared-prefix radix cache (a prompt prefix any request has
+    prefilled is never prefilled again), and live weight hot-swap from a
+    weight store (``.version``, ``.current.params``) between decode
+    bursts. See ``docs/serving.md`` for the request lifecycle and the
+    metrics glossary. A copy of ``repro.configs.base.ServingConfig``: the
+    same fields, defaults and checks.
+    """
+
+    # decode-slot pool size (compute lanes; queued requests wait without KV)
+    num_slots: int = 8
+    # per-slot KV width: prompt + response tokens a slot can hold. Must be a
+    # multiple of page_size (slot rows are staged page-aligned).
+    max_len: int = 256
+    # response-token cap per request (requests may ask for less, never more)
+    max_new: int = 64
+    # KV page size in tokens: the block-table / prefix-cache granularity.
+    # Admission buckets, chunked prefill, and cache commits all run at this
+    # grain, which is what makes a cache hit bitwise-identical to the cold
+    # prefill of the same request.
+    page_size: int = 16
+    # page-pool capacity; 0 = 2 x the slot arena (num_slots * max_len /
+    # page_size pages), i.e. resident KV can be 3x the compute staging
+    num_pages: int = 0
+    # shared-prefix radix cache over committed pages (off = every request
+    # prefills its full prompt)
+    prefix_cache: bool = True
+    # decode steps per burst between scheduler visits: each visit flushes
+    # stream deltas, polls the weight store, and admits/parks requests
+    decode_burst: int = 8
+    # fair-share preemption: a request that has decoded this many tokens
+    # since its last (re)admission is parked to pages — freeing its slot for
+    # waiting arrivals — and re-queued; 0 disables parking
+    yield_quota: int = 0
+    # poll the WeightVersionStore between bursts and hot-swap to the newest
+    # published version without dropping in-flight requests
+    poll_weights: bool = True
+
+    def __post_init__(self):
+        if self.num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.max_len < self.page_size or self.max_len % self.page_size:
+            raise ValueError(
+                f"max_len must be a positive multiple of page_size "
+                f"({self.page_size}), got {self.max_len}")
+        if self.max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {self.max_new}")
+        if self.max_new >= self.max_len:
+            raise ValueError(
+                f"max_new ({self.max_new}) must leave prompt room under "
+                f"max_len ({self.max_len})")
+        if self.num_pages < 0:
+            raise ValueError(f"num_pages must be >= 0, got {self.num_pages}")
+        if self.decode_burst < 1:
+            raise ValueError(
+                f"decode_burst must be >= 1, got {self.decode_burst}")
+        if self.yield_quota < 0:
+            raise ValueError(
+                f"yield_quota must be >= 0, got {self.yield_quota}")
+
+    @property
+    def pages_per_slot(self) -> int:
+        return self.max_len // self.page_size
+
+    @property
+    def pool_pages(self) -> int:
+        """Effective page-pool capacity (resolves the num_pages=0 default).
+        Active requests' KV lives in the pool too (decode attends pages
+        directly through block tables), so the default budgets a full
+        arena of active spans plus two arenas' worth of parked/prefix
+        pages."""
+        if self.num_pages:
+            return self.num_pages
+        return 3 * self.num_slots * self.pages_per_slot

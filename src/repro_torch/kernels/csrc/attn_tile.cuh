@@ -1,7 +1,10 @@
 // One block's online-softmax attention of up to 16 query rows against a range
 // of keys of one KV head: the body shared by flash_attention.cu (rows are
-// query positions of one head) and decode_attention.cu (rows are the query
-// heads of one KV group, one position each).
+// query positions of one head), decode_attention.cu and
+// paged_decode_attention.cu (rows are the query heads of one KV group, one
+// position each). Where key j lies is the caller's: a functor maps a key to
+// the element offset of its row, contiguous (Strided) or through a block
+// table of pages (paged_decode_attention.cu); a 32-key tile may span pages.
 //
 // Layout in shared memory, per block of 128 threads (4 warps x 4 rows):
 //   q  16 x D fp32     the rows, read by every lane at the same address
@@ -38,15 +41,22 @@ struct Smem {
   uint32_t v[kKeys][D / 2];
 };
 
+// Key `key` at element offset key * stride: a contiguous cache row.
+struct Strided {
+  long stride;
+  __device__ long operator()(int key) const { return key * stride; }
+};
+
 // Attends rows [0, nrows) of q (row stride q_stride elements) against keys
-// [k_begin, k_end) of k/v (key stride kv_stride elements). mask(row, key) is
-// the row's own mask inside that range. Writes o (row stride o_stride) and,
-// if lse is not null, lse[row] = m + log(l).
-template <int D, class Mask>
+// [k_begin, k_end) of k/v; key j's D values start at element key_at(j) of
+// k and of v. mask(row, key) is the row's own mask inside that range.
+// Writes o (row stride o_stride) and, if lse is not null, lse[row] = m +
+// log(l).
+template <int D, class KeyAt, class Mask>
 __device__ __forceinline__ void attend_rows(
     Smem<D>& sm, const __nv_bfloat16* __restrict__ q, long q_stride, int nrows,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    long kv_stride, int k_begin, int k_end, float scale, const Mask& mask,
+    const KeyAt& key_at, int k_begin, int k_end, float scale, const Mask& mask,
     __nv_bfloat16* __restrict__ o, long o_stride, float* __restrict__ lse) {
   static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
   constexpr int W = D / 2;   // 32-bit words per row
@@ -77,8 +87,9 @@ __device__ __forceinline__ void attend_rows(
       const int j = i / C8, c = i % C8, key = k0 + j;
       uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (key < k_end) {
-        kk = reinterpret_cast<const uint4*>(k + key * kv_stride)[c];
-        vv = reinterpret_cast<const uint4*>(v + key * kv_stride)[c];
+        const long at = key_at(key);
+        kk = reinterpret_cast<const uint4*>(k + at)[c];
+        vv = reinterpret_cast<const uint4*>(v + at)[c];
       }
       uint32_t* kr = &sm.k[j][4 * c];
       kr[0] = kk.x; kr[1] = kk.y; kr[2] = kk.z; kr[3] = kk.w;

@@ -3,6 +3,9 @@ version on CPU tensors. Port of ``repro.kernels.flash_attention``.
 
 Layouts: q (B, Sq, H, D); k, v (B, Sk, KVH, D); out (B, Sq, H, D), bf16.
 Unlike the TPU kernel, any Sq and Sk are taken: ragged tails are masked.
+k and v may be views of the first Sk positions of a longer cache
+(``cache[:, :Sk]``, as chunked prefill passes them): only their last three
+dimensions must be contiguous, and the batch stride goes to the kernel.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is instantiated for
 def _fwd():
     return _build.entry("flash_attention", "flash_attention_fwd", [
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
         _c.c_float, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p])
 
 
@@ -41,7 +44,9 @@ def flash_attention(
         return plain(q, k, v, causal=causal, window=window, scale=scale,
                      q_offset=q_offset)
     _build.require(q.device.type == "cuda", f"no flash_attention kernel for {q.device}")
-    _build.require_cuda(q, k, v)
+    _build.require_cuda(q, k[0], v[0])
+    _build.require(k.stride() == v.stride() and k.stride(0) % 8 == 0,
+                   f"k strides {k.stride()}, v strides {v.stride()}")
     _build.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
                    f"flash_attention kernel takes bf16, got {q.dtype}")
     B, Sq, H, D = q.shape
@@ -55,7 +60,7 @@ def flash_attention(
     out = torch.empty_like(q)
     device, stream = _build.launch_site(q)
     err = _fwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Sk, H, KVH, D, scale, int(causal), window or 0, q_offset,
+                 B, Sq, Sk, H, KVH, D, k.stride(0), scale, int(causal), window or 0, q_offset,
                  device, stream)
     _build.check(_build.library("flash_attention"), err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1

@@ -16,6 +16,9 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention as _paged_decode_attention,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.sampling import fused_sample as _fused_sample
 
@@ -61,6 +64,16 @@ def decode_attention(
                              pos_offset=pos_offset)
 
 
+def paged_decode_attention(
+    q, pool_k, pool_v, tables, kv_len, *, scale=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash decode straight out of the paged KV pool through each row's
+    block-table row. Returns (o, lse) in every mode."""
+    if _MODE == "ref":
+        return _ref.paged_decode_attention(q, pool_k, pool_v, tables, kv_len, scale=scale)
+    return _paged_decode_attention(q, pool_k, pool_v, tables, kv_len, scale=scale)
+
+
 def fused_sample(
     h, w_head, seeds, inv_temp, *, vocab_size=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,3 +84,15 @@ def fused_sample(
     if _MODE == "ref":
         return _ref.fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
     return _fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
+
+
+def fused_sample_rows(h, w_head, seeds, temps, *, vocab_size=None) -> torch.Tensor:
+    """Per-row-temperature sampler of the serving engine: rows with
+    ``temps <= 0`` take the argmax, the others the hash Gumbel-max draw at
+    ``1 / max(temps, 1e-6)``; the same ``fused_sample`` kernel. Returns the
+    tokens only (serving keeps no behaviour logprobs). Takes int32 seeds
+    where the JAX ``ops.fused_sample_rows`` takes PRNG keys."""
+    if _MODE == "ref":
+        return _ref.fused_sample_rows(h, w_head, seeds, temps, vocab_size=vocab_size)
+    tok, _ = _fused_sample(h, w_head, seeds, _ref.row_inv_temp(temps), vocab_size=vocab_size)
+    return tok

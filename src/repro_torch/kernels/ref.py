@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels of the serving slice.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes what its CUDA kernel computes, on any device, with
 ordinary tensor ops. The CPU tests hold them against the JAX package
@@ -9,6 +9,7 @@ Shapes (the JAX package's conventions, kept at every public function):
   q              (B, S, H, D)
   k, v           (B, S, KVH, D)      KVH | H  (GQA groups = H // KVH)
   decode q       (B, H, D)           single new token per sequence
+  page pool      (P, page_size, KVH, D)
 """
 from __future__ import annotations
 
@@ -113,6 +114,30 @@ def decode_attention(
     return o.to(q.dtype), lse
 
 
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, H, D)
+    pool_k: torch.Tensor,  # (P, page_size, KVH, D)
+    pool_v: torch.Tensor,  # (P, page_size, KVH, D)
+    tables: torch.Tensor,  # (B, T) int32 page ids
+    kv_len: torch.Tensor,  # (B,) int32
+    *,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token attention through a block table: position ``p`` of row
+    ``b`` lives in pool page ``tables[b, p // page_size]`` at offset
+    ``p % page_size``. Gathers each row's pages into a contiguous
+    (B, T * page_size, KVH, D) cache and runs :func:`decode_attention`, as
+    the JAX oracle does; positions at and past ``kv_len`` are masked, so
+    table entries past the live span never reach the output. Returns
+    (o (B, H, D), lse (B, H) fp32)."""
+    B, T = tables.shape
+    ps = pool_k.shape[1]
+    idx = tables.long().reshape(-1)
+    kg = pool_k[idx].reshape((B, T * ps) + tuple(pool_k.shape[2:]))
+    vg = pool_v[idx].reshape((B, T * ps) + tuple(pool_v.shape[2:]))
+    return decode_attention(q, kg, vg, kv_len, scale=scale)
+
+
 # --------------------------------------------------------------------------- #
 # fused sampling: head product + hash Gumbel-max + untempered logprob
 # --------------------------------------------------------------------------- #
@@ -185,3 +210,25 @@ def fused_sample(
     tok = torch.argmax(y, dim=-1)
     lp = z.gather(1, tok[:, None])[:, 0] - torch.logsumexp(z, dim=-1)
     return tok.to(torch.int32), lp
+
+
+def row_inv_temp(temps: torch.Tensor) -> torch.Tensor:
+    """Per-row inverse temperatures of the serving sampler: 0 (greedy) where
+    ``temps <= 0``, else ``1 / max(temps, 1e-6)`` (``ops.fused_sample_rows``
+    of the JAX package)."""
+    t = temps.float()
+    return torch.where(t <= 0.0, 0.0, 1.0 / torch.clamp(t, min=1e-6))
+
+
+def fused_sample_rows(
+    h: torch.Tensor,  # (B, d)
+    w_head: torch.Tensor,  # (d, Vp)
+    seeds: torch.Tensor,  # (B,) int32 per-row hash seeds
+    temps: torch.Tensor,  # (B,) per-row temperatures; <= 0 = greedy
+    *,
+    vocab_size: Optional[int] = None,
+) -> torch.Tensor:
+    """The serving engine's sampler: :func:`fused_sample` with per-row
+    temperatures. Returns the tokens (B,) int32 only."""
+    tok, _ = fused_sample(h, w_head, seeds, row_inv_temp(temps), vocab_size=vocab_size)
+    return tok

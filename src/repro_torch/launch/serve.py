@@ -1,19 +1,24 @@
-"""Serving entry point of the PyTorch port: lockstep batches (port of the
-``--lockstep`` path of ``repro.launch.serve``).
+"""Serving entry point of the PyTorch port (port of ``repro.launch.serve``):
+the request-streaming server by default, lockstep batches with
+``--lockstep``.
 
-Requests are grouped into one-shape batches and answered by ``generate()``:
-prefill, then fused decode + sample steps, with the kernels of
-``repro_torch.kernels`` on the GPU. One untimed warm-up batch builds the
-kernels and warms the allocator; the timed batches feed a batch-latency
-histogram for the p50/p99 report. The weights are random, drawn from
-``--seed`` (gemma-2b at its full width and depth by default).
+The default path runs :class:`repro_torch.serving.ServingEngine` over a
+synthetic Poisson arrival stream: requests stream token deltas as they
+decode, share prompt KV through the radix prefix cache, and decode on the
+page pool through the paged flash-decode kernel. One untimed replay of the
+same workload first builds the kernels and warms the allocator, then the
+counters reset and the second replay is timed. ``--lockstep`` groups
+requests into one-shape batches answered by ``generate()`` (one untimed
+warm-up batch, then timed batches for the p50/p99 report).
 
-The streaming engine (``ServingEngine``) is not ported yet: without
-``--lockstep`` this raises.
+The weights are random, drawn from ``--seed`` (gemma-2b at its full width
+and depth by default), on ``--device`` (``cuda`` unless the CPU is asked
+for; without CUDA it raises).
 
 Usage:
+  python -m repro_torch.launch.serve --num-requests 32 --slots 8 --max-len 256 --max-new 64
+  python -m repro_torch.launch.serve --smoke --device cpu
   python -m repro_torch.launch.serve --lockstep --batch 8 --prompt-len 128 --max-new 32
-  python -m repro_torch.launch.serve --smoke --lockstep --device cpu
 """
 from __future__ import annotations
 
@@ -24,11 +29,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ServingConfig, get_config, reduced
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models import get_model
+from repro_torch.models.api import resolve_device
 from repro_torch.obs import MetricsRegistry
 from repro_torch.rl.rollout import generate
+from repro_torch.serving import ServingEngine, synthetic_requests
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -39,11 +46,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--max-new", type=int, default=16)
+    # streaming knobs
+    ap.add_argument("--num-requests", type=int, default=16)
+    ap.add_argument("--rate", type=float, default=20.0,
+                    help="Poisson arrival rate (req/s)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--burst", type=int, default=8)
+    ap.add_argument("--yield-quota", type=int, default=0)
+    ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--no-realtime", action="store_true",
+                    help="enqueue all arrivals up front (max pressure)")
+    # lockstep knobs
     ap.add_argument("--lockstep", action="store_true",
-                    help="fixed-batch serving (the only mode ported)")
+                    help="fixed-batch driver instead of the streaming engine")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=3,
-                    help="timed batches to serve")
+                    help="timed batches to serve (lockstep)")
     ap.add_argument("--prompt-len", type=int, default=0,
                     help="repeat each byte prompt to this many tokens (0: as is)")
     ap.add_argument("--device", default="cuda",
@@ -51,24 +71,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: CUDA is not available here; pass --device cpu "
-            "to run on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
-    return device
-
-
 def setup(args: argparse.Namespace):
     """(model, params, tokenizer) for the parsed flags: random weights drawn
     from ``--seed`` on ``--device``."""
-    if not args.lockstep:
-        raise NotImplementedError(
-            "streaming engine not yet ported (ROADMAP queue 1, item 6: streaming serving); "
-            "pass --lockstep")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -128,10 +133,65 @@ def run_lockstep(model, params, tok: ByteTokenizer, args) -> Dict[str, Any]:
             "p50_s": p["p50"], "p99_s": p["p99"], "results": results}
 
 
+def serving_config(args) -> ServingConfig:
+    return ServingConfig(
+        num_slots=args.slots, max_len=args.max_len, max_new=args.max_new,
+        page_size=args.page_size, prefix_cache=not args.no_prefix_cache,
+        decode_burst=args.burst, yield_quota=args.yield_quota)
+
+
+def workload(args, rid_offset: int = 0):
+    """The synthetic request stream of the flags (numpy, from ``--seed``)."""
+    reqs = synthetic_requests(
+        args.num_requests, arrival_rate=args.rate, page_size=args.page_size,
+        max_new=args.max_new, temperature=args.temperature, seed=args.seed)
+    for r in reqs:
+        r.rid += rid_offset
+    return reqs
+
+
+def run_streaming(model, params, tok: ByteTokenizer, args) -> Dict[str, Any]:
+    """Request-streaming serving over a synthetic Poisson arrival stream:
+    one untimed replay of the workload (kernel builds, allocator), a reset,
+    then the timed replay. Returns the engine's stats of the timed replay
+    and of the warm-up, the TTFT/TPOT percentiles of the timed replay, its
+    streams and the engine."""
+    eng = ServingEngine(model, serving_config(args), params=params, eos_id=tok.eos_id,
+                        seed=args.seed, registry=MetricsRegistry())
+    eng.serve(workload(args, rid_offset=-args.num_requests), realtime=False)
+    warmup_stats = eng.stats()
+    eng.reset_stats()
+    eng.registry = MetricsRegistry()  # drop the warm-up's latencies too
+
+    streams = eng.serve(workload(args), realtime=not args.no_realtime)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    st = eng.stats()
+    ttft = eng.registry.histogram("serving/ttft_s").percentiles((50, 99))
+    tpot = eng.registry.histogram("serving/tpot_s").percentiles((50, 99))
+    print(f"[serve] {int(st['requests_finished'])} requests, "
+          f"{int(st['tokens'])} tokens, "
+          f"goodput {st['goodput_tokens_per_s']:.1f} tok/s on {model.device}")
+    print(f"[serve] TTFT p50 {ttft['p50'] * 1e3:.1f}ms "
+          f"p99 {ttft['p99'] * 1e3:.1f}ms | per-token p50 "
+          f"{tpot['p50'] * 1e3:.1f}ms p99 {tpot['p99'] * 1e3:.1f}ms")
+    print(f"[serve] prefix-cache hit rate {st['prefix_hit_rate']:.0%} "
+          f"({int(st['prefix_hit_tokens'])} of {int(st['prompt_tokens'])} "
+          f"prompt tokens), occupancy {st['slot_occupancy']:.0%}, "
+          f"parks {int(st['parks'])}, pool pages {int(st['pool_pages_used'])}")
+    done = sum(s.finished for s in streams)
+    if done != len(streams):
+        print(f"[serve] WARNING: {len(streams) - done} streams unfinished")
+    return {"stats": st, "warmup_stats": warmup_stats, "ttft": ttft, "tpot": tpot,
+            "streams": streams, "engine": eng}
+
+
 def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
     model, params, tok = setup(args)
-    return run_lockstep(model, params, tok, args)
+    if args.lockstep:
+        return run_lockstep(model, params, tok, args)
+    return run_streaming(model, params, tok, args)
 
 
 if __name__ == "__main__":

@@ -10,11 +10,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 
 
+def resolve_device(name) -> torch.device:
+    """``cuda`` or ``cpu`` as asked; raises when CUDA is asked for and absent
+    (it never falls back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: CUDA is not available here; pass --device cpu "
+            "(device='cpu') to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device must be cuda or cpu, got {name!r}")
+    return device
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig, *, device="cpu"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda"):
         lm.check_supported(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.is_encdec = cfg.is_encoder_decoder
+        self.device = resolve_device(device)
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random weights on ``self.device`` from ``gen`` (a generator on that
@@ -37,6 +51,41 @@ class Model:
         return lm.decode_step_sample(self.cfg, params, token, caches, cache_len,
                                      seeds, temperature)
 
+    # ---- streaming serving: paged decode over the page pool ----
+    def decode_step_paged(self, params, token, pool, cache_len, page_tables,
+                          *, write_enable=None):
+        """Paged decode step over a shared page pool."""
+        return lm.decode_step_paged(self.cfg, params, token, pool, cache_len,
+                                    page_tables, write_enable=write_enable)
 
-def get_model(cfg: ModelConfig, *, device="cpu") -> Model:
+    def decode_step_paged_sample(self, params, token, pool, cache_len,
+                                 page_tables, seeds, temps, *, write_enable=None):
+        """Paged decode + fused per-row sampling (the serving burst step)."""
+        return lm.decode_step_paged_sample(self.cfg, params, token, pool,
+                                           cache_len, page_tables, seeds, temps,
+                                           write_enable=write_enable)
+
+    def prefill_chunk(self, params, tokens, caches, *, offset: int):
+        """One chunk of a chunked prefill into existing caches (see
+        ``lm.prefill_chunk``)."""
+        return lm.prefill_chunk(self.cfg, params, tokens, caches, offset=offset)
+
+    def gather_cache_rows(self, caches, slots):
+        return lm.gather_cache_rows(caches, slots)
+
+    def scatter_cache_rows(self, caches, rows, slots):
+        """Slot-reset: overwrite arena rows at ``slots`` with fresh rows."""
+        return lm.scatter_cache_rows(caches, rows, slots)
+
+    def gather_cache_pages(self, caches, slots, *, num_pages, page_size):
+        """Page-granular gather: leaves (R, num_pages, page_size, ...)."""
+        return lm.gather_cache_pages(caches, slots, num_pages=num_pages,
+                                     page_size=page_size)
+
+    def scatter_cache_pages(self, caches, pages, slots):
+        """Write page stacks contiguously into arena rows at ``slots``."""
+        return lm.scatter_cache_pages(caches, pages, slots)
+
+
+def get_model(cfg: ModelConfig, *, device="cuda") -> Model:
     return Model(cfg, device=device)

@@ -6,15 +6,18 @@ pytree stacks each block parameter over layers, ``(N, ...)`` per pattern
 position, for its ``lax.scan``; here ``params["blocks"]`` is a list with one
 dict of weights per layer, and the backbone is a Python loop over it.
 
-Two execution modes share the backbone:
-  prefill  — whole prompt, emits decode caches
-  decode   — one token per sequence against the caches
+Three execution modes share the backbone:
+  prefill        — whole prompt, emits decode caches
+  prefill_chunk  — one page-wide chunk of a prompt into existing caches
+  decode         — one token per sequence against the caches, or (with
+                   ``page_tables``) against the serving page pool
 
 Caches: a list with one ``{"k", "v"}`` per layer, each (B, smax, KVH, hd).
+The serving page pool is the same layout with pages for rows:
+``init_caches(num_pages, page_size)``, each leaf (P, page_size, KVH, hd).
 
-Not ported yet: MoE, SSM/hybrid, sliding-window rings, the int8 KV cache,
-chunked prefill and paged decode; each raises ``NotImplementedError`` naming
-its ROADMAP item.
+Not ported yet: MoE, SSM/hybrid, sliding-window rings and the int8 KV cache;
+each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,22 +34,24 @@ Caches = List[Dict[str, torch.Tensor]]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of ``ModelConfig`` this slice does not port."""
+    """Raise for the parts of ``ModelConfig`` the port does not have yet."""
+    other = "(ROADMAP queue 1, item 9: other families)"
     if cfg.is_encoder_decoder:
-        raise NotImplementedError("enc-dec is not ported yet (ROADMAP queue 1, item 8: other families)")
+        raise NotImplementedError(f"enc-dec is not ported yet {other}")
     if cfg.num_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1, item 8: other families)")
+        raise NotImplementedError(f"MoE is not ported yet {other}")
     if cfg.ssm_state:
-        raise NotImplementedError("SSM/hybrid mixers are not ported yet (ROADMAP queue 1, item 8: other families)")
-    if cfg.sliding_window is not None:
         raise NotImplementedError(
-            "sliding-window rings are not ported yet (ROADMAP queue 1, item 8: other families)")
+            "SSM/hybrid mixers are not ported yet (ROADMAP queue 1, item 2: SSM/hybrid family)")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(f"sliding-window rings are not ported yet {other}")
     if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP queue 1, item 7)")
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP queue 1, item 1: int8 KV cache)")
     if cfg.num_prefix_embeds > 1:
-        raise NotImplementedError("prefix embeds are not ported yet (ROADMAP queue 1, item 8: other families)")
+        raise NotImplementedError(f"prefix embeds are not ported yet {other}")
     if cfg.parallel_block:
-        raise NotImplementedError("parallel blocks are not ported yet (ROADMAP queue 1, item 8: other families)")
+        raise NotImplementedError(f"parallel blocks are not ported yet {other}")
 
 
 # --------------------------------------------------------------------------- #
@@ -93,7 +98,29 @@ def _attn_mixer(
     cache: Optional[Dict[str, torch.Tensor]],
     cache_len: Optional[torch.Tensor],
     smax: int,
+    chunk_offset: Optional[int] = None,
+    page_tables: Optional[torch.Tensor] = None,
+    write_enable: Optional[torch.Tensor] = None,
 ):
+    if mode == "prefill_chunk":
+        # one chunk of a chunked prefill: write this chunk's K/V into the
+        # existing cache at [offset, offset+C) in place and attend the
+        # chunk's queries against the prefix [0, offset+C), as the bf16
+        # branch of ``repro.models.lm._attn_mixer`` does
+        assert cache is not None and chunk_offset is not None
+        C = h.shape[1]
+        pos = (chunk_offset + torch.arange(C, device=h.device))[None, :]
+        q, k, v = layers.qkv_proj(cfg, p, h, pos)
+        hi = chunk_offset + C
+        kc, vc = cache["k"], cache["v"]
+        if hi > kc.shape[1]:
+            raise ValueError(f"chunk [{chunk_offset}, {hi}) past the cache width {kc.shape[1]}")
+        kc[:, chunk_offset:hi] = k.to(kc.dtype)
+        vc[:, chunk_offset:hi] = v.to(vc.dtype)
+        o = ops.flash_attention(q, kc[:, :hi], vc[:, :hi], causal=True,
+                                q_offset=chunk_offset)
+        return layers.out_proj(cfg, p, o), {"k": kc, "v": vc}
+
     if mode == "prefill":
         q, k, v = layers.qkv_proj(cfg, p, h, positions)
         o = ops.flash_attention(q, k, v, causal=True)
@@ -109,11 +136,13 @@ def _attn_mixer(
 
     if mode != "decode":
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (prefill_chunk: ROADMAP queue 1, item 3; "
-            "full/training: ROADMAP queue 1, item 1)")
+            f"mode {mode!r} is not ported yet (full/training: ROADMAP queue 1)")
     assert cache is not None and cache_len is not None
     B = h.shape[0]
     q, k_new, v_new = layers.qkv_proj(cfg, p, h, cache_len[:, None])
+    if page_tables is not None:
+        return _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables,
+                             write_enable)
     kc, vc = cache["k"], cache["v"]
     # The new K/V row is written into the cache in place at slot cache_len.
     # The JAX package rewrites the whole cache with a masked select instead
@@ -126,6 +155,32 @@ def _attn_mixer(
     return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
 
 
+def _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables, write_enable):
+    """Paged decode step (``lm._decode_paged``): the cache leaves ARE the
+    serving engine's page pool (P + 1, page_size, KVH, hd), and each lane's
+    KV lives in the pages its ``page_tables`` row names. The new token's K/V
+    is written in place into the lane's current page, and the paged
+    flash-decode kernel reads the pages through the table.
+
+    The pool's last page is a sink that no table names: lanes with
+    ``write_enable`` False (retired lanes that keep stepping in the burst)
+    write there. The JAX package drops those writes with an out-of-range
+    index and ``mode="drop"``; on CUDA an out-of-range index is a device
+    assert, and a boolean mask would cost a host sync."""
+    kc, vc = cache["k"], cache["v"]
+    sink, ps = kc.shape[0] - 1, kc.shape[1]
+    T = page_tables.shape[1]
+    pidx = torch.clamp(cache_len // ps, 0, T - 1).long()
+    page = page_tables.gather(1, pidx[:, None])[:, 0].long()
+    if write_enable is not None:
+        page = torch.where(write_enable, page, sink)
+    off = (cache_len % ps).long()
+    kc[page, off] = k_new[:, 0].to(kc.dtype)
+    vc[page, off] = v_new[:, 0].to(vc.dtype)
+    o, _ = ops.paged_decode_attention(q[:, 0], kc, vc, page_tables, cache_len + 1)
+    return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
+
+
 def _apply_block(
     cfg: ModelConfig,
     p: Params,
@@ -135,10 +190,14 @@ def _apply_block(
     cache: Optional[Dict[str, torch.Tensor]],
     cache_len: Optional[torch.Tensor],
     smax: int,
+    chunk_offset: Optional[int] = None,
+    page_tables: Optional[torch.Tensor] = None,
+    write_enable: Optional[torch.Tensor] = None,
 ):
     hn = layers.apply_norm(cfg, p["norm1"], h)
     mix_out, new_cache = _attn_mixer(cfg, p["attn"], hn, positions, mode, cache,
-                                     cache_len, smax)
+                                     cache_len, smax, chunk_offset, page_tables,
+                                     write_enable)
     h = h + mix_out
     hn2 = layers.apply_norm(cfg, p["norm2"], h)
     h = h + layers.apply_mlp(cfg, p["mlp"], hn2)
@@ -155,12 +214,16 @@ def backbone(
     caches: Optional[Caches] = None,
     cache_len: Optional[torch.Tensor] = None,
     smax: int = 0,
+    chunk_offset: Optional[int] = None,
+    page_tables: Optional[torch.Tensor] = None,
+    write_enable: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """Returns (final-normed h, new caches): a Python loop over the layers."""
     new_caches = []
     for i, block in enumerate(params["blocks"]):
         cache = None if caches is None else caches[i]
-        h, c = _apply_block(cfg, block, h, positions, mode, cache, cache_len, smax)
+        h, c = _apply_block(cfg, block, h, positions, mode, cache, cache_len, smax,
+                            chunk_offset, page_tables, write_enable)
         new_caches.append(c)
     return layers.apply_norm(cfg, params["final_norm"], h), new_caches
 
@@ -211,11 +274,15 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, smax: int
     return logits, caches, cache_len
 
 
-def _decode_hidden(cfg, params, token, caches, cache_len):
-    """Shared decode-step body: embed -> backbone -> last hidden (B, d)."""
+def _decode_hidden(cfg, params, token, caches, cache_len, page_tables=None,
+                   write_enable=None):
+    """Shared decode-step body: embed -> backbone -> last hidden (B, d).
+    With ``page_tables``, ``caches`` is the serving page pool and attention
+    runs through the block table (see :func:`_decode_paged`)."""
     h = embed_tokens(cfg, params, token.reshape(-1, 1))
     h, new_caches = backbone(cfg, params, h, None, mode="decode", caches=caches,
-                             cache_len=cache_len)
+                             cache_len=cache_len, page_tables=page_tables,
+                             write_enable=write_enable)
     return h[:, 0], new_caches
 
 
@@ -247,3 +314,103 @@ def decode_step_sample(
     tok, lp = ops.fused_sample(h, _head_matrix(cfg, params), seeds, inv_temp,
                                vocab_size=cfg.vocab_size)
     return tok, lp, new_caches, cache_len + 1
+
+
+def decode_step_paged(cfg: ModelConfig, params: Params, token, pool, cache_len,
+                      page_tables, *, write_enable=None):
+    """Paged decode step over the serving page pool (updated in place).
+    Returns (logits (B, Vp) fp32, pool, cache_len + 1)."""
+    h, new_pool = _decode_hidden(cfg, params, token, pool, cache_len, page_tables,
+                                 write_enable)
+    logits = (h @ _head_matrix(cfg, params)).float()
+    return mask_padded_vocab(cfg, logits), new_pool, cache_len + 1
+
+
+def decode_step_paged_sample(
+    cfg: ModelConfig,
+    params: Params,
+    token,
+    pool,
+    cache_len,
+    page_tables,  # (B, T) int32
+    seeds: torch.Tensor,  # (B,) int32 per-row hash seeds
+    temps: torch.Tensor,  # (B,) f32; <= 0 means greedy
+    *,
+    write_enable=None,
+):
+    """Paged decode + fused per-row sampling (the serving burst step).
+    Returns (sampled token (B,) int32, pool, cache_len + 1)."""
+    h, new_pool = _decode_hidden(cfg, params, token, pool, cache_len, page_tables,
+                                 write_enable)
+    tok = ops.fused_sample_rows(h, _head_matrix(cfg, params), seeds, temps,
+                                vocab_size=cfg.vocab_size)
+    return tok, new_pool, cache_len + 1
+
+
+def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches, *,
+                  offset: int):
+    """One chunk of a chunked prefill into existing caches (``lm.prefill_chunk``):
+    chunk tokens (B, C) write their K/V into ``caches`` at [offset, offset+C)
+    in place and attend the prefix [0, offset+C). Over consecutive chunks it
+    computes what one whole-prompt :func:`prefill` does, up to float
+    reassociation. Returns (last-position logits (B, Vp) fp32, caches); the
+    caller owns ``cache_len``."""
+    check_supported(cfg)
+    h = embed_tokens(cfg, params, tokens)
+    h, new_caches = backbone(cfg, params, h, None, mode="prefill_chunk", caches=caches,
+                             chunk_offset=offset)
+    logits = (h[:, -1] @ _head_matrix(cfg, params)).float()
+    return mask_padded_vocab(cfg, logits), new_caches
+
+
+# --------------------------------------------------------------------------- #
+# cache rows and pages (the serving arena's copies)
+# --------------------------------------------------------------------------- #
+def _index(slots, batch: int, device):
+    """(positions in ``slots`` whose id is in [0, batch), those ids), as long
+    tensors on ``device``: out-of-range slot ids are dropped, as
+    ``mode="drop"`` does in the JAX package."""
+    ids = [int(s) for s in slots]
+    keep = [j for j, s in enumerate(ids) if 0 <= s < batch]
+    as_t = lambda xs: torch.tensor(xs, dtype=torch.long, device=device)  # noqa: E731
+    return as_t(keep), as_t([ids[j] for j in keep])
+
+
+def gather_cache_rows(caches: Caches, slots) -> Caches:
+    """The cache rows at ``slots`` (a new tensor per leaf)."""
+    _, idx = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    return [{name: leaf[idx] for name, leaf in c.items()} for c in caches]
+
+
+def scatter_cache_rows(caches: Caches, rows: Caches, slots) -> Caches:
+    """Overwrite the cache rows at ``slots`` with ``rows`` in place;
+    out-of-range slot ids are dropped. Returns ``caches``."""
+    keep, ids = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    for c, r in zip(caches, rows):
+        for name, leaf in c.items():
+            leaf[ids] = r[name][keep].to(leaf.dtype)
+    return caches
+
+
+def gather_cache_pages(caches: Caches, slots, *, num_pages: int, page_size: int) -> Caches:
+    """The first ``num_pages`` pages (``page_size``-token spans) of the rows
+    at ``slots``: leaves shaped (R, num_pages, page_size, KVH, hd)."""
+    span = num_pages * page_size
+    _, idx = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    return [{name: leaf[idx, :span].reshape((len(idx), num_pages, page_size)
+                                            + tuple(leaf.shape[2:]))
+             for name, leaf in c.items()} for c in caches]
+
+
+def scatter_cache_pages(caches: Caches, pages: Caches, slots) -> Caches:
+    """Inverse of :func:`gather_cache_pages`: write page stacks (leaves
+    (R, k, page_size, ...)) contiguously into the rows at ``slots``, over
+    positions [0, k * page_size), in place; out-of-range slot ids are
+    dropped. Returns ``caches``."""
+    keep, ids = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    for c, pg in zip(caches, pages):
+        for name, leaf in c.items():
+            p = pg[name][keep]
+            span = p.shape[1] * p.shape[2]
+            leaf[ids, :span] = p.reshape((len(ids), span) + tuple(p.shape[3:])).to(leaf.dtype)
+    return caches

@@ -1,4 +1,5 @@
-"""Metrics of the PyTorch port: a copy of ``repro.obs.metrics``."""
+"""Telemetry of the PyTorch port: copies of ``repro.obs.metrics`` and
+``repro.obs.trace``."""
 from repro_torch.obs.metrics import (  # noqa: F401
     Counter,
     Gauge,
@@ -7,3 +8,4 @@ from repro_torch.obs.metrics import (  # noqa: F401
     MetricsRegistry,
     exponential_boundaries,
 )
+from repro_torch.obs.trace import Tracer, get_tracer, set_tracer  # noqa: F401

@@ -46,6 +46,20 @@ def sample_token(logits: torch.Tensor, seeds: torch.Tensor, temperature: float) 
     return torch.argmax(logits.float() * (1.0 / temperature) + g, dim=-1).to(torch.int32)
 
 
+def sample_token_rows(logits: torch.Tensor, seeds: torch.Tensor,
+                      temps: torch.Tensor) -> torch.Tensor:
+    """:func:`sample_token` with a temperature per row (the serving engine's
+    first token): rows with ``temps <= 0`` take the argmax, the others the
+    hash Gumbel-max draw at ``1 / max(temps, 1e-6)``, the rule the fused
+    sampler applies to its own logits (``ref.sample_scores``)."""
+    inv_t = _ref.row_inv_temp(temps)[:, None]
+    pos = torch.arange(logits.shape[-1], device=logits.device)
+    g = -torch.log(-torch.log(_ref.uniform_01(seeds[:, None], pos[None, :])))
+    z = logits.float()
+    y = torch.where(inv_t == 0.0, z, z * inv_t + g)
+    return torch.argmax(y, dim=-1).to(torch.int32)
+
+
 @torch.inference_mode()
 def generate(
     model: Model,
@@ -66,7 +80,7 @@ def generate(
     the per-step seeds and lives on the model's device."""
     if top_p < 1.0:
         raise NotImplementedError(
-            "top_p < 1 is not ported yet (ROADMAP queue 1, item 8: other families)")
+            "top_p < 1 is not ported yet (ROADMAP queue 1, item 9: other families)")
     B, Lp = prompt.shape
     logits, caches, cache_len = model.prefill(params, prompt, smax=Lp + max_new)
 

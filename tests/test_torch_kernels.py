@@ -54,6 +54,11 @@ FLASH_CASES = {
     "q_offset": dict(H=4, KVH=2, Sq=16, Sk=32, q_offset=16),
     "gqa_mqa": dict(H=4, KVH=1, Sq=32, Sk=32),
     "ragged_sq": dict(H=4, KVH=1, Sq=6, Sk=6),
+    # chunked prefill: one page of queries at q_offset against the cache
+    # prefix, the K/V a view of a longer cache; Sk 48 and 40 are ragged
+    # against the CUDA kernel's 32-key tile
+    "chunk": dict(H=4, KVH=1, Sq=16, Sk=48, q_offset=32, cache=64),
+    "chunk_ragged": dict(H=4, KVH=1, Sq=8, Sk=40, q_offset=32, cache=64, block_k=8),
 }
 
 
@@ -62,12 +67,14 @@ FLASH_CASES = {
 def test_flash_attention_matches_pallas(case, dtype):
     c = dict(FLASH_CASES[case])
     H, KVH, Sq, Sk = c.pop("H"), c.pop("KVH"), c.pop("Sq"), c.pop("Sk")
+    width, block_k = c.pop("cache", Sk), c.pop("block_k", min(16, Sk))
     rng = np.random.default_rng(1)
     qj, qt = both(rng.standard_normal((2, Sq, H, 16)), dtype)
-    kj, kt = both(rng.standard_normal((2, Sk, KVH, 16)), dtype)
-    vj, vt = both(rng.standard_normal((2, Sk, KVH, 16)), dtype)
+    kc, vc = (rng.standard_normal((2, width, KVH, 16)) for _ in range(2))
+    kj, vj = (both(x[:, :Sk], dtype)[0] for x in (kc, vc))
+    kt, vt = (both(x, dtype)[1][:, :Sk] for x in (kc, vc))  # views of the longer cache
     out = ops.flash_attention(qt, kt, vt, **c)
-    want = fa_pallas(qj, kj, vj, block_q=min(16, Sq), block_k=min(16, Sk),
+    want = fa_pallas(qj, kj, vj, block_q=min(16, Sq), block_k=block_k,
                      interpret=True, **c)
     assert out.shape == qt.shape and out.dtype == qt.dtype
     assert_close(out, want, TOL[dtype])
@@ -117,6 +124,24 @@ def test_fused_sample_matches_pallas(mode):
     assert tok.dtype == torch.int32 and bool((tok < vocab).all())
     np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_want))
     assert_close(lp, lp_want, 2e-5)
+
+
+def test_fused_sample_rows_is_fused_sample_at_per_row_temperatures():
+    """Temperatures <= 0 are greedy, the others sample at 1 / max(t, 1e-6):
+    the same tokens as ``fused_sample`` given those inverse temperatures."""
+    rng = np.random.default_rng(6)
+    B, d, Vp, vocab = 6, 32, 384, 300
+    h = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((d, Vp)).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32))
+    temps = torch.tensor([0.0, 0.7, -1.0, 1.5, 1e-9, 1.0])
+    inv_t = torch.tensor([0.0, 1 / 0.7, 0.0, 1 / 1.5, 1e6, 1.0])
+    tok = ops.fused_sample_rows(h, w, seeds, temps, vocab_size=vocab)
+    want, _ = ref.fused_sample(h, w, seeds, inv_t, vocab_size=vocab)
+    assert tok.dtype == torch.int32
+    np.testing.assert_array_equal(tok.numpy(), want.numpy())
+    greedy = torch.argmax(torch.where(torch.arange(Vp) < vocab, h @ w, -1e30), dim=-1)
+    np.testing.assert_array_equal(tok.numpy()[[0, 2]], greedy.numpy()[[0, 2]])
 
 
 def test_hash_and_uniform_bit_equal():

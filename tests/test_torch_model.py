@@ -42,7 +42,7 @@ def fp32_tree(tree):
 
 
 def test_bridge_round_trips_bit_for_bit(cfgs, jax_params):
-    params = bridge.from_jax(jax_params)
+    params = bridge.from_jax(jax_params, device="cpu")
     assert len(params["blocks"]) == cfgs[1].num_layers
     assert params["embed"].dtype == torch.bfloat16
     assert params["blocks"][1]["attn"]["w_q"].shape == (64, 8 * 16)
@@ -56,7 +56,7 @@ def test_bridge_round_trips_bit_for_bit(cfgs, jax_params):
 
 
 def test_bridge_fp32_cast_keeps_layer_order(jax_params):
-    params = bridge.from_jax(jax_params, dtype=torch.float32)
+    params = bridge.from_jax(jax_params, device="cpu", dtype=torch.float32)
     for i in range(2):
         got = params["blocks"][i]["mlp"]["w_gate"]
         assert got.dtype == torch.float32
@@ -70,7 +70,8 @@ def test_embed_scale_is_a_bf16_scalar_as_in_jax(cfgs, jax_params):
     jcfg, cfg = cfgs
     tokens = np.array([[3, 100, 259], [0, 1, 2]], np.int32)
     want = jlm.embed_tokens(jcfg, jax_params, jnp.asarray(tokens))
-    got = lm.embed_tokens(cfg, bridge.from_jax(jax_params), torch.from_numpy(tokens))
+    got = lm.embed_tokens(cfg, bridge.from_jax(jax_params, device="cpu"),
+                          torch.from_numpy(tokens))
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   np.asarray(want).view(np.int16))
@@ -88,7 +89,7 @@ def test_rope_matches():
 def test_geglu_and_qkv_proj_with_padded_heads_match(cfgs, jax_params):
     jcfg, cfg = cfgs
     jp = fp32_tree(jax.tree.map(lambda a: a[0], jax_params["blocks"][0]))
-    tp = bridge.from_jax(jax_params, dtype=torch.float32)["blocks"][0]
+    tp = bridge.from_jax(jax_params, device="cpu", dtype=torch.float32)["blocks"][0]
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 5, 64)).astype(np.float32)
     xt = torch.from_numpy(x)
@@ -107,8 +108,8 @@ def test_geglu_and_qkv_proj_with_padded_heads_match(cfgs, jax_params):
 def test_prefill_and_teacher_forced_decode_logits_match(cfgs, jax_params):
     jcfg, cfg = cfgs
     jp = fp32_tree(jax_params)
-    model = get_model(cfg)
-    tp = bridge.from_jax(jax_params, dtype=torch.float32)
+    model = get_model(cfg, device="cpu")
+    tp = bridge.from_jax(jax_params, device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(2)
     prompt = rng.integers(3, 259, (3, 7)).astype(np.int32)
     forced = rng.integers(3, 259, (3, 3)).astype(np.int32)
@@ -135,6 +136,19 @@ def test_prefill_and_teacher_forced_decode_logits_match(cfgs, jax_params):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config("mixtral-8x7b")))
+        get_model(reduced(get_config("mixtral-8x7b")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config("mamba2-2.7b")))
+        get_model(reduced(get_config("mamba2-2.7b")), device="cpu")
+
+
+def test_model_and_bridge_have_no_cpu_default(jax_params):
+    """``get_model(cfg)`` means the card: without CUDA it raises instead of
+    running on the CPU, and the bridge takes its device only by name."""
+    cfg = reduced(get_config("gemma-2b"), **SMOKE)
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(cfg)
+    with pytest.raises(TypeError):
+        bridge.from_jax(jax_params)
+    assert get_model(cfg, device="cpu").device.type == "cpu"
