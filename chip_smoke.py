@@ -6,13 +6,16 @@ arguments). It needs no JAX and no network, and builds the CUDA kernels from
 ``src/repro_torch/kernels/csrc`` into ``build/`` at first use.
 
 Phases (any mismatch or error raises, and the run exits non-zero):
-  1. Device: the card's name and power limit (``nvidia-smi``), the build.
-  2. Kernels: each of the five kernels against its plain PyTorch version on
-     the card, at the full gemma-2b shapes of the serving paths (lockstep:
-     B=8, prompt 128, max_new 32; streaming: 8 slots, pages of 16, 256
-     positions, and prefill chunks of 16 queries at an offset), timed beside
-     the plain version and one PyTorch call as a yardstick (never called by
-     the port).
+  1. Device: the card's name and power limit (``nvidia-smi``), the build of
+     the seven kernels.
+  2. Kernels: each kernel against its plain PyTorch version on the card, at
+     the shapes of the serving paths, timed beside the plain version and
+     one PyTorch call as a yardstick (never called by the port): gemma-2b
+     (lockstep: B=8, prompt 128, max_new 32; streaming: 8 slots, pages of
+     16, 256 positions, prefill chunks of 16 queries at an offset; the int8
+     cache of 160 slots), and mamba2-2.7b (the SSD scan of an 8 x 128
+     prefill and of a four-chunk sequence, norms over 2560 and 5120, the
+     sampler over a 50,432-row head).
   3. Lockstep end to end: ``repro_torch.launch.serve --lockstep`` at full
      gemma-2b width and depth with random weights, greedy then temperature
      0.8; the launch counters must show every kernel of the path, the tokens
@@ -24,20 +27,29 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      chunks and decode steps, every stream must finish, the same seed must
      give the same streams, a prefix-cache hit must give the tokens of the
      cold run, and greedy first tokens must agree with the plain path.
+  5. The int8 KV cache: phase 3 on the same weights with ``kv_quant=True``
+     (``generate`` through ``serve.run_lockstep``); the decode steps must go
+     through the fused-dequant kernel and never the bf16 one.
+  6. mamba2-2.7b end to end: ``serve --arch mamba2-2.7b --lockstep`` at full
+     width and depth (64 SSD layers), the checks of phase 3; the scan kernel
+     once per layer and prefill, no attention kernel. The gemma-2b weights
+     are freed before mamba2's are drawn.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
 {...}}``. Without CUDA, or outside a checkout, it exits non-zero before
 printing any result.
 
-``--profile`` also writes torch.profiler tables of one greedy generate and
-of one greedy streaming replay to ``build/profile.txt`` and
-``build/profile_streaming.txt``, and prints the device-busy share of each.
+``--profile`` also writes torch.profiler tables of one greedy generate of
+each lockstep path and of one greedy streaming replay to
+``build/profile*.txt``, and prints the device-busy share of each. The
+profiles run last, and keep their models alive until then.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -57,6 +69,7 @@ FP32_FLOP_PER_S = 67e12
 # the lockstep serving path at full gemma-2b width and depth
 DEV = "cuda"
 ARCH_FLAGS = ["--arch", "gemma-2b"]
+MAMBA2_FLAGS = ["--arch", "mamba2-2.7b"]
 B, PROMPT, MAX_NEW = 8, 128, 32
 SMAX = PROMPT + MAX_NEW
 D_MODEL, VOCAB, HEADS, REAL_HEADS, HEAD_DIM = 2048, 256_000, 16, 8, 256
@@ -67,10 +80,20 @@ STREAM_FLAGS = ["--slots", str(SLOTS), "--max-len", str(MAX_LEN), "--max-new", s
                 "--page-size", str(PAGE), "--num-requests", str(N_REQUESTS), "--rate", "20",
                 "--no-realtime"]
 
+# the mamba2-2.7b lockstep path (configs/mamba2_2_7b.py): 64 SSD layers of
+# 80 heads of 64, state 128, one group, vocab 50,280 tied
+M_D_MODEL, M_HEADS, M_HEADDIM, M_STATE, M_VOCAB = 2560, 80, 64, 128, 50_280
+
 BF16_TOL = 2e-2
+SSD_Y_TOL = 5e-2  # y is bf16: tests/test_kernels.py's bf16 tolerance for ssd
+SSD_STATE_TOL = 1e-3
 LSE_TOL = 1e-3
 LOGPROB_TOL = 1e-3
 SAMPLE_GAP = 1e-4
+# mamba2's free-running kernel-path logits may drift from the plain path's at
+# most this many times as far as the plain path drifts from itself at chunk
+# 64 (the full model on an H100 measured 0.258 against 0.242, a ratio of 1.07)
+DRIFT_FACTOR = 2.0
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float):
@@ -149,6 +172,22 @@ def kernel_phase(torch, ops, ref, F):
                     "bound_ms": bms, "bound_by": by, "library_ms": lib}
         print(json.dumps({"check": f"rmsnorm/{tag}", **rec[tag]}), flush=True)
     records["rmsnorm"] = {**rec["prefill"], "decode": rec["decode"]}
+    # the mamba2-2.7b prefill: block norms over d_model 2560, gated norms over
+    # d_inner 5120, 8 x 128 rows each
+    for width in (M_D_MODEL, 2 * M_D_MODEL):
+        R = B * PROMPT
+        x, wm = randn(R, width), randn(width, scale=0.1, dtype=torch.float32)
+        wml = (1.0 + wm).to(torch.bfloat16)
+        ok, err = close(ops.rmsnorm(x, wm), ref.rmsnorm(x, wm), BF16_TOL)
+        require(ok, f"rmsnorm {R}x{width}: max abs err {err}")
+        bms, by = bound_ms(2 * R * width * 2 + width * 4, 4 * R * width, FP32_FLOP_PER_S)
+        entry = {"shape": [R, width], "max_abs_err": err,
+                 "ms": device_ms(lambda: ops.rmsnorm(x, wm)),
+                 "plain_ms": device_ms(lambda: ref.rmsnorm(x, wm)),
+                 "bound_ms": bms, "bound_by": by,
+                 "library_ms": device_ms(lambda: F.rms_norm(x, (width,), weight=wml, eps=1e-6))}
+        records["rmsnorm"][f"mamba2_d{width}"] = entry
+        print(json.dumps({"check": f"rmsnorm/mamba2_d{width}", **entry}), flush=True)
 
     # ---- flash attention: the prefill, 16 padded heads (8..15 zero) ----
     H, KVH, HD = HEADS, 1, HEAD_DIM
@@ -317,30 +356,161 @@ def kernel_phase(torch, ops, ref, F):
                               reps=21),
         "bound_ms": bms, "bound_by": by,
         "library_ms": device_ms(lambda: torch.matmul(h, embed.t()))}
+    records["fused_sample"]["mamba2"] = sampler_at(torch, ops, ref, randn, gen,
+                                                    M_VOCAB, M_D_MODEL)
     print(json.dumps({"check": "fused_sample", **records["fused_sample"]}), flush=True)
+
+    # ---- decode attention over the int8 cache: the int8-KV lockstep step,
+    # B=8, 16 padded heads, one KV head of 256, 160 slots, ragged lengths ----
+    from repro_torch.models.lm import quant_kv
+
+    kq, ksc = quant_kv(randn(B, SMAX, KVH, HD))
+    vq, vsc = quant_kv(randn(B, SMAX, KVH, HD))
+    lens_q = torch.randint(2, SMAX, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lens_q[:4] = torch.tensor([1, SMAX // 2, PROMPT + 1, SMAX], device=dev)
+    o_k, lse_k = ops.decode_attention_quant(qd, kq, vq, ksc, vsc, lens_q)
+    o_r, lse_r = ref.decode_attention_quant(qd, kq, vq, ksc, vsc, lens_q)
+    ok, err = close(o_k, o_r, BF16_TOL)
+    ok_l, err_l = close(lse_k, lse_r, LSE_TOL)
+    require(ok and ok_l, f"decode_attention_quant: o err {err}, lse err {err_l}")
+    for n, kw, hd in ((lens_q, {"window": 40}, 64), (lens_q + 16, {"pos_offset": 16}, 128)):
+        qq = randn(B, 8, hd)
+        (kk, ks2), (vv, vs2) = quant_kv(randn(B, SMAX, 2, hd)), quant_kv(randn(B, SMAX, 2, hd))
+        a = ops.decode_attention_quant(qq, kk, vv, ks2, vs2, n, **kw)
+        b = ref.decode_attention_quant(qq, kk, vv, ks2, vs2, n, **kw)
+        require(close(a[0], b[0], BF16_TOL)[0] and close(a[1], b[1], LSE_TOL)[0],
+                f"decode_attention_quant {kw} D={hd}")
+    live = int(lens_q.sum())
+    nbytes = 2 * qd.numel() * 2 + B * H * 4 + live * KVH * (HD + 4) * 2
+    bms, by = bound_ms(nbytes, 4 * H * HD * live, BF16_TENSOR_FLOP_PER_S)
+    kdq = (kq.float() * ksc[..., None]).to(torch.bfloat16).transpose(1, 2)
+    vdq = (vq.float() * vsc[..., None]).to(torch.bfloat16).transpose(1, 2)
+    qmask = (torch.arange(SMAX, device=dev)[None, :] < lens_q[:, None])[:, None, None, :]
+    records["decode_attention_quant"] = {
+        "shape": {"q": list(qd.shape), "kv": list(kq.shape), "cache_len": lens_q.tolist()},
+        "max_abs_err": err, "lse_max_abs_err": err_l,
+        "ms": device_ms(lambda: ops.decode_attention_quant(qd, kq, vq, ksc, vsc, lens_q)),
+        "plain_ms": device_ms(lambda: ref.decode_attention_quant(qd, kq, vq, ksc, vsc, lens_q)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": device_ms(sdpa(qd[:, :, None], kdq, vdq, attn_mask=qmask)),
+        "library_note": "SDPA on K/V dequantized beforehand (the dequantization not timed)"}
+    print(json.dumps({"check": "decode_attention_quant", **records["decode_attention_quant"]}),
+          flush=True)
+
+    # ---- ssd: the mamba2-2.7b prefill (8 x 128 positions, one chunk) and a
+    # four-chunk sequence that exercises the carried state ----
+    rec = {}
+    for tag, (Bs, S) in (("prefill", (B, PROMPT)), ("multi_chunk", (2, 512))):
+        x = randn(Bs, S, M_HEADS, M_HEADDIM)
+        dt = F.softplus(randn(Bs, S, M_HEADS, dtype=torch.float32))
+        A = -torch.exp(randn(M_HEADS, dtype=torch.float32))
+        Dd = randn(M_HEADS, dtype=torch.float32)
+        Bm, Cm = randn(Bs, S, 1, M_STATE), randn(Bs, S, 1, M_STATE)
+        y_k, h_k = ops.ssd(x, dt, A, Bm, Cm, Dd, return_state=True)
+        y_r, h_r = ref.ssd_chunked(x, dt, A, Bm, Cm, Dd, chunk=min(128, S), return_state=True)
+        ok, err = close(y_k, y_r, SSD_Y_TOL)
+        ok_h, err_h = close(h_k, h_r, SSD_STATE_TOL)
+        require(ok and ok_h, f"ssd {tag} {tuple(x.shape)}: y err {err}, state err {err_h}")
+        L = min(128, S)
+        blocks = Bs * M_HEADS * (S // L)
+        flops = blocks * (L * (L + 1) // 2 * (2 * M_STATE + 2 * M_HEADDIM)
+                          + 4 * L * M_STATE * M_HEADDIM)
+        nbytes = (2 * x.numel() * 2 + h_k.numel() * 4 + dt.numel() * 4
+                  + 2 * Bm.numel() * 2 + 2 * M_HEADS * 4)
+        bms, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOP_PER_S)
+        rec[tag] = {"shape": {"x": list(x.shape), "Bm": list(Bm.shape), "chunk": L},
+                    "max_abs_err": err, "state_max_abs_err": err_h,
+                    "ms": device_ms(lambda: ops.ssd(x, dt, A, Bm, Cm, Dd, return_state=True)),
+                    "plain_ms": device_ms(lambda: ref.ssd_chunked(
+                        x, dt, A, Bm, Cm, Dd, chunk=L, return_state=True)),
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "library_note": "no single PyTorch call computes the chunked scan"}
+        # the kernel does its products on the CUDA cores: the least time its
+        # operations take there (a bound, not a time; not in the kernels line)
+        print(json.dumps({"check": f"ssd/{tag}", **rec[tag], "flops": flops, "bytes": nbytes,
+                          "fp32_cuda_core_bound_ms": flops / FP32_FLOP_PER_S * 1e3}),
+              flush=True)
+    records["ssd"] = {**rec["prefill"], "multi_chunk": rec["multi_chunk"]}
     return records
 
 
-def serve_args(serve, temperature: float):
+def sampler_at(torch, ops, ref, randn, gen, V, D):
+    """fused_sample against its plain version at one head shape (tied head
+    (V, D) padded to a multiple of 256 rows): greedy tokens bit-equal, sampled
+    tokens equal where the top two scores are clear, logprobs at 1e-3."""
+    Vp = -(-V // 256) * 256
+    embed = randn(Vp, D, scale=0.02)
+    h = randn(B, D)
+    seeds = torch.randint(-2**31, 2**31, (B,), generator=gen, device=DEV,
+                          dtype=torch.int64).to(torch.int32)
+    worst = 0.0
+    for inv_t in (0.0, 1.0 / 0.8):
+        it = torch.full((B,), inv_t, device=DEV)
+        tok_k, lp_k = ops.fused_sample(h, embed.t(), seeds, it, vocab_size=V)
+        tok_r, lp_r = ref.fused_sample(h, embed.t(), seeds, it, vocab_size=V)
+        require(bool((tok_k < V).all()), "fused_sample drew a padded-vocab token")
+        _, y = ref.sample_scores(h, embed.t(), seeds, it, vocab_size=V)
+        top2 = y.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > SAMPLE_GAP
+        require(bool((tok_k == tok_r)[clear].all()) and (inv_t > 0 or torch.equal(tok_k, tok_r)),
+                f"fused_sample d={D} Vp={Vp} inv_temp={inv_t}: {tok_k} vs {tok_r}")
+        ok, err = close(lp_k, lp_r, LOGPROB_TOL)
+        require(ok, f"fused_sample d={D} Vp={Vp} logprob: max abs err {err}")
+        worst = max(worst, err)
+    it = torch.ones(B, device=DEV)
+    bms, by = bound_ms(Vp * D * 2 + B * D * 2 + B * 8, 2 * B * Vp * D, BF16_TENSOR_FLOP_PER_S)
+    return {"shape": {"h": [B, D], "embed": [Vp, D], "vocab": V}, "max_abs_err": worst,
+            "ms": device_ms(lambda: ops.fused_sample(h, embed.t(), seeds, it, vocab_size=V)),
+            "plain_ms": device_ms(lambda: ref.fused_sample(h, embed.t(), seeds, it,
+                                                           vocab_size=V), reps=21),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": device_ms(lambda: torch.matmul(h, embed.t()))}
+
+
+def serve_args(serve, temperature: float, arch_flags=ARCH_FLAGS):
     return serve.parse_args([
-        *ARCH_FLAGS, "--lockstep", "--device", DEV, "--seed", "0",
+        *arch_flags, "--lockstep", "--device", DEV, "--seed", "0",
         "--batch", str(B), "--prompt-len", str(PROMPT), "--max-new", str(MAX_NEW),
         "--requests", str(TIMED_BATCHES), "--temperature", str(temperature)])
 
 
-def build_model(torch, serve):
-    """gemma-2b at full width and depth on the card, random bf16 weights
+def build_model(torch, serve, arch_flags=ARCH_FLAGS):
+    """A model at full width and depth on the card, random bf16 weights
     from ``--seed 0``, through the serve entry point's own setup."""
     t0 = time.perf_counter()
-    model, params, tok = serve.setup(serve_args(serve, 0.0))
+    model, params, tok = serve.setup(serve_args(serve, 0.0, arch_flags))
     torch.cuda.synchronize()
     cfg = model.cfg
-    print(f"[model] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.padded_heads} heads (padded from {cfg.num_heads}) of {cfg.head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; weights drawn in "
-          f"{time.perf_counter() - t0:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+    if cfg.ssm_state:
+        shape = (f"{cfg.ssm_nheads} SSD heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, "
+                 f"{cfg.ssm_ngroups} group, conv {cfg.ssm_conv}")
+    else:
+        shape = (f"{cfg.padded_heads} heads (padded from {cfg.num_heads}) of {cfg.head_dim}, "
+                 f"d_ff {cfg.d_ff}")
+    print(f"[model] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {shape}, "
+          f"vocab {cfg.vocab_size}; weights drawn in {time.perf_counter() - t0:.2f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     return model, params, tok
+
+
+def expected_launches(cfg, names, gens: int, steps: int):
+    """Launch counts of ``gens`` lockstep generates of ``steps`` decode steps
+    each: per forward a norm before every mixer and every MLP, a gated norm
+    in every SSD mixer, and the final norm; per prefill one flash attention
+    per attention layer and one scan per SSD layer; per decode step one
+    decode attention (the int8 kernel under ``kv_quant``) per attention layer
+    and one sampler call."""
+    kinds = cfg.layer_kinds()
+    attn = sum(k[0] == "attn" for k in kinds)
+    ssd = len(kinds) - attn
+    mlps = sum(k[1] != "none" for k in kinds)
+    out = dict.fromkeys(names, 0)
+    out.update({"rmsnorm": gens * (len(kinds) + mlps + ssd + 1) * (1 + steps),
+                "flash_attention": gens * attn, "ssd": gens * ssd,
+                "fused_sample": gens * steps,
+                ("decode_attention_quant" if cfg.kv_quant else "decode_attention"):
+                    gens * attn * steps})
+    return out
 
 
 def busy_share(torch, fn, table_path: Path):
@@ -367,18 +537,94 @@ def busy_share(torch, fn, table_path: Path):
     return busy_us / 1e3, wall_s * 1e3
 
 
-def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok):
-    """Full gemma-2b lockstep serving on the card, through its entry points.
+def plain_logits(torch, ops, model, params, prompt, chunk: int):
+    """Last-position logits of the plain path over the prompt of an SSD stack
+    without MLPs, with the scan's chunk length ``chunk``: the operations of
+    ``model.prefill`` in ref mode, which at another chunk length compute the
+    same function with another order of the scan's fp32 sums."""
+    from repro_torch.models import layers, lm, ssm
+
+    cfg = model.cfg
+    require(all(k == ("ssm", "none") for k in cfg.layer_kinds()),
+            "the plain drift is measured on SSD stacks without MLPs")
+    ops.set_mode("ref")
+    with torch.inference_mode():
+        h = lm.embed_tokens(cfg, params, prompt)
+        for block in params["blocks"]:
+            hn = layers.apply_norm(cfg, block["norm1"], h)
+            h = h + ssm.apply_ssm(cfg, block["ssm"], hn, return_state=True, chunk=chunk)[0]
+        h = layers.apply_norm(cfg, params["final_norm"], h)
+        logits = lm.mask_padded_vocab(cfg, (h[:, -1] @ lm._head_matrix(cfg, params)).float())
+    ops.set_mode(None)
+    return logits
+
+
+def layerwise_agreement(torch, ops, model, params, prompt, caches_r, tok0):
+    """Every layer of an SSD stack on the plain path's input of that layer,
+    kernel path against plain path: norm1, the SSD mixer over the prompt
+    (the scan kernel and the gated norm), and the one-token mixer step from
+    the plain prefill's state, each within 2e-2 of its max |output|. Returns
+    the kernel and plain prefill logits from the plain last hidden state, the
+    kernel sampler's greedy token and the plain logits of the decode step,
+    and the worst layer's error over its max."""
+    from repro_torch.models import layers, lm
+
+    cfg = model.cfg
+    require(all(k == ("ssm", "none") for k in cfg.layer_kinds()),
+            "the layer-by-layer check covers SSD stacks without MLPs")
+    worst = 0.0
+
+    def both(fn):  # (kernel path, plain path) of fn
+        ops.set_mode("ref")
+        plain = fn()
+        ops.set_mode(None)
+        return fn(), plain
+
+    def check(a, b, what):
+        nonlocal worst
+        s, e = float(b.float().abs().max()), float((a.float() - b.float()).abs().max())
+        require(e <= 2e-2 * s, f"{what}: max abs err {e} vs max |out| {s}")
+        worst = max(worst, e / s)
+
+    head = lm._head_matrix(cfg, params)
+    with torch.inference_mode():
+        h = lm.embed_tokens(cfg, params, prompt)
+        hd = lm.embed_tokens(cfg, params, tok0.reshape(-1, 1))
+        for i, (block, state) in enumerate(zip(params["blocks"], caches_r)):
+            for x, mode, cache in ((h, "prefill", None), (hd, "decode", state)):
+                hn_k, hn = both(lambda: layers.apply_norm(cfg, block["norm1"], x))
+                check(hn_k, hn, f"layer {i} norm1 ({mode})")
+                (mk, _), (mr, _) = both(lambda: lm._ssm_mixer(cfg, block["ssm"], hn, mode, cache))
+                check(mk, mr, f"layer {i} SSD mixer ({mode})")
+                if mode == "prefill":
+                    h = h + mr
+                else:
+                    hd = hd + mr
+        fk, fr = both(lambda: layers.apply_norm(cfg, params["final_norm"], h[:, -1].contiguous()))
+        logits_k = lm.mask_padded_vocab(cfg, (fk @ head).float())
+        logits_r = lm.mask_padded_vocab(cfg, (fr @ head).float())
+        ops.set_mode("ref")
+        hdf = layers.apply_norm(cfg, params["final_norm"], hd[:, 0])
+        step_r = lm.mask_padded_vocab(cfg, (hdf @ head).float())
+        ops.set_mode(None)
+        zero = torch.zeros(B, dtype=torch.int32, device=DEV)
+        tok1_k, _ = ops.fused_sample(hdf, head, zero, zero.float(), vocab_size=cfg.vocab_size)
+    return logits_k, logits_r, tok1_k, step_r, worst
+
+
+def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
+                     label="e2e", profile_name="profile.txt", layerwise=False):
+    """Lockstep serving of ``model`` (full width and depth) on the card,
+    through ``serve.run_lockstep``. With ``layerwise``, the kernel path's
+    free-running logits are held against the plain path's drift from itself
+    (``plain_logits`` at chunk 64), and the kernel path against the plain
+    path layer by layer (see ``layerwise_agreement``).
     Returns (launch counts of the greedy run, summary, a function that
     profiles one greedy generate)."""
-    args = serve_args(serve, 0.0)
+    args = serve_args(serve, 0.0)  # run_lockstep reads the batch flags only, not --arch
     cfg = model.cfg
-    L, steps, gens = cfg.num_layers, MAX_NEW - 1, TIMED_BATCHES + 1
-    expected = {"rmsnorm": gens * (2 * L + 1) * (1 + steps),
-                "flash_attention": gens * L,
-                "decode_attention": gens * L * steps,
-                "paged_decode_attention": 0,
-                "fused_sample": gens * steps}
+    steps, gens = MAX_NEW - 1, TIMED_BATCHES + 1
+    expected = expected_launches(cfg, _build.LAUNCHES, gens, steps)
 
     def checked_run(a):
         _build.reset_launches()
@@ -421,6 +667,34 @@ def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok):
     real = slice(0, cfg.vocab_size)  # the padded vocab is -1e30 in both
     scale = float(logits_r[:, real].abs().max())
     err = float((logits_k[:, real] - logits_r[:, real]).abs().max())
+    checks = {"prefill_logits_max_abs_err": err, "max_abs_logit": scale}
+    if layerwise:
+        # 64 random SSD layers in bf16 carry a rounding difference of one
+        # layer's output into every later layer: the free-running logits of
+        # two correct paths drift apart with depth. The plain path against
+        # itself at chunk 64 (an equally valid order of the scan's fp32
+        # sums) measures that drift, and the kernel path may drift at most
+        # DRIFT_FACTOR times as far. Then each layer is held on the plain
+        # path's own input at 2e-2, and the first tokens on the plain path's
+        # last hidden state.
+        drift = float((plain_logits(torch, ops, model, params, prompt, 64)[:, real]
+                       - logits_r[:, real]).abs().max())
+        checks["plain_chunk64_logits_max_abs_err"] = drift
+        require(err <= DRIFT_FACTOR * drift,
+                f"free-running prefill logits: max abs err {err}, more than {DRIFT_FACTOR} "
+                f"x the plain path's drift against itself at chunk 64 ({drift})")
+        own0 = int((torch.argmax(logits_k, dim=-1) == torch.argmax(logits_r, dim=-1)).sum())
+        checks["free_running_first_token_equal_rows"] = own0
+        print(f"[{label}] free-running: prefill logits max abs err {err:.4g}, the plain path "
+              f"at chunk 64 {drift:.4g} (max |logit| {scale:.4g}); first token equal in "
+              f"{own0}/{B} rows", flush=True)
+        logits_k, logits_r, tok1_k, step_r, worst = layerwise_agreement(
+            torch, ops, model, params, prompt, caches_r, tok0)
+        checks["worst_layer_err_over_max"] = worst
+        err = float((logits_k[:, real] - logits_r[:, real]).abs().max())
+        scale = float(logits_r[:, real].abs().max())
+        checks.update({"teacher_forced_logits_max_abs_err": err,
+                       "teacher_forced_max_abs_logit": scale})
     require(err <= 2e-2 * scale, f"prefill logits: max abs err {err} vs max |logit| {scale}")
 
     def agree(pred, logits, what):
@@ -432,9 +706,9 @@ def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok):
 
     clear0 = agree(torch.argmax(logits_k, dim=-1), logits_r, "first token")
     clear1 = agree(tok1_k, step_r, "first decoded token")
-    print(f"[e2e] kernel vs plain path: prefill logits max abs err {err:.4g} "
-          f"(max |logit| {scale:.4g}); first token agrees in {clear0}/{B} clear rows, "
-          f"first decoded token in {clear1}/{B}", flush=True)
+    print(f"[{label}] kernel vs plain path{' (layer by layer)' if layerwise else ''}: "
+          f"prefill logits max abs err {err:.4g} (max |logit| {scale:.4g}); first token "
+          f"agrees in {clear0}/{B} clear rows, first decoded token in {clear1}/{B}", flush=True)
 
     # decode rate: a whole generate minus one that stops after the prefill
     def gen_s(max_new):
@@ -455,12 +729,13 @@ def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok):
         "sampled_p99_ms": sampled["p99_s"] * 1e3,
         "generate_ms": full * 1e3, "prefill_and_first_token_ms": prefill_only * 1e3,
         "decode_step_ms": step_ms, "decode_tok_per_s": B / step_ms * 1e3,
+        "first_token_clear_rows": clear0, "first_decoded_clear_rows": clear1, **checks,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    print(json.dumps({"e2e": summary}), flush=True)
+    print(json.dumps({label: summary}), flush=True)
 
     def profile_job():
-        busy_ms, wall_ms = busy_share(torch, lambda: gen_s(MAX_NEW), ROOT / "build" / "profile.txt")
-        print(json.dumps({"profile": {
+        busy_ms, wall_ms = busy_share(torch, lambda: gen_s(MAX_NEW), ROOT / "build" / profile_name)
+        print(json.dumps({f"profile_{label}": {
             "device_busy_ms": busy_ms, "profiled_generate_ms": wall_ms,
             "generate_ms": full * 1e3, "device_busy_share": busy_ms / 1e3 / full}}),
               flush=True)
@@ -491,9 +766,9 @@ def streaming_phase(torch, ops, _build, serve, model, params, tok):
         counts = dict(_build.LAUNCHES)
         steps = int(out["warmup_stats"]["decode_steps"] + out["stats"]["decode_steps"])
         chunks = int(out["warmup_stats"]["prefill_chunks"] + out["stats"]["prefill_chunks"])
-        expected = {"rmsnorm": (2 * L + 1) * (chunks + steps), "flash_attention": L * chunks,
-                    "decode_attention": 0, "paged_decode_attention": L * steps,
-                    "fused_sample": steps}
+        expected = dict.fromkeys(_build.LAUNCHES, 0)
+        expected.update({"rmsnorm": (2 * L + 1) * (chunks + steps), "flash_attention": L * chunks,
+                         "paged_decode_attention": L * steps, "fused_sample": steps})
         require(counts == expected, f"launches {counts}, expected {expected}")
         require(out["stats"]["requests_finished"] == N_REQUESTS
                 and all(st.finished for st in out["streams"]), "a stream did not finish")
@@ -657,20 +932,42 @@ def main(argv=None) -> int:
     # ---- phase 2: kernels against their plain versions ----
     records = kernel_phase(torch, ops, ref, F)
 
-    # ---- phases 3 and 4: the two serving paths end to end, each with the
-    # launch counters set to 0 just before it and read just after ----
+    # ---- phases 3 to 6: the serving paths end to end, each with the launch
+    # counters set to 0 just before it and read just after ----
     model, params, tok = build_model(torch, serve)
     lockstep = end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok)
     streaming = streaming_phase(torch, ops, _build, serve, model, params, tok)
-    paths = {"lockstep": lockstep[0], "streaming": streaming[0]}
+    end_counts = {"lockstep": lockstep[0], "streaming": streaming[0]}
+    # the int8 KV cache: the same gemma-2b weights with kv_quant on (no config
+    # file and no serve flag turns it on: generate on the replaced config,
+    # through serve.run_lockstep)
+    from repro_torch.models import get_model
+
+    int8_model = get_model(dataclasses.replace(model.cfg, kv_quant=True), device=DEV)
+    int8 = end_to_end_phase(torch, ops, _build, serve, generate, int8_model, params, tok,
+                            label="e2e_int8", profile_name="profile_int8.txt")
+    end_counts["int8_lockstep"] = int8[0]
+    jobs = [lockstep[2], streaming[2], int8[2]] if opts.profile else []
+    del model, int8_model, params, lockstep, streaming, int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    # mamba2-2.7b at full width and depth, through `serve --arch mamba2-2.7b --lockstep`
+    model, params, tok = build_model(torch, serve, MAMBA2_FLAGS)
+    mamba2 = end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
+                              label="e2e_mamba2", profile_name="profile_mamba2.txt",
+                              layerwise=True)
+    paths = {**end_counts, "mamba2_lockstep": mamba2[0]}
     if opts.profile:
-        # last, so that no timed phase runs in a process that
-        # torch.profiler has traced
-        lockstep[2]()
-        streaming[2]()
-    on_path = {"lockstep": ("rmsnorm", "flash_attention", "decode_attention", "fused_sample"),
-               "streaming": ("rmsnorm", "flash_attention", "paged_decode_attention",
-                             "fused_sample")}
+        # last, so that no timed phase runs in a process that torch.profiler
+        # has traced (the profiles keep their models alive until then)
+        for job in [*jobs, mamba2[2]]:
+            job()
+    on_path = {"streaming": ("rmsnorm", "flash_attention", "paged_decode_attention",
+                             "fused_sample"),
+               "lockstep": ("rmsnorm", "flash_attention", "decode_attention", "fused_sample"),
+               "int8_lockstep": ("rmsnorm", "flash_attention", "decode_attention_quant",
+                                 "fused_sample"),
+               "mamba2_lockstep": ("rmsnorm", "ssd", "fused_sample")}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),
                 f"a kernel of the {path} path was not launched: {paths[path]}")
@@ -680,13 +977,16 @@ def main(argv=None) -> int:
                "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:349"),
                "paged_decode_attention": ("paged_decode_attention.cu",
                                           "src/repro/kernels/decode_attention.py:453"),
-               "fused_sample": ("sampling.cu", "src/repro/kernels/sampling.py:181")}
+               "fused_sample": ("sampling.cu", "src/repro/kernels/sampling.py:181"),
+               "decode_attention_quant": ("decode_attention_quant.cu",
+                                          "src/repro/kernels/decode_attention.py:282"),
+               "ssd": ("ssd.cu", "src/repro/kernels/ssd.py:121")}
     kernels = []
     for name, rec in records.items():
         src, replaces = sources[name]
-        # launches: the streaming path's count (the system's default path)
-        # where it runs the kernel, else the lockstep path's
-        path = "streaming" if name in on_path["streaming"] else "lockstep"
+        # launches: the first path of on_path that runs the kernel (the
+        # streaming path, the system's default, first)
+        path = next(p for p, names in on_path.items() if name in names)
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
                  "launches": paths[path][name], "launches_path": path,

@@ -5,7 +5,8 @@ layer groups: ``params["blocks"]`` is a list with one dict per position of
 the layer pattern, each leaf shaped ``(N, ...)``, and layer ``i`` is group
 ``i // P`` of position ``i % P``. The port keeps one dict of weights per
 layer. Both sides keep the ``(d_in, d_out)`` layout, so leaves map one to
-one.
+one, SSD leaves too (``A_log``, ``D``, ``dt_bias`` and ``norm_w`` are f32,
+the projections and convolutions bf16).
 
 Arrays cross as numpy (the caller turns JAX arrays into numpy arrays first).
 bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses,
@@ -18,6 +19,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models.lm import smallest_period
 
 
 def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -62,11 +65,23 @@ def from_jax(jax_params: Dict[str, Any], *, device,
     return out
 
 
+def _layer_kind(block: Dict[str, Any]):
+    """(mixer kind, MLP kind) of one layer's weights, as
+    ``ModelConfig.layer_kinds`` names them."""
+    mixer = "attn" if "attn" in block else "ssm"
+    mlp = "dense" if "mlp" in block else ("moe" if "moe" in block else "none")
+    return mixer, mlp
+
+
 def to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's params -> the JAX param pytree with numpy leaves: every
-    layer stacked into one pattern position, as the dense family has."""
+    """The port's params -> the JAX param pytree with numpy leaves: the
+    layers stacked by the layer pattern (``lm.pattern_length``), position
+    ``p`` of the pattern holding layers p, p + P, p + 2P, ... (a hybrid's
+    attention and SSD layers land in their own positions)."""
+    blocks = params["blocks"]
+    P = smallest_period([_layer_kind(b) for b in blocks])
     out = {k: _map(v, _to_numpy) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [_stack(params["blocks"])]
+    out["blocks"] = [_stack(blocks[pos::P]) for pos in range(P)]
     return out
 
 

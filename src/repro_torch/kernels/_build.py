@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "paged_decode_attention",
-           "sampling")
+           "sampling", "decode_attention_quant", "ssd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-    "paged_decode_attention": 0, "fused_sample": 0,
+    "paged_decode_attention": 0, "fused_sample": 0, "decode_attention_quant": 0,
+    "ssd": 0,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

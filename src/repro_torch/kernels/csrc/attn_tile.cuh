@@ -1,10 +1,19 @@
 // One block's online-softmax attention of up to 16 query rows against a range
 // of keys of one KV head: the body shared by flash_attention.cu (rows are
-// query positions of one head), decode_attention.cu and
-// paged_decode_attention.cu (rows are the query heads of one KV group, one
-// position each). Where key j lies is the caller's: a functor maps a key to
-// the element offset of its row, contiguous (Strided) or through a block
-// table of pages (paged_decode_attention.cu); a 32-key tile may span pages.
+// query positions of one head), decode_attention.cu,
+// paged_decode_attention.cu and decode_attention_quant.cu (rows are the query
+// heads of one KV group, one position each). How key j's K and V rows reach
+// shared memory is the caller's, through a loader policy:
+//   Bf16Rows  bf16 rows, found by a functor that maps a key to the element
+//             offset of its row, contiguous (Strided) or through a block
+//             table of pages (paged_decode_attention.cu; a 32-key tile may
+//             span pages);
+//   Int8Rows  int8 rows with one f32 scale per key, dequantized to bf16
+//             (value * scale in fp32, rounded to nearest) as they land, so
+//             the bf16 cache never exists in device memory
+//             (decode_attention_quant.cu).
+// Either way the tile in shared memory holds bf16, and the same arithmetic
+// follows.
 //
 // Layout in shared memory, per block of 128 threads (4 warps x 4 rows):
 //   q  16 x D fp32     the rows, read by every lane at the same address
@@ -47,16 +56,61 @@ struct Strided {
   __device__ long operator()(int key) const { return key * stride; }
 };
 
+// Loader of bf16 K/V rows: key j's D values start at element key_at(j) of k
+// and of v. load() gives the 16-byte chunk c (8 values) of each.
+template <class KeyAt>
+struct Bf16Rows {
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  KeyAt key_at;
+  __device__ __forceinline__ void load(int key, int c, uint4& kk, uint4& vv) const {
+    const long at = key_at(key);
+    kk = reinterpret_cast<const uint4*>(k + at)[c];
+    vv = reinterpret_cast<const uint4*>(v + at)[c];
+  }
+};
+
+// 8 int8 values (8 bytes) times a scale, each rounded to bf16: 16 bytes.
+__device__ __forceinline__ uint4 dequant8(uint2 raw, float s) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = i < 2 ? raw.x : raw.y;
+    const int sh = (i & 1) * 16;
+    const float a = static_cast<float>(static_cast<int8_t>((word >> sh) & 0xff));
+    const float b = static_cast<float>(static_cast<int8_t>((word >> (sh + 8)) & 0xff));
+    w[i] = f2_to_bf2(a * s, b * s);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Loader of int8 K/V rows of a contiguous cache: key j's D values start at
+// element j * stride of k and of v, and its scales at j * scale_stride of
+// k_scale and v_scale. load() dequantizes chunk c (8 values) to bf16.
+struct Int8Rows {
+  const int8_t* k;
+  const int8_t* v;
+  const float* k_scale;
+  const float* v_scale;
+  long stride;
+  long scale_stride;
+  __device__ __forceinline__ void load(int key, int c, uint4& kk, uint4& vv) const {
+    const long at = key * stride;
+    const float ks = __ldg(k_scale + key * scale_stride);
+    const float vs = __ldg(v_scale + key * scale_stride);
+    kk = dequant8(reinterpret_cast<const uint2*>(k + at)[c], ks);
+    vv = dequant8(reinterpret_cast<const uint2*>(v + at)[c], vs);
+  }
+};
+
 // Attends rows [0, nrows) of q (row stride q_stride elements) against keys
-// [k_begin, k_end) of k/v; key j's D values start at element key_at(j) of
-// k and of v. mask(row, key) is the row's own mask inside that range.
-// Writes o (row stride o_stride) and, if lse is not null, lse[row] = m +
-// log(l).
-template <int D, class KeyAt, class Mask>
+// [k_begin, k_end), whose K/V rows `rows` loads (Bf16Rows or Int8Rows).
+// mask(row, key) is the row's own mask inside that range. Writes o (row
+// stride o_stride) and, if lse is not null, lse[row] = m + log(l).
+template <int D, class Rows, class Mask>
 __device__ __forceinline__ void attend_rows(
     Smem<D>& sm, const __nv_bfloat16* __restrict__ q, long q_stride, int nrows,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    const KeyAt& key_at, int k_begin, int k_end, float scale, const Mask& mask,
+    const Rows& rows, int k_begin, int k_end, float scale, const Mask& mask,
     __nv_bfloat16* __restrict__ o, long o_stride, float* __restrict__ lse) {
   static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
   constexpr int W = D / 2;   // 32-bit words per row
@@ -86,11 +140,7 @@ __device__ __forceinline__ void attend_rows(
     for (int i = tid; i < kKeys * C8; i += kThreads) {
       const int j = i / C8, c = i % C8, key = k0 + j;
       uint4 kk = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < k_end) {
-        const long at = key_at(key);
-        kk = reinterpret_cast<const uint4*>(k + at)[c];
-        vv = reinterpret_cast<const uint4*>(v + at)[c];
-      }
+      if (key < k_end) rows.load(key, c, kk, vv);
       uint32_t* kr = &sm.k[j][4 * c];
       kr[0] = kk.x; kr[1] = kk.y; kr[2] = kk.z; kr[3] = kk.w;
       reinterpret_cast<uint4*>(&sm.v[j][0])[c] = vv;

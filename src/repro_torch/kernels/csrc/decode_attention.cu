@@ -54,9 +54,10 @@ __global__ void __launch_bounds__(kThreads)
   const int len = cache_len[b];
   const int last = max(0, min(S, len - pos_offset));
   const int first = window > 0 ? min(last, max(0, len - window - pos_offset)) : 0;
-  repro::attn::attend_rows<D>(sm, q + head0 * D, D, nrows, k + kv_at, v + kv_at,
-                              repro::attn::Strided{kv_stride}, first, last, scale, NoMask{},
-                              o + head0 * D, D, lse + head0);
+  using Rows = repro::attn::Bf16Rows<repro::attn::Strided>;
+  repro::attn::attend_rows<D>(sm, q + head0 * D, D, nrows,
+                              Rows{k + kv_at, v + kv_at, repro::attn::Strided{kv_stride}},
+                              first, last, scale, NoMask{}, o + head0 * D, D, lse + head0);
 }
 
 template <int D>

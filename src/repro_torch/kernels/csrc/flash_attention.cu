@@ -60,9 +60,10 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = causal ? min(Sk, qhi + 1) : Sk;
   const int k_begin = window > 0 ? max(0, qlo - window + 1) : 0;
   const FlashMask mask{qlo, causal, window};
-  repro::attn::attend_rows<D>(sm, q + q_at, row_stride, nrows, k + kv_at, v + kv_at,
-                              repro::attn::Strided{kv_stride}, k_begin, k_end, scale, mask,
-                              o + q_at, row_stride, nullptr);
+  using Rows = repro::attn::Bf16Rows<repro::attn::Strided>;
+  repro::attn::attend_rows<D>(sm, q + q_at, row_stride, nrows,
+                              Rows{k + kv_at, v + kv_at, repro::attn::Strided{kv_stride}},
+                              k_begin, k_end, scale, mask, o + q_at, row_stride, nullptr);
 }
 
 template <int D>

@@ -72,8 +72,9 @@ __global__ void __launch_bounds__(kThreads)
                           static_cast<long>(page_size) * key_stride, key_stride};
   const int last = max(0, min(kv_len[b], T * page_size));
   const long head_at = static_cast<long>(kvh) * D;
-  repro::attn::attend_rows<D>(sm, q + head0 * D, D, nrows, pool_k + head_at, pool_v + head_at,
-                              key_at, 0, last, scale, NoMask{}, o + head0 * D, D, lse + head0);
+  const repro::attn::Bf16Rows<PagedKeyAt> rows{pool_k + head_at, pool_v + head_at, key_at};
+  repro::attn::attend_rows<D>(sm, q + head0 * D, D, nrows, rows, 0, last, scale, NoMask{},
+                              o + head0 * D, D, lse + head0);
 }
 
 template <int D>

@@ -14,7 +14,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
+from repro_torch.kernels.decode_attention_quant import (
+    decode_attention_quant as _decode_attention_quant,
+)
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention as _paged_decode_attention,
@@ -64,6 +68,20 @@ def decode_attention(
                              pos_offset=pos_offset)
 
 
+def decode_attention_quant(
+    q, k, v, k_scale, v_scale, cache_len, *, scale=None, window=None, pos_offset=0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash decode over an int8 cache with per-slot, per-head f32 scales.
+    The kernel dequantizes each tile as it loads it; the plain version
+    dequantizes the whole cache to bf16 first (the JAX oracle). Returns
+    (o, lse) in every mode."""
+    if _MODE == "ref":
+        return _ref.decode_attention_quant(q, k, v, k_scale, v_scale, cache_len, scale=scale,
+                                           window=window, pos_offset=pos_offset)
+    return _decode_attention_quant(q, k, v, k_scale, v_scale, cache_len, scale=scale,
+                                   window=window, pos_offset=pos_offset)
+
+
 def paged_decode_attention(
     q, pool_k, pool_v, tables, kv_len, *, scale=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,3 +114,20 @@ def fused_sample_rows(h, w_head, seeds, temps, *, vocab_size=None) -> torch.Tens
         return _ref.fused_sample_rows(h, w_head, seeds, temps, vocab_size=vocab_size)
     tok, _ = _fused_sample(h, w_head, seeds, _ref.row_inv_temp(temps), vocab_size=vocab_size)
     return tok
+
+
+def ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False):
+    """Mamba2 chunked scan with ``chunk = min(chunk, S)``; ``S`` must be a
+    multiple of it (ValueError), as in the JAX package. Returns y, or
+    (y, final fp32 state) with ``return_state``."""
+    if _MODE == "ref":
+        y, h = _ssd.plain(x, dt, A, Bm, Cm, D, chunk=chunk)
+    else:
+        y, h = _ssd.ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+    return (y, h) if return_state else y
+
+
+def ssd_decode_step(x, dt, A, Bm, Cm, D, h):
+    """One-token SSD step: plain torch on every device, as in the JAX
+    package (it has no Pallas kernel: a few elementwise products)."""
+    return _ref.ssd_decode_step(x, dt, A, Bm, Cm, D, h)

@@ -10,6 +10,8 @@ Shapes (the JAX package's conventions, kept at every public function):
   k, v           (B, S, KVH, D)      KVH | H  (GQA groups = H // KVH)
   decode q       (B, H, D)           single new token per sequence
   page pool      (P, page_size, KVH, D)
+  ssd x          (B, S, NH, P)       dt (B, S, NH); A, D (NH,)
+  ssd Bm, Cm     (B, S, G, N)        NH heads in G groups; state (B, NH, P, N)
 """
 from __future__ import annotations
 
@@ -112,6 +114,29 @@ def decode_attention(
     o = (o / torch.clamp(l, min=1e-20)).reshape(B, H, D)
     lse = (m_safe + torch.log(torch.clamp(l, min=1e-20))).reshape(B, H)
     return o.to(q.dtype), lse
+
+
+def decode_attention_quant(
+    q: torch.Tensor,  # (B, H, D)
+    k: torch.Tensor,  # (B, S, KVH, D) int8
+    v: torch.Tensor,  # (B, S, KVH, D) int8
+    k_scale: torch.Tensor,  # (B, S, KVH) f32 per-slot, per-head scales
+    v_scale: torch.Tensor,
+    cache_len: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+    pos_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token attention against an int8 cache: the whole cache is
+    dequantized to bf16 up front (``value * scale`` in fp32, rounded to
+    bf16), then :func:`decode_attention` runs on it, as the JAX oracle does.
+    The kernel dequantizes each tile as it loads it instead, to the same bf16
+    values. Returns (o (B, H, D) in q's dtype, lse (B, H) fp32)."""
+    kd = (k.float() * k_scale[..., None]).to(torch.bfloat16)
+    vd = (v.float() * v_scale[..., None]).to(torch.bfloat16)
+    return decode_attention(q, kd, vd, cache_len, scale=scale, window=window,
+                            pos_offset=pos_offset)
 
 
 def paged_decode_attention(
@@ -232,3 +257,139 @@ def fused_sample_rows(
     temperatures. Returns the tokens (B,) int32 only."""
     tok, _ = fused_sample(h, w_head, seeds, row_inv_temp(temps), vocab_size=vocab_size)
     return tok
+
+
+# --------------------------------------------------------------------------- #
+# Mamba2 / SSD
+# --------------------------------------------------------------------------- #
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    h0: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Sequential (exact) SSD recurrence, the oracle:
+
+        h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T        (per head)
+        y_t = C_t . h_t + D x_t
+
+    x (B,S,NH,P); dt (B,S,NH); A (NH,); B, C (B,S,G,N); D (NH,); h0
+    (B,NH,P,N) optional. Returns y (B,S,NH,P) in x's dtype [and the final
+    fp32 state if ``return_state``]."""
+    b, s, nh, p = x.shape
+    n = B.shape[3]
+    rep = nh // B.shape[2]
+    Bh = B.repeat_interleave(rep, dim=2).float()  # (B,S,NH,N)
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf = x.float(), dt.float()
+    h = (torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * A[None, :])[..., None, None]  # (B,NH,1,1)
+        dBx = (dtf[:, t, :, None, None] * Bh[:, t, :, None, :]) * xf[:, t, ..., None]
+        h = decay * h + dBx
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = torch.stack(ys, dim=1) + D[None, None, :, None] * xf
+    y = y.to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Stable segment sum: out[..., i, j] = sum_{j < k <= i} a[..., k] for
+    i >= j, -inf above the diagonal (its exp is then exactly 0)."""
+    T = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(T, device=a.device)[:, None]
+    j = torch.arange(T, device=a.device)[None, :]
+    return torch.where(i >= j, diff, -torch.inf)
+
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 128,
+    h0: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Chunked (state-space dual) form of :func:`ssd_scan`, what the kernel
+    computes: within a chunk, ``y = ((C B^T) o L) @ (dt x) + (C o
+    exp(a_cum)) @ h^T + D x`` with ``L[i, j] = exp(a_cum[i] - a_cum[j])``
+    below the diagonal; across chunks the fp32 state ``h`` is carried.
+    ``S`` must be a multiple of ``chunk`` (ValueError otherwise)."""
+    b, s, nh, p = x.shape
+    n = B.shape[3]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc = s // chunk
+    rep = nh // B.shape[2]
+    Bh = B.repeat_interleave(rep, dim=2).float()
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf = x.float(), dt.float()
+    a = dtf * A[None, None, :]  # (B,S,NH) log-decay per step
+
+    def ch(t):  # (B, NC, L, ...)
+        return t.reshape((b, nc, chunk) + tuple(t.shape[2:]))
+
+    xc, dtc, ac, Bc, Cc = ch(xf), ch(dtf), ch(a), ch(Bh), ch(Ch)
+
+    # intra-chunk: L[i, j] = exp(sum_{j<k<=i} a_k), lower-triangular
+    Lmat = torch.exp(_segsum(ac.transpose(-1, -2)))  # (B,NC,NH,L,L)
+    scores = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)
+    y_intra = torch.einsum("bchls,bcshp->bclhp", scores * Lmat, dtc[..., None] * xc)
+
+    # chunk states: sum_i exp(a_end..i) dt_i B_i x_i^T
+    a_cum = torch.cumsum(ac, dim=2)  # (B,NC,L,NH) inclusive
+    a_tot = a_cum[:, :, -1:, :]
+    decay_to_end = torch.exp(a_tot - a_cum)
+    states = torch.einsum("bclhn,bclhp->bchpn", Bc * (dtc * decay_to_end)[..., None], xc)
+
+    # inter-chunk recurrence over the chunk states
+    h = (torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    chunk_decay = torch.exp(a_tot[:, :, 0, :])  # (B,NC,NH)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)  # the state entering chunk c
+        h = chunk_decay[:, c, :, None, None] * h + states[:, c]
+    h_in = torch.stack(h_in, dim=1)  # (B,NC,NH,P,N)
+
+    # inter-chunk output: y_i += C_i . (exp(a_cum_i) h_in)
+    y_inter = torch.einsum("bclhn,bchpn->bclhp", Cc * torch.exp(a_cum)[..., None], h_in)
+
+    y = y_intra + y_inter + D[None, None, None, :, None] * xc
+    y = y.reshape(b, s, nh, p).to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_decode_step(
+    x: torch.Tensor,  # (B, NH, P)
+    dt: torch.Tensor,  # (B, NH)
+    A: torch.Tensor,  # (NH,)
+    B: torch.Tensor,  # (B, G, N)
+    C: torch.Tensor,  # (B, G, N)
+    D: torch.Tensor,  # (NH,)
+    h: torch.Tensor,  # (B, NH, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSD step. Returns (y (B, NH, P) in x's dtype, next state in
+    h's dtype)."""
+    rep = x.shape[1] // B.shape[1]
+    Bh = B.repeat_interleave(rep, dim=1).float()
+    Ch = C.repeat_interleave(rep, dim=1).float()
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(dtf * A[None, :])[..., None, None]
+    dBx = (dtf[..., None, None] * Bh[:, :, None, :]) * xf[..., None]
+    h_next = decay * h.float() + dBx
+    y = torch.einsum("bhpn,bhn->bhp", h_next, Ch) + D[None, :, None] * xf
+    return y.to(x.dtype), h_next.to(h.dtype)

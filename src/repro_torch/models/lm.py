@@ -1,5 +1,6 @@
-"""Decoder-only LM of the PyTorch port (port of ``repro.models.lm``), dense
-attention family.
+"""Decoder-only LM of the PyTorch port (port of ``repro.models.lm``): the
+dense attention family, the Mamba2 (SSD) family and the hybrids that mix
+attention and SSD layers with dense MLPs.
 
 Params are nested dicts like the JAX package's, with one difference: the JAX
 pytree stacks each block parameter over layers, ``(N, ...)`` per pattern
@@ -12,12 +13,16 @@ Three execution modes share the backbone:
   decode         — one token per sequence against the caches, or (with
                    ``page_tables``) against the serving page pool
 
-Caches: a list with one ``{"k", "v"}`` per layer, each (B, smax, KVH, hd).
-The serving page pool is the same layout with pages for rows:
-``init_caches(num_pages, page_size)``, each leaf (P, page_size, KVH, hd).
+Caches: a list with one dict per layer. An attention layer holds
+``{"k", "v"}``, each (B, smax, KVH, hd) bf16, or with ``cfg.kv_quant`` the
+int8 cache ``{"k", "v"}`` int8 with ``{"k_scale", "v_scale"}`` (B, smax, KVH)
+f32, one scale per slot and KV head. An SSD layer holds its constant-size
+decode state ``{"ssm", "conv_x", "conv_bc"}``. The serving page pool is the
+attention layout with pages for rows: ``init_caches(num_pages, page_size)``,
+each leaf (P, page_size, KVH, hd).
 
-Not ported yet: MoE, SSM/hybrid, sliding-window rings and the int8 KV cache;
-each raises ``NotImplementedError`` naming its ROADMAP item.
+Not ported yet: MoE, sliding-window rings, enc-dec, prefix embeds and
+parallel blocks; each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
@@ -35,19 +40,13 @@ Caches = List[Dict[str, torch.Tensor]]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of ``ModelConfig`` the port does not have yet."""
-    other = "(ROADMAP queue 1, item 9: other families)"
+    other = "(ROADMAP queue 1, item 7: other families)"
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"enc-dec is not ported yet {other}")
     if cfg.num_experts:
         raise NotImplementedError(f"MoE is not ported yet {other}")
-    if cfg.ssm_state:
-        raise NotImplementedError(
-            "SSM/hybrid mixers are not ported yet (ROADMAP queue 1, item 2: SSM/hybrid family)")
     if cfg.sliding_window is not None:
         raise NotImplementedError(f"sliding-window rings are not ported yet {other}")
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP queue 1, item 1: int8 KV cache)")
     if cfg.num_prefix_embeds > 1:
         raise NotImplementedError(f"prefix embeds are not ported yet {other}")
     if cfg.parallel_block:
@@ -55,23 +54,49 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# the layer pattern (what the JAX package stacks its params by)
+# --------------------------------------------------------------------------- #
+def smallest_period(kinds) -> int:
+    """The length of the smallest pattern that repeats to ``kinds``."""
+    L = len(kinds)
+    for p in range(1, L + 1):
+        if L % p == 0 and all(kinds[i] == kinds[i % p] for i in range(L)):
+            return p
+    return L
+
+
+def pattern_length(cfg: ModelConfig) -> int:
+    """``lm.pattern_length``: the period of ``cfg.layer_kinds()``."""
+    return smallest_period(cfg.layer_kinds())
+
+
+# --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
+def _init_block(cfg: ModelConfig, gen: torch.Generator, kind, *, device=None) -> Params:
+    """One layer's weights (``lm._init_block_pos``): norm1, the attention or
+    SSD mixer, and norm2 + the MLP unless the MLP kind is ``none``."""
+    mixer_kind, mlp_kind = kind
+    p: Params = {"norm1": layers.init_norm(cfg, device=device)}
+    if mixer_kind == "attn":
+        p["attn"] = layers.init_attention(cfg, gen, device=device)
+    else:
+        p["ssm"] = ssm.init_ssm(cfg, gen, device=device)
+    if mlp_kind != "none":
+        p["norm2"] = layers.init_norm(cfg, device=device)
+        p["mlp"] = layers.init_mlp(cfg, gen, device=device)
+    return p
+
+
 def init(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Params:
     """Random weights by the JAX package's scheme (``lm.init``): N(0, 1/fan_in)
     projections and N(0, 0.02^2) embeddings stored in bf16, zero norm
-    weights. Drawn from ``gen``, one layer after another; ``gen`` must live on
-    ``device``. The numbers differ from ``jax.random``'s: use the bridge to
-    run both packages on the same weights."""
+    weights, the SSD layers' own init (``ssm.init_ssm``). Drawn from ``gen``,
+    one layer after another; ``gen`` must live on ``device``. The numbers
+    differ from ``jax.random``'s: use the bridge to run both packages on the
+    same weights."""
     check_supported(cfg)
-    blocks = []
-    for _ in range(cfg.num_layers):
-        blocks.append({
-            "norm1": layers.init_norm(cfg, device=device),
-            "attn": layers.init_attention(cfg, gen, device=device),
-            "norm2": layers.init_norm(cfg, device=device),
-            "mlp": layers.init_mlp(cfg, gen, device=device),
-        })
+    blocks = [_init_block(cfg, gen, kind, device=device) for kind in cfg.layer_kinds()]
     v, d = cfg.padded_vocab, cfg.d_model
     embed = torch.randn((v, d), generator=gen, dtype=torch.float32, device=device)
     params: Params = {
@@ -87,8 +112,22 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Params:
 
 
 # --------------------------------------------------------------------------- #
-# attention mixer with cache plumbing
+# mixers with cache plumbing
 # --------------------------------------------------------------------------- #
+def quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., KVH, hd) -> (int8 values, f32 scales over hd), as ``lm.quant_kv``:
+    scale = max(max |x|, 1e-8) / 127 in fp32, values rounded half to even and
+    clipped to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequant_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(torch.bfloat16)
+
+
 def _attn_mixer(
     cfg: ModelConfig,
     p: Params,
@@ -115,6 +154,16 @@ def _attn_mixer(
         kc, vc = cache["k"], cache["v"]
         if hi > kc.shape[1]:
             raise ValueError(f"chunk [{chunk_offset}, {hi}) past the cache width {kc.shape[1]}")
+        if cfg.kv_quant:
+            # the chunk's rows are quantized into the int8 cache in place, and
+            # the chunk attends its prefix dequantized (lm.py:148-164)
+            ks, vs = cache["k_scale"], cache["v_scale"]
+            kc[:, chunk_offset:hi], ks[:, chunk_offset:hi] = quant_kv(k)
+            vc[:, chunk_offset:hi], vs[:, chunk_offset:hi] = quant_kv(v)
+            o = ops.flash_attention(q, dequant_kv(kc[:, :hi], ks[:, :hi]),
+                                    dequant_kv(vc[:, :hi], vs[:, :hi]), causal=True,
+                                    q_offset=chunk_offset)
+            return layers.out_proj(cfg, p, o), cache
         kc[:, chunk_offset:hi] = k.to(kc.dtype)
         vc[:, chunk_offset:hi] = v.to(vc.dtype)
         o = ops.flash_attention(q, kc[:, :hi], vc[:, :hi], causal=True,
@@ -132,6 +181,12 @@ def _attn_mixer(
         vc = torch.zeros((B, smax, kvh, hd), dtype=v.dtype, device=v.device)
         kc[:, :S] = k
         vc[:, :S] = v
+        if cfg.kv_quant:
+            # the whole zero-padded cache is quantized, as lm.py:190-194 does:
+            # the rows past the prompt get values 0 and scale 1e-8 / 127
+            kq, ks = quant_kv(kc)
+            vq, vs = quant_kv(vc)
+            return layers.out_proj(cfg, p, o), {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         return layers.out_proj(cfg, p, o), {"k": kc, "v": vc}
 
     if mode != "decode":
@@ -143,6 +198,8 @@ def _attn_mixer(
     if page_tables is not None:
         return _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables,
                              write_enable)
+    if cfg.kv_quant:
+        return _decode_quant(cfg, p, q, k_new, v_new, cache, cache_len)
     kc, vc = cache["k"], cache["v"]
     # The new K/V row is written into the cache in place at slot cache_len.
     # The JAX package rewrites the whole cache with a masked select instead
@@ -153,6 +210,21 @@ def _attn_mixer(
     vc[rows, cache_len.long()] = v_new[:, 0].to(vc.dtype)
     o, _ = ops.decode_attention(q[:, 0], kc, vc, cache_len + 1)
     return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
+
+
+def _decode_quant(cfg, p, q, k_new, v_new, cache, cache_len):
+    """int8-cache decode step (``lm._decode_quant``): the new K/V row is
+    quantized and written into the int8 cache in place at slot cache_len
+    (the JAX package rewrites the cache with a masked select), then the
+    fused-dequant decode kernel attends the int8 cache: it stays int8 in
+    device memory."""
+    kq, vq = cache["k"], cache["v"]
+    ks, vs = cache["k_scale"], cache["v_scale"]
+    rows, slot = torch.arange(q.shape[0], device=q.device), cache_len.long()
+    kq[rows, slot], ks[rows, slot] = quant_kv(k_new[:, 0])
+    vq[rows, slot], vs[rows, slot] = quant_kv(v_new[:, 0])
+    o, _ = ops.decode_attention_quant(q[:, 0], kq, vq, ks, vs, cache_len + 1)
+    return layers.out_proj(cfg, p, o)[:, None], cache
 
 
 def _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables, write_enable):
@@ -181,9 +253,26 @@ def _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables, write_
     return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
 
 
+def _ssm_mixer(cfg: ModelConfig, p: Params, h: torch.Tensor, mode: str,
+               cache: Optional[Dict[str, torch.Tensor]]):
+    """The SSD mixer (``lm._ssm_mixer``): prefill returns the decode state
+    after the prompt, decode steps it by one token."""
+    if mode == "prefill_chunk":
+        raise NotImplementedError(
+            "chunked prefill needs SSM state carried between chunks; "
+            "use whole-prompt prefill (prefill_chunk=0) for SSM/hybrid archs")
+    if mode == "prefill":
+        return ssm.apply_ssm(cfg, p, h, return_state=True)
+    if mode != "decode":
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported yet (full/training: ROADMAP queue 1)")
+    return ssm.apply_ssm_decode(cfg, p, h, cache)
+
+
 def _apply_block(
     cfg: ModelConfig,
     p: Params,
+    kind: Tuple[str, str],
     h: torch.Tensor,
     positions: Optional[torch.Tensor],
     mode: str,
@@ -194,13 +283,22 @@ def _apply_block(
     page_tables: Optional[torch.Tensor] = None,
     write_enable: Optional[torch.Tensor] = None,
 ):
+    """One layer of kind (mixer, mlp): pre-norm mixer and, unless the MLP
+    kind is ``none``, pre-norm dense MLP, each added to the residual."""
+    mixer_kind, mlp_kind = kind
     hn = layers.apply_norm(cfg, p["norm1"], h)
-    mix_out, new_cache = _attn_mixer(cfg, p["attn"], hn, positions, mode, cache,
-                                     cache_len, smax, chunk_offset, page_tables,
-                                     write_enable)
+    if mixer_kind == "attn":
+        mix_out, new_cache = _attn_mixer(cfg, p["attn"], hn, positions, mode, cache,
+                                         cache_len, smax, chunk_offset, page_tables,
+                                         write_enable)
+    else:
+        if page_tables is not None:
+            raise ValueError("paged decode: attention-only archs")
+        mix_out, new_cache = _ssm_mixer(cfg, p["ssm"], hn, mode, cache)
     h = h + mix_out
-    hn2 = layers.apply_norm(cfg, p["norm2"], h)
-    h = h + layers.apply_mlp(cfg, p["mlp"], hn2)
+    if mlp_kind != "none":
+        hn2 = layers.apply_norm(cfg, p["norm2"], h)
+        h = h + layers.apply_mlp(cfg, p["mlp"], hn2)
     return h, new_cache
 
 
@@ -220,9 +318,9 @@ def backbone(
 ) -> Tuple[torch.Tensor, Caches]:
     """Returns (final-normed h, new caches): a Python loop over the layers."""
     new_caches = []
-    for i, block in enumerate(params["blocks"]):
+    for i, (block, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
         cache = None if caches is None else caches[i]
-        h, c = _apply_block(cfg, block, h, positions, mode, cache, cache_len, smax,
+        h, c = _apply_block(cfg, block, kind, h, positions, mode, cache, cache_len, smax,
                             chunk_offset, page_tables, write_enable)
         new_caches.append(c)
     return layers.apply_norm(cfg, params["final_norm"], h), new_caches
@@ -252,12 +350,28 @@ def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 # public entry points
 # --------------------------------------------------------------------------- #
 def init_caches(cfg: ModelConfig, batch: int, smax: int, *, device=None) -> Caches:
-    """Zero bf16 caches, one ``{"k", "v"}`` (B, smax, KVH, hd) per layer."""
+    """Zero caches, one dict per layer (``lm.init_caches``): an attention
+    layer's ``{"k", "v"}`` (B, smax, KVH, hd) bf16, or int8 with f32
+    ``{"k_scale", "v_scale"}`` (B, smax, KVH) under ``kv_quant``; an SSD
+    layer's ``{"ssm", "conv_x", "conv_bc"}`` state."""
     check_supported(cfg)
     shape = (batch, smax, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
-            for _ in range(cfg.num_layers)]
+
+    def zeros(shape_, dtype):
+        return torch.zeros(shape_, dtype=dtype, device=device)
+
+    caches = []
+    for mixer_kind, _ in cfg.layer_kinds():
+        if mixer_kind != "attn":
+            caches.append({name: zeros(sh, dt)
+                           for name, (sh, dt) in ssm.ssm_state_shapes(cfg, batch).items()})
+        elif cfg.kv_quant:
+            caches.append({"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                           "k_scale": zeros(shape[:3], torch.float32),
+                           "v_scale": zeros(shape[:3], torch.float32)})
+        else:
+            caches.append({"k": zeros(shape, torch.bfloat16), "v": zeros(shape, torch.bfloat16)})
+    return caches
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, smax: int):
@@ -353,7 +467,9 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches
     chunk tokens (B, C) write their K/V into ``caches`` at [offset, offset+C)
     in place and attend the prefix [0, offset+C). Over consecutive chunks it
     computes what one whole-prompt :func:`prefill` does, up to float
-    reassociation. Returns (last-position logits (B, Vp) fp32, caches); the
+    reassociation; with ``kv_quant`` the chunk attends its prefix quantized
+    and dequantized, which whole-prompt prefill never does. SSD layers raise
+    (their state would have to carry between chunks). Returns (last-position logits (B, Vp) fp32, caches); the
     caller owns ``cache_len``."""
     check_supported(cfg)
     h = embed_tokens(cfg, params, tokens)

@@ -138,7 +138,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(reduced(get_config("mixtral-8x7b")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config("mamba2-2.7b")), device="cpu")
+        get_model(reduced(get_config("jamba-v0.1-52b")), device="cpu")
 
 
 def test_model_and_bridge_have_no_cpu_default(jax_params):

@@ -129,11 +129,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import repro_torch
         import repro_torch.obs.trace
         import repro_torch.serving
+        import repro_torch.kernels.decode_attention_quant
+        import repro_torch.kernels.ssd
+        import repro_torch.models.ssm
         names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
         assert set(["repro_torch.serving.engine", "repro_torch.serving.paged_arena",
-                    "repro_torch.obs.trace"]) <= set(names)
+                    "repro_torch.obs.trace", "repro_torch.models.ssm",
+                    "repro_torch.kernels.ssd",
+                    "repro_torch.kernels.decode_attention_quant"]) <= set(names)
         import chip_smoke
         assert not [m for m in sys.modules if m.startswith(("jax.", "repro.", "jaxlib"))]
         print(len(names))
