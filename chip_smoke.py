@@ -143,10 +143,13 @@ def kernel_phase(torch, ops, ref, F):
     """Hold each kernel against its plain version at the serving path's
     shapes; returns one record per kernel (launch counts filled in later)."""
     gen = torch.Generator(device=DEV).manual_seed(1234)
+    # the edge cases of the tensor-core flash and split-KV bodies draw from
+    # their own generator, so that every timed input keeps its draw from gen
+    edge_gen = torch.Generator(device=DEV).manual_seed(4321)
     dev = DEV
 
-    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16, g=gen):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     ops.set_mode(None)
     records = {}
@@ -207,15 +210,28 @@ def kernel_phase(torch, ops, ref, F):
         "plain_ms": device_ms(lambda: ref.flash_attention(q, k, v, causal=True)),
         "bound_ms": bms, "bound_by": by,
         "library_ms": device_ms(sdpa(qt, kt, vt, is_causal=True))}
-    # what the serving path does not use: no mask, window, q_offset, GQA,
-    # a ragged Sq, and the other head widths the kernel is built for
-    for kw, sq, hd in (({"causal": False}, PROMPT, 64), ({"window": 48}, PROMPT, 128),
-                       ({"q_offset": 32}, 77, HD)):
-        qq = randn(2, sq, 8, hd)
-        kk, vv = randn(2, PROMPT, 2, hd), randn(2, PROMPT, 2, hd)
+    # what the serving path does not use: no mask, a window, q_offset with Sk
+    # past Sq + q_offset (the keys after the last query causally hidden), GQA,
+    # a ragged Sq, the other head widths the kernel is built for (the first
+    # three, from gen); then Sq ragged against the 64-row block (1, 77, 130),
+    # GQA groups of 4 and 16, windows that start mid-tile, and q_offset with
+    # K/V a strided view of longer rows, Sk short of Sq + q_offset (edge_gen)
+    for sq, sk, h, kvh, hd, kw, strided, g in (
+            (PROMPT, PROMPT, 8, 2, 64, {"causal": False}, False, gen),
+            (PROMPT, PROMPT, 8, 2, 128, {"window": 48}, False, gen),
+            (77, PROMPT, 8, 2, HD, {"q_offset": 32}, False, gen),
+            (1, 40, 16, 1, HD, {"q_offset": 39}, True, edge_gen),
+            (77, 96, 8, 2, HD, {"q_offset": 32}, True, edge_gen),
+            (130, 130, 16, 1, 128, {}, False, edge_gen),
+            (130, 130, 4, 1, HD, {"window": 40}, False, edge_gen),
+            (PAGE, 3 * PAGE, 16, 1, 64, {"q_offset": 2 * PAGE}, True, edge_gen)):
+        qq = randn(2, sq, h, hd, g=g)
+        width = sk + 24 if strided else sk
+        kk, vv = randn(2, width, kvh, hd, g=g)[:, :sk], randn(2, width, kvh, hd, g=g)[:, :sk]
         ok, err2 = close(ops.flash_attention(qq, kk, vv, **kw),
                          ref.flash_attention(qq, kk, vv, **kw), BF16_TOL)
-        require(ok, f"flash_attention {kw} Sq={sq} D={hd}: max abs err {err2}")
+        require(ok, f"flash_attention {kw} Sq={sq} Sk={sk} H={h} KVH={kvh} D={hd} "
+                    f"strided={strided}: max abs err {err2}")
     # the streaming path's prefill chunk: 16 queries at q_offset 32 against
     # the first 48 positions of 256-wide admission rows (a strided view)
     R, C, OFF = SLOTS, PAGE, 2 * PAGE
@@ -242,6 +258,10 @@ def kernel_phase(torch, ops, ref, F):
         "bound_ms": bms, "bound_by": by,
         "library_ms": device_ms(sdpa(qc.transpose(1, 2), kch.transpose(1, 2),
                                      vch.transpose(1, 2), attn_mask=cmask))}
+    # two launches on the same inputs give the same bits
+    for args, kw in (((q, k, v), {}), ((qc, kch, vch), {"q_offset": OFF})):
+        require(torch.equal(ops.flash_attention(*args, **kw), ops.flash_attention(*args, **kw)),
+                f"flash_attention {kw}: two launches differ")
     print(json.dumps({"check": "flash_attention", **records["flash_attention"]}), flush=True)
 
     # ---- decode attention: one token against the cache, ragged lengths ----
@@ -302,6 +322,28 @@ def kernel_phase(torch, ops, ref, F):
                                                         ref.paged_decode_attention))
         require(close(a[0], b[0], BF16_TOL)[0] and close(a[1], b[1], LSE_TOL)[0],
                 f"paged_decode_attention D={hd}")
+    # the split-KV edges, at each head width's own split: one key, a length
+    # on a split boundary and one past it, the full table (stale entries
+    # past every live span, as above)
+    from repro_torch.kernels.paged_decode_attention import split_pages
+
+    for hd, h, kvh in ((HD, H, KVH), (128, 8, 2), (64, 8, 2)):
+        sk = split_pages(SLOTS, h, kvh, T, PAGE) * PAGE
+        edge = torch.tensor([1, sk, sk + 1, T * PAGE, 2 * sk, 2 * sk + 1, sk - 1, 2],
+                            dtype=torch.int32, device=dev)
+        qq, pk, pv = (randn(SLOTS, h, hd, g=edge_gen), randn(P, PAGE, kvh, hd, g=edge_gen),
+                      randn(P, PAGE, kvh, hd, g=edge_gen))
+        a, b = (f(qq, pk, pv, tables, edge) for f in (ops.paged_decode_attention,
+                                                      ref.paged_decode_attention))
+        ok, err2 = close(a[0], b[0], BF16_TOL)
+        ok_l, err2_l = close(a[1], b[1], LSE_TOL)
+        require(ok and ok_l, f"paged_decode_attention D={hd} H={h} KVH={kvh} split {sk} keys, "
+                             f"kv_len {edge.tolist()}: o err {err2}, lse err {err2_l}")
+    # two launches on the same inputs give the same bits
+    a = ops.paged_decode_attention(qp, pool_k, pool_v, tables, kv_len)
+    b = ops.paged_decode_attention(qp, pool_k, pool_v, tables, kv_len)
+    require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+            "paged_decode_attention: two launches differ")
     live = int(kv_len.sum())
     nbytes = (2 * qp.numel() * 2 + SLOTS * H * 4 + tables.numel() * 4 + SLOTS * 4
               + live * KVH * HD * 2 * 2)
@@ -320,8 +362,10 @@ def kernel_phase(torch, ops, ref, F):
         "bound_ms": bms, "bound_by": by,
         "library_ms": device_ms(sdpa(qp[:, :, None], kg, vg, attn_mask=pmask)),
         "library_note": "SDPA on K/V gathered beforehand (the gather excluded)"}
-    print(json.dumps({"check": "paged_decode_attention", **records["paged_decode_attention"]}),
-          flush=True)
+    # the pages per split are the wrapper's own choice for this shape, shown
+    # on the check line only (a computed number, not a measurement)
+    print(json.dumps({"check": "paged_decode_attention", **records["paged_decode_attention"],
+                      "split_pages": split_pages(SLOTS, H, KVH, T, PAGE)}), flush=True)
 
     # ---- fused sample: head = tied embedding (256000, 2048), never copied ----
     V = VOCAB

@@ -1,13 +1,15 @@
 // One block's online-softmax attention of up to 16 query rows against a range
-// of keys of one KV head: the body shared by flash_attention.cu (rows are
-// query positions of one head), decode_attention.cu,
-// paged_decode_attention.cu and decode_attention_quant.cu (rows are the query
-// heads of one KV group, one position each). How key j's K and V rows reach
-// shared memory is the caller's, through a loader policy:
+// of keys of one KV head, on the CUDA cores: the body of decode_attention.cu
+// and decode_attention_quant.cu (rows are the query heads of one KV group,
+// one position each). flash_attention.cu and paged_decode_attention.cu no
+// longer use it: they take their products on the tensor cores (flash's own
+// body; split_kv.cuh for the paged decode, which reuses the loader policies
+// below). How key j's K and V rows reach shared memory is the caller's,
+// through a loader policy:
 //   Bf16Rows  bf16 rows, found by a functor that maps a key to the element
 //             offset of its row, contiguous (Strided) or through a block
-//             table of pages (paged_decode_attention.cu; a 32-key tile may
-//             span pages);
+//             table of pages (the paged functor of
+//             paged_decode_attention.cu, under split_kv.cuh);
 //   Int8Rows  int8 rows with one f32 scale per key, dequantized to bf16
 //             (value * scale in fp32, rounded to nearest) as they land, so
 //             the bf16 cache never exists in device memory

@@ -13,6 +13,7 @@ namespace repro {
 
 constexpr float kNegInf = -1e30f;  // the JAX package's NEG_INF: finite, so
                                    // NEG_INF - NEG_INF is 0, never NaN
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * log2(e))
 
 // two bf16 values packed in one 32-bit word -> two floats (exact)
 __device__ __forceinline__ float2 bf2_to_f2(uint32_t w) {

@@ -92,6 +92,12 @@ def paged_decode_attention(
     return _paged_decode_attention(q, pool_k, pool_v, tables, kv_len, scale=scale)
 
 
+def combine_decode_shards(o_parts, lse_parts):
+    """Merge per-shard (o, lse) of disjoint key ranges: plain torch on every
+    device, as in the JAX package (it has no Pallas kernel)."""
+    return _ref.combine_decode_shards(o_parts, lse_parts)
+
+
 def fused_sample(
     h, w_head, seeds, inv_temp, *, vocab_size=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:

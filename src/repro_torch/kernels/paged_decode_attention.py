@@ -8,6 +8,12 @@ valid positions per row; returns (o (B, H, D) bf16, lse (B, H) fp32).
 The kernel reads the table entries of each row's live span,
 ``tables[b, :ceil(kv_len[b] / page_size)]``, as page ids: they must lie in
 [0, P). Entries past the live span are never read and may hold anything.
+
+The kernel splits each row's keys into ``ceil(T / split_pages)`` splits of
+whole pages (:func:`split_pages`, from the table's shape alone, never from
+``kv_len``), attends each split in its own block and merges the splits'
+partials by their lse in a fixed order (``ref.combine_decode_shards``'s
+arithmetic). The wrapper allocates the fp32 partials.
 """
 from __future__ import annotations
 
@@ -28,8 +34,22 @@ _c = ctypes
 def _fwd():
     return _build.entry("paged_decode_attention", "paged_decode_attention_fwd", [
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-        _c.c_float, _c.c_int, _c.c_void_p])
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+        _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int, _c.c_void_p])
+
+
+TARGET_BLOCKS = 128  # about one block per SM of an H100 (132)
+MIN_SPLIT_KEYS = 16  # one k-step of the value product's mma
+
+
+def split_pages(B: int, H: int, KVH: int, T: int, page_size: int) -> int:
+    """Pages per split of the kernel: enough splits that ``B * KVH`` groups
+    of up to 16 heads fill about TARGET_BLOCKS blocks, each split at least
+    MIN_SPLIT_KEYS keys. A function of the shapes only: reading ``kv_len``
+    would cost the decode step a host sync."""
+    groups = B * KVH * -(-(H // KVH) // 16)
+    splits = max(1, -(-TARGET_BLOCKS // groups))
+    return min(T, max(-(-MIN_SPLIT_KEYS // page_size), -(-T // splits)))
 
 
 def paged_decode_attention(
@@ -59,12 +79,16 @@ def paged_decode_attention(
     _build.require(D in HEAD_DIMS,
                    f"paged_decode_attention kernel: head_dim {D} not in {HEAD_DIMS}")
     scale = scale if scale is not None else 1.0 / (D**0.5)
+    sp = split_pages(B, H, KVH, T, ps)
+    nsplit = -(-T // sp)
     o = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    o_part = torch.empty((nsplit, B, H, D), dtype=torch.float32, device=q.device)
+    lse_part = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
     device, stream = _build.launch_site(q)
     err = _fwd()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
-                 kv_len.data_ptr(), o.data_ptr(), lse.data_ptr(), B, T, ps, H, KVH, D, scale,
-                 device, stream)
+                 kv_len.data_ptr(), o.data_ptr(), lse.data_ptr(), o_part.data_ptr(),
+                 lse_part.data_ptr(), B, T, ps, H, KVH, D, sp, scale, device, stream)
     _build.check(_build.library("paged_decode_attention"), err, "paged_decode_attention")
     _build.LAUNCHES["paged_decode_attention"] += 1
     return o, lse

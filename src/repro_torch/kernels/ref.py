@@ -163,6 +163,22 @@ def paged_decode_attention(
     return decode_attention(q, kg, vg, kv_len, scale=scale)
 
 
+def combine_decode_shards(o_parts: torch.Tensor, lse_parts: torch.Tensor, *,
+                          return_lse: bool = False):
+    """Exactly combine per-shard (o, lse) of disjoint key ranges, the JAX
+    package's ``combine_decode_shards``: o_parts (P, B, H, D), lse_parts
+    (P, B, H); ``sum_p o_p exp(lse_p - M) / max(sum_p exp(lse_p - M), 1e-20)``
+    with ``M = max_p lse_p``, in o_parts' dtype. With ``return_lse`` also the
+    merged lse, ``M + log(max(sum_p exp(lse_p - M), 1e-20))`` (fp32). The plain
+    version of the merge step of ``csrc/paged_decode_attention.cu``."""
+    m = torch.amax(lse_parts, dim=0, keepdim=True)
+    w = torch.exp(lse_parts - m)
+    num = torch.sum(o_parts.float() * w[..., None], dim=0)
+    den = torch.clamp(torch.sum(w, dim=0), min=1e-20)
+    o = (num / den[..., None]).to(o_parts.dtype)
+    return (o, (m[0] + torch.log(den)).float()) if return_lse else o
+
+
 # --------------------------------------------------------------------------- #
 # fused sampling: head product + hash Gumbel-max + untempered logprob
 # --------------------------------------------------------------------------- #

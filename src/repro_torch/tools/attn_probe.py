@@ -1,0 +1,166 @@
+"""Where the time of the port's tensor-core attention kernels goes, on one
+NVIDIA GPU: ``PYTHONPATH=src python3 -m repro_torch.tools.attn_probe`` from
+the root of a checkout (no JAX, no network; builds into ``build/``).
+
+It reads the kernels' own device durations from torch.profiler (CUPTI),
+which leaves out the gaps between launches that ``chip_smoke.py``'s
+event timings include, and prints one JSON line each:
+
+  per_tile    the steady-state cost of one key tile: flash over one block of
+              rows against 512 and 4096 keys (32-key tiles), the split body
+              over one row of 4096 keys in one split and in eight (16-key
+              tiles), each as the difference over the added tiles;
+  breakdown   ``flash_attention`` at the lockstep prompt (B=8, 128
+              positions, 16 heads on one KV head of 256, causal) and at the
+              streaming chunk (16 queries at q_offset 32 against a strided
+              48-key view), as the port builds it and built again with the
+              probe macros of ``csrc/flash_attention.cu``: copies only (no
+              products, no softmax), products only (no K/V copies), and
+              blocks of 2 and of 8 warps in place of 4. Each build is timed
+              in two interleaved rounds. The warp variants compute the same
+              rows in the same key order, so their outputs must equal the
+              port's bit for bit.
+
+The card's name and power limit come first, as ``nvidia-smi`` gives them.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+
+VARIANTS = {  # build name -> nvcc defines
+    "copies_only": ("-DFA_PROBE_COPIES_ONLY",),
+    "products_only": ("-DFA_PROBE_PRODUCTS_ONLY",),
+    "warps2": ("-DFA_WARPS=2",),
+    "warps8": ("-DFA_WARPS=8",),
+}
+
+
+def cupti_us(torch, fn, n: int = 30):
+    """Mean device duration (us) of each kernel one call of fn launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key.split("<")[0].split("::")[-1]: ev.device_time_total / ev.count
+            for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
+def flash_variants(_build, argtypes):
+    """ctypes entry points of ``csrc/flash_attention.cu`` built with each of
+    VARIANTS' defines, all nvcc processes at once, into ``build/probe/``."""
+    out_dir = _build.BUILD_DIR.parent / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = {name: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, *defs, "-o", str(out_dir / f"{name}.so"),
+         str(_build.CSRC / "flash_attention.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, defs in VARIANTS.items()}
+    fns = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc flash_attention.cu ({name}):\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        fn = lib.flash_attention_fwd
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        fns[name] = (lib, fn)
+    return fns
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("attn_probe: CUDA is not available; this tool runs on a GPU", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    _build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    # steady state: one flash block (4 positions x 16 heads) against long keys
+    ql, kl, vl = randn(1, 4, 16, 256), randn(1, 4096, 1, 256), randn(1, 4096, 1, 256)
+    fl = {sk: sum(cupti_us(torch, lambda: fa.flash_attention(
+        ql, kl[:, :sk], vl[:, :sk], causal=False)).values()) for sk in (512, 4096)}
+    # one row of 4096 keys through the split entry point at a forced split
+    PL, PS = 300, 16
+    pk_l, pv_l, qpl = randn(PL, PS, 1, 256), randn(PL, PS, 1, 256), randn(1, 16, 256)
+    tl = torch.randperm(PL, generator=gen, device="cuda")[:256].reshape(1, 256).to(torch.int32)
+    lens = torch.tensor([4096], dtype=torch.int32, device="cuda")
+    o, lse = torch.empty_like(qpl), torch.empty((1, 16), dtype=torch.float32, device="cuda")
+    parts = torch.empty((256, 1, 16, 256), dtype=torch.float32, device="cuda")
+    lparts = torch.empty((256, 1, 16), dtype=torch.float32, device="cuda")
+    dev, stream = _build.launch_site(qpl)
+
+    def split_at(pages):
+        return lambda: pda._fwd()(qpl.data_ptr(), pk_l.data_ptr(), pv_l.data_ptr(), tl.data_ptr(),
+                                  lens.data_ptr(), o.data_ptr(), lse.data_ptr(), parts.data_ptr(),
+                                  lparts.data_ptr(), 1, 256, PS, 16, 1, 256, pages, 1 / 16, dev,
+                                  stream)
+    sp = {keys: cupti_us(torch, split_at(keys // PS)) for keys in (512, 4096)}
+    split_key = next(n for n in sp[4096] if "split" in n)
+    print(json.dumps({"per_tile": {
+        "flash_us_per_32_keys": (fl[4096] - fl[512]) / ((4096 - 512) / 32),
+        "flash_one_block_us": fl,
+        "split_us_per_16_keys": (sp[4096][split_key] - sp[512][split_key]) / ((4096 - 512) / 16),
+        "split_one_row_4096_keys_us": {"one split": sp[4096], "eight splits": sp[512]}}}),
+          flush=True)
+
+    # the serving shapes: padded heads 8..15 are zero, as the model passes them
+    q, k, v = randn(8, 128, 16, 256), randn(8, 128, 1, 256), randn(8, 128, 1, 256)
+    qc, rows_k, rows_v = randn(8, 16, 16, 256), randn(8, 256, 1, 256), randn(8, 256, 1, 256)
+    q[:, :, 8:] = 0
+    qc[:, :, 8:] = 0
+    kc, vc = rows_k[:, :48], rows_v[:, :48]
+    shapes = {  # (q, k, v, Sq, Sk, q_offset)
+        "prompt": (q, k, v, 128, 128, 0),
+        "chunk": (qc, kc, vc, 16, 48, 32),
+    }
+    builds = {"kernel": (_build.library("flash_attention"), fa._fwd()),
+              **flash_variants(_build, fa._fwd().argtypes)}
+    outs = {(name, tag): torch.empty_like(a[0]) for name in builds for tag, a in shapes.items()}
+
+    def call(name, tag):
+        lib, fn = builds[name]
+        qq, kk, vv, sq, sk, off = shapes[tag]
+        out = outs[name, tag]
+        return lambda: _build.check(lib, fn(
+            qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), out.data_ptr(), 8, sq, sk, 16, 1, 256,
+            kk.stride(0), 1 / 16, 1, 0, off, dev, stream), f"flash_attention ({name})")
+
+    breakdown = {name: {tag: [] for tag in shapes} for name in builds}
+    for _ in range(2):
+        for name in builds:
+            for tag in shapes:
+                breakdown[name][tag].append(sum(cupti_us(torch, call(name, tag)).values()))
+    torch.cuda.synchronize()
+    same = {f"{name}/{tag}": torch.equal(outs[name, tag], outs["kernel", tag])
+            for name in ("warps2", "warps8") for tag in shapes}
+    print(json.dumps({"breakdown_us": breakdown, "warp_variants_bit_equal": same}), flush=True)
+    if not all(same.values()):
+        print(f"attn_probe: a warp variant differs from the port's kernel: {same}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
