@@ -15,7 +15,10 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      16, 256 positions, prefill chunks of 16 queries at an offset; the int8
      cache of 160 slots), and mamba2-2.7b (the SSD scan of an 8 x 128
      prefill and of a four-chunk sequence, norms over 2560 and 5120, the
-     sampler over a 50,432-row head).
+     sampler over a 50,432-row head). The three split-KV decode kernels are
+     also held at the edges of their splits (lengths around split
+     boundaries, windows, a row with no live key), and every attention
+     kernel must give the same bits on two launches.
   3. Lockstep end to end: ``repro_torch.launch.serve --lockstep`` at full
      gemma-2b width and depth with random weights, greedy then temperature
      0.8; the launch counters must show every kernel of the path, the tokens
@@ -264,6 +267,8 @@ def kernel_phase(torch, ops, ref, F):
                 f"flash_attention {kw}: two launches differ")
     print(json.dumps({"check": "flash_attention", **records["flash_attention"]}), flush=True)
 
+    from repro_torch.kernels.split_rule import split_keys
+
     # ---- decode attention: one token against the cache, ragged lengths ----
     qd = randn(B, H, HD)
     qd[:, REAL_HEADS:] = 0
@@ -281,6 +286,8 @@ def kernel_phase(torch, ops, ref, F):
             qq, kk, vv, n, **kw)
         require(close(a[0], b[0], BF16_TOL)[0] and close(a[1], b[1], LSE_TOL)[0],
                 f"decode_attention {kw} D={hd}")
+    require(same_bits(lambda: ops.decode_attention(qd, kc, vc, lens)),
+            "decode_attention: two launches differ")
     live = int(lens.sum())
     nbytes = 2 * qd.numel() * 2 + B * H * 4 + live * KVH * HD * 2 * 2
     bms, by = bound_ms(nbytes, 4 * H * HD * live, BF16_TENSOR_FLOP_PER_S)
@@ -293,7 +300,10 @@ def kernel_phase(torch, ops, ref, F):
         "plain_ms": device_ms(lambda: ref.decode_attention(qd, kc, vc, lens)),
         "bound_ms": bms, "bound_by": by,
         "library_ms": device_ms(sdpa(qdt, kct, vct, attn_mask=mask))}
-    print(json.dumps({"check": "decode_attention", **records["decode_attention"]}), flush=True)
+    # the keys per split are the wrapper's own choice for this shape, shown on
+    # the check line only (a computed number, not a measurement)
+    print(json.dumps({"check": "decode_attention", **records["decode_attention"],
+                      "split_keys": split_keys(B, H, KVH, SMAX)}), flush=True)
 
     # ---- paged decode attention: the streaming burst's step, 8 slots over a
     # pool of 384 pages (+ the sink) in shuffled order, ragged lengths, and
@@ -325,7 +335,7 @@ def kernel_phase(torch, ops, ref, F):
     # the split-KV edges, at each head width's own split: one key, a length
     # on a split boundary and one past it, the full table (stale entries
     # past every live span, as above)
-    from repro_torch.kernels.paged_decode_attention import split_pages
+    from repro_torch.kernels.split_rule import split_pages
 
     for hd, h, kvh in ((HD, H, KVH), (128, 8, 2), (64, 8, 2)):
         sk = split_pages(SLOTS, h, kvh, T, PAGE) * PAGE
@@ -424,6 +434,8 @@ def kernel_phase(torch, ops, ref, F):
         b = ref.decode_attention_quant(qq, kk, vv, ks2, vs2, n, **kw)
         require(close(a[0], b[0], BF16_TOL)[0] and close(a[1], b[1], LSE_TOL)[0],
                 f"decode_attention_quant {kw} D={hd}")
+    require(same_bits(lambda: ops.decode_attention_quant(qd, kq, vq, ksc, vsc, lens_q)),
+            "decode_attention_quant: two launches differ")
     live = int(lens_q.sum())
     nbytes = 2 * qd.numel() * 2 + B * H * 4 + live * KVH * (HD + 4) * 2
     bms, by = bound_ms(nbytes, 4 * H * HD * live, BF16_TENSOR_FLOP_PER_S)
@@ -438,8 +450,9 @@ def kernel_phase(torch, ops, ref, F):
         "bound_ms": bms, "bound_by": by,
         "library_ms": device_ms(sdpa(qd[:, :, None], kdq, vdq, attn_mask=qmask)),
         "library_note": "SDPA on K/V dequantized beforehand (the dequantization not timed)"}
-    print(json.dumps({"check": "decode_attention_quant", **records["decode_attention_quant"]}),
-          flush=True)
+    print(json.dumps({"check": "decode_attention_quant", **records["decode_attention_quant"],
+                      "split_keys": split_keys(B, H, KVH, SMAX)}), flush=True)
+    split_decode_edges(torch, ops, ref, quant_kv, lambda *shape: randn(*shape, g=edge_gen))
 
     # ---- ssd: the mamba2-2.7b prefill (8 x 128 positions, one chunk) and a
     # four-chunk sequence that exercises the carried state ----
@@ -476,6 +489,64 @@ def kernel_phase(torch, ops, ref, F):
               flush=True)
     records["ssd"] = {**rec["prefill"], "multi_chunk": rec["multi_chunk"]}
     return records
+
+
+def same_bits(fn) -> bool:
+    """Two calls of fn (a kernel on the same inputs) give the same bits."""
+    a, b = fn(), fn()
+    return all(x.equal(y) for x, y in zip(a, b))
+
+
+def check_decode(torch, ref, got, want, cache_len, pos_offset: int, what: str):
+    """A decode kernel's (o, lse) against its plain version's. A row with no
+    live key (cache_len <= pos_offset) is o = 0 in both and lse at or below
+    NEG_INF / 2 in both (the kernel, as the TPU kernel, gives NEG_INF +
+    log(1e-20); the plain version, as the JAX reference, NEG_INF / 2); every
+    other row within BF16_TOL (o) and LSE_TOL (lse)."""
+    empty = cache_len <= pos_offset
+    live = ~empty
+    ok, err = close(got[0][live], want[0][live], BF16_TOL)
+    ok_l, err_l = close(got[1][live], want[1][live], LSE_TOL)
+    floor = torch.tensor(ref.NEG_INF / 2, dtype=torch.float32)
+    ok_e = all(bool((o[empty] == 0).all()) and bool((lse[empty].cpu() <= floor).all())
+               for o, lse in (got, want))
+    require(ok and ok_l and ok_e, f"{what}: o err {err}, lse err {err_l}, "
+                                  f"empty rows {empty.tolist()} as specified: {ok_e}")
+
+
+def split_decode_edges(torch, ops, ref, quant_kv, randn):
+    """Both contiguous decode kernels at the edges of their splits, each head
+    shape at its own split (``split_rule.split_keys``): one key, a length on
+    a split boundary, one past it, the full cache, two splits and a key,
+    two splits, one short of a split, three splits; no window, window 40
+    (across split boundaries), a window of two splits (rows of three splits
+    start and end on a boundary), pos_offset 16 with one row of cache_len
+    16 (no live key), and pos_offset with a window. ``randn`` draws from the
+    edge cases' own generator."""
+    from repro_torch.kernels.split_rule import split_keys
+
+    for hd, h, kvh in ((HEAD_DIM, HEADS, 1), (HEAD_DIM, 32, 1), (128, 8, 2), (64, 8, 2)):
+        sk = split_keys(B, h, kvh, SMAX)
+        lens = torch.tensor([1, sk, sk + 1, SMAX, 2 * sk + 1, 2 * sk, sk - 1, 3 * sk],
+                            dtype=torch.int32, device=DEV)
+        shifted = lens + 16
+        shifted[0] = 16
+        q, k, v = randn(B, h, hd), randn(B, SMAX, kvh, hd), randn(B, SMAX, kvh, hd)
+        (kq, ks), (vq, vs) = quant_kv(k), quant_kv(v)
+        for n, kw in ((lens, {}), (lens, {"window": 40}), (lens, {"window": 2 * sk}),
+                      (shifted, {"pos_offset": 16}), (shifted, {"pos_offset": 16, "window": 40})):
+            what = f"D={hd} H={h} KVH={kvh} split {sk} keys, cache_len {n.tolist()}, {kw}"
+            check_decode(torch, ref, ops.decode_attention(q, k, v, n, **kw),
+                         ref.decode_attention(q, k, v, n, **kw), n, kw.get("pos_offset", 0),
+                         f"decode_attention {what}")
+            check_decode(torch, ref, ops.decode_attention_quant(q, kq, vq, ks, vs, n, **kw),
+                         ref.decode_attention_quant(q, kq, vq, ks, vs, n, **kw), n,
+                         kw.get("pos_offset", 0), f"decode_attention_quant {what}")
+        require(same_bits(lambda: ops.decode_attention(q, k, v, shifted, pos_offset=16))
+                and same_bits(lambda: ops.decode_attention_quant(q, kq, vq, ks, vs, shifted,
+                                                                 pos_offset=16)),
+                f"D={hd} H={h} KVH={kvh}: two launches of a decode kernel differ")
+    print(json.dumps({"check": "split_decode_edges", "ok": True}), flush=True)
 
 
 def sampler_at(torch, ops, ref, randn, gen, V, D):

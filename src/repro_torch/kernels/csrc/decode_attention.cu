@@ -10,86 +10,111 @@
 // KV group together.
 //
 // What bounds it on an H100: it reads each row's live K and V once, at most
-// 8 x 160 x 256 x 2 B x 2 = 1.3 MB at the serving slice's shapes (B=8, one KV
-// head, D=256), which the memory moves in well under a microsecond; launch
-// latency and the few blocks in flight bound it in practice.
+// 8 x 160 x 256 x 2 B x 2 = 1.3 MB at the lockstep serving shape (B=8, one
+// KV head, D=256), which the memory moves in well under a microsecond. What
+// bounds it in practice is latency: the chain of one block's loads,
+// products and stores, and the two launches.
 //
-// What the design does about it: the 16 query heads of the one KV group are
-// the 16 rows of one block, so each K/V tile is read once for all of them
-// (the TPU kernel's grouping). The ragged fetch-skip becomes per-row loop
-// bounds: a block walks only keys [first, last) of its row, first set by the
-// window and last by cache_len, so dead tiles are never loaded. One block per
-// (row, KV head) is only 8 blocks at B=8 on 132 SMs: correct, and slow by
-// design for now; splitting S across blocks with an lse combine is later work.
-#include "attn_tile.cuh"
+// What the design does about it (split_kv.cuh): the S slots are cut into
+// splits of split_keys keys (the wrapper's split_rule.split_keys, from the
+// shapes alone, never from cache_len), one block of four warps per (split,
+// 16 heads of a KV group, row): at the lockstep shape 10 splits of one
+// 16-key tile, 80 blocks. The 16 heads are the M of mma.m16n8k16, so both
+// products run on the tensor cores and each K/V tile is read once for all
+// of them (the TPU kernel's grouping). The ragged fetch-skip becomes the
+// block's key range: a block attends only its split's share of the row's
+// live keys [first, last) (first set by the window, last by cache_len), and
+// a split with none writes lse NEG_INF and reads nothing. K/V rows arrive by
+// cp.async. A second kernel merges the splits by their lse in a fixed order,
+// with no atomics. A row with no live key comes out as the TPU kernel's: o =
+// 0 and lse = NEG_INF + log(1e-20).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (chip_smoke.py,
+// PERF.md section 6): 11.2 us for both launches at the lockstep step against
+// 20.9 us for one SDPA call (0.54x); the CUDA-core body it replaces, one block
+// per (row, KV head), took 47.8 us. Its own device time (attn_probe): split
+// 3.1 us, merge 2.9 us; the rest is the gap between the two launches.
+#include "split_kv.cuh"
 
 namespace {
 
-using repro::attn::kRows;
-using repro::attn::kThreads;
-using repro::attn::Smem;
-
-// The key range [first, last) of the row is the whole mask.
-struct NoMask {
-  __device__ bool operator()(int, int) const { return true; }
-};
+using repro::split::kRows;
+using repro::split::kThreads;
+using repro::split::NoMask;
+using repro::split::Smem;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, const int* __restrict__ cache_len,
-                            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int H,
-                            int KVH, float scale, int window, int pos_offset) {
+    decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ cache_len,
+                        float* __restrict__ o_part, float* __restrict__ lse_part, int B, int S,
+                        int H, int KVH, int split_keys, int rtiles, float scale, int window,
+                        int pos_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int group = H / KVH;
-  const int r0 = blockIdx.x * kRows;
+  const int s = blockIdx.x, kvh = blockIdx.y / rtiles, b = blockIdx.z;
+  const int group = H / KVH, r0 = (blockIdx.y % rtiles) * kRows;
   const int nrows = min(kRows, group - r0);
   const long head0 = static_cast<long>(b) * H + static_cast<long>(kvh) * group + r0;
+  repro::split::load_q<D>(sm, q + head0 * D, nrows);
+
+  const int2 live = repro::split::live_range(cache_len[b], S, window, pos_offset);
+  const int k_begin = max(s * split_keys, live.x), k_end = min((s + 1) * split_keys, live.y);
   const long kv_stride = static_cast<long>(KVH) * D;
   const long kv_at = static_cast<long>(b) * S * kv_stride + static_cast<long>(kvh) * D;
-
-  // valid: pos_offset + key < len, and (window) pos_offset + key > len - 1 - window
-  const int len = cache_len[b];
-  const int last = max(0, min(S, len - pos_offset));
-  const int first = window > 0 ? min(last, max(0, len - window - pos_offset)) : 0;
   using Rows = repro::attn::Bf16Rows<repro::attn::Strided>;
-  repro::attn::attend_rows<D>(sm, q + head0 * D, D, nrows,
-                              Rows{k + kv_at, v + kv_at, repro::attn::Strided{kv_stride}},
-                              first, last, scale, NoMask{}, o + head0 * D, D, lse + head0);
+  const Rows rows{k + kv_at, v + kv_at, repro::attn::Strided{kv_stride}};
+  const long part = static_cast<long>(s) * B * H + head0;
+  repro::split::attend_split<D>(sm, nrows, rows, k_begin, k_end, scale, NoMask{},
+                                o_part + part * D, lse_part + part);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* cache_len, void* o, void* lse,
-           int B, int S, int H, int KVH, float scale, int window, int pos_offset,
-           cudaStream_t stream) {
+           void* o_part, void* lse_part, int B, int S, int H, int KVH, int split_keys,
+           float scale, int window, int pos_offset, cudaStream_t stream) {
   const size_t smem = sizeof(Smem<D>);
-  cudaError_t err = repro::allow_smem(decode_attention_kernel<D>, smem);
+  cudaError_t err = repro::allow_smem(decode_split_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const int group = H / KVH;
-  const dim3 grid((group + kRows - 1) / kRows, KVH, B);
-  decode_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const int rtiles = (H / KVH + kRows - 1) / kRows;
+  const int nsplit = (S + split_keys - 1) / split_keys;
+  const dim3 grid(nsplit, KVH * rtiles, B);
+  decode_split_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(cache_len),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, H, KVH, scale, window,
-      pos_offset);
-  return cudaGetLastError();
+      static_cast<float*>(o_part), static_cast<float*>(lse_part), B, S, H, KVH, split_keys,
+      rtiles, scale, window, pos_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return repro::split::combine<D>(static_cast<const float*>(o_part),
+                                  static_cast<const float*>(lse_part),
+                                  static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+                                  nsplit, B * H, stream);
 }
 
 }  // namespace
 
+// o_part (nsplit, B, H, D) and lse_part (nsplit, B, H), fp32, are the
+// caller's scratch, nsplit = ceil(S / split_keys).
 REPRO_EXPORT int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                      const void* cache_len, void* o, void* lse, int B, int S,
-                                      int H, int KVH, int D, float scale, int window,
-                                      int pos_offset, int device, void* stream) {
+                                      const void* cache_len, void* o, void* lse, void* o_part,
+                                      void* lse_part, int B, int S, int H, int KVH, int D,
+                                      int split_keys, float scale, int window, int pos_offset,
+                                      int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (split_keys < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(q, k, v, cache_len, o, lse, B, S, H, KVH, scale, window, pos_offset, s);
-    case 128: return launch<128>(q, k, v, cache_len, o, lse, B, S, H, KVH, scale, window, pos_offset, s);
-    case 256: return launch<256>(q, k, v, cache_len, o, lse, B, S, H, KVH, scale, window, pos_offset, s);
+    case 64:
+      return launch<64>(q, k, v, cache_len, o, lse, o_part, lse_part, B, S, H, KVH, split_keys,
+                        scale, window, pos_offset, s);
+    case 128:
+      return launch<128>(q, k, v, cache_len, o, lse, o_part, lse_part, B, S, H, KVH, split_keys,
+                         scale, window, pos_offset, s);
+    case 256:
+      return launch<256>(q, k, v, cache_len, o, lse, o_part, lse_part, B, S, H, KVH, split_keys,
+                         scale, window, pos_offset, s);
     default: return cudaErrorInvalidValue;
   }
 }

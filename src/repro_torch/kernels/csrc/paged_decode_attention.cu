@@ -40,6 +40,7 @@ namespace {
 
 using repro::split::kRows;
 using repro::split::kThreads;
+using repro::split::NoMask;
 using repro::split::Smem;
 
 // Element offset of key `key` of one split: its page through the split's
@@ -55,10 +56,6 @@ struct SplitPageKeyAt {
     const int rel = key - first;
     return pages[rel / page_size] * page_stride + static_cast<long>(rel % page_size) * key_stride;
   }
-};
-
-struct NoMask {
-  __device__ bool operator()(int, int) const { return true; }
 };
 
 template <int D>
@@ -113,11 +110,10 @@ int launch(const void* q, const void* pool_k, const void* pool_v, const void* ta
       B, T, page_size, H, KVH, split_pages, rtiles, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = B * H;
-  repro::split::combine_kernel<D><<<(rows + 3) / 4, 128, 0, stream>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(lse_part),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), nsplit, rows);
-  return cudaGetLastError();
+  return repro::split::combine<D>(static_cast<const float*>(o_part),
+                                  static_cast<const float*>(lse_part),
+                                  static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+                                  nsplit, B * H, stream);
 }
 
 }  // namespace

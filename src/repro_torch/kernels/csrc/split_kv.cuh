@@ -7,8 +7,10 @@
 //                    in flight while the block computes on this one;
 //   any other policy (Int8Rows) through its own load(), which dequantizes
 //                    to bf16 as the values land.
-// paged_decode_attention.cu instantiates it with a paged KeyAt; the
-// contiguous and int8 decode kernels can move onto it unchanged.
+// paged_decode_attention.cu instantiates it with a paged KeyAt,
+// decode_attention.cu with Bf16Rows<Strided> and decode_attention_quant.cu
+// with Int8Rows, each over its row's live key range (live_range below for
+// the two contiguous caches).
 //
 // One block is four warps over the same 16 rows and the same keys. The 16
 // rows are the query heads of one KV group at one position, exactly the
@@ -221,6 +223,20 @@ __device__ __forceinline__ void attend_split(Smem<D>& sm, int nrows, const Rows&
   }
 }
 
+// The live keys [x, y) of a contiguous cache row of S slots whose slot 0
+// holds position pos_offset: position p is live when p < len and, with a
+// window, p > len - 1 - window (window 0: none). The range is the row's whole
+// mask: the decode kernels attend their split's share of it with NoMask.
+__device__ __forceinline__ int2 live_range(int len, int S, int window, int pos_offset) {
+  const int last = max(0, min(S, len - pos_offset));
+  const int first = window > 0 ? min(last, max(0, len - window - pos_offset)) : 0;
+  return make_int2(first, last);
+}
+
+struct NoMask {
+  __device__ bool operator()(int, int) const { return true; }
+};
+
 // Merges nsplit partials of `rows` (row, head) pairs: o_part (nsplit, rows,
 // D) fp32, lse_part (nsplit, rows); writes o (rows, D) bf16 and lse (rows).
 // One warp per pair; lane l owns the D/32 values from l * D/32. The loads do
@@ -274,6 +290,14 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int v = 0; v < V; v += 2) orow[v / 2] = f2_to_bf2(num[v] * inv, num[v + 1] * inv);
   if (lane == 0) lse[row] = M + logf(fmaxf(den, 1e-20f));
+}
+
+// Launches combine_kernel over `rows` (row, head) pairs on `stream`.
+template <int D>
+cudaError_t combine(const float* o_part, const float* lse_part, __nv_bfloat16* o, float* lse,
+                    int nsplit, int rows, cudaStream_t stream) {
+  combine_kernel<D><<<(rows + 3) / 4, 128, 0, stream>>>(o_part, lse_part, o, lse, nsplit, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace split

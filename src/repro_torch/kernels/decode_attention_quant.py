@@ -6,7 +6,8 @@ q (B, H, D) bf16 against an int8 cache k, v (B, S, KVH, D) with f32 scales
 k_scale, v_scale (B, S, KVH), one per slot and KV head, and cache_len (B,)
 int32 valid slots; returns (o (B, H, D) bf16, lse (B, H) fp32). The kernel
 dequantizes each tile as it loads it (``value * scale`` rounded to bf16), so
-the bf16 cache never exists in device memory.
+the bf16 cache never exists in device memory. It splits the slots and merges
+the splits as ``decode_attention`` does, with the same split rule.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.ref import decode_attention_quant as plain
+from repro_torch.kernels.split_rule import split_keys
 
 _c = ctypes
 
@@ -27,8 +29,8 @@ _c = ctypes
 def _fwd():
     return _build.entry("decode_attention_quant", "decode_attention_quant_fwd", [
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-        _c.c_float, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p])
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
+        _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p])
 
 
 def decode_attention_quant(
@@ -66,12 +68,17 @@ def decode_attention_quant(
                    f"decode_attention_quant kernel: head_dim {D} not in {HEAD_DIMS}")
     _build.require(window is None or window >= 1, f"window {window}")
     scale = scale if scale is not None else 1.0 / (D**0.5)
+    sk = split_keys(B, H, KVH, S)
+    nsplit = -(-S // sk)
     o = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    o_part = torch.empty((nsplit, B, H, D), dtype=torch.float32, device=q.device)
+    lse_part = torch.empty((nsplit, B, H), dtype=torch.float32, device=q.device)
     device, stream = _build.launch_site(q)
     err = _fwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                  v_scale.data_ptr(), cache_len.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 B, S, H, KVH, D, scale, window or 0, pos_offset, device, stream)
+                 o_part.data_ptr(), lse_part.data_ptr(), B, S, H, KVH, D, sk, scale,
+                 window or 0, pos_offset, device, stream)
     _build.check(_build.library("decode_attention_quant"), err, "decode_attention_quant")
     _build.LAUNCHES["decode_attention_quant"] += 1
     return o, lse

@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.ref import paged_decode_attention as plain
+from repro_torch.kernels.split_rule import split_pages
 
 _c = ctypes
 
@@ -36,20 +37,6 @@ def _fwd():
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
         _c.c_int, _c.c_int, _c.c_int, _c.c_float, _c.c_int, _c.c_void_p])
-
-
-TARGET_BLOCKS = 128  # about one block per SM of an H100 (132)
-MIN_SPLIT_KEYS = 16  # one k-step of the value product's mma
-
-
-def split_pages(B: int, H: int, KVH: int, T: int, page_size: int) -> int:
-    """Pages per split of the kernel: enough splits that ``B * KVH`` groups
-    of up to 16 heads fill about TARGET_BLOCKS blocks, each split at least
-    MIN_SPLIT_KEYS keys. A function of the shapes only: reading ``kv_len``
-    would cost the decode step a host sync."""
-    groups = B * KVH * -(-(H // KVH) // 16)
-    splits = max(1, -(-TARGET_BLOCKS // groups))
-    return min(T, max(-(-MIN_SPLIT_KEYS // page_size), -(-T // splits)))
 
 
 def paged_decode_attention(

@@ -19,7 +19,12 @@ event timings include, and prints one JSON line each:
               blocks of 2 and of 8 warps in place of 4. Each build is timed
               in two interleaved rounds. The warp variants compute the same
               rows in the same key order, so their outputs must equal the
-              port's bit for bit.
+              port's bit for bit;
+  decode_us   ``decode_attention`` and ``decode_attention_quant`` at the
+              lockstep decode step (B=8, 16 heads on one KV head of 256, 160
+              slots, ragged lengths): the split kernel and the merge each
+              (``decode_split_kernel``, ``decode_quant_split_kernel``,
+              ``combine_kernel``), in two interleaved rounds.
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them.
 """
@@ -78,6 +83,30 @@ def flash_variants(_build, argtypes):
     return fns
 
 
+def decode_probe(torch, gen):
+    """The two contiguous decode kernels at the lockstep step (B=8, 16
+    heads, 8..15 zero, on one KV head of 256, 160 slots, ragged lengths):
+    the split kernel and the merge each, in two interleaved rounds."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import decode_attention_quant as daq
+    from repro_torch.models.lm import quant_kv
+
+    B, H, S, D = 8, 16, 160, 256
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    q[:, 8:] = 0
+    k, v = (torch.randn((B, S, 1, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    (kq, ks), (vq, vs) = quant_kv(k), quant_kv(v)
+    lens = torch.tensor([160, 1, 17, 80, 129, 150, 33, 100], dtype=torch.int32, device="cuda")
+    calls = {"bf16": lambda: da.decode_attention(q, k, v, lens),
+             "int8": lambda: daq.decode_attention_quant(q, kq, vq, ks, vs, lens)}
+    rec = {tag: [] for tag in calls}
+    for _ in range(2):
+        for tag, fn in calls.items():
+            rec[tag].append(cupti_us(torch, fn))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -123,6 +152,8 @@ def main() -> int:
         "split_us_per_16_keys": (sp[4096][split_key] - sp[512][split_key]) / ((4096 - 512) / 16),
         "split_one_row_4096_keys_us": {"one split": sp[4096], "eight splits": sp[512]}}}),
           flush=True)
+
+    print(json.dumps({"decode_us": decode_probe(torch, gen)}), flush=True)
 
     # the serving shapes: padded heads 8..15 are zero, as the model passes them
     q, k, v = randn(8, 128, 16, 256), randn(8, 128, 1, 256), randn(8, 128, 1, 256)
