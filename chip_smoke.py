@@ -18,7 +18,10 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      sampler over a 50,432-row head). The three split-KV decode kernels are
      also held at the edges of their splits (lengths around split
      boundaries, windows, a row with no live key), and every attention
-     kernel must give the same bits on two launches.
+     kernel must give the same bits on two launches. The sampler is also
+     held at B = 1, 5, 13, 64 and 100, on exact greedy ties placed across
+     its warps, tiles and blocks, at vocab tails, and on two launches, and
+     timed at B = 64 as well.
   3. Lockstep end to end: ``repro_torch.launch.serve --lockstep`` at full
      gemma-2b width and depth with random weights, greedy then temperature
      0.8; the launch counters must show every kernel of the path, the tokens
@@ -412,6 +415,11 @@ def kernel_phase(torch, ops, ref, F):
         "library_ms": device_ms(lambda: torch.matmul(h, embed.t()))}
     records["fused_sample"]["mamba2"] = sampler_at(torch, ops, ref, randn, gen,
                                                     M_VOCAB, M_D_MODEL)
+    # the new checks draw from their own generator, so every later kernel
+    # keeps its inputs
+    sample_gen = torch.Generator(device=DEV).manual_seed(777)
+    records["fused_sample"]["b64"] = sampler_edges(
+        torch, ops, ref, embed, lambda *shape: randn(*shape, g=sample_gen), sample_gen)
     print(json.dumps({"check": "fused_sample", **records["fused_sample"]}), flush=True)
 
     # ---- decode attention over the int8 cache: the int8-KV lockstep step,
@@ -580,6 +588,85 @@ def sampler_at(torch, ops, ref, randn, gen, V, D):
                                                            vocab_size=V), reps=21),
             "bound_ms": bms, "bound_by": by,
             "library_ms": device_ms(lambda: torch.matmul(h, embed.t()))}
+
+
+def sampler_edges(torch, ops, ref, embed, randn, gen):
+    """fused_sample at gemma's head (V, D) beyond the lockstep batch: every
+    instantiation of the kernel (B = 1, 5, 13, 64, and 100, which tiles the
+    batch by 64), exact greedy ties placed in one thread's rows, in one scan
+    lane's, across lanes, across a tile boundary, across two blocks' tile
+    ranges and between the first and last block (the lower index must win;
+    the tile rows and tiles per block come from the wrapper's
+    ``sampling.grid``), vocab tails (V - 100, and a vocab that
+    ends inside the fourth tile, so that most blocks hold no sampled row),
+    and the same bits on two launches.
+    Returns the record of B = 64 (time, bound, plain and library times)."""
+    from repro_torch.kernels import sampling
+
+    V, D = embed.shape
+    head = embed.t()
+
+    def seeds_for(n):
+        return torch.randint(-2**31, 2**31, (n,), generator=gen, device=DEV,
+                             dtype=torch.int64).to(torch.int32)
+
+    def held(h, seeds, it, vocab, what):
+        """Kernel against plain: greedy rows equal, sampled rows equal where
+        the top two scores are clear, logprobs at LOGPROB_TOL, two launches
+        bit-identical; returns (kernel tokens, max logprob error)."""
+        tok_k, lp_k = ops.fused_sample(h, head, seeds, it, vocab_size=vocab)
+        tok_r, lp_r = ref.fused_sample(h, head, seeds, it, vocab_size=vocab)
+        _, y = ref.sample_scores(h, head, seeds, it, vocab_size=vocab)
+        top2 = y.topk(2, dim=-1).values
+        must = (it == 0) | ((top2[:, 0] - top2[:, 1]) > SAMPLE_GAP)
+        require(bool((tok_k < vocab).all()), f"fused_sample {what}: a token past the vocab")
+        require(bool((tok_k == tok_r)[must].all()),
+                f"fused_sample {what}: {tok_k.tolist()} vs {tok_r.tolist()}")
+        ok, err = close(lp_k, lp_r, LOGPROB_TOL)
+        require(ok, f"fused_sample {what}: logprob max abs err {err}")
+        require(same_bits(lambda: ops.fused_sample(h, head, seeds, it, vocab_size=vocab)),
+                f"fused_sample {what}: two launches differ")
+        return tok_k, err
+
+    worst, grids = 0.0, {}
+    for Bs in (1, 5, 13, 64, 100):
+        h = randn(Bs, D)
+        it = torch.where(torch.arange(Bs, device=DEV) % 2 == 0, 0.0, 1 / 0.8)
+        worst = max(worst, held(h, seeds_for(Bs), it, V, f"B={Bs}")[1])
+        grids[Bs] = sampling.grid(Bs, V, embed.device.index)
+    for Bs in (8, 64):  # 128-row and 256-row tiles
+        blocks, tiles, tv = grids.get(Bs) or sampling.grid(Bs, V, embed.device.index)
+        span = tiles * tv
+        require(blocks > 1 and tiles > 1, f"B={Bs}: {blocks} blocks of {tiles} tiles")
+        # one thread's two accumulator rows, one scan lane's, two lanes', a tile
+        # boundary, a boundary of two blocks' ranges, the first and last block
+        pairs = ((51, 59), (40, 72), (82, 86), (tv - 1, tv), (span - 1, span), (7, V - 9))
+        hs = torch.randint(-1, 2, (Bs, D), generator=gen, device=DEV).to(torch.bfloat16)
+        idx = torch.tensor([i for p in pairs for i in p], device=DEV)
+        saved = embed[idx].clone()
+        for k, (i, j) in enumerate(pairs):  # |z| = sum |h| on both rows: exact
+            embed[i] = embed[j] = torch.sign(hs[k])
+        tok, err = held(hs, seeds_for(Bs), torch.zeros(Bs, device=DEV), V, f"ties B={Bs}")
+        embed[idx] = saved
+        require(tok[:len(pairs)].tolist() == [i for i, _ in pairs],
+                f"fused_sample ties B={Bs}: {tok[:len(pairs)].tolist()} for pairs {pairs}")
+        worst = max(worst, err)
+        for vocab in (V - 100, 3 * tv + 5):
+            h = randn(Bs, D)
+            it = torch.where(torch.arange(Bs, device=DEV) % 2 == 0, 0.0, 1 / 0.8)
+            worst = max(worst, held(h, seeds_for(Bs), it, vocab, f"B={Bs} vocab={vocab}")[1])
+    print(json.dumps({"check": "fused_sample/edges", "max_abs_err": worst,
+                      "grid": {str(b): dict(zip(("blocks", "tiles", "tile_rows"), g))
+                               for b, g in grids.items()}}), flush=True)
+    Bs = 64
+    h, seeds, it = randn(Bs, D), seeds_for(Bs), torch.ones(Bs, device=DEV)
+    bms, by = bound_ms(V * D * 2 + Bs * D * 2 + Bs * 8, 2 * Bs * V * D, BF16_TENSOR_FLOP_PER_S)
+    return {"shape": {"h": [Bs, D], "embed": [V, D]}, "max_abs_err": worst,
+            "ms": device_ms(lambda: ops.fused_sample(h, head, seeds, it, vocab_size=V)),
+            "plain_ms": device_ms(lambda: ref.fused_sample(h, head, seeds, it, vocab_size=V),
+                                  reps=11),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": device_ms(lambda: torch.matmul(h, head))}
 
 
 def serve_args(serve, temperature: float, arch_flags=ARCH_FLAGS):

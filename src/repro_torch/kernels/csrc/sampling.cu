@@ -8,36 +8,77 @@
 // grid in order and carried the running max, sum and winner in VMEM scratch.
 //
 // What bounds it on an H100: bytes. The head is the tied embedding, 256000 x
-// 2048 bf16 = 1.05 GB, read once per decode step: ~0.31 ms at 3.35 TB/s. The
-// products (2 x 8 x 1.05 G bf16 FLOP) are far below the tensor-core bound.
+// 2048 bf16 = 1.05 GB at gemma-2b, read once per decode step: ~0.31 ms at
+// 3.35 TB/s. Its products (2 B Vp d) take 0.068 ms on the bf16 tensor cores
+// at B = 64, but 1.0 ms on the fp32 CUDA cores: they must be tensor-core
+// products. A sampled row also costs two logf and an expf per vocab entry,
+// ~55 us of issue per SM at B = 64, which has to hide under the stream.
 //
 // What the design does about it:
-// - The head is read as the embedding lies, (Vp, d) row by row: a tied head's
-//   (d, Vp) view is never made contiguous (that would copy 1 GB per step).
-// - Pass 1: a block per 256 vocab rows and per 8 batch rows. h sits in shared
-//   memory as fp32; each warp streams 4 vocab rows at a time with 16-byte
-//   loads and dots them with all 8 h rows, so each head byte is read once.
-//   Logits are the fp32 sums of bf16 products, never rounded to bf16. One
-//   warp per batch row then scans the tile's 256 logits: max, sum of
-//   exponentials, and the Gumbel-max winner, written to scratch.
-// - Pass 2: a block per batch row merges the tiles' partials in a fixed
-//   tree: the larger score wins, on equal scores the lower index. No
-//   atomics, so a run is repeatable bit for bit.
+// - Tensor-core products: wgmma m64nNk16, bf16 in, fp32 accumulate, with N
+//   the batch rows rounded up to 8, 16, 32 or 64. A warpgroup of 4 consumer
+//   warps takes 64 vocab rows as the A operand and h as the B operand, both
+//   read by the tensor cores straight from shared memory, K-major, as the
+//   tied embedding lies (it is never transposed or copied). Products of
+//   bf16 pairs are exact in fp32, and every row sums its products in the
+//   same order, so equal rows give equal logits wherever they lie.
+// - The head is read once for every B <= 64: a block carries all the
+//   n-tiles of up to 64 batch rows. Above 64 rows the batch is tiled by 64
+//   (grid.y), and each slice reads the head again.
+// - A producer warp streams a ring of stages through the Tensor Memory
+//   Accelerator: 2D TMA copies of 64-wide k-slices of the block's head tile
+//   and of h, in the 128-byte swizzle that wgmma reads; rows past the head
+//   or the batch and columns past d come in as zeros. mbarriers say when a
+//   stage has landed (full) and when every consumer warp is done with it
+//   (empty), so the loads run ahead of the products and the scans by the
+//   whole ring and no consumer waits on another. A stage is 128 wide (256
+//   bytes of every row) at up to 8 batch rows and 64 wide above, with L2
+//   promotion of 256 bytes: short pieces of many rows cost the DRAM pages
+//   more than their bytes (attn_probe's copies-only build times the stream
+//   alone).
+// - A persistent grid sized to the card: as many blocks as fit at once
+//   (occupancy x SMs), each walking T whole tiles of a fixed, contiguous
+//   vocab range. All blocks are resident and carry equal bytes: no wave tail.
+//   From 17 batch rows up, 16 consumer warps make a tile of 256 rows, so h's
+//   reads from L2 stay a quarter of the head's and the Gumbel arithmetic
+//   has 16 warps to hide in.
+// - The scan is deferred and spread: at a tile's last k-slice the logits go
+//   from the accumulators to shared memory, and the consumers scan them in
+//   small pieces during the next tile's k-slices. Warp w of CW owns batch
+//   columns w, w + CW, ...; lane l takes rows l, l + 32, ... of a column with
+//   an online max, sum of exponentials and first-max winner, then a
+//   butterfly over the lanes, and lane 0 folds the tile into the column's
+//   running state.
+// - Deterministic merge: each block writes one partial per batch row; the
+//   last block to finish (an atomic ticket picks it, and no atomic takes
+//   part in a sum) merges them all: lane l takes blocks l, l + 32, ... in
+//   order, then a fixed butterfly. Two launches give the same bits on one
+//   card (the grid, and so the logprob's last bits, follow its SM count).
 // - The counter hash is splitmix32 in wrapping uint32 arithmetic, bit for bit
 //   the TPU kernel's; z * inv_temp + g is rounded as two operations (no fused
-//   multiply-add), and logf is the full-precision one (no fast math).
+//   multiply-add), and logf/expf are the full-precision ones (no fast math).
+//   On equal scores the lower index wins, whatever tile or block holds it.
+// - Every instantiation is spill-free (-Xptxas -v, printed by chip_smoke.py).
+//   The wrapper requires d % 8 == 0 (TMA's 16-byte row stride), which every
+//   configs/registry.py arch meets.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include <climits>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileV = 256;  // vocab rows per block
-constexpr int kRowsB = 8;    // batch rows per block: one scanning warp each
-constexpr int kVStep = 4;    // vocab rows a warp dots at once
-static_assert(kVStep * kRowsB == 32, "the reduce-scatter leaves one sum per lane");
+using repro::kNegInf;
+using repro::mma::smem_addr;
+
+// Probe builds (src/repro_torch/tools/attn_probe.py) set these; the port's
+// build sets none. SAMPLE_KC=64: 64-wide stages at every batch size.
+// SAMPLE_PROBE_NO_L2_PROMOTION: TMA copies without L2 promotion.
+// SAMPLE_PROBE_COPIES_ONLY: the consumers wait for each stage and release
+// it, with no products and no scans (no sample comes out).
+constexpr int kMaxRowsB = 64;  // batch rows a block carries (8 n-tiles)
 
 __device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
   x ^= x >> 16;
@@ -58,6 +99,8 @@ __device__ __forceinline__ bool better(float y1, int i1, float y2, int i2) {
   return y1 > y2 || (y1 == y2 && i1 < i2);
 }
 
+// Online sampler state: max m and sum l of exp(z - m) of the untempered
+// logits, the best score y, its logit z and its index i.
 struct State {
   float m, l, y, z;
   int i;
@@ -71,6 +114,7 @@ struct State {
       i = i2;
     }
   }
+  __device__ void merge(const State& o) { merge(o.m, o.l, o.y, o.z, o.i); }
   __device__ void merge_lane(int offset) {
     merge(__shfl_xor_sync(0xffffffffu, m, offset), __shfl_xor_sync(0xffffffffu, l, offset),
           __shfl_xor_sync(0xffffffffu, y, offset), __shfl_xor_sync(0xffffffffu, z, offset),
@@ -78,165 +122,467 @@ struct State {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    sample_tile_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ rows,
-                       const int* __restrict__ seeds, const float* __restrict__ inv_temp,
-                       float4* __restrict__ part, int* __restrict__ part_idx, int B, int d, int Vp,
-                       int vocab) {
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);  // [kRowsB][d]
-  float* zs = hs + kRowsB * d;                  // [kRowsB][kTileV]
-  const int tile = blockIdx.x, b0 = blockIdx.y * kRowsB;
-  const int nb = min(kRowsB, B - b0);
-  const int v0 = tile * kTileV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+__device__ __forceinline__ State empty_state() {
+  return State{kNegInf, 0.f, kNegInf, kNegInf, INT_MAX};
+}
 
-  const int half_d = d / 2;
-  for (int i = tid; i < kRowsB * half_d; i += kThreads) {
-    const int r = i / half_d, c = i % half_d;
-    float2 f = make_float2(0.f, 0.f);
-    if (r < nb) f = repro::bf2_to_f2(reinterpret_cast<const uint32_t*>(h + static_cast<long>(b0 + r) * d)[c]);
-    reinterpret_cast<float2*>(hs)[i] = f;
+// One instantiation: CW consumer warps (a tile of 16 CW vocab rows, 64 a
+// warpgroup), NT n-tiles (8 NT batch columns), stages of KC columns, a ring
+// of STAGES; one producer warp more.
+template <int CW, int NT, int KC, int STAGES>
+struct Shape {
+#ifdef SAMPLE_KC
+  static constexpr int kKC = SAMPLE_KC;
+#else
+  static constexpr int kKC = KC;
+#endif
+  static_assert(kKC == 64 || kKC == 128, "a stage is one or two 64-wide TMA boxes");
+  static_assert(CW % 4 == 0, "consumers come in warpgroups");
+  static constexpr int kStages = STAGES;
+  static constexpr int kThreads = 32 * CW;      // consumer threads
+  static constexpr int TV = 16 * CW;            // vocab rows of a tile
+  static constexpr int NB = 8 * NT;             // batch columns of a block
+  static constexpr int kSubs = kKC / 64;        // 64-wide boxes of a stage
+  static constexpr int kHeadElems = kSubs * TV * 64;
+  static constexpr int kStageElems = kSubs * (TV + NB) * 64;
+  static constexpr uint32_t kStageBytes = 2 * kStageElems;
+  static constexpr int kZLd = TV + 4;           // a column's stride in the logit buffer
+  static constexpr int kRowsPerLane = TV / 32;  // scan rows of a lane in one column
+  static constexpr int kScan = NB / CW * kRowsPerLane;  // a lane's scan per tile
+  static_assert(NB % CW == 0, "every consumer warp owns as many batch columns");
+  // the ring (1024-byte aligned for the swizzle), the logits, the column
+  // states, the mbarriers
+  static constexpr size_t kSmem = 1024 + sizeof(__nv_bfloat16) * kStages * kStageElems +
+                                  sizeof(float) * NB * kZLd + sizeof(State) * NB +
+                                  sizeof(uint64_t) * (2 * kStages + 1);
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// The producer's arrive on a stage's full barrier, which then also waits for
+// the stage's bytes of TMA copies to land.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A 2D TMA copy of the box at (column x, row y) of map into shared memory,
+// counted on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma operand descriptor of a K-major tile in the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1024 bytes apart (start, leading and stride
+// byte offsets in 16-byte units; layout 1 = 128-byte swizzle).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void gmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void gmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define REPRO_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// d (64 x N fp32; a warp's 16 rows, n-tile j of 8 columns at d[4j .. 4j + 3]
+// as mma.sync's C fragment) += A (64 x 16 bf16) * B (16 x N bf16), both
+// K-major in shared memory, issued by one warpgroup.
+template <int N>
+__device__ __forceinline__ void gmma_bf16(float* d, uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void gmma_bf16<8>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_F4(0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void gmma_bf16<16>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_F4(0), REPRO_F4(4)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void gmma_bf16<32>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_F4(0), REPRO_F4(4), REPRO_F4(8), REPRO_F4(12)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void gmma_bf16<64>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_F4(0), REPRO_F4(4), REPRO_F4(8), REPRO_F4(12), REPRO_F4(16), REPRO_F4(20),
+        REPRO_F4(24), REPRO_F4(28)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef REPRO_F4
+
+// Barrier of the consumer warps only (the producer never waits on it).
+template <int kThreads>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+template <int CW, int NT, int KC, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(32 * CW + 32, MIN_BLOCKS)
+    sample_kernel(const __grid_constant__ CUtensorMap tm_head,
+                  const __grid_constant__ CUtensorMap tm_h, const int* __restrict__ seeds,
+                  const float* __restrict__ inv_temp, float4* __restrict__ part,
+                  int* __restrict__ part_idx, unsigned int* __restrict__ ticket,
+                  int* __restrict__ tok, float* __restrict__ lp, int B, int d, int Vp, int vocab,
+                  int tiles_per_block) {
+  using S = Shape<CW, NT, KC, STAGES>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* zbuf = reinterpret_cast<float*>(ring + kStages * S::kStageElems);  // [NB][kZLd]
+  State* cst = reinterpret_cast<State*>(zbuf + S::NB * S::kZLd);            // [NB]
+  // full[kStages], then empty[kStages], 8-byte aligned past the states
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(cst + S::NB) + 7) & ~static_cast<uintptr_t>(7));
+  uint64_t* empty = full + kStages;
+  __shared__ float s_it[S::NB];
+  __shared__ uint32_t s_seed[S::NB];
+  __shared__ bool s_last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.y * kMaxRowsB;
+  const int nb = min(S::NB, B - b0);
+  const int r0 = blockIdx.x * tiles_per_block * S::TV;
+  const int r1 = min(r0 + tiles_per_block * S::TV, Vp);
+  const int lim = min(r1, vocab);  // rows below lim are sampled
+  const int ntile = (r1 - r0 + S::TV - 1) / S::TV;
+  const int ksteps = (d + S::kKC - 1) / S::kKC;
+  const int total = ntile * ksteps;
+
+  if (tid < S::NB) {
+    s_it[tid] = tid < nb ? inv_temp[b0 + tid] : 0.f;
+    s_seed[tid] = tid < nb ? static_cast<uint32_t>(seeds[b0 + tid]) : 0u;
+    cst[tid] = empty_state();
+  }
+  if (tid < kStages) {
+    mbar_init(full + tid, 1);    // the producer's arrive, then the stage's bytes
+    mbar_init(empty + tid, CW);  // one arrive per consumer warp
   }
   __syncthreads();
 
-  for (int g = warp; g < kTileV / kVStep; g += kWarps) {
-    const int vbase = v0 + g * kVStep;
-    float acc[kVStep * kRowsB];
+  if (warp == CW) {
+    // ---- the producer: stage s is k-slice s % ksteps of tile s / ksteps ----
+    if (lane == 0) {
+      for (int s = 0; s < total; ++s) {
+        const int slot = s % kStages;
+        if (s >= kStages) mbar_wait(empty + slot, (s / kStages - 1) & 1);
+        const int tile = s / ksteps, k0 = (s - tile * ksteps) * S::kKC;
+        __nv_bfloat16* st = ring + slot * S::kStageElems;
+        mbar_arrive_expect(full + slot, S::kStageBytes);
 #pragma unroll
-    for (int i = 0; i < kVStep * kRowsB; ++i) acc[i] = 0.f;
-#pragma unroll 2
-    for (int c = lane * 8; c < d; c += 32 * 8) {
-      float wf[kVStep][8];
-#pragma unroll
-      for (int r = 0; r < kVStep; ++r) {
-        uint4 raw = make_uint4(0, 0, 0, 0);
-        if (vbase + r < Vp) raw = *reinterpret_cast<const uint4*>(rows + static_cast<long>(vbase + r) * d + c);
-        const float2 a = repro::bf2_to_f2(raw.x), b = repro::bf2_to_f2(raw.y);
-        const float2 e = repro::bf2_to_f2(raw.z), f = repro::bf2_to_f2(raw.w);
-        wf[r][0] = a.x; wf[r][1] = a.y; wf[r][2] = b.x; wf[r][3] = b.y;
-        wf[r][4] = e.x; wf[r][5] = e.y; wf[r][6] = f.x; wf[r][7] = f.y;
-      }
-#pragma unroll
-      for (int bb = 0; bb < kRowsB; ++bb) {
-        const float4* hp = reinterpret_cast<const float4*>(hs + bb * d + c);
-        const float4 h0 = hp[0], h1 = hp[1];
-#pragma unroll
-        for (int r = 0; r < kVStep; ++r) {
-          float s = acc[r * kRowsB + bb];
-          s = fmaf(wf[r][0], h0.x, s); s = fmaf(wf[r][1], h0.y, s);
-          s = fmaf(wf[r][2], h0.z, s); s = fmaf(wf[r][3], h0.w, s);
-          s = fmaf(wf[r][4], h1.x, s); s = fmaf(wf[r][5], h1.y, s);
-          s = fmaf(wf[r][6], h1.z, s); s = fmaf(wf[r][7], h1.w, s);
-          acc[r * kRowsB + bb] = s;
+        for (int sub = 0; sub < S::kSubs; ++sub) {
+          tma_load(st + sub * S::TV * 64, &tm_head, k0 + sub * 64, r0 + tile * S::TV,
+                   full + slot);
+          tma_load(st + S::kHeadElems + sub * S::NB * 64, &tm_h, k0 + sub * 64, b0,
+                   full + slot);
         }
       }
     }
-    // reduce-scatter across the warp: 31 shuffles leave lane L holding the
-    // full sum of acc[L], i.e. vocab row vbase + L / kRowsB, batch row L % kRowsB
+  } else {
+    // ---- the consumers ----
+    // The deferred scan of the tile whose logits are in zbuf (ztile): this
+    // lane's positions [sp, upto) of kScan, column by column.
+    int ztile = -1, sp = S::kScan;
+    State ls = empty_state();
+    auto scan_to = [&](int upto) {
+      const int zrow0 = r0 + ztile * S::TV;
+      for (; sp < upto; ++sp) {
+        const int q = sp / S::kRowsPerLane, rr = sp - q * S::kRowsPerLane;
+        const int col = warp + CW * q;  // warp-uniform
+        if (col >= nb) continue;
+        const int row = lane + 32 * rr, pos = zrow0 + row;
+        if (pos < lim) {
+          const float z = zbuf[col * S::kZLd + row];
+          if (z > ls.m) {
+            ls.l = ls.l * expf(ls.m - z) + 1.f;
+            ls.m = z;
+          } else {
+            ls.l += expf(z - ls.m);
+          }
+          float y = z;
+          const float it = s_it[col];
+          if (it != 0.f) {
+            const float u = uniform_01(s_seed[col], static_cast<uint32_t>(pos));
+            const float gumbel = -logf(-logf(u));
+            y = __fadd_rn(__fmul_rn(z, it), gumbel);
+          }
+          if (better(y, pos, ls.y, ls.i)) {
+            ls.y = y;
+            ls.z = z;
+            ls.i = pos;
+          }
+        }
+        if (rr == S::kRowsPerLane - 1) {  // the column's tile is done
 #pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) {
-      const bool upper = (lane & o) != 0;
-#pragma unroll
-      for (int i = 0; i < o; ++i) {
-        const float send = upper ? acc[i] : acc[i + o];
-        const float keep = upper ? acc[i + o] : acc[i];
-        acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          for (int o = 16; o >= 1; o >>= 1) ls.merge_lane(o);
+          if (lane == 0) cst[col].merge(ls);
+          ls = empty_state();
+        }
       }
+    };
+
+    float acc[4 * NT];  // the warp's 16 rows of the tile, all 8 NT columns
+#pragma unroll
+    for (int i = 0; i < 4 * NT; ++i) acc[i] = 0.f;
+
+    for (int s = 0; s < total; ++s) {
+      const int slot = s % kStages;
+      mbar_wait(full + slot, (s / kStages) & 1);
+      const int tile = s / ksteps, k = s - tile * ksteps;
+#ifdef SAMPLE_PROBE_COPIES_ONLY
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+#else
+      // warpgroup warp / 4 takes rows [64 (warp / 4), + 64) of the tile, 16
+      // k (32 bytes) a step
+      const __nv_bfloat16* stg = ring + slot * S::kStageElems;
+      gmma_fence();
+#pragma unroll
+      for (int sub = 0; sub < S::kSubs; ++sub)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          gmma_bf16<S::NB>(acc,
+                           sw128_desc(stg + sub * S::TV * 64 + (warp >> 2) * 64 * 64 + ks * 16),
+                           sw128_desc(stg + S::kHeadElems + sub * S::NB * 64 + ks * 16));
+      gmma_commit();
+      gmma_wait_all();
+      __syncwarp();  // the warp's products of the slot are done: release it
+      if (lane == 0) mbar_arrive(empty + slot);
+      // the previous tile's scan, spread over this tile's k-slices but its last
+      if (ztile >= 0 && k < ksteps - 1) scan_to(S::kScan * (k + 1) / (ksteps - 1));
+      if (k != ksteps - 1) continue;
+      // ---- the tile's logits to zbuf, once every warp's scan of the
+      // previous tile is done ----
+      consumers_sync<S::kThreads>();
+      {
+        const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int row = warp * 16 + g + (q >> 1) * 8;
+            zbuf[(j * 8 + 2 * t + (q & 1)) * S::kZLd + row] = acc[4 * j + q];
+            acc[4 * j + q] = 0.f;
+          }
+      }
+      ztile = tile;
+      sp = 0;
+      consumers_sync<S::kThreads>();       // zbuf complete
+      if (ksteps == 1) scan_to(S::kScan);  // no later k-slice to spread it over
+#endif
     }
-    zs[(lane % kRowsB) * kTileV + g * kVStep + lane / kRowsB] = acc[0];
+    scan_to(S::kScan);  // the last tile's
   }
   __syncthreads();
 
-  if (warp >= nb) return;
-  const int b = b0 + warp;
-  const float it = inv_temp[b];
-  const uint32_t seed = static_cast<uint32_t>(seeds[b]);
-  State st{repro::kNegInf, 0.f, repro::kNegInf, repro::kNegInf, INT_MAX};
-  float zl[kTileV / 32];
-#pragma unroll
-  for (int t = 0; t < kTileV / 32; ++t) {
-    const int pos = v0 + lane + 32 * t;
-    const bool valid = pos < vocab && pos < Vp;
-    const float z = valid ? zs[warp * kTileV + lane + 32 * t] : repro::kNegInf;
-    zl[t] = z;
-    st.m = fmaxf(st.m, z);
-    if (valid) {
-      const float u = uniform_01(seed, static_cast<uint32_t>(pos));
-      const float gumbel = -logf(-logf(u));
-      const float y = it == 0.f ? z : __fadd_rn(__fmul_rn(z, it), gumbel);
-      if (y > st.y) {  // positions ascend, so strictly better keeps the first max
-        st.y = y;
-        st.z = z;
-        st.i = pos;
-      }
+  // ---- one partial per (block, batch row); the last block merges them ----
+  if (tid < nb) {
+    const long at = static_cast<long>(blockIdx.x) * B + b0 + tid;
+    const State c = cst[tid];
+    part[at] = make_float4(c.m, c.l, c.y, c.z);
+    part_idx[at] = c.i;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned int nblk = gridDim.x * gridDim.y;
+    s_last = atomicInc(ticket, nblk - 1) == nblk - 1;  // wraps to 0 for the next launch
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int b = warp; b < B && warp < CW; b += CW) {
+    State m = empty_state();
+    for (int blk = lane; blk < static_cast<int>(gridDim.x); blk += 32) {
+      const long at = static_cast<long>(blk) * B + b;
+      const float4 p = __ldcg(part + at);
+      m.merge(p.x, p.y, p.z, p.w, __ldcg(part_idx + at));
     }
-  }
 #pragma unroll
-  for (int t = 0; t < kTileV / 32; ++t) {
-    const int pos = v0 + lane + 32 * t;
-    if (pos < vocab && pos < Vp) st.l += expf(zl[t] - st.m);
-  }
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) st.merge_lane(o);
-  if (lane == 0) {
-    part[static_cast<long>(tile) * B + b] = make_float4(st.m, st.l, st.y, st.z);
-    part_idx[static_cast<long>(tile) * B + b] = st.i;
+    for (int o = 16; o >= 1; o >>= 1) m.merge_lane(o);
+    if (lane == 0) {
+      tok[b] = m.i;
+      lp[b] = m.z - (m.m + logf(fmaxf(m.l, 1e-20f)));
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    sample_reduce_kernel(const float4* __restrict__ part, const int* __restrict__ part_idx,
-                         int ntiles, int B, int* __restrict__ tok, float* __restrict__ lp) {
-  __shared__ float4 s4[kWarps];
-  __shared__ int si[kWarps];
-  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  State st{repro::kNegInf, 0.f, repro::kNegInf, repro::kNegInf, INT_MAX};
-  for (int t = tid; t < ntiles; t += kThreads) {
-    const float4 p = part[static_cast<long>(t) * B + b];
-    st.merge(p.x, p.y, p.z, p.w, part_idx[static_cast<long>(t) * B + b]);
+using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const int*, const float*, float4*,
+                        int*, unsigned int*, int*, float*, int, int, int, int, int);
+
+struct Variant {
+  Kernel kernel;
+  int threads, tv, nb;
+  size_t smem;
+};
+
+template <int CW, int NT, int KC, int STAGES, int MIN_BLOCKS>
+Variant variant() {
+  using S = Shape<CW, NT, KC, STAGES>;
+  return {sample_kernel<CW, NT, KC, STAGES, MIN_BLOCKS>, S::kThreads + 32, S::TV, S::NB,
+          S::kSmem};
+}
+
+// The instantiation for a batch: NT n-tiles of 8 rows cover min(B, 64).
+// Shared memory: 142 KB at NT = 1 (one block an SM), 82 KB at NT = 2 (two),
+// 178 KB at NT = 4 and 187 KB at NT = 8 (one).
+Variant pick(int B) {
+  const int rows = B < kMaxRowsB ? B : kMaxRowsB;
+  if (rows <= 8) return variant<8, 1, 128, 4, 1>();
+  if (rows <= 16) return variant<8, 2, 64, 4, 2>();
+  if (rows <= 32) return variant<16, 4, 64, 4, 1>();
+  return variant<16, 8, 64, 3, 1>();
+}
+
+// Tiles per block: the fewest that let every block be resident at once.
+int tiles_for(const Variant& v, int Vp, int device, cudaError_t* err) {
+  *err = repro::allow_smem(v.kernel, v.smem);
+  if (*err != cudaSuccess) return 0;
+  int per_sm = 0, sms = 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v.kernel, v.threads, v.smem);
+  if (*err != cudaSuccess) return 0;
+  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err != cudaSuccess) return 0;
+  if (per_sm < 1) {
+    *err = cudaErrorInvalidConfiguration;
+    return 0;
   }
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) st.merge_lane(o);
-  if (lane == 0) {
-    s4[warp] = make_float4(st.m, st.l, st.y, st.z);
-    si[warp] = st.i;
+  const int ntiles = (Vp + v.tv - 1) / v.tv;
+  const int slots = per_sm * sms;
+  return (ntiles + slots - 1) / slots;
+}
+
+// A TMA map of a row-major (rows, d) bf16 matrix, boxes of 64 columns by
+// box_rows rows with the 128-byte swizzle; reads past its edges give zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int d, int box_rows) {
+  static PFN_cuTensorMapEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }
-  __syncthreads();
-  if (tid != 0) return;
-  for (int w = 1; w < kWarps; ++w) st.merge(s4[w].x, s4[w].y, s4[w].z, s4[w].w, si[w]);
-  const float lse = st.m + logf(fmaxf(st.l, 1e-20f));
-  tok[b] = st.i;
-  lp[b] = st.z - lse;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+#ifdef SAMPLE_PROBE_NO_L2_PROMOTION
+      CU_TENSOR_MAP_L2_PROMOTION_NONE,
+#else
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+#endif
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-REPRO_EXPORT int fused_sample_num_tiles(int Vp) { return (Vp + kTileV - 1) / kTileV; }
-
-// rows: the head as (Vp, d) rows (the tied embedding as it lies).
-// part (ntiles, B) float4 and part_idx (ntiles, B) int32 are the wrapper's
-// scratch for the partials of pass 1.
-REPRO_EXPORT int fused_sample_fwd(const void* h, const void* rows, const void* seeds,
-                                  const void* inv_temp, void* part, void* part_idx, void* tok,
-                                  void* lp, int B, int d, int Vp, int vocab, int device,
-                                  void* stream) {
+// Blocks along the vocab for (B, Vp) on this device, the tiles each walks
+// and the vocab rows of a tile (block k takes rows [k tiles tile_rows,
+// (k + 1) tiles tile_rows)); the wrapper sizes the partials (blocks, B) with
+// it. Returns a CUDA error code.
+REPRO_EXPORT int fused_sample_grid(int B, int Vp, int device, int* blocks, int* tiles,
+                                   int* tile_rows) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ntiles = fused_sample_num_tiles(Vp);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kRowsB) * d + kRowsB * kTileV);
-  err = repro::allow_smem(sample_tile_kernel, smem);
+  const Variant v = pick(B);
+  *tiles = tiles_for(v, Vp, device, &err);
   if (err != cudaSuccess) return err;
-  const dim3 grid(ntiles, (B + kRowsB - 1) / kRowsB);
-  sample_tile_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(rows),
-      static_cast<const int*>(seeds), static_cast<const float*>(inv_temp),
-      static_cast<float4*>(part), static_cast<int*>(part_idx), B, d, Vp, vocab);
-  err = cudaGetLastError();
+  const int ntiles = (Vp + v.tv - 1) / v.tv;
+  *blocks = (ntiles + *tiles - 1) / *tiles;
+  *tile_rows = v.tv;
+  return cudaSuccess;
+}
+
+// rows: the head as (Vp, d) rows (the tied embedding as it lies), 16-byte
+// aligned with d % 8 == 0. part (blocks, B) float4 and part_idx (blocks, B)
+// int32 are the wrapper's scratch for the blocks' partials; ticket is one
+// uint32, zero between launches (the last block of a launch leaves it at
+// zero).
+REPRO_EXPORT int fused_sample_fwd(const void* h, const void* rows, const void* seeds,
+                                  const void* inv_temp, void* part, void* part_idx, void* ticket,
+                                  void* tok, void* lp, int B, int d, int Vp, int vocab, int blocks,
+                                  int tiles, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  sample_reduce_kernel<<<B, kThreads, 0, s>>>(static_cast<const float4*>(part),
-                                              static_cast<const int*>(part_idx), ntiles, B,
-                                              static_cast<int*>(tok), static_cast<float*>(lp));
+  const Variant v = pick(B);
+  CUtensorMap tm_head, tm_h;
+  err = tensor_map(&tm_head, rows, Vp, d, v.tv);
+  if (err != cudaSuccess) return err;
+  err = tensor_map(&tm_h, h, B, d, v.nb);
+  if (err != cudaSuccess) return err;
+  err = repro::allow_smem(v.kernel, v.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks, (B + kMaxRowsB - 1) / kMaxRowsB);
+  v.kernel<<<grid, v.threads, v.smem, static_cast<cudaStream_t>(stream)>>>(
+      tm_head, tm_h, static_cast<const int*>(seeds), static_cast<const float*>(inv_temp),
+      static_cast<float4*>(part), static_cast<int*>(part_idx),
+      static_cast<unsigned int*>(ticket), static_cast<int*>(tok), static_cast<float*>(lp), B, d,
+      Vp, vocab, tiles);
   return cudaGetLastError();
 }

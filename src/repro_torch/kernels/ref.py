@@ -253,6 +253,91 @@ def fused_sample(
     return tok.to(torch.int32), lp
 
 
+_NO_INDEX = 2**31 - 1  # a state that holds no position yet (the kernel's INT_MAX)
+
+
+def _sample_state_merge(a, b):
+    """Merge two online sampler states (max, sum of exp(z - max), best score,
+    its z, its index): the larger score wins, on equal scores the lower
+    index. Commutative bit for bit, as the kernel's ``State::merge``."""
+    m1, l1, y1, z1, i1 = a
+    m2, l2, y2, z2, i2 = b
+    mn = torch.maximum(m1, m2)
+    l = l1 * torch.exp(m1 - mn) + l2 * torch.exp(m2 - mn)
+    take = (y2 > y1) | ((y2 == y1) & (i2 < i1))
+    return (mn, l, torch.where(take, y2, y1), torch.where(take, z2, z1),
+            torch.where(take, i2, i1))
+
+
+def _lane_butterfly(st):
+    """The kernel's butterfly over 32 lanes (states of shape (B, 32)): after
+    steps 16, 8, 4, 2, 1 every lane holds the merge of all; lane 0's."""
+    for o in (16, 8, 4, 2, 1):
+        perm = torch.arange(32) ^ o
+        st = _sample_state_merge(st, tuple(x[:, perm] for x in st))
+    return tuple(x[:, 0] for x in st)
+
+
+def fused_sample_partials(
+    h: torch.Tensor,  # (B, d)
+    w_head: torch.Tensor,  # (d, Vp)
+    seeds: torch.Tensor,  # (B,) int32 per-row hash seeds
+    inv_temp: torch.Tensor,  # (B,) f32; 0.0 = greedy
+    *,
+    vocab_size: Optional[int] = None,
+    tile: int = 128,
+    tiles_per_block: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_sample` computed as ``csrc/sampling.cu`` decomposes it:
+    block ``k`` takes the whole tiles ``[k T, (k + 1) T)`` of ``tile`` vocab
+    rows (T = ``tiles_per_block``); in a tile, lane ``l`` of 32 takes the
+    rows ``l, l + 32, ...`` of a batch column, the lanes merge in a
+    butterfly, and the tile's state folds into the column's running state
+    in tile order. The blocks' states are then merged as the kernel's last
+    block does: lane ``l`` takes blocks ``l, l + 32, ...`` in order, then a
+    butterfly. The tokens equal :func:`fused_sample`'s bit for bit (the
+    winner is a total order); the logprob differs only by the order of the
+    sums. Returns (token (B,) int32, logprob (B,) f32)."""
+    if tile % 32:
+        raise ValueError(f"a tile of {tile} rows does not split over 32 lanes")
+    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
+    z, y = z.cpu(), y.cpu()
+    B, Vp = z.shape
+    vocab = Vp if vocab_size is None else min(vocab_size, Vp)
+
+    def empty(*shape):
+        return (torch.full(shape, NEG_INF), torch.zeros(shape), torch.full(shape, NEG_INF),
+                torch.full(shape, NEG_INF), torch.full(shape, _NO_INDEX, dtype=torch.int64))
+
+    blocks = []
+    span = tile * tiles_per_block
+    for r0 in range(0, Vp, span):
+        st = empty(B)
+        for t0 in range(r0, min(r0 + span, Vp), tile):
+            pos = torch.arange(t0, t0 + tile).reshape(tile // 32, 32)  # [rr, lane]
+            valid = pos < min(vocab, r0 + span, Vp)
+            at = pos.clamp(max=Vp - 1)
+            zs = torch.where(valid, z[:, at], NEG_INF)  # (B, rows per lane, 32)
+            ys = torch.where(valid, y[:, at], NEG_INF)
+            m = zs.max(dim=1).values
+            l = torch.where(valid, torch.exp(zs - m[:, None]), 0.0).sum(dim=1)
+            ymax = ys.max(dim=1).values
+            i = torch.where(valid & (ys == ymax[:, None]), pos, _NO_INDEX).min(dim=1).values
+            found = i < _NO_INDEX
+            zi = torch.where(found, z.gather(1, i.clamp(max=Vp - 1)), NEG_INF)
+            lane_st = (m, l, torch.where(found, ymax, NEG_INF), zi, i)
+            st = _sample_state_merge(st, _lane_butterfly(lane_st))
+        blocks.append(st)
+    blocks += [empty(B)] * (-len(blocks) % 32)  # merging an empty state changes no bit
+    lanes = empty(B, 32)
+    for k in range(0, len(blocks), 32):
+        lanes = _sample_state_merge(lanes, tuple(
+            torch.stack([blk[f] for blk in blocks[k:k + 32]], 1) for f in range(5)))
+    m, l, _, zt, tok = _lane_butterfly(lanes)
+    lp = zt - (m + torch.log(torch.clamp(l, min=1e-20)))
+    return tok.to(torch.int32).to(h.device), lp.to(h.device)
+
+
 def row_inv_temp(temps: torch.Tensor) -> torch.Tensor:
     """Per-row inverse temperatures of the serving sampler: 0 (greedy) where
     ``temps <= 0``, else ``1 / max(temps, 1e-6)`` (``ops.fused_sample_rows``

@@ -9,6 +9,9 @@ masked distribution). ``inv_temp == 0`` is greedy with the first-max rule.
 The kernel reads the head as (Vp, d) rows: ``w_head`` (d, Vp) must be the
 transpose of a contiguous (Vp, d) matrix, as the tied head ``embed.T`` is.
 It is never made contiguous, which would copy the whole head on every step.
+One launch: a persistent grid of tensor-core blocks over fixed vocab ranges
+(:func:`grid`), whose last block merges the blocks' partials in a fixed
+order; ``ref.fused_sample_partials`` is that decomposition in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -28,16 +31,30 @@ _c = ctypes
 def _fwd():
     return _build.entry("sampling", "fused_sample_fwd", [
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p])
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _num_tiles():
-    f = _build.library("sampling").fused_sample_num_tiles
-    f.argtypes = [_c.c_int]
-    f.restype = _c.c_int
-    return f
+def grid(B: int, Vp: int, device: int) -> Tuple[int, int, int]:
+    """(blocks along the vocab, tiles each block walks, vocab rows of a
+    tile) of the kernel for this batch and head on this device: as many
+    blocks as the card holds at once, block k over the whole tiles
+    ``[k tiles, (k + 1) tiles)``."""
+    f = _build.entry("sampling", "fused_sample_grid", [
+        _c.c_int, _c.c_int, _c.c_int] + [_c.POINTER(_c.c_int)] * 3)
+    out = [_c.c_int() for _ in range(3)]
+    err = f(B, Vp, device, *(_c.byref(x) for x in out))
+    _build.check(_build.library("sampling"), err, "fused_sample grid")
+    return tuple(x.value for x in out)
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket(device: int, stream: int) -> torch.Tensor:
+    """The launches' last-block ticket on one stream of one device: a
+    uint32 that is zero between launches (each launch's last block leaves
+    it at zero), so it is made once and never reset."""
+    return torch.zeros((1,), dtype=torch.int32, device=torch.device("cuda", device))
 
 
 def fused_sample(
@@ -59,18 +76,19 @@ def fused_sample(
                    f"{h.dtype}, {rows.dtype}, {seeds.dtype}, {inv_temp.dtype}")
     B, d = h.shape
     Vp = rows.shape[0]
-    _build.require(rows.shape[1] == d and d % 8 == 0 and seeds.shape == (B,)
-                   and inv_temp.shape == (B,), f"h {tuple(h.shape)}, head {tuple(w_head.shape)}")
+    _build.require(B >= 1 and Vp >= 1 and rows.shape[1] == d and d % 8 == 0
+                   and seeds.shape == (B,) and inv_temp.shape == (B,),
+                   f"h {tuple(h.shape)}, head {tuple(w_head.shape)}")
     vocab = Vp if vocab_size is None else min(vocab_size, Vp)
-    ntiles = _num_tiles()(Vp)
-    part = torch.empty((ntiles, B, 4), dtype=torch.float32, device=h.device)
-    part_idx = torch.empty((ntiles, B), dtype=torch.int32, device=h.device)
+    device, stream = _build.launch_site(h)
+    blocks, tiles, _ = grid(B, Vp, device)
+    part = torch.empty((blocks, B, 4), dtype=torch.float32, device=h.device)
+    part_idx = torch.empty((blocks, B), dtype=torch.int32, device=h.device)
     tok = torch.empty((B,), dtype=torch.int32, device=h.device)
     lp = torch.empty((B,), dtype=torch.float32, device=h.device)
-    device, stream = _build.launch_site(h)
     err = _fwd()(h.data_ptr(), rows.data_ptr(), seeds.data_ptr(), inv_temp.data_ptr(),
-                 part.data_ptr(), part_idx.data_ptr(), tok.data_ptr(), lp.data_ptr(),
-                 B, d, Vp, vocab, device, stream)
+                 part.data_ptr(), part_idx.data_ptr(), _ticket(device, stream).data_ptr(),
+                 tok.data_ptr(), lp.data_ptr(), B, d, Vp, vocab, blocks, tiles, device, stream)
     _build.check(_build.library("sampling"), err, "fused_sample")
     _build.LAUNCHES["fused_sample"] += 1
     return tok, lp

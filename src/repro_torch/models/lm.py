@@ -193,7 +193,6 @@ def _attn_mixer(
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet (full/training: ROADMAP queue 1)")
     assert cache is not None and cache_len is not None
-    B = h.shape[0]
     q, k_new, v_new = layers.qkv_proj(cfg, p, h, cache_len[:, None])
     if page_tables is not None:
         return _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables,
@@ -205,24 +204,41 @@ def _attn_mixer(
     # The JAX package rewrites the whole cache with a masked select instead
     # (lm.py:216-219), which keeps a sequence-sharded cache in place under
     # GSPMD; PyTorch updates the one row and returns the same tensors.
-    rows = torch.arange(B, device=h.device)
-    kc[rows, cache_len.long()] = k_new[:, 0].to(kc.dtype)
-    vc[rows, cache_len.long()] = v_new[:, 0].to(vc.dtype)
+    rows, slot, inside = _write_slot(cache_len, kc.shape[1])
+    kc[rows, slot] = _keep_outside(inside, k_new[:, 0].to(kc.dtype), kc[rows, slot])
+    vc[rows, slot] = _keep_outside(inside, v_new[:, 0].to(vc.dtype), vc[rows, slot])
     o, _ = ops.decode_attention(q[:, 0], kc, vc, cache_len + 1)
     return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
 
 
+def _write_slot(cache_len: torch.Tensor, width: int):
+    """(row ids, slot, inside) of a contiguous decode write: a row whose
+    ``cache_len`` is at or past the cache width writes nothing, as the JAX
+    masked select (lm.py:216-219, :247-253) matches no slot there. Its slot
+    is clamped into the cache and rewritten with its own old value, so no
+    index is out of range and nothing is read on the host."""
+    rows = torch.arange(cache_len.shape[0], device=cache_len.device)
+    return rows, cache_len.clamp(max=width - 1).long(), cache_len < width
+
+
+def _keep_outside(inside: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` on the rows inside the cache, ``old`` on the others."""
+    return torch.where(inside.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
 def _decode_quant(cfg, p, q, k_new, v_new, cache, cache_len):
     """int8-cache decode step (``lm._decode_quant``): the new K/V row is
-    quantized and written into the int8 cache in place at slot cache_len
-    (the JAX package rewrites the cache with a masked select), then the
-    fused-dequant decode kernel attends the int8 cache: it stays int8 in
-    device memory."""
+    quantized and written into the int8 cache in place at slot cache_len, and
+    nothing is written past the cache width (the JAX package rewrites the
+    cache with a masked select); then the fused-dequant decode kernel attends
+    the int8 cache: it stays int8 in device memory."""
     kq, vq = cache["k"], cache["v"]
     ks, vs = cache["k_scale"], cache["v_scale"]
-    rows, slot = torch.arange(q.shape[0], device=q.device), cache_len.long()
-    kq[rows, slot], ks[rows, slot] = quant_kv(k_new[:, 0])
-    vq[rows, slot], vs[rows, slot] = quant_kv(v_new[:, 0])
+    rows, slot, inside = _write_slot(cache_len, kq.shape[1])
+    for cq, cs, new_row in ((kq, ks, k_new), (vq, vs, v_new)):
+        nq, ns = quant_kv(new_row[:, 0])
+        cq[rows, slot] = _keep_outside(inside, nq, cq[rows, slot])
+        cs[rows, slot] = _keep_outside(inside, ns, cs[rows, slot])
     o, _ = ops.decode_attention_quant(q[:, 0], kq, vq, ks, vs, cache_len + 1)
     return layers.out_proj(cfg, p, o)[:, None], cache
 
@@ -482,26 +498,38 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches
 # --------------------------------------------------------------------------- #
 # cache rows and pages (the serving arena's copies)
 # --------------------------------------------------------------------------- #
-def _index(slots, batch: int, device):
-    """(positions in ``slots`` whose id is in [0, batch), those ids), as long
-    tensors on ``device``: out-of-range slot ids are dropped, as
-    ``mode="drop"`` does in the JAX package."""
+def _index(caches: Caches, slots):
+    """(positions in ``slots`` whose id is a row of ``caches``, those ids),
+    as long tensors on the caches' device: out-of-range slot ids are
+    dropped, as ``mode="drop"`` does in the JAX package. The batch size is
+    dimension 0 of any leaf, an attention layer's K/V or an SSD layer's
+    state alike."""
+    leaf = next(iter(caches[0].values()))
     ids = [int(s) for s in slots]
-    keep = [j for j, s in enumerate(ids) if 0 <= s < batch]
-    as_t = lambda xs: torch.tensor(xs, dtype=torch.long, device=device)  # noqa: E731
+    keep = [j for j, s in enumerate(ids) if 0 <= s < leaf.shape[0]]
+    as_t = lambda xs: torch.tensor(xs, dtype=torch.long, device=leaf.device)  # noqa: E731
     return as_t(keep), as_t([ids[j] for j in keep])
 
 
+def _attention_only(caches: Caches) -> None:
+    """The page helpers move token spans: raise for a layer without one."""
+    for c in caches:
+        if "k" not in c:
+            raise ValueError(
+                f"cache pages are spans of the token axis, which attention caches have; "
+                f"a layer with leaves {sorted(c)} (SSM state) has none to page")
+
+
 def gather_cache_rows(caches: Caches, slots) -> Caches:
-    """The cache rows at ``slots`` (a new tensor per leaf)."""
-    _, idx = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    """The cache rows at ``slots`` (a new tensor per leaf, SSM state too)."""
+    _, idx = _index(caches, slots)
     return [{name: leaf[idx] for name, leaf in c.items()} for c in caches]
 
 
 def scatter_cache_rows(caches: Caches, rows: Caches, slots) -> Caches:
-    """Overwrite the cache rows at ``slots`` with ``rows`` in place;
-    out-of-range slot ids are dropped. Returns ``caches``."""
-    keep, ids = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    """Overwrite the cache rows at ``slots`` with ``rows`` in place, every
+    leaf; out-of-range slot ids are dropped. Returns ``caches``."""
+    keep, ids = _index(caches, slots)
     for c, r in zip(caches, rows):
         for name, leaf in c.items():
             leaf[ids] = r[name][keep].to(leaf.dtype)
@@ -510,9 +538,11 @@ def scatter_cache_rows(caches: Caches, rows: Caches, slots) -> Caches:
 
 def gather_cache_pages(caches: Caches, slots, *, num_pages: int, page_size: int) -> Caches:
     """The first ``num_pages`` pages (``page_size``-token spans) of the rows
-    at ``slots``: leaves shaped (R, num_pages, page_size, KVH, hd)."""
+    at ``slots``: leaves shaped (R, num_pages, page_size, KVH, hd).
+    Attention caches only: raises ValueError on SSM state."""
+    _attention_only(caches)
     span = num_pages * page_size
-    _, idx = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    _, idx = _index(caches, slots)
     return [{name: leaf[idx, :span].reshape((len(idx), num_pages, page_size)
                                             + tuple(leaf.shape[2:]))
              for name, leaf in c.items()} for c in caches]
@@ -522,8 +552,10 @@ def scatter_cache_pages(caches: Caches, pages: Caches, slots) -> Caches:
     """Inverse of :func:`gather_cache_pages`: write page stacks (leaves
     (R, k, page_size, ...)) contiguously into the rows at ``slots``, over
     positions [0, k * page_size), in place; out-of-range slot ids are
-    dropped. Returns ``caches``."""
-    keep, ids = _index(slots, caches[0]["k"].shape[0], caches[0]["k"].device)
+    dropped. Attention caches only, as :func:`gather_cache_pages`. Returns
+    ``caches``."""
+    _attention_only(caches)
+    keep, ids = _index(caches, slots)
     for c, pg in zip(caches, pages):
         for name, leaf in c.items():
             p = pg[name][keep]

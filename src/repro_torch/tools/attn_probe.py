@@ -1,4 +1,4 @@
-"""Where the time of the port's tensor-core attention kernels goes, on one
+"""Where the time of the port's tensor-core kernels goes, on one
 NVIDIA GPU: ``PYTHONPATH=src python3 -m repro_torch.tools.attn_probe`` from
 the root of a checkout (no JAX, no network; builds into ``build/``).
 
@@ -24,7 +24,18 @@ event timings include, and prints one JSON line each:
               lockstep decode step (B=8, 16 heads on one KV head of 256, 160
               slots, ragged lengths): the split kernel and the merge each
               (``decode_split_kernel``, ``decode_quant_split_kernel``,
-              ``combine_kernel``), in two interleaved rounds.
+              ``combine_kernel``), in two interleaved rounds;
+  sample_us   ``fused_sample`` (one launch: the tile pass and the last
+              block's merge) at gemma-2b's head (256,000 x 2048) for B=8 and
+              B=64 and at mamba2-2.7b's (50,432 x 2560) for B=8, sampled
+              rows, and at B=64 greedy, in two interleaved rounds, with the
+              head read rate: the head's bytes over the kernel's own
+              duration; built again with the probe macros of
+              ``csrc/sampling.cu``: copies only (the TMA stream without
+              products or scans), no L2 promotion, and 64-wide stages at
+              every batch size. The no-promotion build keeps the port's
+              grid and every row's order of sums, so its samples must equal
+              the port's bit for bit.
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them.
 """
@@ -41,6 +52,15 @@ VARIANTS = {  # build name -> nvcc defines
     "warps2": ("-DFA_WARPS=2",),
     "warps8": ("-DFA_WARPS=8",),
 }
+SAMPLE_VARIANTS = {  # csrc/sampling.cu builds: name -> nvcc defines
+    "copies_only": ("-DSAMPLE_PROBE_COPIES_ONLY",),
+    "no_l2_promotion": ("-DSAMPLE_PROBE_NO_L2_PROMOTION",),
+    "kc64": ("-DSAMPLE_KC=64",),
+}
+# the variant that keeps the port's grid and every row's order of sums: its
+# samples must equal the port's bit for bit (64-wide stages change the grid,
+# whose merge tree sets the logprob's last bits)
+SAMPLE_SAME_BITS = ("no_l2_promotion",)
 
 
 def cupti_us(torch, fn, n: int = 30):
@@ -58,29 +78,70 @@ def cupti_us(torch, fn, n: int = 30):
             for ev in prof.key_averages() if ev.device_time_total > 0}
 
 
-def flash_variants(_build, argtypes):
-    """ctypes entry points of ``csrc/flash_attention.cu`` built with each of
-    VARIANTS' defines, all nvcc processes at once, into ``build/probe/``."""
+def build_variants(_build, source: str, variants):
+    """``csrc/<source>.cu`` built with each of ``variants``' defines, all nvcc
+    processes at once, into ``build/probe/``: {name: (library, ptxas log)}."""
     out_dir = _build.BUILD_DIR.parent / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {name: subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, *defs, "-o", str(out_dir / f"{name}.so"),
-         str(_build.CSRC / "flash_attention.cu")],
+        [nvcc, *_build.NVCC_FLAGS, *defs, "-o", str(out_dir / f"{source}-{name}.so"),
+         str(_build.CSRC / f"{source}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, defs in VARIANTS.items()}
-    fns = {}
+        for name, defs in variants.items()}
+    libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc flash_attention.cu ({name}):\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        fn = lib.flash_attention_fwd
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            raise RuntimeError(f"nvcc {source}.cu ({name}):\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"{source}-{name}.so"))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
+        libs[name] = (lib, log)
+    return libs
+
+
+def flash_variants(_build, argtypes):
+    """ctypes entry points of ``csrc/flash_attention.cu`` built with each of
+    VARIANTS' defines."""
+    fns = {}
+    for name, (lib, _) in build_variants(_build, "flash_attention", VARIANTS).items():
+        fn = lib.flash_attention_fwd
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = (lib, fn)
     return fns
+
+
+def sample_call(torch, _build, lib, h, head, seeds, it, V):
+    """One launch of ``fused_sample_fwd`` from ``lib`` (a build of
+    ``csrc/sampling.cu``), set up as the wrapper sets it up."""
+    from repro_torch.kernels import sampling
+
+    c = ctypes
+    B, d = h.shape
+    rows = head.t()
+    Vp = rows.shape[0]
+    dev, stream = _build.launch_site(h)
+    grid = lib.fused_sample_grid
+    grid.argtypes, grid.restype = [c.c_int] * 3 + [c.POINTER(c.c_int)] * 3, c.c_int
+    out = [c.c_int() for _ in range(3)]
+    _build.check(lib, grid(B, Vp, dev, *(c.byref(x) for x in out)), "fused_sample grid")
+    blocks, tiles, _ = (x.value for x in out)
+    fwd = lib.fused_sample_fwd
+    fwd.argtypes, fwd.restype = sampling._fwd().argtypes, c.c_int
+    part = torch.empty((blocks, B, 4), dtype=torch.float32, device=h.device)
+    part_idx = torch.empty((blocks, B), dtype=torch.int32, device=h.device)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=h.device)
+    tok = torch.empty((B,), dtype=torch.int32, device=h.device)
+    lp = torch.empty((B,), dtype=torch.float32, device=h.device)
+
+    def call():
+        _build.check(lib, fwd(h.data_ptr(), rows.data_ptr(), seeds.data_ptr(), it.data_ptr(),
+                              part.data_ptr(), part_idx.data_ptr(), ticket.data_ptr(),
+                              tok.data_ptr(), lp.data_ptr(), B, d, Vp, V, blocks, tiles, dev,
+                              stream), "fused_sample (probe build)")
+        return tok, lp
+    return call
 
 
 def decode_probe(torch, gen):
@@ -105,6 +166,46 @@ def decode_probe(torch, gen):
         for tag, fn in calls.items():
             rec[tag].append(cupti_us(torch, fn))
     return rec
+
+
+def sample_probe(torch, gen):
+    """The sampler's device duration per launch at the three serving
+    shapes, as the port builds it and built again with each of
+    SAMPLE_VARIANTS' defines, in two interleaved rounds, with the head read
+    rate (TB/s) of each; the variants in SAMPLE_SAME_BITS must give the
+    port's tokens and logprobs bit for bit."""
+    from repro_torch.kernels import _build, sampling
+
+    shapes = {"gemma_b8": (8, 256_000, 2048), "gemma_b64": (64, 256_000, 2048),
+              "mamba2_b8": (8, 50_432, 2560), "gemma_b64_greedy": (64, 256_000, 2048)}
+    heads = {(V, d): (torch.randn((V, d), generator=gen, device="cuda") * 0.02
+                      ).to(torch.bfloat16) for _, V, d in shapes.values()}
+    libs = build_variants(_build, "sampling", SAMPLE_VARIANTS)
+    calls = {}
+    for tag, (B, V, d) in shapes.items():
+        h = torch.randn((B, d), generator=gen, device="cuda").to(torch.bfloat16)
+        seeds = torch.arange(B, dtype=torch.int32, device="cuda") * 7919
+        it = torch.full((B,), 0.0 if tag.endswith("greedy") else 1.0, device="cuda")
+        head = heads[V, d].t()
+        calls["kernel", tag] = (lambda h=h, head=head, seeds=seeds, it=it, V=V:
+                                sampling.fused_sample(h, head, seeds, it, vocab_size=V))
+        for name, (lib, _) in libs.items():
+            calls[name, tag] = sample_call(torch, _build, lib, h, head, seeds, it, V)
+    rec = {name: {tag: [] for tag in shapes} for name in ("kernel", *libs)}
+    for _ in range(2):
+        for (name, tag), fn in calls.items():
+            rec[name][tag].append(cupti_us(torch, fn)["sample_kernel"])
+    rate = {name: {tag: [V * d * 2 / (us * 1e-6) / 1e12 for us in rec[name][tag]]
+                   for tag, (_, V, d) in shapes.items()} for name in rec}
+    same = {f"{name}/{tag}": all(a.equal(b) for a, b in zip(calls[name, tag](),
+                                                           calls["kernel", tag]()))
+            for name in SAMPLE_SAME_BITS for tag in shapes}
+    regs = {name: [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln] for name, (_, log) in libs.items()}
+    dev = torch.cuda.current_device()
+    return {"us": rec, "head_read_tb_per_s": rate, "variants_bit_equal": same,
+            "grid": {tag: sampling.grid(B, V, dev) for tag, (B, V, _) in shapes.items()},
+            "ptxas": regs}
 
 
 def main() -> int:
@@ -154,6 +255,8 @@ def main() -> int:
           flush=True)
 
     print(json.dumps({"decode_us": decode_probe(torch, gen)}), flush=True)
+    sample = sample_probe(torch, gen)
+    print(json.dumps({"sample_us": sample}), flush=True)
 
     # the serving shapes: padded heads 8..15 are zero, as the model passes them
     q, k, v = randn(8, 128, 16, 256), randn(8, 128, 1, 256), randn(8, 128, 1, 256)
@@ -186,9 +289,9 @@ def main() -> int:
     same = {f"{name}/{tag}": torch.equal(outs[name, tag], outs["kernel", tag])
             for name in ("warps2", "warps8") for tag in shapes}
     print(json.dumps({"breakdown_us": breakdown, "warp_variants_bit_equal": same}), flush=True)
-    if not all(same.values()):
-        print(f"attn_probe: a warp variant differs from the port's kernel: {same}",
-              file=sys.stderr)
+    if not all(same.values()) or not all(sample["variants_bit_equal"].values()):
+        print(f"attn_probe: a variant differs from the port's kernel: {same} "
+              f"{sample['variants_bit_equal']}", file=sys.stderr)
         return 1
     return 0
 

@@ -126,6 +126,58 @@ def test_fused_sample_matches_pallas(mode):
     assert_close(lp, lp_want, 2e-5)
 
 
+# head rows that tie exactly, as (lower, higher) index: in one lane's rows
+# of a tile of 64 or more, across a 128-row tile boundary, across a
+# boundary of blocks of three 128-row tiles; each pair is made the greedy
+# maximum of one batch row
+TIE_PAIRS = ((5, 37), (127, 128), (383, 384))
+
+
+@pytest.mark.parametrize("data", ["ties", "random"])
+@pytest.mark.parametrize("tile,tiles_per_block", [(32, 1), (128, 1), (128, 3)])
+@pytest.mark.parametrize("B", [1, 5, 64])
+def test_fused_sample_partials_matches_plain_and_pallas(B, tile, tiles_per_block, data):
+    """The kernel's decomposition (lanes over strided rows of a tile, tiles,
+    blocks of whole tiles, the last block's lane-strided merge) gives
+    ``ref.fused_sample``'s tokens
+    bit for bit and the Pallas kernel's (interpret mode) at 1e-5 in logprob.
+    Vp = 1000 is no multiple of the tile, and the vocab (963) ends mid-tile.
+    ``ties``: integer-valued h and head, so every logit is exact, with each
+    pair of TIE_PAIRS set to one row's greedy maximum: the lower index wins,
+    in one lane, across tiles and across blocks (at B = 1 all three pairs
+    tie on row 0, so index 5 wins). ``random``: float data, greedy and
+    sampled rows mixed."""
+    rng = np.random.default_rng(31 + B)
+    d, Vp, vocab = 32, 1000, 963
+    if data == "ties":
+        h = rng.integers(-2, 3, (B, d)).astype(np.float32)
+        w = rng.integers(-2, 3, (d, Vp)).astype(np.float32)
+        for k, pair in enumerate(TIE_PAIRS):
+            w[:, list(pair)] = 2 * np.sign(h[k % B])[:, None]
+        inv_t = np.where(np.arange(B) < 3, 0.0, 1 / 0.7).astype(np.float32)
+    else:
+        h = rng.standard_normal((B, d)).astype(np.float32)
+        w = rng.standard_normal((d, Vp)).astype(np.float32)
+        inv_t = np.array([(0.0, 1 / 0.7, 2.5)[b % 3] for b in range(B)], np.float32)
+        if B == 1:
+            inv_t[:] = 1 / 0.7
+    seeds = rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (h, w, seeds, inv_t)]
+    tok, lp = ref.fused_sample_partials(*args, vocab_size=vocab, tile=tile,
+                                        tiles_per_block=tiles_per_block)
+    tok_r, lp_r = ref.fused_sample(*args, vocab_size=vocab)
+    tok_p, lp_p = fs_pallas(*(jnp.asarray(a) for a in (h, w, seeds, inv_t)),
+                            vocab_size=vocab, interpret=True)
+    assert tok.dtype == torch.int32 and bool((tok < vocab).all())
+    np.testing.assert_array_equal(tok.numpy(), tok_r.numpy())
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_p))
+    assert_close(lp, lp_p, 1e-5)
+    assert_close(lp, lp_r.numpy(), 1e-5)
+    if data == "ties":
+        for k, (lo, _) in enumerate(TIE_PAIRS):
+            assert int(tok[k % B]) == (TIE_PAIRS[0][0] if B == 1 else lo)
+
+
 def test_fused_sample_rows_is_fused_sample_at_per_row_temperatures():
     """Temperatures <= 0 are greedy, the others sample at 1 / max(t, 1e-6):
     the same tokens as ``fused_sample`` given those inverse temperatures."""

@@ -152,3 +152,42 @@ def test_model_and_bridge_have_no_cpu_default(jax_params):
     with pytest.raises(TypeError):
         bridge.from_jax(jax_params)
     assert get_model(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("kv_quant,dtype", [(False, "bf16"), (False, "fp32"), (True, "fp32")],
+                         ids=["bf16_cache", "fp32_cache", "int8_cache"])
+def test_decode_at_a_full_cache_writes_nothing_and_matches_jax(jax_params, kv_quant, dtype):
+    """Prefill 8 tokens into a cache of 8, then one decode step: the row at
+    ``cache_len == smax`` writes nothing (the JAX masked select matches no
+    slot), attends the full cache plus nothing, and gives the JAX step's
+    logits and ``cache_len``. bf16 weights are held at the bf16 tolerance,
+    fp32 ones at 2e-5 (unquantized) or 2e-2 (int8, as test_torch_kv_quant)."""
+    kw = dict(SMOKE, kv_quant=kv_quant)
+    jcfg = jax_reduced(jax_get_config("gemma-2b"), **kw)
+    cfg = reduced(get_config("gemma-2b"), **kw)
+    if dtype == "fp32":
+        jp, tp = fp32_tree(jax_params), bridge.from_jax(jax_params, device="cpu",
+                                                        dtype=torch.float32)
+    else:
+        jp, tp = jax_params, bridge.from_jax(jax_params, device="cpu")
+    tol = dict(atol=2e-2, rtol=2e-2) if (kv_quant or dtype == "bf16") else TOL
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(3, 259, (3, 8)).astype(np.int32)
+    token = rng.integers(3, 259, (3,)).astype(np.int32)
+    model = get_model(cfg, device="cpu")
+    _, caches_j, len_j = jlm.prefill(jcfg, jp, jnp.asarray(prompt), smax=8)
+    with torch.inference_mode():
+        _, caches_t, len_t = model.prefill(tp, torch.from_numpy(prompt), smax=8)
+        before = [{n: leaf.clone() for n, leaf in c.items()} for c in caches_t]
+        logits_t, caches_t, len_t = model.decode_step(tp, torch.from_numpy(token),
+                                                      caches_t, len_t)
+    logits_j, caches_j2, len_j = jlm.decode_step(jcfg, jp, jnp.asarray(token), caches_j, len_j)
+    assert np.isfinite(logits_t.numpy()).all()
+    np.testing.assert_allclose(logits_t.float().numpy(), np.asarray(logits_j, np.float32), **tol)
+    np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
+    assert (len_t == 9).all()
+    for c, b in zip(caches_t, before):
+        assert all(torch.equal(c[n], b[n]) for n in b)
+    for name in caches_j[0]:  # the JAX step wrote nothing either
+        np.testing.assert_array_equal(np.asarray(caches_j2[0][name]),
+                                      np.asarray(caches_j[0][name]))

@@ -322,3 +322,40 @@ def test_streaming_refuses_mamba2():
     mixers with the engine's ValueError, as the JAX engine does."""
     with pytest.raises(ValueError, match="page-addressable KV"):
         serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu"])
+
+
+def test_cache_row_helpers_move_ssd_state_as_jax(family):
+    """``gather_cache_rows`` and ``scatter_cache_rows`` take their batch size
+    from any leaf, so they move SSD state rows as they move K/V rows, as the
+    JAX helpers (a map over every leaf) do: out-of-range slot ids dropped.
+    The page helpers take attention caches only and raise on SSD state."""
+    jcfg, cfg, _, jpf, tp = family
+    model = get_model(cfg, device="cpu")
+    rng = np.random.default_rng(13)
+    prompt, fresh = (rng.integers(3, 259, (3, 8)).astype(np.int32) for _ in range(2))
+    _, caches_j, _ = jlm.prefill(jcfg, jpf, jnp.asarray(prompt), smax=12)
+    _, rows_j, _ = jlm.prefill(jcfg, jpf, jnp.asarray(fresh), smax=12)
+    with torch.inference_mode():
+        _, caches_t, _ = model.prefill(tp, torch.from_numpy(prompt), smax=12)
+        _, rows_t, _ = model.prefill(tp, torch.from_numpy(fresh), smax=12)
+    P = lm.pattern_length(cfg)
+
+    def assert_like_jax(got, want):
+        assert len(got) == cfg.num_layers
+        for i, c in enumerate(got):
+            assert sorted(c) == sorted(want[i % P])
+            for name, leaf in c.items():
+                np.testing.assert_allclose(leaf.float().numpy(),
+                                           np.asarray(want[i % P][name][i // P], np.float32),
+                                           **TOL)
+
+    slots = [1, 7, 0]  # 7 is past the batch of 3: dropped
+    with torch.inference_mode():
+        gathered = lm.gather_cache_rows(caches_t, [2, 0])
+        scattered = lm.scatter_cache_rows(caches_t, rows_t, slots)
+    assert_like_jax(gathered, jlm.gather_cache_rows(caches_j, jnp.asarray([2, 0])))
+    assert_like_jax(scattered, jlm.scatter_cache_rows(caches_j, rows_j, jnp.asarray(slots)))
+    with pytest.raises(ValueError, match="SSM state"):
+        lm.gather_cache_pages(caches_t, [0], num_pages=1, page_size=4)
+    with pytest.raises(ValueError, match="SSM state"):
+        lm.scatter_cache_pages(caches_t, caches_t, [0])
