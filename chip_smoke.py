@@ -14,8 +14,13 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      (lockstep: B=8, prompt 128, max_new 32; streaming: 8 slots, pages of
      16, 256 positions, prefill chunks of 16 queries at an offset; the int8
      cache of 160 slots), and mamba2-2.7b (the SSD scan of an 8 x 128
-     prefill and of a four-chunk sequence, norms over 2560 and 5120, the
-     sampler over a 50,432-row head). The three split-KV decode kernels are
+     prefill and of a four-chunk sequence, norms over 2560 and 5120 at the
+     prefill's rows and the decode step's, the sampler over a 50,432-row
+     head). The norm is also held at even widths that are not multiples of
+     8 and at widths too wide for its registers; the SSD scan at jamba's
+     widths (state 16), in two groups, at other states and chunk lengths,
+     under a strongly decaying dt, and on two launches. The three split-KV
+     decode kernels are
      also held at the edges of their splits (lengths around split
      boundaries, windows, a row with no live key), and every attention
      kernel must give the same bits on two launches. The sampler is also
@@ -197,6 +202,29 @@ def kernel_phase(torch, ops, ref, F):
                  "library_ms": device_ms(lambda: F.rms_norm(x, (width,), weight=wml, eps=1e-6))}
         records["rmsnorm"][f"mamba2_d{width}"] = entry
         print(json.dumps({"check": f"rmsnorm/mamba2_d{width}", **entry}), flush=True)
+    # from their own generator, so that every later input keeps its draw:
+    # mamba2's decode rows (8 of 2560 and of 5120, timed), an odd row count,
+    # even widths that are not multiples of 8 (the kernel's bf16-pair body),
+    # and rows too wide for the registers (read twice)
+    norm_gen = torch.Generator(device=DEV).manual_seed(2718)
+    for R, width, timed in ((B, M_D_MODEL, True), (B, 2 * M_D_MODEL, True), (1001, 2054, False),
+                            (8, 2050, False), (16, 13_000, False), (6, 6002, False)):
+        x = randn(R, width, g=norm_gen)
+        wm = randn(width, scale=0.1, dtype=torch.float32, g=norm_gen)
+        ok, err = close(ops.rmsnorm(x, wm), ref.rmsnorm(x, wm), BF16_TOL)
+        require(ok, f"rmsnorm {R}x{width}: max abs err {err}")
+        if timed:
+            wml = (1.0 + wm).to(torch.bfloat16)
+            bms, by = bound_ms(2 * R * width * 2 + width * 4, 4 * R * width, FP32_FLOP_PER_S)
+            entry = {"shape": [R, width], "max_abs_err": err,
+                     "ms": device_ms(lambda: ops.rmsnorm(x, wm)),
+                     "plain_ms": device_ms(lambda: ref.rmsnorm(x, wm)),
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": device_ms(lambda: F.rms_norm(x, (width,), weight=wml,
+                                                                eps=1e-6))}
+            records["rmsnorm"][f"mamba2_decode_d{width}"] = entry
+            print(json.dumps({"check": f"rmsnorm/mamba2_decode_d{width}", **entry}), flush=True)
+    print(json.dumps({"check": "rmsnorm/edges", "ok": True}), flush=True)
 
     # ---- flash attention: the prefill, 16 padded heads (8..15 zero) ----
     H, KVH, HD = HEADS, 1, HEAD_DIM
@@ -490,13 +518,47 @@ def kernel_phase(torch, ops, ref, F):
                         x, dt, A, Bm, Cm, Dd, chunk=L, return_state=True)),
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
                     "library_note": "no single PyTorch call computes the chunked scan"}
-        # the kernel does its products on the CUDA cores: the least time its
-        # operations take there (a bound, not a time; not in the kernels line)
-        print(json.dumps({"check": f"ssd/{tag}", **rec[tag], "flops": flops, "bytes": nbytes,
-                          "fp32_cuda_core_bound_ms": flops / FP32_FLOP_PER_S * 1e3}),
+        require(same_bits(lambda: ops.ssd(x, dt, A, Bm, Cm, Dd, return_state=True)),
+                f"ssd {tag}: two launches differ")
+        print(json.dumps({"check": f"ssd/{tag}", **rec[tag], "flops": flops, "bytes": nbytes}),
               flush=True)
     records["ssd"] = {**rec["prefill"], "multi_chunk": rec["multi_chunk"]}
+    ssd_edges(torch, ops, ref, F)
     return records
+
+
+def ssd_edges(torch, ops, ref, F):
+    """The SSD scan beyond mamba2's prefill, from its own generator: jamba's
+    widths (128 heads, state 16) at one chunk and at four chunks of 64 in two
+    groups, states 32 and 64, chunks of 40 and 24 (not multiples of the
+    kernel's 16-position tiles), and mamba2's widths under a strongly decaying
+    dt (exp(a_cum[i] - a_cum[j]) underflows to 0 far below the diagonal); each
+    against the plain version, and on two launches."""
+    gen = torch.Generator(device=DEV).manual_seed(1618)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+    for Bs, S, nh, g, n, L, dt_shift in ((1, 128, 128, 1, 16, 128, 0.0),
+                                         (1, 256, 128, 2, 16, 64, 0.0),
+                                         (2, 256, 8, 2, 32, 128, 0.0),
+                                         (2, 120, 16, 1, 64, 40, 0.0),
+                                         (1, 96, 4, 2, 128, 24, 0.0),
+                                         (1, 256, M_HEADS, 1, M_STATE, 128, 4.0)):
+        x = randn(Bs, S, nh, M_HEADDIM)
+        dt = F.softplus(randn(Bs, S, nh, dtype=torch.float32) + dt_shift)
+        A = -torch.exp(randn(nh, dtype=torch.float32))
+        Dd = randn(nh, dtype=torch.float32)
+        Bm, Cm = randn(Bs, S, g, n), randn(Bs, S, g, n)
+        y_k, h_k = ops.ssd(x, dt, A, Bm, Cm, Dd, chunk=L, return_state=True)
+        y_r, h_r = ref.ssd_chunked(x, dt, A, Bm, Cm, Dd, chunk=L, return_state=True)
+        ok, err = close(y_k, y_r, SSD_Y_TOL)
+        ok_h, err_h = close(h_k, h_r, SSD_STATE_TOL)
+        what = f"ssd x {tuple(x.shape)}, {g} groups of {n}, chunk {L}, dt shift {dt_shift}"
+        require(ok and ok_h, f"{what}: y err {err}, state err {err_h}")
+        require(same_bits(lambda: ops.ssd(x, dt, A, Bm, Cm, Dd, chunk=L, return_state=True)),
+                f"{what}: two launches differ")
+    print(json.dumps({"check": "ssd/edges", "ok": True}), flush=True)
 
 
 def same_bits(fn) -> bool:

@@ -474,6 +474,86 @@ def ssd_chunked(
     return (y, h) if return_state else y
 
 
+def _bf16_split(t: torch.Tensor, hi_lo: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``t`` (fp32) as a bf16 hi + lo pair held in fp32: hi = bf16(t), lo =
+    bf16(t - hi); hi + lo keeps about 16 of t's bits (lo = 0 without
+    ``hi_lo``: one bf16 pass, 8 bits)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, ((t - hi).to(torch.bfloat16).float() if hi_lo else torch.zeros_like(t))
+
+
+def ssd_chunked_tiles(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 128,
+    return_state: bool = False,
+    hi_lo: bool = True,
+):
+    """:func:`ssd_chunked` computed as ``csrc/ssd.cu`` decomposes it, for
+    bf16 x, B and C: the chunk padded to a multiple of 16 positions; every
+    chunk's own state from a zero start, then the fp32 recurrence
+    ``h <- exp(a_tot) h + s_c`` in chunk order; per chunk, ``C h_in^T`` over
+    16 state dims at a time, its rows then scaled by ``exp(a_cum)``, and the
+    gated scores ``G = (C B^T) exp(a_cum[i] - a_cum[j]) dt_j`` (0 above the
+    diagonal) times x over 16 keys at a time; the state as ``x^T W`` over 16
+    positions at a time, ``W = B dt exp(a_tot - a_cum)``. G, h_in and W are
+    rounded as the kernel's tensor-core operands are: each split into bf16
+    hi + lo, the hi product summed before the lo one (``hi_lo=False``: one
+    bf16 pass each, which ``tools/ssd_numerics.py`` holds against the
+    split). Only the order of the fp32 sums inside each 16-wide product
+    differs from the kernel's."""
+    b, s, nh, p = x.shape
+    n = B.shape[3]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    nc, L, rep = s // chunk, -(-chunk // 16) * 16, nh // B.shape[2]
+
+    def tiles(t):  # (B, S, NH, ...) -> (B, NC, NH, L, ...), padded with zeros
+        t = t.reshape((b, nc, chunk) + tuple(t.shape[2:])).movedim(2, 3)
+        return torch.nn.functional.pad(t, [0, 0] * (t.dim() - 4) + [0, L - chunk])
+
+    xc, dtc = tiles(x.float()), tiles(dt.float())
+    Bc = tiles(B.repeat_interleave(rep, dim=2).float())
+    Cc = tiles(C.repeat_interleave(rep, dim=2).float())
+    a_cum = torch.cumsum(dtc * A[:, None], dim=-1)  # (B,NC,NH,L)
+    a_tot = a_cum[..., chunk - 1]
+    pos = torch.arange(L, device=x.device)
+    below = pos[:, None] >= pos[None, :]
+    diff = torch.where(below, a_cum[..., :, None] - a_cum[..., None, :], 0.0)
+    G_hi, G_lo = _bf16_split(torch.where(
+        below, (Cc @ Bc.transpose(-1, -2)) * torch.exp(diff) * dtc[..., None, :], 0.0), hi_lo)
+    W_hi, W_lo = _bf16_split(Bc * (dtc * torch.exp(a_tot[..., None] - a_cum))[..., None], hi_lo)
+
+    states = torch.zeros((b, nc, nh, p, n), dtype=torch.float32, device=x.device)
+    for k in range(0, L, 16):
+        xt = xc[..., k:k + 16, :].transpose(-1, -2)
+        states = states + xt @ W_hi[..., k:k + 16, :]
+        states = states + xt @ W_lo[..., k:k + 16, :]
+    h = torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(a_tot[:, c])[..., None, None] * h + states[:, c]
+    h_hi, h_lo = _bf16_split(torch.stack(h_in, dim=1), hi_lo)
+
+    y = torch.zeros((b, nc, nh, L, p), dtype=torch.float32, device=x.device)
+    for k in range(0, n, 16):
+        y = y + Cc[..., k:k + 16] @ h_hi[..., k:k + 16].transpose(-1, -2)
+        y = y + Cc[..., k:k + 16] @ h_lo[..., k:k + 16].transpose(-1, -2)
+    y = y * torch.exp(a_cum)[..., None]
+    for k in range(0, L, 16):
+        y = y + G_hi[..., k:k + 16] @ xc[..., k:k + 16, :]
+        y = y + G_lo[..., k:k + 16] @ xc[..., k:k + 16, :]
+    y = y + D[:, None, None] * xc
+    y = y[..., :chunk, :].movedim(3, 2).reshape(b, s, nh, p).to(x.dtype)
+    return (y, h) if return_state else y
+
+
 def ssd_decode_step(
     x: torch.Tensor,  # (B, NH, P)
     dt: torch.Tensor,  # (B, NH)

@@ -5,6 +5,11 @@ x (B, S, NH, P) bf16, dt (B, S, NH) f32, A and D (NH,) f32, Bm and Cm
 (B, S, G, N) bf16 (head h reads group h // (NH // G)); returns (y (B, S, NH, P)
 bf16, final state (B, NH, P, N) f32). ``chunk`` becomes ``min(chunk, S)``,
 and ``S`` must be a multiple of it, as in the JAX package: nothing is padded.
+The kernel takes a head dim of 64 and a state of 16, 32, 64 or 128 (every
+SSD config's), and raises on any other. One chunk is one launch; past one
+chunk the wrapper's one call is three launches (each chunk's state, the
+recurrence over the chunks, each chunk's y) that pass the states through an
+fp32 workspace of (B, NH, S / chunk, P, N).
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_chunked
 
 _c = ctypes
+HEAD_DIMS = (64,)
+STATES = (16, 32, 64, 128)
 
 
 def plain(x, dt, A, Bm, Cm, D, *, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -29,8 +36,8 @@ def plain(x, dt, A, Bm, Cm, D, *, chunk: int = 128) -> Tuple[torch.Tensor, torch
 def _fwd():
     return _build.entry("ssd", "ssd_fwd", [
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-        _c.c_int, _c.c_int, _c.c_int, _c.c_void_p])
+        _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p])
 
 
 def ssd(
@@ -60,16 +67,30 @@ def ssd(
                    and Bm.shape == Cm.shape == (b, s, g, n) and nh % g == 0,
                    f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
                    f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, D {tuple(D.shape)}")
-    _build.require(p % 4 == 0 and n % 4 == 0,
-                   f"ssd kernel: head dim {p} and state {n} must be multiples of 4")
+    _build.require(p in HEAD_DIMS and n in STATES,
+                   f"ssd kernel: head dim {p} (takes {HEAD_DIMS}), state {n} (takes {STATES})")
+    y, h = launch(_fwd(), _build.library("ssd"), x, dt, A, Bm, Cm, D, chunk=chunk)
+    _build.LAUNCHES["ssd"] += 1
+    return y, h
+
+
+def launch(fwd, lib, x, dt, A, Bm, Cm, D, *, chunk: int):
+    """One call of ``ssd_fwd`` from ``lib`` (this module's build of
+    ``csrc/ssd.cu``, or a probe build) on checked inputs: (y, final state)."""
+    b, s, nh, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    nc = s // chunk
     y = torch.empty_like(x)
     h = torch.empty((b, nh, p, n), dtype=torch.float32, device=x.device)
+    # past one chunk, scratch for each chunk's state and its a_tot
+    ws = torch.empty((b, nh, nc, p, n) if nc > 1 else (0,), dtype=torch.float32,
+                     device=x.device)
+    a_tot = torch.empty((b, nh, nc) if nc > 1 else (0,), dtype=torch.float32, device=x.device)
     device, stream = _build.launch_site(x)
-    err = _fwd()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 D.data_ptr(), y.data_ptr(), h.data_ptr(), b, s, nh, g, p, n, chunk,
-                 device, stream)
+    err = fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+              D.data_ptr(), y.data_ptr(), h.data_ptr(), ws.data_ptr() or None,
+              a_tot.data_ptr() or None, b, s, nh, g, p, n, chunk, device, stream)
     # a chunk, state or head dim whose tiles exceed a block's shared memory
     # fails here, at allow_smem
-    _build.check(_build.library("ssd"), err, f"ssd (chunk {chunk}, state {n}, head dim {p})")
-    _build.LAUNCHES["ssd"] += 1
+    _build.check(lib, err, f"ssd (chunk {chunk}, state {n}, head dim {p})")
     return y, h

@@ -35,7 +35,20 @@ event timings include, and prints one JSON line each:
               products or scans), no L2 promotion, and 64-wide stages at
               every batch size. The no-promotion build keeps the port's
               grid and every row's order of sums, so its samples must equal
-              the port's bit for bit.
+              the port's bit for bit;
+  ssd_us      ``ssd`` at mamba2-2.7b's widths (80 heads of 64, one group of
+              state 128, chunk 128): the lockstep prefill (B=8, 128
+              positions; ``ssd_chunk_kernel``) and a four-chunk sequence
+              (B=2, 512 positions; ``ssd_state_kernel``, ``ssd_pass_kernel``,
+              ``ssd_y_kernel``), each kernel of a call, as the port builds
+              ``csrc/ssd.cu`` and built again with its probe macros: copies
+              only (tiles in, y and the state out, no products) and products
+              only (nothing read into the tiles), in two interleaved rounds;
+  norm_us     ``rmsnorm`` at the serving paths' shapes: 1024 rows (the
+              prefills) and 8 rows (the decode steps) of gemma-2b's 2048 and
+              mamba2-2.7b's 2560 and 5120, in two interleaved rounds, with
+              the bytes over the kernel's own duration (TB/s), and again
+              with w out of L2 and x in it, as a layer's norm finds them.
 
 The card's name and power limit come first, as ``nvidia-smi`` gives them.
 """
@@ -57,6 +70,10 @@ SAMPLE_VARIANTS = {  # csrc/sampling.cu builds: name -> nvcc defines
     "no_l2_promotion": ("-DSAMPLE_PROBE_NO_L2_PROMOTION",),
     "kc64": ("-DSAMPLE_KC=64",),
 }
+SSD_VARIANTS = {  # csrc/ssd.cu builds: name -> nvcc defines
+    "copies_only": ("-DSSD_PROBE_COPIES_ONLY",),
+    "products_only": ("-DSSD_PROBE_PRODUCTS_ONLY",),
+}
 # the variant that keeps the port's grid and every row's order of sums: its
 # samples must equal the port's bit for bit (64-wide stages change the grid,
 # whose merge tree sets the logprob's last bits)
@@ -64,7 +81,8 @@ SAMPLE_SAME_BITS = ("no_l2_promotion",)
 
 
 def cupti_us(torch, fn, n: int = 30):
-    """Mean device duration (us) of each kernel one call of fn launches."""
+    """Mean device duration (us) of each kernel one call of fn launches
+    (the instantiations of one template summed)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -74,8 +92,12 @@ def cupti_us(torch, fn, n: int = 30):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {ev.key.split("<")[0].split("::")[-1]: ev.device_time_total / ev.count
-            for ev in prof.key_averages() if ev.device_time_total > 0}
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            name = ev.key.split("<")[0].split("::")[-1].split("(")[0]
+            out[name] = out.get(name, 0.0) + ev.device_time_total / n
+    return out
 
 
 def build_variants(_build, source: str, variants):
@@ -208,6 +230,76 @@ def sample_probe(torch, gen):
             "ptxas": regs}
 
 
+def ssd_probe(torch, gen):
+    """``ssd`` at mamba2-2.7b's widths, the prefill and a four-chunk
+    sequence, as the port builds it and with each of SSD_VARIANTS' defines,
+    in two interleaved rounds: the device duration (us) of each kernel a
+    call launches, and the registers, shared memory and spills of each
+    build."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, ssd
+
+    NH, P, N = 80, 64, 128
+    libs = build_variants(_build, "ssd", SSD_VARIANTS)
+    shapes = {"prefill": (8, 128), "multi_chunk": (2, 512)}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    calls = {}
+    for tag, (B, S) in shapes.items():
+        x, Bm, Cm = randn(B, S, NH, P), randn(B, S, 1, N), randn(B, S, 1, N)
+        dt = F.softplus(randn(B, S, NH, dtype=torch.float32))
+        A, D = -torch.exp(randn(NH, dtype=torch.float32)), randn(NH, dtype=torch.float32)
+        args = (x, dt, A, Bm, Cm, D)
+        calls["kernel", tag] = lambda args=args: ssd.ssd(*args)
+        for name, (lib, _) in libs.items():
+            fwd = lib.ssd_fwd
+            fwd.argtypes, fwd.restype = ssd._fwd().argtypes, ctypes.c_int
+            calls[name, tag] = (lambda args=args, fwd=fwd, lib=lib:
+                                ssd.launch(fwd, lib, *args, chunk=128))
+    rec = {name: {tag: [] for tag in shapes} for name in ("kernel", *libs)}
+    for _ in range(2):
+        for (name, tag), fn in calls.items():
+            rec[name][tag].append(cupti_us(torch, fn))
+    logs = {"kernel": (_build.BUILD_DIR / "ssd.log").read_text(),
+            **{name: log for name, (_, log) in libs.items()}}
+    regs = {name: [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln] for name, log in logs.items()}
+    return {"us": rec, "ptxas": regs}
+
+
+def norm_probe(torch, gen):
+    """``rmsnorm`` at the serving paths' shapes, in two interleaved rounds:
+    the kernel's device duration (us) and the bytes it must move (x read,
+    y written, w read) over that duration (TB/s); and the duration with w
+    out of L2 and x in it, as a layer's norm finds them (``cold_w_us``: a
+    96 MB buffer is written, then x, before each call)."""
+    from repro_torch.kernels import rmsnorm
+
+    shapes = {f"{R}x{D}": (R, D) for R in (1024, 8) for D in (2048, 2560, 5120)}
+    flush = torch.empty((96 << 20) // 4, device="cuda")
+    calls, cold, evict = {}, {}, {}
+    for tag, (R, D) in shapes.items():
+        x = torch.randn((R, D), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((D,), generator=gen, device="cuda") * 0.1
+        calls[tag] = lambda x=x, w=w: rmsnorm.rmsnorm(x, w)
+        evict[tag] = lambda x=x: (flush.zero_(), x.mul_(1))
+        cold[tag] = lambda x=x, w=w, e=evict[tag]: (e(), rmsnorm.rmsnorm(x, w))
+    us = {tag: [] for tag in shapes}
+    cold_us = {tag: [] for tag in shapes}
+    for _ in range(2):
+        for tag in shapes:
+            us[tag].append(sum(cupti_us(torch, calls[tag]).values()))
+            other = cupti_us(torch, evict[tag])  # the kernels that evict w
+            cold_us[tag].append(sum(t for k, t in cupti_us(torch, cold[tag]).items()
+                                    if k not in other))
+    rate = {tag: [(4 * R * D + 4 * D) / (t * 1e-6) / 1e12 for t in us[tag]]
+            for tag, (R, D) in shapes.items()}
+    return {"us": us, "tb_per_s": rate, "cold_w_us": cold_us}
+
+
 def main() -> int:
     import torch
 
@@ -257,6 +349,8 @@ def main() -> int:
     print(json.dumps({"decode_us": decode_probe(torch, gen)}), flush=True)
     sample = sample_probe(torch, gen)
     print(json.dumps({"sample_us": sample}), flush=True)
+    print(json.dumps({"ssd_us": ssd_probe(torch, gen)}), flush=True)
+    print(json.dumps({"norm_us": norm_probe(torch, gen)}), flush=True)
 
     # the serving shapes: padded heads 8..15 are zero, as the model passes them
     q, k, v = randn(8, 128, 16, 256), randn(8, 128, 1, 256), randn(8, 128, 1, 256)

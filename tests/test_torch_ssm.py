@@ -110,6 +110,40 @@ def test_ssd_carries_the_state_across_chunks():
     np.testing.assert_allclose(h1.numpy(), h.numpy(), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("s,nh,p,g,n,chunk", [
+    (96, 4, 16, 2, 16, 24),  # four chunks of 24 (padded to 32), two groups
+    (80, 2, 64, 2, 16, 40),  # two chunks of 40 (padded to 48)
+    (64, 4, 64, 1, 32, 64),  # one chunk
+])
+def test_ssd_kernel_decomposition_matches_chunked_and_pallas(s, nh, p, g, n, chunk):
+    """``ref.ssd_chunked_tiles``, the CUDA kernel's decomposition (padded
+    chunks, chunk states recurred in order, G, h and W as bf16 hi + lo), on
+    bf16 inputs against the plain version and the Pallas kernel in interpret
+    mode, at the bf16 tolerances of ``tests/test_kernels.py``."""
+    js, ts = ssd_inputs(14, 2, s, nh, p, g, n, "bf16")
+    y, h = ref.ssd_chunked_tiles(*ts, chunk=chunk, return_state=True)
+    assert y.dtype == torch.bfloat16 and h.shape == (2, nh, p, n)
+    y_c, h_c = ref.ssd_chunked(*ts, chunk=chunk, return_state=True)
+    y_p, h_p = ssd_pallas(*js, chunk=chunk, interpret=True)
+    for want_y, want_h in ((y_c, h_c), (y_p, h_p)):
+        np.testing.assert_allclose(as_np(y), as_np(want_y), atol=5e-2, rtol=5e-2)
+        np.testing.assert_allclose(as_np(h), as_np(want_h), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("s", [128, 256])
+def test_ssd_kernel_decomposition_at_mamba2_widths(s):
+    """One row at mamba2-2.7b's SSD widths (80 heads of 64, one group of
+    state 128, chunk 128), one chunk and two: the kernel's roundings keep y
+    and the state within half of ``chip_smoke.py``'s SSD_Y_TOL (5e-2) and
+    SSD_STATE_TOL (1e-3) of the plain version (one bf16 pass of G, h and W
+    would not: ``repro_torch.tools.ssd_numerics``)."""
+    _, ts = ssd_inputs(15, 1, s, 80, 64, 1, 128, "bf16")
+    y, h = ref.ssd_chunked_tiles(*ts, chunk=128, return_state=True)
+    y_c, h_c = ref.ssd_chunked(*ts, chunk=128, return_state=True)
+    np.testing.assert_allclose(as_np(y), as_np(y_c), atol=2.5e-2, rtol=2.5e-2)
+    np.testing.assert_allclose(as_np(h), as_np(h_c), atol=5e-4, rtol=5e-4)
+
+
 def test_ssd_decode_step_matches_jax():
     b, s, nh, p, g, n = 2, 5, 4, 8, 2, 8
     js, ts = ssd_inputs(7, b, s, nh, p, g, n)
