@@ -45,6 +45,22 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      width and depth (64 SSD layers), the checks of phase 3; the scan kernel
      once per layer and prefill, no attention kernel. The gemma-2b weights
      are freed before mamba2's are drawn.
+  7. Training, on full gemma-2b again (mamba2 freed), in the order of
+     ``rl.algorithms.grpo_dag``: 3 GRPO iterations (2 math prompts x 8
+     rollouts of 16 new tokens, the default ``RLConfig``: generate ->
+     reference logprobs -> math reward -> GRPO advantage -> actor step),
+     each iteration's launches held to its expected count (the actor step's
+     remat recompute included); then on the lockstep shape's rollouts
+     (B=8, prompt 128, 32 new) the training engine's logprobs against the
+     sampler's (step-0 ratio_mean within 1 +- 0.02), the gradient check
+     (kernel path against ``ops.set_mode("ref")``: a finite, nonzero grad on
+     every leaf; the loss at 2e-2; each leaf's relative L2 error and cosine
+     within 2x the plain path's own drift when its attention keeps the
+     probabilities in fp32), a decode kernel refusing an input that
+     requires grad, one actor step timed in parts (forward with remat,
+     backward, clip + AdamW) with tokens/s and peak memory, and
+     ``flash_attention`` and ``rmsnorm`` at the training shapes, with the
+     plain-VJP backwards beside SDPA's and ``F.rms_norm``'s.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -52,13 +68,14 @@ Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 printing any result.
 
 ``--profile`` also writes torch.profiler tables of one greedy generate of
-each lockstep path and of one greedy streaming replay to
+each lockstep path, of one greedy streaming replay and of one actor step to
 ``build/profile*.txt``, and prints the device-busy share of each. The
 profiles run last, and keep their models alive until then.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -572,7 +589,8 @@ def check_decode(torch, ref, got, want, cache_len, pos_offset: int, what: str):
     live key (cache_len <= pos_offset) is o = 0 in both and lse at or below
     NEG_INF / 2 in both (the kernel, as the TPU kernel, gives NEG_INF +
     log(1e-20); the plain version, as the JAX reference, NEG_INF / 2); every
-    other row within BF16_TOL (o) and LSE_TOL (lse)."""
+    other row within BF16_TOL (o) and LSE_TOL (lse). Returns max |o - o'|
+    over the live rows."""
     empty = cache_len <= pos_offset
     live = ~empty
     ok, err = close(got[0][live], want[0][live], BF16_TOL)
@@ -582,6 +600,7 @@ def check_decode(torch, ref, got, want, cache_len, pos_offset: int, what: str):
                for o, lse in (got, want))
     require(ok and ok_l and ok_e, f"{what}: o err {err}, lse err {err_l}, "
                                   f"empty rows {empty.tolist()} as specified: {ok_e}")
+    return err
 
 
 def split_decode_edges(torch, ops, ref, quant_kv, randn):
@@ -617,6 +636,25 @@ def split_decode_edges(torch, ops, ref, quant_kv, randn):
                                                                  pos_offset=16)),
                 f"D={hd} H={h} KVH={kvh}: two launches of a decode kernel differ")
     print(json.dumps({"check": "split_decode_edges", "ok": True}), flush=True)
+
+
+def check_sample(torch, ref, got, h, head, seeds, it, vocab, what: str) -> float:
+    """fused_sample's (tokens, logprobs) ``got`` against its plain version's:
+    no token past the vocab, greedy rows equal, sampled rows equal where the
+    top two scores are clear by SAMPLE_GAP, logprobs at LOGPROB_TOL. Returns
+    the max logprob error."""
+    tok_k, lp_k = got
+    tok_r, lp_r = ref.fused_sample(h, head, seeds, it, vocab_size=vocab)
+    _, y = ref.sample_scores(h, head, seeds, it, vocab_size=vocab)
+    top2 = y.topk(2, dim=-1).values
+    must = (it == 0) | ((top2[:, 0] - top2[:, 1]) > SAMPLE_GAP)
+    require(bool((tok_k < (vocab or head.shape[1])).all()),
+            f"fused_sample {what}: a token past the vocab")
+    require(bool((tok_k == tok_r)[must].all()),
+            f"fused_sample {what}: {tok_k.tolist()} vs {tok_r.tolist()}")
+    ok, err = close(lp_k, lp_r, LOGPROB_TOL)
+    require(ok, f"fused_sample {what}: logprob max abs err {err}")
+    return err
 
 
 def sampler_at(torch, ops, ref, randn, gen, V, D):
@@ -676,19 +714,11 @@ def sampler_edges(torch, ops, ref, embed, randn, gen):
         """Kernel against plain: greedy rows equal, sampled rows equal where
         the top two scores are clear, logprobs at LOGPROB_TOL, two launches
         bit-identical; returns (kernel tokens, max logprob error)."""
-        tok_k, lp_k = ops.fused_sample(h, head, seeds, it, vocab_size=vocab)
-        tok_r, lp_r = ref.fused_sample(h, head, seeds, it, vocab_size=vocab)
-        _, y = ref.sample_scores(h, head, seeds, it, vocab_size=vocab)
-        top2 = y.topk(2, dim=-1).values
-        must = (it == 0) | ((top2[:, 0] - top2[:, 1]) > SAMPLE_GAP)
-        require(bool((tok_k < vocab).all()), f"fused_sample {what}: a token past the vocab")
-        require(bool((tok_k == tok_r)[must].all()),
-                f"fused_sample {what}: {tok_k.tolist()} vs {tok_r.tolist()}")
-        ok, err = close(lp_k, lp_r, LOGPROB_TOL)
-        require(ok, f"fused_sample {what}: logprob max abs err {err}")
+        got = ops.fused_sample(h, head, seeds, it, vocab_size=vocab)
+        err = check_sample(torch, ref, got, h, head, seeds, it, vocab, what)
         require(same_bits(lambda: ops.fused_sample(h, head, seeds, it, vocab_size=vocab)),
                 f"fused_sample {what}: two launches differ")
-        return tok_k, err
+        return got[0], err
 
     worst, grids = 0.0, {}
     for Bs in (1, 5, 13, 64, 100):
@@ -1157,6 +1187,434 @@ def streaming_phase(torch, ops, _build, serve, model, params, tok):
     return counts, summary, profile_job
 
 
+# the training phase: GRPO on full gemma-2b (configs/gemma_2b.py), 2 math
+# prompts x 8 rollouts of 16 new tokens, the default RLConfig
+GRPO_ITERS, GRPO_PROMPTS = 3, 2
+# the kernels of the GRPO iteration's path
+GRPO_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "fused_sample")
+# the gradient check: the kernel path's loss and grads may stray from the
+# plain path's at most this many times as far as the plain path strays from
+# itself when its attention keeps the probabilities in fp32 (both
+# evaluations are equally valid roundings of the same function)
+GRAD_DRIFT_FACTOR = 2.0
+RATIO_TOL = 0.02  # ratio_mean of an actor step on rollouts just sampled: 1 +- this
+# one actor step at an RL response length: 2 sequences of 2,048 positions,
+# the last 1,792 of them the response
+LONG_B, LONG_PROMPT, LONG_S = 2, 256, 2048
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def cosine(a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp(min=1e-30))
+
+
+def leaf_names(t, prefix="params"):
+    """The path of every leaf of a params tree, in ``tree.leaves`` order."""
+    if isinstance(t, dict):
+        return [n for k, v in t.items() for n in leaf_names(v, f"{prefix}.{k}")]
+    if isinstance(t, (list, tuple)):
+        return [n for i, v in enumerate(t) for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def grad_drift(tree, a, b):
+    """(worst relative L2 error, worst cosine) over the leaves of two grad
+    trees, and the path of the leaf with the worst relative error."""
+    errs = [(rel_l2(x, y), cosine(x, y), name)
+            for x, y, name in zip(tree.leaves(a), tree.leaves(b), leaf_names(b))]
+    return max(e[0] for e in errs), min(e[1] for e in errs), max(errs)[2]
+
+
+@contextlib.contextmanager
+def held_to_plain(torch, ops, ref):
+    """While open, every call of a kernel of GRPO_KERNELS through ``ops`` is
+    held against the kernel's plain version on that call's own inputs, at
+    the kernel checks' tolerances (norm and flash BF16_TOL, decode
+    ``check_decode``, the sampler ``check_sample``); the caller gets the
+    kernel's result. Yields {name: {"calls", "max_abs_err"}}."""
+    seen = {n: {"calls": 0, "max_abs_err": 0.0} for n in GRPO_KERNELS}
+    kernel = {n: getattr(ops, n) for n in GRPO_KERNELS}
+
+    def note(name, err):
+        seen[name]["calls"] += 1
+        seen[name]["max_abs_err"] = max(seen[name]["max_abs_err"], err)
+
+    def rmsnorm(x, w, *, eps=1e-6):
+        out = kernel["rmsnorm"](x, w, eps=eps)
+        with torch.no_grad():
+            ok, err = close(out, ref.rmsnorm(x, w, eps=eps), BF16_TOL)
+        require(ok, f"rmsnorm {tuple(x.shape)} on the path: max abs err {err}")
+        note("rmsnorm", err)
+        return out
+
+    def flash_attention(q, k, v, **kw):
+        out = kernel["flash_attention"](q, k, v, **kw)
+        with torch.no_grad():
+            ok, err = close(out, ref.flash_attention(q, k, v, **kw), BF16_TOL)
+        require(ok, f"flash_attention q {tuple(q.shape)} {kw} on the path: max abs err {err}")
+        note("flash_attention", err)
+        return out
+
+    def decode_attention(q, k, v, cache_len, **kw):
+        got = kernel["decode_attention"](q, k, v, cache_len, **kw)
+        note("decode_attention", check_decode(
+            torch, ref, got, ref.decode_attention(q, k, v, cache_len, **kw), cache_len,
+            kw.get("pos_offset", 0), f"decode_attention q {tuple(q.shape)} on the path"))
+        return got
+
+    def fused_sample(h, w_head, seeds, inv_temp, *, vocab_size=None):
+        got = kernel["fused_sample"](h, w_head, seeds, inv_temp, vocab_size=vocab_size)
+        note("fused_sample", check_sample(torch, ref, got, h, w_head, seeds, inv_temp,
+                                          vocab_size, f"B={h.shape[0]} on the path"))
+        return got
+
+    checked = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+               "decode_attention": decode_attention, "fused_sample": fused_sample}
+    for n in GRPO_KERNELS:
+        setattr(ops, n, checked[n])
+    try:
+        yield seen
+    finally:
+        for n in GRPO_KERNELS:
+            setattr(ops, n, kernel[n])
+
+
+def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile: bool):
+    """One synchronous GRPO iteration in the order of ``rl.algorithms.grpo_dag``
+    on full gemma-2b: generate -> reference logprobs -> math reward -> GRPO
+    advantage -> actor step (loss -> grad -> clip -> AdamW), 3 times, and
+    once more with every kernel call held against its plain version; then on
+    the lockstep rollouts (B=8, prompt 128, 32 new) the training engine's
+    logprobs against the sampler's, the gradient check against the plain
+    path and the split time of one actor step; the split time of one actor
+    step at LONG_B x LONG_S; the kernels at both training shapes. Adds
+    ``training`` and ``training_long`` entries to the rmsnorm and flash
+    records. Returns (launch counts of the GRPO iterations, summary, profile
+    job)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.rl import algorithms, reward, trainer
+
+    model, params, tok = build_model(torch, serve)
+    cfg = model.cfg
+    rl = trainer.RLConfig()
+    ref_params = tree.map(torch.clone, params)
+    state = trainer.init_state(params)
+    del params
+    torch.cuda.synchronize()
+    print(f"[train] actor, reference and fp32 AdamW moments: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    spec = algorithms.get_algorithm(rl.algorithm)
+    advantage = spec.make_advantage(rl)
+    actor_step = trainer.make_actor_step(model, rl)
+    apply_fn = trainer.make_actor_apply_fn(rl)
+    layers, mlps = cfg.num_layers, sum(k[1] != "none" for k in cfg.layer_kinds())
+    fwd_norms = layers + mlps + 1
+    # per actor step: the forward, and the layers again in the backward
+    # (remat), the final norm outside the checkpoint; the backward itself is
+    # the plain VJP and launches nothing
+    step_launches = {"rmsnorm": 2 * fwd_norms - 1, "flash_attention": 2 * layers}
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def as_batch(res):
+        # the stage boundary: rollouts leave inference mode as ordinary tensors
+        return {"tokens": res.tokens.clone(), "response_mask": res.response_mask.clone(),
+                "old_logprob": res.old_logprob.clone()}
+
+    def ref_logprobs(tokens):
+        with torch.no_grad():
+            return model.logprobs(ref_params, tokens)[0]
+
+    # ---- 1. the GRPO iteration, 3 times ----
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    steps = rl.max_new_tokens - 1
+    per_iter = expected_launches(cfg, _build.LAUNCHES, 1, steps)
+    per_iter["rmsnorm"] += fwd_norms + step_launches["rmsnorm"]  # + reference, actor step
+    per_iter["flash_attention"] += layers + step_launches["flash_attention"]
+    require(all(per_iter[n] == 0 for n in per_iter if n not in GRPO_KERNELS),
+            f"GRPO iteration: kernels off GRPO_KERNELS expected {per_iter}")
+
+    def iteration(it):
+        nonlocal state
+        before = dict(_build.LAUNCHES)
+        ids, answers = reward.make_math_prompts(rng, GRPO_PROMPTS, tok)
+        prompts = torch.from_numpy(np.repeat(ids, rl.group_size, axis=0)).to(DEV)
+        answers = torch.from_numpy(np.repeat(answers, rl.group_size)).to(DEV)
+        ms = {}
+        res, ms["generate"] = sync_ms(lambda: generate(
+            model, state.params, prompts, gen, max_new=rl.max_new_tokens,
+            temperature=rl.temperature, eos_id=tok.eos_id))
+        batch = as_batch(res)
+        batch["ref_logprob"], ms["reference"] = sync_ms(lambda: ref_logprobs(batch["tokens"]))
+        rewards, ms["reward"] = sync_ms(lambda: reward.math_reward_tokens(
+            batch["tokens"], batch["response_mask"], answers, tok))
+        batch["advantages"], ms["advantage"] = sync_ms(
+            lambda: advantage(rewards, batch["response_mask"]))
+        (state, metrics), ms["actor_step"] = sync_ms(lambda: actor_step(state, batch))
+        got = {n: _build.LAUNCHES[n] - before[n] for n in _build.LAUNCHES}
+        require(got == per_iter, f"GRPO iteration {it}: launches {got}, expected {per_iter}")
+        row = {"iteration": it, "reward/mean": float(rewards.mean()),
+               **{f"actor/{k}": float(metrics[k]) for k in
+                  ("loss", "grad_norm", "entropy", "kl", "clipfrac", "ratio_mean")},
+               "ms": ms, "response_tokens": int(batch["response_mask"].sum())}
+        require(all(np.isfinite(v) for k, v in row.items() if k.startswith(("actor/", "reward"))),
+                f"GRPO iteration {it}: non-finite metric {row}")
+        require(abs(row["actor/ratio_mean"] - 1.0) <= RATIO_TOL,
+                f"GRPO iteration {it}: ratio_mean {row['actor/ratio_mean']}: the training "
+                f"engine disagrees with the sampler")
+        require(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+                "GRPO rollout token out of range")
+        return row
+
+    iters = []
+    _build.reset_launches()
+    for it in range(GRPO_ITERS):
+        iters.append(iteration(it))
+        print(json.dumps({"grpo": iters[-1]}), flush=True)
+    counts = dict(_build.LAUNCHES)
+    # once more, every kernel call held against its plain version on the
+    # call's own inputs (not counted in the path's launches, timed slower)
+    with held_to_plain(torch, ops, ref) as held:
+        row = iteration(GRPO_ITERS)
+    require(all(held[n]["calls"] == per_iter[n] for n in GRPO_KERNELS),
+            f"GRPO iteration held to plain: calls {held}, expected {per_iter}")
+    print(json.dumps({"check": "grpo_iteration_held_to_plain", "kernels": held,
+                      "ratio_mean": row["actor/ratio_mean"]}), flush=True)
+
+    # ---- 2. engine agreement on the lockstep cell's rollouts ----
+    _, ids = serve.prompts(tok, B, PROMPT)
+    prompt = torch.from_numpy(ids).to(DEV)
+    res = generate(model, state.params, prompt, torch.Generator(device=DEV).manual_seed(1),
+                   max_new=MAX_NEW, temperature=rl.temperature, eos_id=tok.eos_id)
+    batch = as_batch(res)
+    mask = batch["response_mask"]
+    with torch.no_grad():
+        lp_train = model.logprobs(state.params, batch["tokens"])[0]
+    delta = (lp_train - batch["old_logprob"])[mask].abs()
+    agreement = {"logprob_max_abs_diff": float(delta.max()),
+                 "logprob_mean_abs_diff": float(delta.mean()),
+                 "response_tokens": int(mask.sum())}
+    batch["ref_logprob"] = ref_logprobs(batch["tokens"])
+    seq_rewards = torch.rand(B, generator=torch.Generator(device=DEV).manual_seed(2),
+                             device=DEV)
+    batch["advantages"] = advantage(seq_rewards, mask)  # one group of 8: never all equal
+
+    # ---- 3. the gradient check at full width ----
+    def loss_and_grads():
+        _build.reset_launches()
+        (loss, metrics), grads = trainer.value_and_grad(
+            lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params)
+        torch.cuda.synchronize()
+        return float(loss), metrics, grads, dict(_build.LAUNCHES)
+
+    loss_k, metrics_k, g_k, launched = loss_and_grads()
+    require(all(launched[n] == c for n, c in step_launches.items())
+            and launched["decode_attention"] == launched["fused_sample"] == 0,
+            f"actor loss + grad: launches {launched}, expected {step_launches}")
+    ratio0 = float(metrics_k["ratio_mean"])
+    agreement["step0_ratio_mean"] = ratio0
+    print(json.dumps({"engine_agreement": agreement}), flush=True)
+    require(abs(ratio0 - 1.0) <= RATIO_TOL,
+            f"step-0 ratio_mean {ratio0}: the training engine disagrees with the sampler")
+    for i, g in enumerate(tree.leaves(g_k)):
+        require(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                f"leaf {i} {tuple(g.shape)}: a gradient that is not finite or is zero")
+    ops.set_mode("ref")
+    plain_flash = ref.flash_attention
+    try:
+        loss_r, _, g_r, plain_launched = loss_and_grads()
+        # the same plain path with the attention probabilities kept in fp32
+        ref.flash_attention = lambda q, k, v, **kw: plain_flash(
+            q.float(), k.float(), v.float(), **kw).to(q.dtype)
+        loss_v, _, g_v, _ = loss_and_grads()
+    finally:
+        ref.flash_attention = plain_flash
+        ops.set_mode(None)
+    require(not any(plain_launched.values()), f"ref mode launched kernels: {plain_launched}")
+    drift_err, drift_cos, drift_leaf = grad_drift(tree, g_v, g_r)
+    del g_v
+    err, cos, worst_leaf = grad_drift(tree, g_k, g_r)
+    err_limit = GRAD_DRIFT_FACTOR * drift_err
+    cos_limit = 1.0 - GRAD_DRIFT_FACTOR * (1.0 - drift_cos)
+    loss_limit = GRAD_DRIFT_FACTOR * abs(loss_v - loss_r)
+    gcheck = {"loss_kernel": loss_k, "loss_plain": loss_r, "loss_plain_fp32_attention": loss_v,
+              "loss_limit": loss_limit,
+              "leaves": len(tree.leaves(g_k)), "worst_rel_l2": err, "worst_cosine": cos,
+              "worst_leaf": worst_leaf, "plain_drift_rel_l2": drift_err,
+              "plain_drift_cosine": drift_cos, "plain_drift_worst_leaf": drift_leaf,
+              "rel_l2_limit": err_limit,
+              "cosine_limit": cos_limit, "launches_per_loss_and_grad": launched}
+    print(json.dumps({"grad_check": gcheck}), flush=True)
+    require(abs(loss_k - loss_r) <= loss_limit,
+            f"actor loss: kernel path {loss_k}, plain path {loss_r} (limit {loss_limit})")
+    require(err <= err_limit and cos >= cos_limit,
+            f"grads: worst relative L2 error {err} (limit {err_limit}), worst cosine {cos} "
+            f"(limit {cos_limit}), leaf {worst_leaf}")
+    del g_k, g_r
+    # a kernel without a backward refuses an input that requires grad
+    qd = torch.zeros((B, HEADS, HEAD_DIM), dtype=torch.bfloat16, device=DEV, requires_grad=True)
+    kc = torch.zeros((B, SMAX, 1, HEAD_DIM), dtype=torch.bfloat16, device=DEV)
+    try:
+        ops.decode_attention(qd, kc, kc, torch.full((B,), 4, dtype=torch.int32, device=DEV))
+        raise AssertionError("decode_attention took an input that requires grad")
+    except RuntimeError as e:
+        require("no backward" in str(e), f"decode_attention raised {e}")
+    print(json.dumps({"check": "no_backward_raises", "kernel": "decode_attention"}), flush=True)
+
+    # ---- 4. one actor step, split; tokens/s and peak memory ----
+    def split_step(batch):
+        """One actor step as ``make_actor_step`` takes it, marked between the
+        forward (with remat), the backward and clip + AdamW: their ms."""
+        nonlocal state
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        mark()
+        _, grads = trainer.value_and_grad(
+            lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params, on_loss=mark)
+        mark()
+        (state, _), t_opt = sync_ms(lambda: apply_fn(state, grads))
+        return (marks[1] - marks[0]) * 1e3, (marks[2] - marks[1]) * 1e3, t_opt
+
+    def timed_steps(batch, label):
+        nonlocal state
+        torch.cuda.reset_peak_memory_stats()
+        splits = [split_step(batch) for _ in range(3)]
+        fwd, bwd, opt = (statistics.median(x) for x in zip(*splits))
+        wholes = []
+        for _ in range(3):
+            (state, _), t = sync_ms(lambda: actor_step(state, batch))
+            wholes.append(t)
+        whole = statistics.median(wholes)
+        summary = {"batch": list(batch["tokens"].shape), "forward_ms": fwd,
+                   "backward_ms": bwd, "clip_adamw_ms": opt, "step_ms": whole,
+                   "trained_tokens_per_s": batch["tokens"].numel() / whole * 1e3,
+                   "response_tokens_per_s": int(batch["response_mask"].sum()) / whole * 1e3,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(json.dumps({label: summary}), flush=True)
+        return summary
+
+    split_step(batch)  # warm
+    step_summary = timed_steps(batch, "actor_step")
+
+    # ---- 5. one actor step at an RL response length ----
+    g_long = torch.Generator(device=DEV).manual_seed(3)
+    long_tokens = torch.randint(3, cfg.vocab_size, (LONG_B, LONG_S), generator=g_long,
+                                device=DEV, dtype=batch["tokens"].dtype)
+    long_mask = (torch.arange(LONG_S, device=DEV) >= LONG_PROMPT).expand(LONG_B, -1).clone()
+    with torch.no_grad():
+        long_old = model.logprobs(state.params, long_tokens)[0] * long_mask
+    long_batch = {"tokens": long_tokens, "response_mask": long_mask, "old_logprob": long_old,
+                  "ref_logprob": ref_logprobs(long_tokens) * long_mask,
+                  "advantages": torch.randn((LONG_B, 1), generator=g_long, device=DEV)
+                  * long_mask}
+    # the warm-up step holds every kernel call against its plain version
+    with held_to_plain(torch, ops, ref) as held_long:
+        split_step(long_batch)
+    require(all(held_long[n]["calls"] == step_launches.get(n, 0) for n in GRPO_KERNELS),
+            f"long actor step held to plain: calls {held_long}, expected {step_launches}")
+    print(json.dumps({"check": "actor_step_long_held_to_plain", "kernels": held_long}),
+          flush=True)
+    long_summary = timed_steps(long_batch, "actor_step_long")
+    del long_batch, long_tokens, long_mask, long_old
+
+    # ---- the kernels at the training shapes, and the plain-VJP backwards ----
+    g = torch.Generator(device=DEV).manual_seed(99)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
+
+    for tag, Bt, S_T in (("training", B, PROMPT + MAX_NEW), ("training_long", LONG_B, LONG_S)):
+        q = randn(Bt, S_T, HEADS, HEAD_DIM)
+        q[:, :, REAL_HEADS:] = 0
+        k, v = randn(Bt, S_T, 1, HEAD_DIM), randn(Bt, S_T, 1, HEAD_DIM)
+        go = randn(Bt, S_T, HEADS, HEAD_DIM)
+        ok, err_f = close(ops.flash_attention(q, k, v), ref.flash_attention(q, k, v), BF16_TOL)
+        require(ok, f"flash_attention at the {tag} shape: max abs err {err_f}")
+        pairs = S_T * (S_T + 1) // 2
+        f_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+        f_bound, f_by = bound_ms(f_bytes, 4 * Bt * HEADS * HEAD_DIM * pairs,
+                                 BF16_TENSOR_FLOP_PER_S)
+        # backward: q, k, v, o's cotangent in; dq, dk, dv out; the products of
+        # the recomputed logits, dP, dQ, dK, dV: 2.5x the forward's
+        b_bound, b_by = bound_ms(2 * f_bytes, 10 * Bt * HEADS * HEAD_DIM * pairs,
+                                 BF16_TENSOR_FLOP_PER_S)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sd_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        got_t = go.transpose(1, 2)
+        records["flash_attention"][tag] = {
+            "shape": {"q": list(q.shape), "kv": list(k.shape)}, "max_abs_err": err_f,
+            "ms": device_ms(lambda: ops.flash_attention(q, k, v)),
+            "plain_ms": device_ms(lambda: ref.flash_attention(q, k, v)),
+            "bound_ms": f_bound, "bound_by": f_by,
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True)),
+            "backward": {"plain_vjp_ms": device_ms(lambda: ref.vjp(ref.flash_attention,
+                                                                    (q, k, v), go)),
+                         "bound_ms": b_bound, "bound_by": b_by,
+                         "library_ms": device_ms(lambda: torch.autograd.grad(
+                             sd_out, (qt, kt, vt), got_t, retain_graph=True)),
+                         "library": "SDPA's backward (retained graph)"}}
+        print(json.dumps({"check": f"flash_attention/{tag}",
+                          **records["flash_attention"][tag]}), flush=True)
+        R = Bt * S_T
+        x, w = randn(R, D_MODEL), randn(D_MODEL, scale=0.1, dtype=torch.float32)
+        gy = randn(R, D_MODEL)
+        ok, err_n = close(ops.rmsnorm(x, w), ref.rmsnorm(x, w), BF16_TOL)
+        require(ok, f"rmsnorm at the {tag} shape: max abs err {err_n}")
+        n_bound, n_by = bound_ms(2 * R * D_MODEL * 2 + D_MODEL * 4, 4 * R * D_MODEL,
+                                 FP32_FLOP_PER_S)
+        nb_bound, nb_by = bound_ms(3 * R * D_MODEL * 2 + 2 * D_MODEL * 4, 10 * R * D_MODEL,
+                                   FP32_FLOP_PER_S)
+        wl = (1.0 + w).to(torch.bfloat16)
+        xl, wll = x.detach().requires_grad_(), wl.detach().requires_grad_()
+        ln_out = F.rms_norm(xl, (D_MODEL,), weight=wll, eps=1e-6)
+        records["rmsnorm"][tag] = {
+            "shape": [R, D_MODEL], "max_abs_err": err_n,
+            "ms": device_ms(lambda: ops.rmsnorm(x, w)),
+            "plain_ms": device_ms(lambda: ref.rmsnorm(x, w)),
+            "bound_ms": n_bound, "bound_by": n_by,
+            "library_ms": device_ms(lambda: F.rms_norm(x, (D_MODEL,), weight=wl, eps=1e-6)),
+            "backward": {"plain_vjp_ms": device_ms(lambda: ref.vjp(ref.rmsnorm, (x, w), gy)),
+                         "bound_ms": nb_bound, "bound_by": nb_by,
+                         "library_ms": device_ms(lambda: torch.autograd.grad(
+                             ln_out, (xl, wll), gy, retain_graph=True)),
+                         "library": "F.rms_norm's backward (retained graph)"}}
+        print(json.dumps({"check": f"rmsnorm/{tag}", **records["rmsnorm"][tag]}), flush=True)
+        del sd_out, ln_out
+
+    summary = {"iterations": iters, "engine_agreement": agreement, "grad_check": gcheck,
+               "actor_step": step_summary, "actor_step_long": long_summary,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def profile_job():
+        busy_ms, wall_ms = busy_share(torch, lambda: actor_step(state, batch),
+                                      ROOT / "build" / "profile_train.txt")
+        whole = step_summary["step_ms"]
+        print(json.dumps({"profile_actor_step": {
+            "device_busy_ms": busy_ms, "profiled_step_ms": wall_ms, "step_ms": whole,
+            "device_busy_share": busy_ms / whole}}), flush=True)
+
+    return counts, summary, (profile_job if profile else None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
@@ -1222,16 +1680,27 @@ def main(argv=None) -> int:
                               layerwise=True)
     paths = {**end_counts, "mamba2_lockstep": mamba2[0]}
     if opts.profile:
+        jobs.append(mamba2[2])
+    del model, params, mamba2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 7: training, GRPO on full gemma-2b ----
+    train_counts, _, train_job = training_phase(torch, ops, ref, F, _build, serve, generate,
+                                                records, opts.profile)
+    paths["grpo_training"] = train_counts
+    if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
-        for job in [*jobs, mamba2[2]]:
+        for job in [*jobs, train_job]:
             job()
     on_path = {"streaming": ("rmsnorm", "flash_attention", "paged_decode_attention",
                              "fused_sample"),
                "lockstep": ("rmsnorm", "flash_attention", "decode_attention", "fused_sample"),
                "int8_lockstep": ("rmsnorm", "flash_attention", "decode_attention_quant",
                                  "fused_sample"),
-               "mamba2_lockstep": ("rmsnorm", "ssd", "fused_sample")}
+               "mamba2_lockstep": ("rmsnorm", "ssd", "fused_sample"),
+               "grpo_training": ("rmsnorm", "flash_attention", "decode_attention",
+                                 "fused_sample")}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),
                 f"a kernel of the {path} path was not launched: {paths[path]}")

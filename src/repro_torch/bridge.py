@@ -8,6 +8,10 @@ layer. Both sides keep the ``(d_in, d_out)`` layout, so leaves map one to
 one, SSD leaves too (``A_log``, ``D``, ``dt_bias`` and ``norm_w`` are f32,
 the projections and convolutions bf16).
 
+Critic params (``repro.rl.critic.init``: ``{"backbone": lm params without
+a token head, "v_head": (d, 1) f32}``) cross the same way, the backbone as
+an LM's.
+
 Arrays cross as numpy (the caller turns JAX arrays into numpy arrays first).
 bf16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses,
 so it crosses as its 16-bit pattern and is viewed back on the other side:
@@ -20,6 +24,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.models.lm import smallest_period
 
 
@@ -43,24 +48,21 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def from_jax(jax_params: Dict[str, Any], *, device,
              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """JAX param pytree (numpy leaves) -> the port's params on ``device``
     (required: there is no default device). ``dtype`` casts every float leaf
-    (``torch.float32`` for the fp32 parity tests)."""
+    (``torch.float32`` for the fp32 parity tests). Critic params too."""
     conv = lambda a: _to_tensor(a, device, dtype)  # noqa: E731
+    if "backbone" in jax_params:
+        return {"backbone": from_jax(jax_params["backbone"], device=device, dtype=dtype),
+                "v_head": conv(jax_params["v_head"])}
     groups = jax_params["blocks"]  # one stacked dict per pattern position
     P = len(groups)
     N = len(np.asarray(groups[0]["norm1"]["w"]))
-    blocks = [_map(groups[i % P], lambda a, g=i // P: conv(np.asarray(a)[g]))
+    blocks = [tree.map(lambda a, g=i // P: conv(np.asarray(a)[g]), groups[i % P])
               for i in range(N * P)]
-    out = {k: _map(v, conv) for k, v in jax_params.items() if k != "blocks"}
+    out = {k: tree.map(conv, v) for k, v in jax_params.items() if k != "blocks"}
     out["blocks"] = blocks
     return out
 
@@ -77,10 +79,13 @@ def to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's params -> the JAX param pytree with numpy leaves: the
     layers stacked by the layer pattern (``lm.pattern_length``), position
     ``p`` of the pattern holding layers p, p + P, p + 2P, ... (a hybrid's
-    attention and SSD layers land in their own positions)."""
+    attention and SSD layers land in their own positions). Critic params
+    too."""
+    if "backbone" in params:
+        return {"backbone": to_jax(params["backbone"]), "v_head": _to_numpy(params["v_head"])}
     blocks = params["blocks"]
     P = smallest_period([_layer_kind(b) for b in blocks])
-    out = {k: _map(v, _to_numpy) for k, v in params.items() if k != "blocks"}
+    out = {k: tree.map(_to_numpy, v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = [_stack(blocks[pos::P]) for pos in range(P)]
     return out
 

@@ -137,6 +137,23 @@ def require(ok: bool, what: str) -> None:
         raise ValueError(what)
 
 
+def wants_grad(*tensors) -> bool:
+    """Grad mode is on and an input requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise unless the kernel's output may go without a ``grad_fn``: a
+    kernel writes its output through ``data_ptr()``, so under grad mode an
+    input that requires grad would lose its gradient without a word. Only
+    ``rmsnorm`` and ``flash_attention`` have a backward (an autograd Function
+    in their modules, which launches the kernel with grad mode off)."""
+    if wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no backward; "
+            "call it under torch.no_grad() or torch.inference_mode()")
+
+
 def require_cuda(*tensors) -> None:
     """All tensors on one CUDA device, contiguous, 16-byte aligned."""
     dev = tensors[0].device

@@ -50,6 +50,7 @@ def decode_attention(
         return plain(q, k, v, cache_len, scale=scale, window=window,
                      pos_offset=pos_offset)
     _build.require(q.device.type == "cuda", f"no decode_attention kernel for {q.device}")
+    _build.require_no_grad("decode_attention", q, k, v)
     _build.require_cuda(q, k, v, cache_len)
     _build.require(q.dtype == k.dtype == v.dtype == torch.bfloat16
                    and cache_len.dtype == torch.int32,

@@ -50,6 +50,7 @@ def decode_attention_quant(
                      pos_offset=pos_offset)
     _build.require(q.device.type == "cuda",
                    f"no decode_attention_quant kernel for {q.device}")
+    _build.require_no_grad("decode_attention_quant", q, k_scale, v_scale)
     _build.require_cuda(q, k, v, k_scale, v_scale, cache_len)
     _build.require(q.dtype == torch.bfloat16 and k.dtype == v.dtype == torch.int8
                    and k_scale.dtype == v_scale.dtype == torch.float32

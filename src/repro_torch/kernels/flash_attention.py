@@ -6,6 +6,14 @@ Unlike the TPU kernel, any Sq and Sk are taken: ragged tails are masked.
 k and v may be views of the first Sk positions of a longer cache
 (``cache[:, :Sk]``, as chunked prefill passes them): only their last three
 dimensions must be contiguous, and the batch stride goes to the kernel.
+
+:class:`FlashAttentionFn` is the autograd Function that
+``ops.flash_attention`` takes when a gradient is wanted (the training
+forward, ``mode="full"``): its forward is :func:`flash_attention` (the kernel
+on CUDA tensors), its backward the VJP of the plain version recomputed from
+the saved q, k, v. The JAX package has no ``custom_vjp`` either: ``jax.grad``
+differentiates its plain version. That VJP materialises the (B, H, Sq, Sk)
+fp32 logits and probabilities, as the plain forward does.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention as plain
+from repro_torch.kernels.ref import vjp
 
 _c = ctypes
 HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is instantiated for
@@ -44,6 +53,7 @@ def flash_attention(
         return plain(q, k, v, causal=causal, window=window, scale=scale,
                      q_offset=q_offset)
     _build.require(q.device.type == "cuda", f"no flash_attention kernel for {q.device}")
+    _build.require_no_grad("flash_attention", q, k, v)
     _build.require_cuda(q, k[0], v[0])
     _build.require(k.stride() == v.stride() and k.stride(0) % 8 == 0,
                    f"k strides {k.stride()}, v strides {v.stride()}")
@@ -65,3 +75,19 @@ def flash_attention(
     _build.check(_build.library("flash_attention"), err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Forward through :func:`flash_attention`, backward by the plain
+    version's VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, go):
+        grads = vjp(plain, ctx.saved_tensors, go, ctx.needs_input_grad[:3], **ctx.kw)
+        return (*grads, None, None, None, None)

@@ -6,6 +6,12 @@ sends CUDA tensors to the plain versions as well; it is called explicitly, in
 code, as the JAX package's ``ops.set_mode`` is (the kernel checks of
 ``chip_smoke.py`` and the tests do). There is no environment variable, and a
 kernel that fails to build or launch raises: nothing falls back.
+
+Under grad mode, with an input that requires grad, ``rmsnorm`` and
+``flash_attention`` go through their autograd Functions (the kernel forward,
+the plain version's VJP backward); the other kernels have no backward and
+raise on a CUDA tensor there. In ``ref`` mode autograd differentiates the
+plain versions directly, as ``jax.grad`` does in the JAX package.
 """
 from __future__ import annotations
 
@@ -13,16 +19,19 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
 from repro_torch.kernels.decode_attention_quant import (
     decode_attention_quant as _decode_attention_quant,
 )
+from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention as _paged_decode_attention,
 )
+from repro_torch.kernels.rmsnorm import RMSNormFn
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.sampling import fused_sample as _fused_sample
 
@@ -46,6 +55,8 @@ def current_mode() -> Optional[str]:
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     if _MODE == "ref":
         return _ref.rmsnorm(x, w, eps=eps)
+    if _build.wants_grad(x, w):
+        return RMSNormFn.apply(x, w, eps)
     return _rmsnorm(x, w, eps=eps)
 
 
@@ -53,6 +64,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None, q_offset=0
     if _MODE == "ref":
         return _ref.flash_attention(q, k, v, causal=causal, window=window,
                                     scale=scale, q_offset=q_offset)
+    if _build.wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale, q_offset)
     return _flash_attention(q, k, v, causal=causal, window=window, scale=scale,
                             q_offset=q_offset)
 

@@ -51,6 +51,7 @@ def paged_decode_attention(
     if q.device.type == "cpu":
         return plain(q, pool_k, pool_v, tables, kv_len, scale=scale)
     _build.require(q.device.type == "cuda", f"no paged_decode_attention kernel for {q.device}")
+    _build.require_no_grad("paged_decode_attention", q, pool_k, pool_v)
     _build.require_cuda(q, pool_k, pool_v, tables, kv_len)
     _build.require(q.dtype == pool_k.dtype == pool_v.dtype == torch.bfloat16
                    and tables.dtype == kv_len.dtype == torch.int32,

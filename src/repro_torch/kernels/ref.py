@@ -23,15 +23,34 @@ NEG_INF = -1e30
 _U32 = 0xFFFFFFFF
 
 
+def _up(t: torch.Tensor) -> torch.Tensor:
+    """fp32 for the working types, float64 kept (for ``gradcheck``)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def vjp(fn, inputs, cotangent, needs=None, **kw):
+    """The VJP of the plain version ``fn`` at ``inputs`` against the output
+    ``cotangent``, by autograd through ``fn(*inputs, **kw)``: one gradient
+    per input, ``None`` where ``needs`` says no. The backward of the
+    kernels that have one (their autograd Functions)."""
+    needs = needs or (True,) * len(inputs)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = fn(*ins, **kw)
+        got = iter(torch.autograd.grad(out, [t for t, n in zip(ins, needs) if n], cotangent))
+    return tuple(next(got) if n else None for n in needs)
+
+
 # --------------------------------------------------------------------------- #
 # rmsnorm
 # --------------------------------------------------------------------------- #
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in fp32, output in x's dtype."""
-    xf = x.float()
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in fp32 (float64 stays
+    float64), output in x's dtype."""
+    xf = _up(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + w.float())).to(x.dtype)
+    return (y * (1.0 + _up(w))).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -59,7 +78,7 @@ def flash_attention(
     g = H // KVH
     scale = scale if scale is not None else 1.0 / (D**0.5)
     qg = q.reshape(B, Sq, KVH, g, D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", _up(qg), _up(k)) * scale
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)

@@ -68,6 +68,7 @@ def fused_sample(
     if h.device.type == "cpu":
         return plain(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
     _build.require(h.device.type == "cuda", f"no fused_sample kernel for {h.device}")
+    _build.require_no_grad("fused_sample", h, w_head, inv_temp)
     rows = w_head.t()  # (Vp, d): a view, contiguous for the tied head
     _build.require_cuda(h, rows, seeds, inv_temp)
     _build.require(h.dtype == rows.dtype == torch.bfloat16 and seeds.dtype == torch.int32

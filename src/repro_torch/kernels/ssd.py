@@ -57,6 +57,7 @@ def ssd(
     if x.device.type == "cpu":
         return plain(x, dt, A, Bm, Cm, D, chunk=chunk)
     _build.require(x.device.type == "cuda", f"no ssd kernel for {x.device}")
+    _build.require_no_grad("ssd", x, dt, A, Bm, Cm, D)
     _build.require_cuda(x, dt, A, Bm, Cm, D)
     _build.require(x.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
                    and dt.dtype == A.dtype == D.dtype == torch.float32,

@@ -35,6 +35,15 @@ class Model:
         device)."""
         return lm.init(self.cfg, gen, device=self.device)
 
+    # ---- training and RL scoring ----
+    def loss(self, params, batch, *, remat: bool = True):
+        """LM loss of ``batch`` (tokens, labels): (loss, metrics)."""
+        return lm.loss_fn(self.cfg, params, batch, remat=remat)
+
+    def logprobs(self, params, tokens, *, remat: bool = False):
+        """(logprob, entropy) of ``tokens``, each (B, S); position 0 gets 0."""
+        return lm.logprobs_fn(self.cfg, params, tokens, remat=remat)
+
     def init_caches(self, batch: int, smax: int):
         return lm.init_caches(self.cfg, batch, smax, device=self.device)
 

@@ -131,3 +131,12 @@ def qkv_proj(
 def out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
     """o (B,S,Hp,hd) or (B,Hp,hd) -> (..., d)."""
     return o.reshape(*o.shape[:-2], -1) @ p["w_o"]
+
+
+def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                   *, causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention, no cache (``mode="full"``: the training and
+    logprob forward), as ``layers.self_attention``."""
+    q, k, v = qkv_proj(cfg, p, x, positions)
+    o = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    return out_proj(cfg, p, o)

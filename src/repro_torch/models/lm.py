@@ -7,7 +7,9 @@ pytree stacks each block parameter over layers, ``(N, ...)`` per pattern
 position, for its ``lax.scan``; here ``params["blocks"]`` is a list with one
 dict of weights per layer, and the backbone is a Python loop over it.
 
-Three execution modes share the backbone:
+Four execution modes share the backbone:
+  full           — whole sequence, no cache (training loss, RL logprobs);
+                   with ``remat`` each layer is recomputed in the backward
   prefill        — whole prompt, emits decode caches
   prefill_chunk  — one page-wide chunk of a prompt into existing caches
   decode         — one token per sequence against the caches, or (with
@@ -21,14 +23,16 @@ decode state ``{"ssm", "conv_x", "conv_bc"}``. The serving page pool is the
 attention layout with pages for rows: ``init_caches(num_pages, page_size)``,
 each leaf (P, page_size, KVH, hd).
 
-Not ported yet: MoE, sliding-window rings, enc-dec, prefix embeds and
-parallel blocks; each raises ``NotImplementedError`` naming its ROADMAP item.
+Not ported yet: MoE, sliding-window rings, enc-dec, prefix embeds,
+parallel blocks and ``full`` mode through SSD layers; each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -36,6 +40,9 @@ from repro_torch.models import layers, ssm
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
+
+LOSS_CHUNK = 1024  # sequence chunking for the CE/logprob head (memory bound)
+IGNORE = -1  # label id excluded from the loss
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -141,6 +148,9 @@ def _attn_mixer(
     page_tables: Optional[torch.Tensor] = None,
     write_enable: Optional[torch.Tensor] = None,
 ):
+    if mode == "full":
+        return layers.self_attention(cfg, p, h, positions), None
+
     if mode == "prefill_chunk":
         # one chunk of a chunked prefill: write this chunk's K/V into the
         # existing cache at [offset, offset+C) in place and attend the
@@ -190,8 +200,7 @@ def _attn_mixer(
         return layers.out_proj(cfg, p, o), {"k": kc, "v": vc}
 
     if mode != "decode":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (full/training: ROADMAP queue 1)")
+        raise ValueError(f"unknown mode {mode!r}")
     assert cache is not None and cache_len is not None
     q, k_new, v_new = layers.qkv_proj(cfg, p, h, cache_len[:, None])
     if page_tables is not None:
@@ -279,9 +288,13 @@ def _ssm_mixer(cfg: ModelConfig, p: Params, h: torch.Tensor, mode: str,
             "use whole-prompt prefill (prefill_chunk=0) for SSM/hybrid archs")
     if mode == "prefill":
         return ssm.apply_ssm(cfg, p, h, return_state=True)
-    if mode != "decode":
+    if mode == "full":
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (full/training: ROADMAP queue 1)")
+            "mode 'full' through SSD layers (training mamba2 and the hybrids) is not "
+            "ported yet: it needs an autograd Function for the ssd kernel "
+            "(ROADMAP queue 1, item 1b: SSD training)")
+    if mode != "decode":
+        raise ValueError(f"unknown mode {mode!r}")
     return ssm.apply_ssm_decode(cfg, p, h, cache)
 
 
@@ -331,13 +344,26 @@ def backbone(
     chunk_offset: Optional[int] = None,
     page_tables: Optional[torch.Tensor] = None,
     write_enable: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Caches]:
-    """Returns (final-normed h, new caches): a Python loop over the layers."""
+    """Returns (final-normed h, new caches): a Python loop over the layers.
+
+    ``remat`` (when a gradient is being taken) checkpoints each layer, as
+    ``jax.checkpoint`` does the JAX backbone's body: only the layer's input
+    is kept, and the backward runs the layer's forward again, kernels and
+    all. The final norm is not checkpointed."""
     new_caches = []
     for i, (block, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
         cache = None if caches is None else caches[i]
-        h, c = _apply_block(cfg, block, kind, h, positions, mode, cache, cache_len, smax,
-                            chunk_offset, page_tables, write_enable)
+
+        def layer(h, block=block, kind=kind, cache=cache):
+            return _apply_block(cfg, block, kind, h, positions, mode, cache, cache_len, smax,
+                                chunk_offset, page_tables, write_enable)
+
+        if remat and torch.is_grad_enabled():
+            h, c = checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, c = layer(h)
         new_caches.append(c)
     return layers.apply_norm(cfg, params["final_norm"], h), new_caches
 
@@ -360,6 +386,88 @@ def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
         return logits
     v = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     return torch.where(v, logits, -1e30)
+
+
+# --------------------------------------------------------------------------- #
+# chunked CE loss / logprobs (never materialises (B, S, V) at once)
+# --------------------------------------------------------------------------- #
+def _head_chunk(hx, w_head, lx, vocab_size: Optional[int]):
+    """One chunk of the head: (logprob of the labels, entropy), each (B, C),
+    over fp32 logits with the padded vocab at -1e30 (as sampling masks it)."""
+    logits = (hx @ w_head).float()  # (B, C, Vp)
+    if vocab_size is not None and vocab_size < w_head.shape[1]:
+        live = torch.arange(w_head.shape[1], device=logits.device) < vocab_size
+        logits = torch.where(live, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    tok = logits.gather(-1, lx.clamp(min=0).long()[..., None])[..., 0]
+    probs = torch.softmax(logits, dim=-1)
+    entropy = logz - torch.sum(probs * logits, dim=-1)
+    return tok - logz, entropy
+
+
+def _chunked_head_scan(h, w_head, labels, chunk: int, vocab_size: Optional[int] = None):
+    """Per-position (logprob, entropy, mask) over sequence chunks of ``chunk``
+    positions (``lm._chunked_head_scan``). When a gradient is being taken each
+    chunk is checkpointed, as the JAX scan body is: its (B, C, Vp) fp32
+    logits are made again in the backward instead of kept."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=IGNORE)
+    lps, ents = [], []
+    for i in range(0, h.shape[1], chunk):
+        hx, lx = h[:, i:i + chunk], labels[:, i:i + chunk]
+        if torch.is_grad_enabled() and (hx.requires_grad or w_head.requires_grad):
+            lp, ent = checkpoint(_head_chunk, hx, w_head, lx, vocab_size,
+                                 use_reentrant=False, preserve_rng_state=False)
+        else:
+            lp, ent = _head_chunk(hx, w_head, lx, vocab_size)
+        lps.append(lp)
+        ents.append(ent)
+    return (torch.cat(lps, dim=1)[:, :S], torch.cat(ents, dim=1)[:, :S],
+            (labels != IGNORE)[:, :S])
+
+
+def token_stats(cfg: ModelConfig, params: Params, h, labels, chunk: int = LOSS_CHUNK):
+    return _chunked_head_scan(h, _head_matrix(cfg, params), labels, chunk,
+                              vocab_size=cfg.vocab_size)
+
+
+def ce_loss(cfg: ModelConfig, params: Params, h, labels):
+    lp, ent, mask = token_stats(cfg, params, h, labels)
+    denom = torch.clamp(mask.sum(), min=1)
+    loss = -torch.sum(lp * mask) / denom
+    return loss, {"ce": loss, "entropy": torch.sum(ent * mask) / denom}
+
+
+def _full_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, remat: bool):
+    check_supported(cfg)
+    h = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, _ = backbone(cfg, params, h, positions, mode="full", remat=remat)
+    return h
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True):
+    """LM training loss (``lm.loss_fn``): batch tokens (B, S) and labels
+    (B, S) with ``IGNORE`` at positions not predicted. Returns (loss,
+    {"ce", "entropy"})."""
+    h = _full_hidden(cfg, params, batch["tokens"], remat)
+    return ce_loss(cfg, params, h, batch["labels"])
+
+
+def logprobs_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+                remat: bool = False):
+    """Per-token logprob and entropy of ``tokens`` under the model
+    (``lm.logprobs_fn``): (B, S) each, position i scoring tokens[:, i] given
+    tokens[:, :i]; position 0 gets 0."""
+    h = _full_hidden(cfg, params, tokens, remat)
+    lp, ent, _ = token_stats(cfg, params, h[:, :-1], tokens[:, 1:])
+    zero = torch.zeros((tokens.shape[0], 1), dtype=lp.dtype, device=lp.device)
+    return torch.cat([zero, lp], dim=1), torch.cat([zero, ent], dim=1)
 
 
 # --------------------------------------------------------------------------- #

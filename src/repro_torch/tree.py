@@ -1,0 +1,61 @@
+"""Nested containers of tensors (the port's stand-in for ``jax.tree``).
+
+Params, gradients and optimizer moments are nested dicts, lists and tuples
+with tensors at the leaves, walked in one fixed order: dict keys as inserted,
+sequences (NamedTuples such as ``TrainState`` included) by index. ``None``
+is a leaf like any other.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def leaves(tree) -> List[Any]:
+    """The leaves of ``tree`` in walk order."""
+    out: List[Any] = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        else:
+            out.append(t)
+
+    walk(tree)
+    return out
+
+
+def flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
+    """(leaves, unflatten): ``unflatten(new_leaves)`` rebuilds a tree of the
+    same structure from leaves in walk order."""
+    flat = leaves(tree)
+
+    def unflatten(new_leaves):
+        it = iter(new_leaves)
+
+        def build(t):
+            if isinstance(t, dict):
+                return {k: build(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                built = [build(v) for v in t]
+                # a NamedTuple takes its fields as positional arguments
+                return type(t)(*built) if hasattr(t, "_fields") else type(t)(built)
+            return next(it)
+
+        return build(tree)
+
+    return flat, unflatten
+
+
+def map(fn: Callable, tree, *rest):  # noqa: A001 - mirrors jax.tree.map
+    """``fn`` over the leaves of ``tree`` and of ``rest`` (same structure),
+    leaf by leaf, into a tree of ``tree``'s structure."""
+    flat, unflatten = flatten(tree)
+    others = [leaves(r) for r in rest]
+    for o in others:
+        if len(o) != len(flat):
+            raise ValueError(f"trees of {len(flat)} and {len(o)} leaves")
+    return unflatten([fn(*xs) for xs in zip(flat, *others)])
