@@ -61,6 +61,26 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      backward, clip + AdamW) with tokens/s and peak memory, and
      ``flash_attention`` and ``rmsnorm`` at the training shapes, with the
      plain-VJP backwards beside SDPA's and ``F.rms_norm``'s.
+  8. The GRPO pipeline, phase 7's model freed: ``repro_torch.launch.train``
+     called in-process at full gemma-2b width and depth, random weights from
+     ``--seed 0``, phase 7's shape (2 prompts x 8 rollouts of 16 new
+     tokens), one warm-up iteration then 3 timed ones, through the DAG
+     worker over the databuffer and the dataloader. One experiment file
+     (``--dump-experiment``, then ``--experiment``): the default
+     ``RLConfig`` but an entropy bonus of 0.01 and lr 1e-4, so that every
+     actor step has a gradient and moves the weights. Three coordinator
+     arms, their flags layered on the file, one after another, each
+     pipeline freed before the next: distributed (run twice, for the
+     run-to-run spread), double buffer + prefetch 1, and the centralized
+     baseline. Every iteration's launches must equal phase 7's count, every
+     metric be finite, ratio_mean within 1 +- 0.02, the gradient nonzero,
+     the KL against the reference nonzero from iteration 1 and some actor
+     weights changed; iteration 0 must be bitwise equal across the arms and
+     later iterations within the distributed arm's own spread; the buffer
+     counts must equal a CPU run's of the same DAG and iterations. Prints
+     each arm's synchronised iteration time, the worker's ``time/<node>``
+     medians, the controller bytes of the centralized arm and the
+     dataloader's prefetch hits, beside phase 7's hand-composed iteration.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -70,7 +90,8 @@ printing any result.
 ``--profile`` also writes torch.profiler tables of one greedy generate of
 each lockstep path, of one greedy streaming replay and of one actor step to
 ``build/profile*.txt``, and prints the device-busy share of each. The
-profiles run last, and keep their models alive until then.
+profiles run last, and keep the serving models alive until then; the
+actor step's profile draws its training state again when it runs.
 """
 from __future__ import annotations
 
@@ -1284,6 +1305,24 @@ def held_to_plain(torch, ops, ref):
             setattr(ops, n, kernel[n])
 
 
+def grpo_launches(cfg, names, max_new_tokens: int):
+    """Launch counts of one GRPO iteration in the order of ``grpo_dag``: a
+    lockstep generate of ``max_new_tokens - 1`` decode steps, the reference
+    forward, and the actor step, which runs the forward, then the layers again
+    in the backward (remat) with the final norm outside the checkpoint; the
+    backward itself is the plain VJP and launches nothing. Returns (per
+    iteration, per actor step)."""
+    layers, mlps = cfg.num_layers, sum(k[1] != "none" for k in cfg.layer_kinds())
+    fwd_norms = layers + mlps + 1
+    step = {"rmsnorm": 2 * fwd_norms - 1, "flash_attention": 2 * layers}
+    per_iter = expected_launches(cfg, names, 1, max_new_tokens - 1)
+    per_iter["rmsnorm"] += fwd_norms + step["rmsnorm"]
+    per_iter["flash_attention"] += layers + step["flash_attention"]
+    require(all(per_iter[n] == 0 for n in per_iter if n not in GRPO_KERNELS),
+            f"GRPO iteration: kernels off GRPO_KERNELS expected {per_iter}")
+    return per_iter, step
+
+
 def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile: bool):
     """One synchronous GRPO iteration in the order of ``rl.algorithms.grpo_dag``
     on full gemma-2b: generate -> reference logprobs -> math reward -> GRPO
@@ -1314,12 +1353,7 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
     advantage = spec.make_advantage(rl)
     actor_step = trainer.make_actor_step(model, rl)
     apply_fn = trainer.make_actor_apply_fn(rl)
-    layers, mlps = cfg.num_layers, sum(k[1] != "none" for k in cfg.layer_kinds())
-    fwd_norms = layers + mlps + 1
-    # per actor step: the forward, and the layers again in the backward
-    # (remat), the final norm outside the checkpoint; the backward itself is
-    # the plain VJP and launches nothing
-    step_launches = {"rmsnorm": 2 * fwd_norms - 1, "flash_attention": 2 * layers}
+    per_iter, step_launches = grpo_launches(cfg, _build.LAUNCHES, rl.max_new_tokens)
 
     def sync_ms(fn):
         torch.cuda.synchronize()
@@ -1340,12 +1374,6 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
     # ---- 1. the GRPO iteration, 3 times ----
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    steps = rl.max_new_tokens - 1
-    per_iter = expected_launches(cfg, _build.LAUNCHES, 1, steps)
-    per_iter["rmsnorm"] += fwd_norms + step_launches["rmsnorm"]  # + reference, actor step
-    per_iter["flash_attention"] += layers + step_launches["flash_attention"]
-    require(all(per_iter[n] == 0 for n in per_iter if n not in GRPO_KERNELS),
-            f"GRPO iteration: kernels off GRPO_KERNELS expected {per_iter}")
 
     def iteration(it):
         nonlocal state
@@ -1605,7 +1633,11 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
     def profile_job():
-        busy_ms, wall_ms = busy_share(torch, lambda: actor_step(state, batch),
+        # the training state is drawn again here, not kept alive until the
+        # profiles run, so that phase 8 has the card's memory
+        _, params_p, _ = build_model(torch, serve)
+        state_p, _ = actor_step(trainer.init_state(params_p), batch)  # warm-up
+        busy_ms, wall_ms = busy_share(torch, lambda: actor_step(state_p, batch),
                                       ROOT / "build" / "profile_train.txt")
         whole = step_summary["step_ms"]
         print(json.dumps({"profile_actor_step": {
@@ -1613,6 +1645,216 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
             "device_busy_share": busy_ms / whole}}), flush=True)
 
     return counts, summary, (profile_job if profile else None)
+
+
+# phase 8: the GRPO pipeline through the training entry point
+# (repro_torch.launch.train) at phase 7's shape: one warm-up iteration, then
+# PIPE_TIMED timed ones, in each coordinator arm
+PIPE_TIMED = 3
+PIPE_FLAGS = ["--seed", "0", "--prompts-per-iter", str(GRPO_PROMPTS),
+              "--group-size", "8", "--max-new-tokens", "16"]
+PIPE_ITERS = ["--iters", str(1 + PIPE_TIMED)]
+# RLConfig's defaults but two, so that every actor step moves the weights:
+# random weights score 0 (advantages 0) and the actor starts as the
+# reference (KL 0), so only an entropy bonus gives the step a gradient; and
+# at RLConfig's lr of 1e-6 the first AdamW step (+-lr a weight) is below
+# half a bf16 ulp of every weight above 2^-11 in magnitude, so the
+# entry point's own default lr is taken
+PIPE_RL = {"entropy_coef": 0.01, "lr": 1e-4}
+PIPE_ARMS = {"distributed": [],
+             "double_buffer_prefetch": ["--double-buffer", "--prefetch", "1"],
+             "centralized": ["--centralized-baseline"]}
+# BufferStats fields that count operations (the others count bytes, which
+# depend on the shapes)
+BUFFER_COUNTS = ("puts", "fast_path_hits", "redistributions", "overlap_hits", "sync_waits",
+                 "rotations")
+
+
+@contextlib.contextmanager
+def observed_iterations(torch, _build):
+    """While open, every ``DAGWorker.run_iteration`` is bracketed by
+    ``torch.cuda.synchronize`` (its synchronised wall time and its kernel
+    launches are recorded with its metrics), and the tokens of every rollout
+    of ``rl.rollout.generate`` are kept. Yields {"iterations", "tokens"}."""
+    from repro_torch.core import worker as worker_mod
+    from repro_torch.rl import rollout as rollout_mod
+
+    seen = {"iterations": [], "tokens": []}
+    run_iteration, generate = worker_mod.DAGWorker.run_iteration, rollout_mod.generate
+
+    def timed(self):
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        metrics = run_iteration(self)
+        torch.cuda.synchronize()
+        seen["iterations"].append({
+            "ms": (time.perf_counter() - t) * 1e3, "metrics": metrics,
+            "launches": {n: _build.LAUNCHES[n] - before[n] for n in _build.LAUNCHES}})
+        return metrics
+
+    def kept(*args, **kw):
+        res = generate(*args, **kw)
+        seen["tokens"].append(res.tokens)
+        return res
+
+    worker_mod.DAGWorker.run_iteration = timed
+    rollout_mod.generate = kept
+    try:
+        yield seen
+    finally:
+        worker_mod.DAGWorker.run_iteration = run_iteration
+        rollout_mod.generate = generate
+
+
+def pipeline_phase(torch, _build, hand_rows):
+    """GRPO through ``launch.train.main`` on full gemma-2b, in the three
+    coordinator arms one after another (each pipeline freed before the next
+    is built), the distributed arm twice to measure the run-to-run spread.
+    Every arm runs one experiment file (``PIPE_RL`` on top of the flags'
+    spec) with the arm's flags layered on. Checks each iteration's launches
+    against phase 7's count, every metric finite, ratio_mean within
+    1 +- RATIO_TOL, a nonzero gradient in every iteration and a nonzero KL
+    from iteration 1, iteration 0 bitwise equal across arms and later
+    iterations within the distributed arm's own spread, and the buffer
+    counts against a CPU run of the same DAG and iterations. ``hand_rows``
+    are phase 7's hand-composed iterations. Returns the launch counts of the
+    first (distributed) run."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    per_iter, _ = grpo_launches(get_config("gemma-2b"), _build.LAUNCHES, 16)
+    exp_path = ROOT / "build" / "pipeline_experiment.json"
+    exp_path.parent.mkdir(exist_ok=True)
+    train.main(ARCH_FLAGS + PIPE_FLAGS + ["--dump-experiment", str(exp_path)])
+    spec = json.loads(exp_path.read_text())
+    spec["rl"].update(PIPE_RL)
+    exp_path.write_text(json.dumps(spec))
+    runs, main_counts = {}, None
+    for arm, rep in (("distributed", 0), ("distributed", 1),
+                     ("double_buffer_prefetch", 0), ("centralized", 0)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        with observed_iterations(torch, _build) as seen:
+            out = train.main(["--experiment", str(exp_path), "--device", DEV] + PIPE_ITERS
+                             + PIPE_ARMS[arm])
+        if main_counts is None:
+            main_counts = dict(_build.LAUNCHES)
+        pipe = out["pipeline"]
+        stats = pipe.buffer.stats
+        # the share of the actor's weights that the run's steps changed
+        pairs = list(zip(tree.leaves(pipe.ctx.actor_state.params),
+                         tree.leaves(pipe.ctx.ref_params)))
+        moved = sum(int((a != b).sum()) for a, b in pairs) / sum(a.numel() for a, _ in pairs)
+        del pairs
+        run = {"iterations": seen["iterations"], "tokens": seen["tokens"],
+               "counts": {k: getattr(stats, k) for k in BUFFER_COUNTS},
+               "bytes_moved": stats.bytes_moved,
+               "bytes_through_controller": stats.bytes_through_controller,
+               "controller_resident_bytes": getattr(pipe.buffer, "controller_resident_bytes", 0),
+               "prefetch_hits": pipe.ctx.dataloader.prefetch_hits,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del out, pipe, stats
+        runs[(arm, rep)] = run
+        require(len(run["iterations"]) == 1 + PIPE_TIMED == len(run["tokens"]),
+                f"pipeline {arm}: {len(run['iterations'])} iterations")
+        for it, row in enumerate(run["iterations"]):
+            m = row["metrics"]
+            require(row["launches"] == per_iter,
+                    f"pipeline {arm} iteration {it}: launches {row['launches']}, "
+                    f"expected {per_iter}")
+            require(all(np.isfinite(v) for v in m.values()),
+                    f"pipeline {arm} iteration {it}: non-finite metric {m}")
+            require(abs(m["actor/ratio_mean"] - 1.0) <= RATIO_TOL,
+                    f"pipeline {arm} iteration {it}: ratio_mean {m['actor/ratio_mean']}")
+            require(m["actor/grad_norm"] > 0, f"pipeline {arm} iteration {it}: zero gradient")
+            require(it == 0 or m["actor/kl"] > 0,
+                    f"pipeline {arm} iteration {it}: KL {m['actor/kl']}, the weights did not move")
+            toks = run["tokens"][it]
+            require(bool(((toks >= 0) & (toks < VOCAB)).all()), "pipeline token out of range")
+        require(moved > 0, f"pipeline {arm}: no weight of the actor moved")
+        timed = run["iterations"][1:]
+        nodes = sorted(k for k in timed[0]["metrics"] if k.startswith("time/"))
+        run["summary"] = {
+            "arm": arm, "repeat": rep,
+            "iteration_ms": [r["ms"] for r in run["iterations"]],
+            "iteration_ms_median": statistics.median(r["ms"] for r in timed),
+            "node_ms_median": {k[5:]: statistics.median(r["metrics"][k] * 1e3 for r in timed)
+                               for k in nodes},
+            "buffer_counts": run["counts"], "bytes_through_controller":
+                run["bytes_through_controller"], "controller_resident_bytes":
+                run["controller_resident_bytes"], "prefetch_hits": run["prefetch_hits"],
+            "weights_moved_share": moved, "peak_gib": run["peak_gib"],
+            "kl": [r["metrics"]["actor/kl"] for r in run["iterations"]],
+            "grad_norm": [r["metrics"]["actor/grad_norm"] for r in run["iterations"]]}
+        print(json.dumps({"pipeline_arm": run["summary"]}), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def values(run, it):
+        return {k: v for k, v in run["iterations"][it]["metrics"].items()
+                if not k.startswith("time/")}
+
+    base = runs[("distributed", 0)]
+    # iteration 0: same seed, values that pass through the buffer unchanged
+    for key, run in runs.items():
+        require(torch.equal(run["tokens"][0], base["tokens"][0]),
+                f"pipeline {key}: iteration 0 rollouts differ from the distributed arm's")
+        for k in ("reward/mean", "actor/loss"):
+            require(values(run, 0)[k] == values(base, 0)[k],
+                    f"pipeline {key}: iteration 0 {k} {values(run, 0)[k]} != "
+                    f"{values(base, 0)[k]}")
+    # later iterations: the distributed arm against itself gives the spread
+    # of each metric (the largest over the later iterations) and whether the
+    # rollouts repeat; the other arms are held to it
+    again = runs[("distributed", 1)]
+    later = range(1, 1 + PIPE_TIMED)
+    spread = {k: max(abs(values(again, it)[k] - values(base, it)[k]) for it in later)
+              for k in values(base, 1)}
+    tokens_repeat = all(torch.equal(again["tokens"][it], base["tokens"][it]) for it in later)
+    for arm in ("double_buffer_prefetch", "centralized"):
+        run = runs[(arm, 0)]
+        for it in later:
+            if tokens_repeat:
+                require(torch.equal(run["tokens"][it], base["tokens"][it]),
+                        f"pipeline {arm}: iteration {it} rollouts differ, and the "
+                        f"distributed arm's repeat does not")
+            for k, v in values(run, it).items():
+                d = abs(v - values(base, it)[k])
+                require(d <= spread[k], f"pipeline {arm}: iteration {it} {k} differs by {d}, "
+                                        f"beyond the run-to-run spread {spread[k]}")
+    # the buffer counts of a CPU run of the same DAG, arms and iterations
+    for arm in PIPE_ARMS:
+        cpu = train.main(["--smoke", "--device", "cpu"] + PIPE_FLAGS + PIPE_ITERS + PIPE_ARMS[arm])
+        want = {k: getattr(cpu["pipeline"].buffer.stats, k) for k in BUFFER_COUNTS}
+        require(runs[(arm, 0)]["counts"] == want,
+                f"pipeline {arm}: buffer counts {runs[(arm, 0)]['counts']}, the CPU run's {want}")
+        require(runs[(arm, 0)]["bytes_moved"] == 0, f"pipeline {arm}: bytes moved on one device")
+        require((runs[(arm, 0)]["bytes_through_controller"] > 0) == (arm == "centralized"),
+                f"pipeline {arm}: bytes through the controller")
+    require(runs[("double_buffer_prefetch", 0)]["prefetch_hits"] == PIPE_TIMED,
+            "pipeline: the dataloader's look-ahead served no batch")
+
+    hand = statistics.median(sum(r["ms"].values()) for r in hand_rows[1:])
+    arms_ms = {arm: runs[(arm, 0)]["summary"]["iteration_ms_median"] for arm in PIPE_ARMS}
+    print(json.dumps({"pipeline": {
+        "hand_composed_iteration_ms": hand, "iteration_ms": arms_ms,
+        "distributed_repeat_iteration_ms": again["summary"]["iteration_ms_median"],
+        "worker_and_buffer_ms": arms_ms["distributed"] - hand,
+        "centralized_extra_ms": arms_ms["centralized"] - arms_ms["distributed"],
+        "bytes_through_controller": runs[("centralized", 0)]["bytes_through_controller"],
+        "controller_resident_bytes": runs[("centralized", 0)]["controller_resident_bytes"],
+        "prefetch_hits": runs[("double_buffer_prefetch", 0)]["prefetch_hits"],
+        "run_to_run_spread": spread, "rollouts_repeat": tokens_repeat,
+        "node_ms_median": base["summary"]["node_ms_median"],
+        "phase_s": time.perf_counter() - t_phase}}), flush=True)
+    return main_counts
 
 
 def main(argv=None) -> int:
@@ -1685,9 +1927,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # ---- phase 7: training, GRPO on full gemma-2b ----
-    train_counts, _, train_job = training_phase(torch, ops, ref, F, _build, serve, generate,
-                                                records, opts.profile)
+    train_counts, train_summary, train_job = training_phase(
+        torch, ops, ref, F, _build, serve, generate, records, opts.profile)
     paths["grpo_training"] = train_counts
+    # ---- phase 8: the GRPO pipeline through launch.train, phase 7's model
+    # freed (the counts set to 0 just before its first run, read just after) ----
+    paths["grpo_pipeline"] = pipeline_phase(torch, _build, train_summary["iterations"])
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -1700,6 +1945,8 @@ def main(argv=None) -> int:
                                  "fused_sample"),
                "mamba2_lockstep": ("rmsnorm", "ssd", "fused_sample"),
                "grpo_training": ("rmsnorm", "flash_attention", "decode_attention",
+                                 "fused_sample"),
+               "grpo_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
                                  "fused_sample")}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),

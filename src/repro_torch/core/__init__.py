@@ -1,5 +1,20 @@
-"""Control plane of the PyTorch port: the DAG abstraction (the planner,
-worker, databuffer and stages are ROADMAP queue 1, item 2)."""
+"""DistFlow core of the PyTorch port: the DAG, the planner, the registry, the
+databuffer, the worker and the pipeline on one device (the async worker is
+ROADMAP queue 1, item 4)."""
 from repro_torch.core.dag import DAG, DAGError, Node, NodeType, Role
+from repro_torch.core.planner import DAGPlanner, ExecutionPlan, validate_serialization
+from repro_torch.core.databuffer import (
+    CentralizedDatabuffer,
+    DeviceMesh,
+    DistributedDatabuffer,
+    DoubleBufferedDatabuffer,
+)
+from repro_torch.core.registry import Registry, default_registry
+from repro_torch.core.worker import DAGWorker, WorkerContext
+from repro_torch.core.pipeline import Pipeline, build_pipeline, grpo_dag, ppo_dag
 
-__all__ = ["DAG", "DAGError", "Node", "NodeType", "Role"]
+__all__ = ["CentralizedDatabuffer", "DAG", "DAGError", "DAGPlanner", "DAGWorker",
+           "DeviceMesh", "DistributedDatabuffer", "DoubleBufferedDatabuffer",
+           "ExecutionPlan", "Node", "NodeType", "Pipeline", "Registry", "Role",
+           "WorkerContext", "build_pipeline", "default_registry", "grpo_dag", "ppo_dag",
+           "validate_serialization"]

@@ -1,0 +1,206 @@
+"""Built-in RL pipelines (paper Fig. 1) and the end-to-end driver: the port of
+``repro.core.pipeline``.
+
+``build_pipeline`` is a thin compiler over specs: it resolves the
+:class:`~repro_torch.rl.algorithms.AlgorithmSpec` for ``rl.algorithm`` (or
+takes one directly) and wires together model init, the engines, the DAG (the
+spec's template or user-supplied), the planner's serialized chain, the Data
+Coordinator (Distributed Dataloader + Databuffer) and a DAG Worker, all on
+one device. ``centralized=True`` swaps in the single-controller databuffer,
+the baseline arm of the paper's comparisons.
+
+The engines are plain callables where the JAX package jits. The pipeline
+runs on the card unless ``device="cpu"`` is asked for; without CUDA it
+raises. Every option whose subsystem is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
+
+The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
+``compile()`` lands here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.configs.base import (
+    AsyncPipelineConfig,
+    DataCoordinatorConfig,
+    DistributedConfig,
+    EnvConfig,
+    ModelConfig,
+    ObsConfig,
+    RolloutEngineConfig,
+)
+from repro_torch.core.dag import DAG
+from repro_torch.core.databuffer import (
+    CentralizedDatabuffer,
+    DeviceMesh,
+    DistributedDatabuffer,
+    DoubleBufferedDatabuffer,
+)
+from repro_torch.core.planner import DAGPlanner
+from repro_torch.core.registry import Registry, default_registry
+from repro_torch.core.worker import DAGWorker, WorkerContext
+from repro_torch.data.dataloader import DistributedDataloader
+from repro_torch.data.dataset import SyntheticMathDataset
+from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.models import get_model
+from repro_torch.models.api import resolve_device
+from repro_torch.rl import algorithms
+from repro_torch.rl import critic as critic_mod
+from repro_torch.rl import reward as reward_mod
+from repro_torch.rl import rollout as rollout_mod
+from repro_torch.rl import trainer
+from repro_torch.rl.trainer import RLConfig
+
+
+# looked up at call time: rl.algorithms imports core, so its attributes may
+# not exist yet while this module is imported
+def grpo_dag() -> DAG:
+    return algorithms.grpo_dag()
+
+
+def ppo_dag() -> DAG:
+    return algorithms.ppo_dag()
+
+
+# --------------------------------------------------------------------------- #
+def _build_engines(model, rl: RLConfig, tok: ByteTokenizer, spec) -> Dict[str, Any]:
+    """The engines of one algorithm spec: the lockstep generate, logprobs,
+    the math reward, the spec's advantage, the actor step, and the critic's
+    values and step iff the spec uses a critic."""
+    eng: Dict[str, Any] = {}
+
+    def _generate(params, prompts, gen):
+        return rollout_mod.generate(
+            model, params, prompts, gen,
+            max_new=rl.max_new_tokens, temperature=rl.temperature,
+            eos_id=tok.eos_id, pad_id=tok.pad_id,
+        )
+
+    eng["generate"] = _generate
+    eng["logprobs"] = lambda p, t: model.logprobs(p, t)
+    eng["reward"] = lambda tokens, mask, answers: reward_mod.math_reward_tokens(
+        tokens, mask, answers, tok)
+    eng["advantage"] = spec.make_advantage(rl)
+    if spec.uses_critic:
+        eng["values"] = lambda p, t: critic_mod.values_fn(model.cfg, p, t)
+        eng["critic_step"] = trainer.make_critic_step(model.cfg, rl)
+    eng["actor_step"] = trainer.make_actor_step(model, rl, algorithm=spec)
+    return eng
+
+
+@dataclasses.dataclass
+class Pipeline:
+    worker: DAGWorker
+    ctx: WorkerContext
+    buffer: DistributedDatabuffer
+    dag: DAG
+    plan: Any
+
+    def run(self, iterations: int):
+        history = []
+        for _ in range(iterations):
+            history.append(self.worker.run_iteration())
+        return history
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+def _check_ported(*, rollout: Optional[RolloutEngineConfig] = None,
+                  async_pipeline: Optional[AsyncPipelineConfig] = None,
+                  env: Optional[EnvConfig] = None,
+                  distributed: Optional[DistributedConfig] = None,
+                  obs: Optional[ObsConfig] = None) -> None:
+    """Raise ``NotImplementedError`` for any option whose subsystem the port
+    does not have yet."""
+    if rollout is not None and rollout.engine == "continuous":
+        raise _not_ported("the continuous rollout engine", "3: continuous rollout engine")
+    if async_pipeline is not None and async_pipeline.enabled:
+        raise _not_ported("the async off-policy pipeline", "4: async off-policy pipeline")
+    if env is not None and env.enabled:
+        raise _not_ported("the environment subsystem", "5: multi-turn environments")
+    if distributed is not None and distributed.enabled:
+        raise _not_ported("the multi-host fleet (DistributedConfig)", "8: distributed")
+    if obs is not None and obs.enabled:
+        raise _not_ported("telemetry (ObsConfig)", "7: fault tolerance and telemetry")
+
+
+def _seeds(seed: int):
+    """Three independent 32-bit seeds (actor init, critic init, the run's
+    sampling generator) from ``seed``."""
+    return [int(s) for s in np.random.SeedSequence(seed).generate_state(3)]
+
+
+def build_pipeline(
+    cfg: ModelConfig,
+    rl: RLConfig,
+    *,
+    device="cuda",
+    dag: Optional[DAG] = None,
+    dataset=None,
+    prompts_per_iter: int = 8,
+    centralized: bool = False,
+    coordinator: Optional[DataCoordinatorConfig] = None,
+    async_pipeline: Optional[AsyncPipelineConfig] = None,
+    rollout: Optional[RolloutEngineConfig] = None,
+    env: Optional[EnvConfig] = None,
+    distributed: Optional[DistributedConfig] = None,
+    obs: Optional[ObsConfig] = None,
+    registry: Optional[Registry] = None,
+    algorithm=None,
+    seed: int = 0,
+) -> Pipeline:
+    _check_ported(rollout=rollout, async_pipeline=async_pipeline, env=env,
+                  distributed=distributed, obs=obs)
+    spec = algorithm or algorithms.get_algorithm(rl.algorithm)
+    coordinator = coordinator or DataCoordinatorConfig()
+    device = resolve_device(device)
+    mesh = DeviceMesh(device)
+    tok = ByteTokenizer()
+    assert cfg.vocab_size >= tok.vocab_size, "model vocab must cover the tokenizer"
+    model = get_model(cfg, device=device)
+
+    s_actor, s_critic, s_run = _seeds(seed)
+    actor_params = model.init(torch.Generator(device=device).manual_seed(s_actor))
+    ref_params = tree.map(torch.clone, actor_params)  # frozen reference
+
+    ctx = WorkerContext(
+        mesh=mesh,
+        rl=rl,
+        engines=_build_engines(model, rl, tok, spec),
+        dataloader=DistributedDataloader(
+            dataset or SyntheticMathDataset(4096, seed=seed),
+            mesh=mesh,
+            global_batch=prompts_per_iter,
+            seed=seed,
+            prefetch=coordinator.prefetch,
+        ),
+        actor_state=trainer.init_state(actor_params),
+        ref_params=ref_params,
+        tokenizer=tok,
+        gen=torch.Generator(device=device).manual_seed(s_run),
+        algorithm=spec,
+    )
+    if spec.uses_critic:
+        critic_gen = torch.Generator(device=device).manual_seed(s_critic)
+        ctx.critic_state = trainer.init_state(critic_mod.init(cfg, critic_gen, device=device))
+
+    dag = dag or spec.dag_factory()
+    spec.validate_dag(dag)
+    plan = DAGPlanner().plan(dag)
+    if centralized:
+        buffer_cls = CentralizedDatabuffer
+    elif coordinator.double_buffer:
+        buffer_cls = DoubleBufferedDatabuffer
+    else:
+        buffer_cls = DistributedDatabuffer
+    buffer = buffer_cls(mesh)
+    worker = DAGWorker(ctx, plan, registry or default_registry(), buffer, coordinator)
+    return Pipeline(worker=worker, ctx=ctx, buffer=buffer, dag=dag, plan=plan)

@@ -1,0 +1,170 @@
+"""Built-in stage functions, the bodies behind the Fig. 5 dispatch table: the
+port of ``repro.core.stages``, with its buffer keys and specs.
+
+Stage specs realize the paper's per-stage parallelism: model-bound stages
+(generate / inference / train) put and get the batch over the ``data`` axes
+only, while pure COMPUTE stages (reward, advantage) use *all* axes, so the
+databuffer's redistribution path is taken at every model<->compute boundary
+exactly as in the JAX package (on one device it moves nothing, but it is
+counted the same).
+
+The port runs the lockstep engine only, so ``actor_generate`` has none of the
+JAX stage's branches for the continuous engine's stats and the multi-turn
+environment keys; ``env_compute`` raises.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core.dag import Node
+
+
+def _algo(ctx):
+    """The AlgorithmSpec driving this run (bound by build_pipeline; resolved
+    from the registry for hand-rolled contexts)."""
+    from repro_torch.rl import algorithms
+
+    return algorithms.resolve(ctx)
+
+
+def _specs(ctx):
+    """(model-stage batch spec, compute-stage batch spec) for ctx.mesh."""
+    axes = ctx.mesh.axis_names
+    data_axes = tuple(a for a in axes if a != "model")
+    return (data_axes,), (tuple(axes),)
+
+
+# --------------------------------------------------------------------------- #
+def actor_generate(ctx, buffer, node: Node) -> Dict:
+    """(ACTOR, GENERATE): pull the iteration's prompts from the worker-bound
+    prompt iterator (``ctx.prompt_source``, already group-expanded), run the
+    generation engine with the run's generator and store the trajectory.
+
+    ``rl.rollout.generate`` runs under ``torch.inference_mode``; autograd
+    cannot save its outputs for the actor step's backward. The rollouts are
+    cloned here, once, as they enter the buffer."""
+    model_spec, _ = _specs(ctx)
+    if ctx.prompt_source is None:
+        # hand-rolled ctx without a worker: bind the same iterator the
+        # worker would, so group expansion has exactly one implementation
+        from repro_torch.core.worker import PromptSource
+
+        ctx.prompt_source = PromptSource(ctx.dataloader, _algo(ctx).group_size(ctx.rl))
+    prompts, answers = ctx.prompt_source.next_prompts()
+    res = ctx.engines["generate"](ctx.actor_state.params, prompts, ctx.gen)
+    buffer.put("tokens", res.tokens.clone(), model_spec)
+    buffer.put("response_mask", res.response_mask.clone(), model_spec)
+    buffer.put("old_logprob", res.old_logprob.clone(), model_spec)
+    buffer.put("answers", answers, model_spec)
+    gen_tokens = float(res.lengths.sum())
+    ctx.counters["gen_tokens"] = ctx.counters.get("gen_tokens", 0.0) + gen_tokens
+    return {
+        "rollout/mean_len": float(res.lengths.float().mean()),
+        "rollout/tokens": gen_tokens,
+    }
+
+
+def actor_logprobs(ctx, buffer, node: Node) -> Dict:
+    """(ACTOR, MODEL_INFERENCE): recompute behaviour logprobs under the
+    training engine (optional: used by custom DAGs to validate engine
+    agreement)."""
+    model_spec, _ = _specs(ctx)
+    tokens = buffer.get("tokens", model_spec)
+    with torch.no_grad():
+        lp, _ = ctx.engines["logprobs"](ctx.actor_state.params, tokens)
+    buffer.put("old_logprob", lp * buffer.get("response_mask", model_spec), model_spec)
+    return {}
+
+
+def reference_logprobs(ctx, buffer, node: Node) -> Dict:
+    model_spec, _ = _specs(ctx)
+    tokens = buffer.get("tokens", model_spec)
+    with torch.no_grad():
+        lp, _ = ctx.engines["logprobs"](ctx.ref_params, tokens)
+    buffer.put("ref_logprob", lp, model_spec)
+    return {}
+
+
+def critic_values(ctx, buffer, node: Node) -> Dict:
+    model_spec, _ = _specs(ctx)
+    tokens = buffer.get("tokens", model_spec)
+    with torch.no_grad():
+        v = ctx.engines["values"](ctx.critic_state.params, tokens)
+    buffer.put("old_values", v, model_spec)
+    return {}
+
+
+def reward_compute(ctx, buffer, node: Node) -> Dict:
+    """(REWARD, COMPUTE): function reward (the paper's PPO uses a function
+    reward in place of a reward model). Runs at compute-stage DP (all axes)."""
+    _, compute_spec = _specs(ctx)
+    seq_spec = (compute_spec[0],)
+    tokens = buffer.get("tokens", compute_spec)
+    mask = buffer.get("response_mask", compute_spec)
+    answers = buffer.get("answers", seq_spec)
+    rewards = ctx.engines["reward"](tokens, mask, answers)
+    buffer.put("rewards", rewards, seq_spec)
+    return {"reward/mean": float(rewards.mean())}
+
+
+def env_compute(ctx, buffer, node: Node) -> Dict:
+    """(ENV, COMPUTE): episode rewards from the environment subsystem, which
+    the port does not have yet."""
+    raise NotImplementedError(
+        "the (ENV, COMPUTE) stage is not ported yet (ROADMAP queue 1, item 5: "
+        "multi-turn environments)")
+
+
+def advantage_compute(ctx, buffer, node: Node) -> Dict:
+    """(ADVANTAGE, COMPUTE): run the spec's advantage engine. The spec
+    declares which extra buffer keys the engine consumes beyond
+    (rewards, mask), e.g. PPO's GAE reads logprobs + values, and which
+    keys its outputs land under (advantages, and returns for critic
+    algorithms)."""
+    spec = _algo(ctx)
+    _, compute_spec = _specs(ctx)
+    mask = buffer.get("response_mask", compute_spec)
+    rewards = buffer.get("rewards", (compute_spec[0],))
+    extra = [buffer.get(k, compute_spec) for k in spec.advantage_inputs]
+    out = ctx.engines["advantage"](rewards, mask, *extra)
+    if len(spec.advantage_outputs) == 1:
+        out = (out,)
+    for key, val in zip(spec.advantage_outputs, out):
+        buffer.put(key, val, compute_spec)
+    return {}
+
+
+def actor_train(ctx, buffer, node: Node) -> Dict:
+    model_spec, _ = _specs(ctx)
+    batch = {
+        "tokens": buffer.get("tokens", model_spec),
+        "response_mask": buffer.get("response_mask", model_spec),
+        "old_logprob": buffer.get("old_logprob", model_spec),
+        "advantages": buffer.get("advantages", model_spec),
+    }
+    if _algo(ctx).needs_reference:
+        if "ref_logprob" in buffer.keys():
+            batch["ref_logprob"] = buffer.get("ref_logprob", model_spec)
+        else:
+            # reference-free DAG variant (custom_dag example): KL term is 0
+            batch["ref_logprob"] = batch["old_logprob"]
+    if "behavior_logprob" in buffer.keys():
+        # a stale batch's generation-time logprobs ride along for the
+        # decoupled truncated-IS correction (trainer.apply_is_correction)
+        batch["behavior_logprob"] = buffer.get("behavior_logprob", model_spec)
+    ctx.actor_state, metrics = ctx.engines["actor_step"](ctx.actor_state, batch)
+    return {f"actor/{k}": float(v) for k, v in metrics.items()}
+
+
+def critic_train(ctx, buffer, node: Node) -> Dict:
+    model_spec, _ = _specs(ctx)
+    batch = {
+        "tokens": buffer.get("tokens", model_spec),
+        "response_mask": buffer.get("response_mask", model_spec),
+        "old_values": buffer.get("old_values", model_spec),
+        "returns": buffer.get("returns", model_spec),
+    }
+    ctx.critic_state, metrics = ctx.engines["critic_step"](ctx.critic_state, batch)
+    return {f"critic/{k}": float(v) for k, v in metrics.items()}

@@ -1,0 +1,202 @@
+"""DAG Worker (paper §5), the per-process controller: the port of
+``repro.core.worker``.
+
+Lifecycle: Initialization (bind functions to nodes via the registry,
+materialize the execution queue) + iterative Execution (walk the chain, the
+databuffer brokering every stage boundary). Every process runs an identical
+DAGWorker over its own data shard, the multi-controller paradigm; there is
+no coordinator process anywhere. The port runs one worker on one device.
+
+JAX's ``key``/``next_key()`` becomes an explicit ``torch.Generator`` on the
+run's device (``WorkerContext.gen``), which the generate engine draws its
+per-step sampling seeds from. Telemetry (``ObsConfig``) and environments are
+not ported yet, so the context has no ``obs`` or ``env``.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import DataCoordinatorConfig
+from repro_torch.core.dag import Node, NodeType
+from repro_torch.core.databuffer import DistributedDatabuffer
+from repro_torch.core.planner import ExecutionPlan
+from repro_torch.core.registry import Registry
+from repro_torch.ft import straggler
+from repro_torch.obs.trace import get_tracer
+
+
+@dataclass
+class WorkerContext:
+    """Everything a stage function may touch. Mutable fields (actor_state,
+    critic_state) are updated in place by train nodes."""
+
+    mesh: Any
+    rl: Any
+    engines: Dict[str, Callable]
+    dataloader: Any
+    actor_state: Any = None
+    critic_state: Any = None
+    ref_params: Any = None
+    tokenizer: Any = None
+    # the run's sampling generator, on the run's device
+    gen: Optional[torch.Generator] = None
+    # the AlgorithmSpec driving this run (repro_torch.rl.algorithms); None
+    # means "resolve rl.algorithm from the registry on demand"
+    algorithm: Any = None
+    # the prompt iterator the GENERATE stage pulls from (bound by the worker
+    # at init, see PromptSource); None falls back to ctx.dataloader directly
+    prompt_source: Any = None
+    counters: Dict[str, float] = field(default_factory=dict)
+
+
+class PromptSource:
+    """The worker-owned prompt iterator handed to the GENERATE stage. Each
+    ``next_prompts()`` serves the iteration's prompt batch already
+    group-expanded (GRPO's ``group_size`` rollouts per prompt)."""
+
+    def __init__(self, dataloader, group_size: int = 1):
+        self.dataloader = dataloader
+        self.group_size = group_size
+
+    def next_prompts(self):
+        batch = self.dataloader.next_batch()
+        prompts, answers = batch["prompts"], batch["answers"]
+        if self.group_size > 1:
+            prompts = torch.repeat_interleave(prompts, self.group_size, dim=0)
+            answers = torch.repeat_interleave(answers, self.group_size, dim=0)
+        return prompts, answers
+
+
+class DAGWorker:
+    def __init__(
+        self,
+        ctx: WorkerContext,
+        plan: ExecutionPlan,
+        registry: Registry,
+        buffer: DistributedDatabuffer,
+        coordinator: Optional[DataCoordinatorConfig] = None,
+    ):
+        self.ctx = ctx
+        self.plan = plan
+        self.registry = registry
+        self.buffer = buffer
+        self.coordinator = coordinator or DataCoordinatorConfig()
+        # Initialization phase: materialize the execution queue by binding a
+        # concrete function to every node (paper Fig. 5).
+        self.queue: List[tuple] = [
+            (task.node, self.registry.resolve(task.node)) for task in plan.tasks
+        ]
+        # hand the GENERATE stage its prompt iterator: bound here, once, so
+        # the group expansion is resolved from the algorithm spec instead of
+        # re-derived per stage call
+        if ctx.prompt_source is None and ctx.dataloader is not None:
+            try:
+                from repro_torch.rl import algorithms
+
+                g = algorithms.resolve(ctx).group_size(ctx.rl)
+            except (KeyError, AttributeError):
+                # hand-rolled ctx without a resolvable algorithm (unknown
+                # registry name / no rl config): no grouping. Anything else
+                # (e.g. a custom spec whose group_size raises) stays loud.
+                g = 1
+            ctx.prompt_source = PromptSource(ctx.dataloader, g)
+
+    def run_iteration(self) -> Dict[str, float]:
+        """One RL iteration: execute the serialized chain; the databuffer is
+        the intermediary state manager between nodes."""
+        metrics: Dict[str, float] = {}
+        for node, fn in self.queue:
+            self.execute_node(node, fn, metrics)
+        self.buffer.clear()  # intermediate data is transient (paper §6)
+        return metrics
+
+    def execute_node(self, node: Node, fn, metrics: Dict[str, float]) -> None:
+        """Run one stage, record its host wall time (``time/<node>``: the
+        time for the stage to return, with no device synchronisation of its
+        own), and apply the Data Coordinator's post-rollout hooks
+        (length-aware load balancing runs right after GENERATE, once response
+        lengths are known). While the balance repack may rewrite the rollout
+        keys, a double buffer's put-time staging is paused so each key is
+        staged only once, for the batch order consumers will actually read."""
+        t0 = time.perf_counter()
+        balance_here = node.type == NodeType.GENERATE and self.coordinator.load_balance
+        pause = getattr(self.buffer, "staging_paused", None)
+        with get_tracer().span(f"node/{node.node_id}", cat="dag",
+                               node=node.node_id, role=node.role) as sp:
+            try:
+                with contextlib.ExitStack() as stack:
+                    if balance_here and pause is not None:
+                        stack.enter_context(pause())
+                    out = fn(self.ctx, self.buffer, node)
+                    metrics.update(out or {})
+                    metrics[f"time/{node.node_id}"] = time.perf_counter() - t0
+                    if balance_here:
+                        metrics.update(self._balance_rollouts())
+            except BaseException:
+                # a raising stage is exactly when timing matters: keep the
+                # partial duration and flag the failure instead of losing both
+                metrics[f"time/{node.node_id}"] = time.perf_counter() - t0
+                metrics[f"error/{node.node_id}"] = 1.0
+                sp.set(error=1)
+                raise
+
+    # ------------------------------------------------------------------ #
+    def _num_buckets(self) -> int:
+        if self.coordinator.num_buckets > 0:
+            return self.coordinator.num_buckets
+        dp = 1
+        for name, size in self.ctx.mesh.shape.items():
+            if name != "model":
+                dp *= size
+        return dp
+
+    def _balance_rollouts(self) -> Dict[str, float]:
+        """Length-aware load balancing (paper §6.2): permute the just-rolled-
+        out batch so contiguous DP shards carry near-equal token counts
+        before the MODEL_INFERENCE / MODEL_TRAIN stages consume it. GRPO
+        prompt groups move as units, so group-relative advantages are
+        unaffected. Every worker computes the identical permutation from the
+        response mask; no coordinator."""
+        nb = self._num_buckets()
+        if nb <= 1 or "response_mask" not in self.buffer.keys():
+            return {}
+        skipped = {"balance/skipped": 1.0}
+        from repro_torch.rl import algorithms
+
+        mask = self.buffer.get("response_mask")
+        lengths = mask.sum(dim=1).cpu().numpy()
+        g = algorithms.resolve(self.ctx).group_size(self.ctx.rl)
+        B = len(lengths)
+        # groups must divide evenly into buckets: the DP sharding splits rows
+        # evenly, so uneven group capacities would balance token totals over
+        # shard boundaries that don't exist on the hardware. The skip metric
+        # keeps a misconfigured num_buckets from disabling balancing invisibly.
+        if B % g or (B // g) % nb:
+            return skipped
+        # one device has no pod axis, so the JAX worker's hierarchical
+        # (cross-host) binning never applies
+        before = straggler.bucket_token_ratio(lengths, nb)
+        perm = straggler.balance_by_length(lengths, nb, group_size=g)
+        after = straggler.bucket_token_ratio(lengths, nb, perm)
+        if after < before:  # only repack when it helps
+            dperm = torch.as_tensor(perm, device=self.ctx.mesh.device)
+            for key in self.buffer.keys():
+                value = self.buffer.get(key)
+                if value.ndim >= 1 and value.shape[0] == B:
+                    # re-put under the producer's spec
+                    self.buffer.put(key, value.index_select(0, dperm), self.buffer.spec_of(key))
+        achieved = min(after, before)
+        out = {
+            "balance/token_ratio_before": before,
+            "balance/token_ratio_after": achieved,
+            "balance/repacked": float(after < before),
+            # 1.0 when even the repacked batch exceeds the tolerance, i.e. a
+            # single sequence/group dominates and only max-len bounding helps
+            "balance/over_tolerance": float(achieved > self.coordinator.balance_tolerance),
+        }
+        return out

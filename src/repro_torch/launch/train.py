@@ -1,0 +1,176 @@
+"""RL training entry point of the PyTorch port (port of
+``repro.launch.train``).
+
+Compiles a :class:`repro_torch.api.ExperimentSpec` for ``--arch`` and runs
+``--iters`` synchronous RL iterations through the DAG worker and the Data
+Coordinator on one device: ``--device`` (``cuda`` unless the CPU is asked
+for; without CUDA it raises). The weights are random, drawn from
+``--seed``. A full experiment can also be loaded from a JSON file
+(``--experiment spec.json``, the ``ExperimentSpec.to_json`` form of either
+package) and dumped with ``--dump-experiment``. The Data Coordinator flags
+(``--double-buffer``, ``--prefetch``, ``--load-balance``, ``--num-buckets``,
+``--balance-tolerance``, one for each field of ``DataCoordinatorConfig``) and
+``--centralized-baseline`` layer on top of either, so that one experiment
+file runs in every coordinator arm.
+
+The default arch is gemma-2b, the port's main model. The flags of
+subsystems the port does not have yet (``--ckpt-dir``, ``--resume``,
+``--max-staleness``, ``--rollout-slots``, ``--env``, ``--num-hosts`` > 1,
+``--obs-trace``, ``--obs-metrics``) raise ``NotImplementedError``.
+
+Usage:
+  python -m repro_torch.launch.train --arch gemma-2b --iters 3 \
+      --prompts-per-iter 2 --group-size 8 --max-new-tokens 16
+  python -m repro_torch.launch.train --smoke --device cpu --iters 2
+  python -m repro_torch.launch.train --experiment exp.json --iters 100
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Any, Dict
+
+from repro_torch.api import ExperimentSpec
+from repro_torch.configs import get_config, reduced
+from repro_torch.rl import RLConfig, list_algorithms
+
+# flag -> the ROADMAP queue 1 item that ports its subsystem
+NOT_PORTED = {
+    "ckpt_dir": "7: fault tolerance (checkpoints)",
+    "resume": "7: fault tolerance (checkpoints)",
+    "max_staleness": "4: async off-policy pipeline",
+    "rollout_slots": "3: continuous rollout engine",
+    "env": "5: multi-turn environments",
+    "obs_trace": "7: telemetry",
+    "obs_metrics": "7: telemetry",
+}
+COORDINATOR_FLAGS = ("double_buffer", "load_balance", "prefetch", "num_buckets",
+                     "balance_tolerance")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--algorithm", choices=list_algorithms(), default="grpo")
+    ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--prompts-per-iter", type=int, default=8)
+    ap.add_argument("--group-size", type=int, default=8)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--centralized-baseline", action="store_true",
+                    help="run the single-controller arm (comparisons)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced model config (CPU-sized)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dag-json", default=None,
+                    help="custom DAG config file (paper §4.1)")
+    ap.add_argument("--experiment", default=None,
+                    help="ExperimentSpec JSON file; overrides the arch/rl flags")
+    ap.add_argument("--dump-experiment", default=None,
+                    help="write the resolved ExperimentSpec JSON here and exit")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; never falls back")
+    # Data Coordinator v2 (DataCoordinatorConfig); unset = the spec's value
+    ap.add_argument("--double-buffer", action="store_const", const=True, default=None,
+                    help="two rotating databuffer slots + spec prefetch")
+    ap.add_argument("--load-balance", action="store_const", const=True, default=None,
+                    help="length-aware repack of the rollouts into DP buckets")
+    ap.add_argument("--prefetch", type=int, default=None,
+                    help="dataloader look-ahead depth (0 = synchronous)")
+    ap.add_argument("--num-buckets", type=int, default=None,
+                    help="load-balancer buckets (0 = the mesh's DP degree)")
+    ap.add_argument("--balance-tolerance", type=float, default=None,
+                    help="balance/over_tolerance threshold of max/mean bucket tokens")
+    # subsystems not ported yet: each raises NotImplementedError
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--max-staleness", type=int, default=None)
+    ap.add_argument("--rollout-slots", type=int, default=None)
+    ap.add_argument("--env", default=None)
+    ap.add_argument("--num-hosts", type=int, default=1)
+    ap.add_argument("--obs-trace", default=None, metavar="PATH")
+    ap.add_argument("--obs-metrics", default=None, metavar="PATH")
+    return ap.parse_args(argv)
+
+
+def check_flags(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError`` for a flag whose subsystem is not ported."""
+    for name, item in NOT_PORTED.items():
+        if getattr(args, name) is not None:
+            flag = "--" + name.replace("_", "-")
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP queue 1, item {item})")
+    if args.num_hosts > 1:
+        raise NotImplementedError(
+            "--num-hosts > 1 is not ported yet (ROADMAP queue 1, item 8: distributed)")
+
+
+def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
+    """CLI flags -> ExperimentSpec (or load one wholesale from JSON), with the
+    coordinator flags and ``--centralized-baseline`` on top."""
+    if args.experiment:
+        with open(args.experiment) as f:
+            exp = ExperimentSpec.from_json(f.read())
+    else:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = reduced(cfg, vocab_size=260, num_layers=2)
+        rl = RLConfig(
+            algorithm=args.algorithm,
+            group_size=args.group_size,
+            max_new_tokens=args.max_new_tokens,
+            lr=args.lr,
+        )
+        dag = None
+        if args.dag_json:
+            from repro_torch.core import DAG
+
+            dag = DAG.from_json(args.dag_json).to_spec()
+        exp = ExperimentSpec(
+            model=cfg,
+            rl=rl,
+            prompts_per_iter=args.prompts_per_iter,
+            centralized=args.centralized_baseline,
+            seed=args.seed,
+            dag=dag,
+        )
+    given = {k: getattr(args, k) for k in COORDINATOR_FLAGS if getattr(args, k) is not None}
+    if given:
+        exp = dataclasses.replace(exp, coordinator=dataclasses.replace(exp.coordinator, **given))
+    if args.centralized_baseline:
+        exp = dataclasses.replace(exp, centralized=True)
+    return exp
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Run the flags' experiment. Returns ``{"experiment"}`` after
+    ``--dump-experiment``, else also the ``"pipeline"``, each iteration's
+    metrics (``"history"``) and host wall seconds (``"seconds"``)."""
+    args = parse_args(argv)
+    check_flags(args)
+    exp = build_experiment(args)
+    if args.dump_experiment:
+        with open(args.dump_experiment, "w") as f:
+            f.write(exp.to_json())
+        print(f"[train] wrote {args.dump_experiment}")
+        return {"experiment": exp}
+
+    pipe = exp.compile(device=args.device)
+    history, seconds = [], []
+    for it in range(args.iters):
+        t0 = time.perf_counter()
+        metrics = pipe.worker.run_iteration()
+        dt = time.perf_counter() - t0
+        history.append(metrics)
+        seconds.append(dt)
+        if it % 5 == 0 or it == args.iters - 1:
+            keep = {k: round(v, 4) for k, v in metrics.items() if not k.startswith("time/")}
+            print(f"[train] it={it} {dt:.2f}s {json.dumps(keep)}", flush=True)
+    print(f"[train] done; buffer stats: {pipe.buffer.stats}")
+    return {"experiment": exp, "pipeline": pipe, "history": history, "seconds": seconds}
+
+
+if __name__ == "__main__":
+    main()

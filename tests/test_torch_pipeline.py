@@ -1,0 +1,377 @@
+"""The port's GRPO/PPO pipeline (``ExperimentSpec`` -> ``build_pipeline`` ->
+``DAGWorker`` over the databuffer) against the JAX package's on the CPU, its
+coordinator arms against each other, and the ``launch.train`` entry point.
+
+The model is the reduced gemma-2b of ``tests/test_torch_rl.py`` (padded heads
+and vocab). The port's spec is the JAX spec's ``to_dict()`` loaded back. The
+JAX pipeline's own initial weights are bridged into the port as fp32 (the
+JAX pipeline is switched to fp32 too), with the EOS row of the tied
+embedding scaled by ``EOS_SCALE`` in both, so that some greedy rollouts end
+early and the response masks, rewards and the balancer see ragged lengths.
+
+Tolerances: tokens, rewards, rollout counts and ``BufferStats`` counts are
+equal; the actor and critic metrics agree within 2e-5 (the fp32 tolerance of
+``tests/test_torch_rl.py``); the coordinator arms of the port are bitwise
+equal to each other.
+"""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import ExperimentSpec as JaxExperimentSpec
+from repro.configs import DataCoordinatorConfig as JaxCoordinatorConfig
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.rl import trainer as jtrainer
+from repro_torch import bridge
+from repro_torch.api import ExperimentSpec
+from repro_torch.configs import (
+    AsyncPipelineConfig,
+    DataCoordinatorConfig,
+    DistributedConfig,
+    EnvConfig,
+    ObsConfig,
+    RolloutEngineConfig,
+    get_config,
+    reduced,
+)
+from repro_torch.core import DAG, Node, NodeType, Role, build_pipeline, default_registry, stages
+from repro_torch.launch import train
+from repro_torch.rl import trainer
+
+SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
+EOS_ID, EOS_SCALE = 2, 3.0
+ITERS = 3
+TOL = 2e-5
+RL_CASES = {
+    "plain": {},
+    # an entropy bonus gives the greedy GRPO step a gradient (the advantages
+    # of identical greedy groups are 0), so the weights move and the KL
+    # against the reference is nonzero from iteration 1
+    "entropy_bonus": {"entropy_coef": 0.01},
+}
+
+
+def jax_spec(**kw):
+    rl = dict(temperature=0.0, group_size=4, max_new_tokens=4, lr=1e-3)
+    rl.update(kw)
+    return JaxExperimentSpec(model=jax_reduced(jax_get_config("gemma-2b"), **SMOKE),
+                             rl=jtrainer.RLConfig(**rl), prompts_per_iter=4)
+
+
+def counts(stats):
+    return {**dataclasses.asdict(stats), "max_host_inbound_bytes": stats.max_host_inbound_bytes}
+
+
+def record_rollouts(pipe, np_of):
+    """Wrap the pipeline's generate engine to keep each iteration's tokens."""
+    seen = []
+    engine = pipe.ctx.engines["generate"]
+
+    def generate(params, prompts, key):
+        res = engine(params, prompts, key)
+        seen.append(np_of(res.tokens))
+        return res
+
+    pipe.ctx.engines["generate"] = generate
+    return seen
+
+
+def bridged_pair(jexp, *, critic=False):
+    """(JAX pipeline, port pipeline) on the JAX pipeline's initial weights,
+    EOS-scaled, in fp32, each recording its rollouts."""
+    jpipe = jexp.compile()
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32), jpipe.ctx.actor_state.params)
+    params["embed"][EOS_ID] *= EOS_SCALE
+    fp32 = lambda t: jax.tree.map(jnp.asarray, t)  # noqa: E731
+    jpipe.ctx.actor_state = jtrainer.init_state(fp32(params))
+    jpipe.ctx.ref_params = fp32(params)
+    tpipe = ExperimentSpec.from_dict(jexp.to_dict()).compile(device="cpu")
+    to_port = lambda t: bridge.from_jax(t, device="cpu", dtype=torch.float32)  # noqa: E731
+    tpipe.ctx.actor_state = trainer.init_state(to_port(params))
+    tpipe.ctx.ref_params = to_port(params)
+    if critic:
+        cparams = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                               jpipe.ctx.critic_state.params)
+        jpipe.ctx.critic_state = jtrainer.init_state(fp32(cparams))
+        tpipe.ctx.critic_state = trainer.init_state(to_port(cparams))
+    return (jpipe, record_rollouts(jpipe, np.asarray)), \
+        (tpipe, record_rollouts(tpipe, lambda t: t.numpy()))
+
+
+def assert_iterations_match(jhist, thist, jtoks, ttoks, *, roles=("actor",)):
+    assert len(jhist) == len(thist) == len(jtoks) == len(ttoks)
+    for it, (jm, tm) in enumerate(zip(jhist, thist)):
+        assert set(tm) == set(jm), it
+        np.testing.assert_array_equal(ttoks[it], jtoks[it])
+        for k in ("reward/mean", "rollout/tokens", "rollout/mean_len"):
+            assert tm[k] == jm[k], (it, k)
+        for role in roles:
+            for k in [k for k in jm if k.startswith(role + "/")]:
+                np.testing.assert_allclose(tm[k], jm[k], atol=TOL, rtol=TOL, err_msg=f"{it} {k}")
+
+
+@pytest.fixture(scope="module", params=sorted(RL_CASES))
+def greedy(request):
+    """3 greedy GRPO iterations of each package; in the plain case a 4th
+    with the length-aware load balancer on (2 buckets)."""
+    jexp = jax_spec(**RL_CASES[request.param])
+    (jpipe, jtoks), (tpipe, ttoks) = bridged_pair(jexp)
+    out = {"case": request.param, "jexp": jexp, "jhist": jpipe.run(ITERS),
+           "thist": tpipe.run(ITERS), "jtoks": jtoks, "ttoks": ttoks,
+           "jstats": counts(jpipe.buffer.stats), "tstats": counts(tpipe.buffer.stats)}
+    if request.param == "plain":
+        jpipe.worker.coordinator = JaxCoordinatorConfig(load_balance=True, num_buckets=2)
+        tpipe.worker.coordinator = DataCoordinatorConfig(load_balance=True, num_buckets=2)
+        out["jbal"], out["tbal"] = jpipe.worker.run_iteration(), tpipe.worker.run_iteration()
+        out["jbal_stats"], out["tbal_stats"] = counts(jpipe.buffer.stats), \
+            counts(tpipe.buffer.stats)
+    return out
+
+
+def test_greedy_grpo_iterations_match_jax(greedy):
+    """3 greedy iterations; in the plain case then a 4th with the load
+    balancer, whose repack reorders rows, so its loss is not held bitwise
+    (under greedy GRPO it is 0 in both): its balance metrics are the JAX
+    worker's."""
+    assert_iterations_match(greedy["jhist"], greedy["thist"], greedy["jtoks"][:ITERS],
+                            greedy["ttoks"][:ITERS])
+    assert greedy["tstats"] == greedy["jstats"]
+    assert greedy["tstats"]["redistributions"] == 5 * ITERS
+    assert greedy["tstats"]["bytes_moved"] == 0
+    lens = [m["rollout/mean_len"] for m in greedy["thist"]]
+    assert min(lens) < 4.0  # EOS_SCALE: some rollouts end early
+    if greedy["case"] == "entropy_bonus":
+        assert all(m["actor/grad_norm"] > 0 for m in greedy["thist"])
+        assert greedy["thist"][-1]["actor/kl"] > 1e-3
+        return
+    jm, tm = greedy["jbal"], greedy["tbal"]
+    assert set(tm) == set(jm)
+    bal = {k: v for k, v in tm.items() if k.startswith("balance/")}
+    assert bal == {k: v for k, v in jm.items() if k.startswith("balance/")}
+    assert bal["balance/repacked"] == 1.0
+    assert bal["balance/token_ratio_after"] < bal["balance/token_ratio_before"]
+    np.testing.assert_array_equal(greedy["ttoks"][ITERS], greedy["jtoks"][ITERS])
+    assert tm["reward/mean"] == jm["reward/mean"]
+    assert greedy["tbal_stats"] == greedy["jbal_stats"]
+
+
+def test_ppo_iteration_with_the_critic_matches_jax():
+    jexp = jax_spec(algorithm="ppo", critic_lr=1e-3)
+    (jpipe, jtoks), (tpipe, ttoks) = bridged_pair(jexp, critic=True)
+    jhist, thist = jpipe.run(1), tpipe.run(1)
+    assert_iterations_match(jhist, thist, jtoks, ttoks, roles=("actor", "critic"))
+    assert "critic/loss" in thist[0] and thist[0]["actor/grad_norm"] > 0
+    assert counts(tpipe.buffer.stats) == counts(jpipe.buffer.stats)
+
+
+# --------------------------------------------------------------------------- #
+# ExperimentSpec: the JAX schema in both directions
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("extra", ["default", "coordinator", "dag_and_mesh"])
+def test_experiment_spec_round_trips_with_jax(extra):
+    jexp = jax_spec()
+    if extra == "coordinator":
+        jexp = dataclasses.replace(jexp, centralized=True, seed=5, coordinator=(
+            JaxCoordinatorConfig(double_buffer=True, prefetch=2, load_balance=True)))
+    elif extra == "dag_and_mesh":
+        from repro.rl import algorithms as jalgos
+
+        jexp = dataclasses.replace(jexp, mesh_shape=(1, 1), dag=jalgos.ppo_dag().to_spec())
+    d = jexp.to_dict()
+    exp = ExperimentSpec.from_dict(d)
+    assert exp.to_dict() == d
+    assert ExperimentSpec.from_json(exp.to_json()) == exp
+    assert JaxExperimentSpec.from_json(exp.to_json()).to_dict() == d
+
+
+# --------------------------------------------------------------------------- #
+# the coordinator arms (paper Fig. 14 invariant), sampled, port only
+# --------------------------------------------------------------------------- #
+ARMS = {"distributed": dict(),
+        "double_buffer_prefetch": dict(coordinator=DataCoordinatorConfig(double_buffer=True,
+                                                                         prefetch=1)),
+        "centralized": dict(centralized=True)}
+
+
+@pytest.mark.parametrize("algo", ["grpo", "ppo"])
+def test_coordinator_arms_are_bitwise_identical(algo):
+    cfg = reduced(get_config("gemma-2b"), **SMOKE)
+    # the entropy bonus gives the actor a gradient even where every reward
+    # is 0, so the weights move and the arms are compared on moving weights
+    rl = trainer.RLConfig(algorithm=algo, group_size=4, max_new_tokens=4, lr=1e-3,
+                          critic_lr=1e-3, entropy_coef=0.01)
+    runs = {}
+    for arm, kw in ARMS.items():
+        pipe = build_pipeline(cfg, rl, device="cpu", prompts_per_iter=4, seed=3, **kw)
+        toks = record_rollouts(pipe, lambda t: t.clone())
+        hist = pipe.run(ITERS)
+        runs[arm] = (pipe, toks, [{k: v for k, v in m.items() if not k.startswith("time/")}
+                                  for m in hist])
+    _, toks0, hist0 = runs["distributed"]
+    assert all(m["actor/grad_norm"] > 0 for m in hist0)
+    if algo == "grpo":  # PPO's DAG has no reference model
+        assert all(m["actor/kl"] > 0 for m in hist0[1:])
+    for arm, (pipe, toks, hist) in runs.items():
+        assert hist == hist0, arm  # exact, not approx
+        assert all(torch.equal(a, b) for a, b in zip(toks, toks0)), arm
+    assert len({tuple(row.tolist()) for row in toks0[0]}) > 1  # sampled, not greedy
+    dist, db, cen = (runs[a][0] for a in ARMS)
+    assert dist.buffer.stats.bytes_through_controller == 0
+    assert cen.buffer.stats.bytes_through_controller > 0
+    assert cen.buffer.controller_resident_bytes > 0
+    assert db.ctx.dataloader.prefetch_hits == ITERS - 1
+    # after the recording pass every reshard is staged ahead of its get
+    db.buffer.stats.reset()
+    db.run(ITERS)
+    s = db.buffer.stats
+    assert s.overlap_hits >= ITERS and s.sync_waits == 0 and s.rotations == ITERS
+
+
+def test_generate_stage_hands_on_ordinary_tensors_and_skips_are_reported():
+    cfg = reduced(get_config("gemma-2b"), **SMOKE)
+    rl = trainer.RLConfig(group_size=2, max_new_tokens=4, lr=1e-3)
+    pipe = build_pipeline(cfg, rl, device="cpu", prompts_per_iter=4, seed=0,
+                          coordinator=DataCoordinatorConfig(load_balance=True, num_buckets=3))
+    stages.actor_generate(pipe.ctx, pipe.buffer, pipe.dag.nodes["actor_generation"])
+    for key in ("tokens", "response_mask", "old_logprob", "answers"):
+        assert not pipe.buffer.get(key).is_inference(), key
+    assert pipe.buffer.get("tokens").shape == (8, 6 + 4)
+    pipe.buffer.clear()
+    m = pipe.run(1)[-1]  # 8 rollouts -> 4 groups, 4 % 3 != 0
+    assert m.get("balance/skipped") == 1.0 and "balance/token_ratio_before" not in m
+    assert pipe.ctx.gen.device.type == "cpu"
+
+
+# --------------------------------------------------------------------------- #
+# custom DAGs and the registry (paper §4-5)
+# --------------------------------------------------------------------------- #
+def length_penalty_reward(ctx, buffer, node):
+    """Blend the math reward with a brevity bonus: r + 0.05 * (1 - len/max)."""
+    spec = (tuple(ctx.mesh.axis_names),)
+    mask = buffer.get("response_mask", spec)
+    r = buffer.get("rewards", spec)
+    shaped = r + 0.05 * (1.0 - mask.float().sum(dim=1) / ctx.rl.max_new_tokens)
+    buffer.put("rewards", shaped, spec)
+    return {"reward/shaped_mean": float(shaped.mean())}
+
+
+def _no_ref_dag(with_penalty: bool) -> DAG:
+    nodes = [Node("actor_generation", Role.ACTOR, NodeType.GENERATE),
+             Node("reward_compute", Role.REWARD, NodeType.COMPUTE, deps=("actor_generation",))]
+    last = "reward_compute"
+    if with_penalty:
+        nodes.append(Node("length_penalty", Role.REWARD, NodeType.MODEL_INFERENCE,
+                          deps=(last,)))
+        last = "length_penalty"
+    nodes += [Node("advantage_compute", Role.ADVANTAGE, NodeType.COMPUTE, deps=(last,)),
+              Node("actor_train", Role.ACTOR, NodeType.MODEL_TRAIN, deps=("advantage_compute",))]
+    return DAG.from_nodes(nodes)
+
+
+SMALL = ["--smoke", "--device", "cpu", "--prompts-per-iter", "2", "--group-size", "4",
+         "--max-new-tokens", "6"]
+
+
+def test_custom_dag_from_json_with_a_registry_override(tmp_path):
+    path = tmp_path / "dag.json"
+    path.write_text(_no_ref_dag(with_penalty=True).to_json())
+    args = SMALL + ["--iters", "2", "--dag-json", str(path)]
+    with pytest.raises(KeyError, match="Registered keys"):  # the new node is unbound
+        train.main(args)
+    exp = train.build_experiment(train.parse_args(args))
+    reg = default_registry()
+    reg.register(Role.REWARD, NodeType.MODEL_INFERENCE, length_penalty_reward, override=True)
+    pipe = exp.compile(device="cpu", registry=reg)
+    assert pipe.plan.order == ["actor_generation", "reward_compute", "length_penalty",
+                               "advantage_compute", "actor_train"]
+    for m in pipe.run(2):
+        want = m["reward/mean"] + 0.05 * (1.0 - m["rollout/mean_len"] / 6)
+        assert m["reward/shaped_mean"] == pytest.approx(want, abs=1e-6)
+        assert np.isfinite(m["actor/loss"])
+    path.write_text(_no_ref_dag(with_penalty=False).to_json())
+    out = train.main(SMALL + ["--iters", "1", "--dag-json", str(path)])
+    assert "reference_inference" not in out["pipeline"].plan.order
+    assert out["pipeline"].buffer.stats.puts == 6
+
+
+# --------------------------------------------------------------------------- #
+# the entry point
+# --------------------------------------------------------------------------- #
+def test_train_entry_point_runs_and_dumps_an_experiment(tmp_path, capsys):
+    out = train.main(["--smoke", "--device", "cpu", "--iters", "2"])
+    assert len(out["history"]) == len(out["seconds"]) == 2
+    for m in out["history"]:
+        assert all(np.isfinite(v) for v in m.values())
+        assert m["rollout/tokens"] > 0 and "actor/loss" in m
+    assert out["pipeline"].buffer.stats.puts == 2 * 7
+    text = capsys.readouterr().out
+    assert "[train] it=0 " in text and "[train] it=1 " in text and "buffer stats" in text
+
+    path = tmp_path / "exp.json"
+    train.main(SMALL + ["--dump-experiment", str(path), "--double-buffer", "--prefetch", "1",
+                        "--centralized-baseline", "--seed", "4"])
+    d = json.loads(path.read_text())
+    assert d["coordinator"]["double_buffer"] and d["coordinator"]["prefetch"] == 1
+    assert d["centralized"] and d["seed"] == 4 and d["rl"]["max_new_tokens"] == 6
+    assert ExperimentSpec.from_json(path.read_text()).to_dict() == d
+    assert JaxExperimentSpec.from_json(path.read_text()).to_dict() == d
+    out = train.main(["--experiment", str(path), "--device", "cpu", "--iters", "1",
+                      "--prefetch", "2"])
+    assert out["experiment"].coordinator.prefetch == 2 and out["experiment"].centralized
+    assert out["pipeline"].buffer.stats.bytes_through_controller > 0
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["--double-buffer"], "double_buffer", True), (["--load-balance"], "load_balance", True),
+    (["--prefetch", "2"], "prefetch", 2), (["--num-buckets", "3"], "num_buckets", 3),
+    (["--balance-tolerance", "1.5"], "balance_tolerance", 1.5),
+    (["--centralized-baseline"], "centralized", True)])
+def test_coordinator_flags_layer_on_an_experiment_file(tmp_path, flag, field, value):
+    base, path = tmp_path / "base.json", tmp_path / "exp.json"
+    train.main(SMALL + ["--dump-experiment", str(base)])
+    train.main(["--experiment", str(base), "--dump-experiment", str(path), *flag])
+    want = json.loads(base.read_text())
+    (want if field == "centralized" else want["coordinator"])[field] = value
+    assert json.loads(path.read_text()) == want
+    assert set(json.loads(base.read_text())["coordinator"]) == \
+        {f.replace("-", "_") for f in train.COORDINATOR_FLAGS}
+
+
+@pytest.mark.parametrize("flag", [["--ckpt-dir", "ckpts"], ["--resume", "ckpts"],
+                                  ["--max-staleness", "1"], ["--rollout-slots", "4"],
+                                  ["--env", "calculator"], ["--num-hosts", "2"],
+                                  ["--obs-trace", "t.json"], ["--obs-metrics", "m.jsonl"]])
+def test_unported_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
+        train.main(["--smoke", "--device", "cpu", "--iters", "1", *flag])
+
+
+@pytest.mark.parametrize("option", ["rollout", "async_pipeline", "env", "distributed", "obs",
+                                    "mesh_shape"])
+def test_unported_options_raise(option):
+    value = {"rollout": RolloutEngineConfig(engine="continuous"),
+             "async_pipeline": AsyncPipelineConfig(enabled=True),
+             "env": EnvConfig(name="calculator"),
+             "distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c"),
+             "obs": ObsConfig(enabled=True), "mesh_shape": (2, 1)}[option]
+    exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value})
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
+        exp.compile(device="cpu")
+
+
+def test_without_cuda_every_entry_point_raises_unless_the_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    cfg = reduced(get_config("gemma-2b"), **SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_pipeline(cfg, trainer.RLConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ExperimentSpec(model=cfg).compile()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--iters", "1"])
