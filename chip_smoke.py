@@ -81,6 +81,21 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      each arm's synchronised iteration time, the worker's ``time/<node>``
      medians, the controller bytes of the centralized arm and the
      dataloader's prefetch hits, beside phase 7's hand-composed iteration.
+  9. mamba2-2.7b training at full width and depth (gemma freed): GRPO through
+     ``launch.train --arch mamba2-2.7b`` with phase 8's experiment file and
+     checks, distributed twice then centralized (the scan under autograd in
+     every actor step and its remat recompute); then on lockstep rollouts of
+     B=8 x (96 + 32) the gradient check (kernel path against
+     ``ops.set_mode("ref")``, within 2x the plain path's drift at chunk 64
+     against chunk 128; step-0 ratio within 1 +- 0.02), one actor step at
+     B=2 x S=2,048 (16 chunks; its warm-up held to plain) timed in parts,
+     and the scan at both training shapes with ``SSDFn``'s plain-VJP
+     backward, and the norms at mamba2's training shapes.
+ 10. PPO on gemma-2b: ``launch.train --algorithm ppo`` with phase 8's file
+     and a critic lr of 1e-4, distributed twice then centralized, with
+     phase 8's checks and a finite critic loss, a nonzero critic gradient
+     and some critic weights changed; reports the critic's stage times and
+     the peak memory of actor, reference, critic and two sets of moments.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -100,6 +115,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1211,14 +1227,16 @@ def streaming_phase(torch, ops, _build, serve, model, params, tok):
 # the training phase: GRPO on full gemma-2b (configs/gemma_2b.py), 2 math
 # prompts x 8 rollouts of 16 new tokens, the default RLConfig
 GRPO_ITERS, GRPO_PROMPTS = 3, 2
-# the kernels of the GRPO iteration's path
-GRPO_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "fused_sample")
 # the gradient check: the kernel path's loss and grads may stray from the
 # plain path's at most this many times as far as the plain path strays from
-# itself when its attention keeps the probabilities in fp32 (both
-# evaluations are equally valid roundings of the same function)
+# itself under another, equally valid rounding of the same function (gemma:
+# attention probabilities in fp32; mamba2: the scan in chunks of 64)
 GRAD_DRIFT_FACTOR = 2.0
 RATIO_TOL = 0.02  # ratio_mean of an actor step on rollouts just sampled: 1 +- this
+# a parameter's drift counts as no less than one bf16 rounding step relative
+# to the leaf: the grads of bf16 weights are bf16, and two of them closer
+# than this are the same gradient to their precision
+GRAD_FLOOR = 2.0 ** -8
 # one actor step at an RL response length: 2 sequences of 2,048 positions,
 # the last 1,792 of them the response
 LONG_B, LONG_PROMPT, LONG_S = 2, 256, 2048
@@ -1243,23 +1261,16 @@ def leaf_names(t, prefix="params"):
     return [prefix]
 
 
-def grad_drift(tree, a, b):
-    """(worst relative L2 error, worst cosine) over the leaves of two grad
-    trees, and the path of the leaf with the worst relative error."""
-    errs = [(rel_l2(x, y), cosine(x, y), name)
-            for x, y, name in zip(tree.leaves(a), tree.leaves(b), leaf_names(b))]
-    return max(e[0] for e in errs), min(e[1] for e in errs), max(errs)[2]
-
-
 @contextlib.contextmanager
-def held_to_plain(torch, ops, ref):
-    """While open, every call of a kernel of GRPO_KERNELS through ``ops`` is
+def held_to_plain(torch, ops, ref, names):
+    """While open, every call of a kernel of ``names`` through ``ops`` is
     held against the kernel's plain version on that call's own inputs, at
     the kernel checks' tolerances (norm and flash BF16_TOL, decode
-    ``check_decode``, the sampler ``check_sample``); the caller gets the
-    kernel's result. Yields {name: {"calls", "max_abs_err"}}."""
-    seen = {n: {"calls": 0, "max_abs_err": 0.0} for n in GRPO_KERNELS}
-    kernel = {n: getattr(ops, n) for n in GRPO_KERNELS}
+    ``check_decode``, the sampler ``check_sample``, the scan SSD_Y_TOL and
+    SSD_STATE_TOL); the caller gets the kernel's result. Yields {name:
+    {"calls", "max_abs_err"}}."""
+    seen = {n: {"calls": 0, "max_abs_err": 0.0} for n in names}
+    kernel = {n: getattr(ops, n) for n in names}
 
     def note(name, err):
         seen[name]["calls"] += 1
@@ -1294,33 +1305,278 @@ def held_to_plain(torch, ops, ref):
                                           vocab_size, f"B={h.shape[0]} on the path"))
         return got
 
+    def ssd(x, dt, A, Bm, Cm, D, *, chunk=128, return_state=False):
+        y, h = kernel["ssd"](x, dt, A, Bm, Cm, D, chunk=chunk, return_state=True)
+        with torch.no_grad():
+            y_r, h_r = ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=min(chunk, x.shape[1]),
+                                       return_state=True)
+            (ok, err), (ok_h, err_h) = close(y, y_r, SSD_Y_TOL), close(h, h_r, SSD_STATE_TOL)
+        require(ok and ok_h, f"ssd x {tuple(x.shape)} on the path: y err {err}, "
+                             f"state err {err_h}")
+        note("ssd", err)
+        return (y, h) if return_state else y
+
     checked = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-               "decode_attention": decode_attention, "fused_sample": fused_sample}
-    for n in GRPO_KERNELS:
+               "decode_attention": decode_attention, "fused_sample": fused_sample, "ssd": ssd}
+    for n in names:
         setattr(ops, n, checked[n])
     try:
         yield seen
     finally:
-        for n in GRPO_KERNELS:
+        for n in names:
             setattr(ops, n, kernel[n])
 
 
-def grpo_launches(cfg, names, max_new_tokens: int):
-    """Launch counts of one GRPO iteration in the order of ``grpo_dag``: a
-    lockstep generate of ``max_new_tokens - 1`` decode steps, the reference
-    forward, and the actor step, which runs the forward, then the layers again
-    in the backward (remat) with the final norm outside the checkpoint; the
-    backward itself is the plain VJP and launches nothing. Returns (per
-    iteration, per actor step)."""
-    layers, mlps = cfg.num_layers, sum(k[1] != "none" for k in cfg.layer_kinds())
-    fwd_norms = layers + mlps + 1
-    step = {"rmsnorm": 2 * fwd_norms - 1, "flash_attention": 2 * layers}
-    per_iter = expected_launches(cfg, names, 1, max_new_tokens - 1)
-    per_iter["rmsnorm"] += fwd_norms + step["rmsnorm"]
-    per_iter["flash_attention"] += layers + step["flash_attention"]
-    require(all(per_iter[n] == 0 for n in per_iter if n not in GRPO_KERNELS),
-            f"GRPO iteration: kernels off GRPO_KERNELS expected {per_iter}")
+def path_kernels(cfg):
+    """The kernels an RL iteration of ``cfg`` launches: the norm and the
+    sampler; flash and decode attention with attention layers; the scan with
+    SSD layers."""
+    mixers = {k[0] for k in cfg.layer_kinds()}
+    return (("rmsnorm",) + (("flash_attention", "decode_attention") if "attn" in mixers else ())
+            + (("ssd",) if "ssm" in mixers else ()) + ("fused_sample",))
+
+
+def iteration_launches(cfg, names, max_new_tokens: int, dag):
+    """Launch counts of one RL iteration of ``dag``: each GENERATE node a
+    lockstep generate of ``max_new_tokens - 1`` decode steps, each
+    MODEL_INFERENCE node (the reference's or the critic's values) a forward,
+    and each MODEL_TRAIN node (the actor's or the critic's step) the forward,
+    then the layers again in the backward (remat) with the final norm outside
+    the checkpoint; the backward itself is the plain VJP and launches
+    nothing. A forward runs a norm before every mixer and every MLP, a gated
+    norm in every SSD mixer and the final norm, one flash attention per
+    attention layer and one scan per SSD layer. Returns (per iteration, per
+    actor step)."""
+    from repro_torch.core.dag import NodeType
+
+    kinds = cfg.layer_kinds()
+    attn = sum(k[0] == "attn" for k in kinds)
+    ssd = len(kinds) - attn
+    mlps = sum(k[1] != "none" for k in kinds)
+    fwd = {"rmsnorm": len(kinds) + mlps + ssd + 1, "flash_attention": attn, "ssd": ssd}
+    step = {n: 2 * c - (n == "rmsnorm") for n, c in fwd.items()}
+    types = [node.type for node in dag.nodes.values()]
+    per_iter = expected_launches(cfg, names, types.count(NodeType.GENERATE),
+                                 max_new_tokens - 1)
+    for n in fwd:
+        per_iter[n] += (types.count(NodeType.MODEL_INFERENCE) * fwd[n]
+                        + types.count(NodeType.MODEL_TRAIN) * step[n])
     return per_iter, step
+
+
+def sync_ms(torch, fn):
+    """(fn's result, its synchronised wall ms)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def split_step(torch, trainer, model, rl, state, batch):
+    """One actor step as ``make_actor_step`` takes it, marked between the
+    forward (with remat), the backward and clip + AdamW. Returns (the new
+    state, (forward, backward, clip + AdamW ms))."""
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    _, grads = trainer.value_and_grad(
+        lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params, on_loss=mark)
+    mark()
+    (state, _), t_opt = sync_ms(torch, lambda: trainer.make_actor_apply_fn(rl)(state, grads))
+    return state, ((marks[1] - marks[0]) * 1e3, (marks[2] - marks[1]) * 1e3, t_opt)
+
+
+def timed_steps(torch, trainer, model, rl, state, batch, label):
+    """3 split actor steps, then 3 whole ones: the medians, tokens/s and the
+    peak memory since they began. Returns (the new state, summary)."""
+    actor_step = trainer.make_actor_step(model, rl)
+    torch.cuda.reset_peak_memory_stats()
+    splits = []
+    for _ in range(3):
+        state, split = split_step(torch, trainer, model, rl, state, batch)
+        splits.append(split)
+    fwd, bwd, opt = (statistics.median(x) for x in zip(*splits))
+    wholes = []
+    for _ in range(3):
+        (state, _), t = sync_ms(torch, lambda: actor_step(state, batch))
+        wholes.append(t)
+    whole = statistics.median(wholes)
+    summary = {"batch": list(batch["tokens"].shape), "forward_ms": fwd,
+               "backward_ms": bwd, "clip_adamw_ms": opt, "step_ms": whole,
+               "trained_tokens_per_s": batch["tokens"].numel() / whole * 1e3,
+               "response_tokens_per_s": int(batch["response_mask"].sum()) / whole * 1e3,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps({label: summary}), flush=True)
+    return state, summary
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """While open, ``obj.<name>`` is ``value``."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launches,
+               control, label):
+    """The actor's loss and gradient on ``batch`` through the kernels against
+    ``ops.set_mode("ref")``. The launches of the loss + grad equal
+    ``step_launches``; the step-0 ratio_mean lies within 1 +- RATIO_TOL;
+    every leaf is finite and nonzero; the loss lies within GRAD_DRIFT_FACTOR
+    x the plain path's own drift. The drift is the plain path against
+    itself under ``control`` (a context that makes it another, equally
+    valid rounding of the same function). The leaves are held per
+    parameter (a kind: one parameter in every block where it recurs): each
+    leaf's relative L2 error and cosine within GRAD_DRIFT_FACTOR x the
+    largest drift of its kind, and the kind's median error within
+    GRAD_DRIFT_FACTOR x its median drift (drifts no less than GRAD_FLOOR).
+    A leaf of 80 elements (A_log, D, dt_bias) draws a noisy drift, so its
+    own drift alone makes no limit: the kind's leaves pool it. Every leaf's
+    numbers go to build/<label>_leaves.json. Prints and returns {label:
+    summary}."""
+    from repro_torch import tree
+
+    def loss_and_grads():
+        _build.reset_launches()
+        (loss, metrics), grads = trainer.value_and_grad(
+            lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params)
+        torch.cuda.synchronize()
+        return float(loss), metrics, grads, dict(_build.LAUNCHES)
+
+    loss_k, metrics_k, g_k, launched = loss_and_grads()
+    require(all(launched[n] == step_launches.get(n, 0) for n in launched),
+            f"{label}: launches per loss + grad {launched}, expected {step_launches}")
+    ratio0 = float(metrics_k["ratio_mean"])
+    require(abs(ratio0 - 1.0) <= RATIO_TOL,
+            f"{label}: step-0 ratio_mean {ratio0}: the training engine disagrees with the "
+            f"sampler")
+    names = leaf_names(g_k)
+    for name, g in zip(names, tree.leaves(g_k)):
+        require(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                f"{label}: {name} {tuple(g.shape)}: a gradient that is not finite or is zero")
+    ops.set_mode("ref")
+    try:
+        loss_r, _, g_r, plain_launched = loss_and_grads()
+        with control:
+            loss_v, _, g_v, _ = loss_and_grads()
+    finally:
+        ops.set_mode(None)
+    require(not any(plain_launched.values()), f"ref mode launched kernels: {plain_launched}")
+    leaves = [{"leaf": name, "numel": r.numel(), "rel_l2": rel_l2(k, r),
+               "cosine": cosine(k, r), "drift_rel_l2": rel_l2(v, r), "drift_cosine": cosine(v, r)}
+              for name, k, r, v in zip(names, tree.leaves(g_k), tree.leaves(g_r),
+                                       tree.leaves(g_v))]
+    del g_k, g_r, g_v
+    kinds = {}
+    for e in leaves:
+        kinds.setdefault(re.sub(r"\[\d+\]", "", e["leaf"]), []).append(e)
+    by_kind, bad = {}, []
+    for kind, es in kinds.items():
+        drift = max(max(e["drift_rel_l2"] for e in es), GRAD_FLOOR)
+        drift_c = max(max(1.0 - e["drift_cosine"] for e in es), GRAD_FLOOR ** 2 / 2)
+        for e in es:
+            e.update(rel_l2_limit=GRAD_DRIFT_FACTOR * drift,
+                     cosine_limit=1.0 - GRAD_DRIFT_FACTOR * drift_c,
+                     ratio=e["rel_l2"] / drift, cosine_ratio=(1.0 - e["cosine"]) / drift_c,
+                     own_ratio=e["rel_l2"] / max(e["drift_rel_l2"], GRAD_FLOOR))
+            if e["rel_l2"] > e["rel_l2_limit"] or e["cosine"] < e["cosine_limit"]:
+                bad.append(e["leaf"])
+        med, med_drift = (statistics.median(e[k] for e in es) for k in ("rel_l2", "drift_rel_l2"))
+        med_limit = GRAD_DRIFT_FACTOR * max(med_drift, GRAD_FLOOR)
+        if med > med_limit:
+            bad.append(f"{kind} (median)")
+        by_kind[kind] = {"leaves": len(es), "drift_rel_l2_median": med_drift,
+                         "drift_rel_l2_max": drift, "rel_l2_median": med,
+                         "rel_l2_max": max(e["rel_l2"] for e in es),
+                         "rel_l2_limit": GRAD_DRIFT_FACTOR * drift, "median_limit": med_limit,
+                         "ratio_max": max(e["ratio"] for e in es),
+                         "cosine_ratio_max": max(e["cosine_ratio"] for e in es),
+                         "own_ratio_max": max(e["own_ratio"] for e in es)}
+    out = ROOT / "build" / f"{label}_leaves.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(leaves))
+    worst = max(leaves, key=lambda e: e["ratio"])
+    worst_c = max(leaves, key=lambda e: e["cosine_ratio"])
+    loss_limit = GRAD_DRIFT_FACTOR * abs(loss_v - loss_r)
+    summary = {
+        "batch": list(batch["tokens"].shape), "step0_ratio_mean": ratio0,
+        "loss_kernel": loss_k, "loss_plain": loss_r, "loss_plain_control": loss_v,
+        "loss_limit": loss_limit, "leaves": len(leaves), "leaves_beyond_limit": len(bad),
+        "worst_ratio": worst["ratio"], "worst_ratio_leaf": worst["leaf"],
+        "worst_ratio_rel_l2": worst["rel_l2"], "worst_ratio_drift": worst["drift_rel_l2"],
+        "worst_cosine_ratio": worst_c["cosine_ratio"], "worst_cosine_ratio_leaf": worst_c["leaf"],
+        "worst_rel_l2": max(e["rel_l2"] for e in leaves),
+        "worst_cosine": min(e["cosine"] for e in leaves),
+        "plain_drift_rel_l2": max(e["drift_rel_l2"] for e in leaves),
+        "plain_drift_worst_leaf": max(leaves, key=lambda e: e["drift_rel_l2"])["leaf"],
+        "by_kind": by_kind, "launches_per_loss_and_grad": launched}
+    print(json.dumps({label: summary}), flush=True)
+    require(abs(loss_k - loss_r) <= loss_limit,
+            f"{label}: actor loss: kernel path {loss_k}, plain path {loss_r} (limit {loss_limit})")
+    require(not bad, f"{label}: {len(bad)} leaves or kinds beyond {GRAD_DRIFT_FACTOR}x their "
+                     f"kind's drift, e.g. {bad[:4]}; worst ratio {worst['ratio']} at "
+                     f"{worst['leaf']}")
+    return summary
+
+
+def long_step(torch, ops, ref, trainer, model, rl, state, ref_params, names, step_launches,
+              label):
+    """One actor step at LONG_B x LONG_S (random tokens, the last LONG_S -
+    LONG_PROMPT positions the response, random advantages): a warm-up step
+    with every call of the kernels ``names`` held against its plain version
+    (the calls equal ``step_launches``), then ``timed_steps``. Returns (the
+    new state, summary)."""
+    g_long = torch.Generator(device=DEV).manual_seed(3)
+    tokens = torch.randint(3, model.cfg.vocab_size, (LONG_B, LONG_S), generator=g_long,
+                           device=DEV, dtype=torch.int32)
+    mask = (torch.arange(LONG_S, device=DEV) >= LONG_PROMPT).expand(LONG_B, -1).clone()
+    with torch.no_grad():
+        old = model.logprobs(state.params, tokens)[0] * mask
+        ref_lp = model.logprobs(ref_params, tokens)[0] * mask
+    batch = {"tokens": tokens, "response_mask": mask, "old_logprob": old,
+             "ref_logprob": ref_lp,
+             "advantages": torch.randn((LONG_B, 1), generator=g_long, device=DEV) * mask}
+    with held_to_plain(torch, ops, ref, names) as held:
+        state, _ = split_step(torch, trainer, model, rl, state, batch)
+    require(all(held[n]["calls"] == step_launches.get(n, 0) for n in names),
+            f"{label} held to plain: calls {held}, expected {step_launches}")
+    print(json.dumps({"check": f"{label}_held_to_plain", "kernels": held}), flush=True)
+    return timed_steps(torch, trainer, model, rl, state, batch, label)
+
+
+def norm_record(torch, ops, ref, F, randn, R, D):
+    """``rmsnorm`` over R rows of D at a training shape: the kernel against
+    its plain version, timed beside it and ``F.rms_norm``, and the plain-VJP
+    backward (``RMSNormFn``'s) beside ``F.rms_norm``'s; the bounds."""
+    x, w = randn(R, D), randn(D, scale=0.1, dtype=torch.float32)
+    gy = randn(R, D)
+    ok, err_n = close(ops.rmsnorm(x, w), ref.rmsnorm(x, w), BF16_TOL)
+    require(ok, f"rmsnorm {R} x {D}: max abs err {err_n}")
+    n_bound, n_by = bound_ms(2 * R * D * 2 + D * 4, 4 * R * D, FP32_FLOP_PER_S)
+    nb_bound, nb_by = bound_ms(3 * R * D * 2 + 2 * D * 4, 10 * R * D, FP32_FLOP_PER_S)
+    wl = (1.0 + w).to(torch.bfloat16)
+    xl, wll = x.detach().requires_grad_(), wl.detach().requires_grad_()
+    ln_out = F.rms_norm(xl, (D,), weight=wll, eps=1e-6)
+    return {
+        "shape": [R, D], "max_abs_err": err_n,
+        "ms": device_ms(lambda: ops.rmsnorm(x, w)),
+        "plain_ms": device_ms(lambda: ref.rmsnorm(x, w)),
+        "bound_ms": n_bound, "bound_by": n_by,
+        "library_ms": device_ms(lambda: F.rms_norm(x, (D,), weight=wl, eps=1e-6)),
+        "backward": {"plain_vjp_ms": device_ms(lambda: ref.vjp(ref.rmsnorm, (x, w), gy)),
+                     "bound_ms": nb_bound, "bound_by": nb_by,
+                     "library_ms": device_ms(lambda: torch.autograd.grad(
+                         ln_out, (xl, wll), gy, retain_graph=True)),
+                     "library": "F.rms_norm's backward (retained graph)"}}
 
 
 def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile: bool):
@@ -1352,15 +1608,9 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
     spec = algorithms.get_algorithm(rl.algorithm)
     advantage = spec.make_advantage(rl)
     actor_step = trainer.make_actor_step(model, rl)
-    apply_fn = trainer.make_actor_apply_fn(rl)
-    per_iter, step_launches = grpo_launches(cfg, _build.LAUNCHES, rl.max_new_tokens)
-
-    def sync_ms(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
+    per_iter, step_launches = iteration_launches(cfg, _build.LAUNCHES, rl.max_new_tokens,
+                                                 spec.dag_factory())
+    names = path_kernels(cfg)
 
     def as_batch(res):
         # the stage boundary: rollouts leave inference mode as ordinary tensors
@@ -1382,16 +1632,17 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
         prompts = torch.from_numpy(np.repeat(ids, rl.group_size, axis=0)).to(DEV)
         answers = torch.from_numpy(np.repeat(answers, rl.group_size)).to(DEV)
         ms = {}
-        res, ms["generate"] = sync_ms(lambda: generate(
+        res, ms["generate"] = sync_ms(torch, lambda: generate(
             model, state.params, prompts, gen, max_new=rl.max_new_tokens,
             temperature=rl.temperature, eos_id=tok.eos_id))
         batch = as_batch(res)
-        batch["ref_logprob"], ms["reference"] = sync_ms(lambda: ref_logprobs(batch["tokens"]))
-        rewards, ms["reward"] = sync_ms(lambda: reward.math_reward_tokens(
+        batch["ref_logprob"], ms["reference"] = sync_ms(
+            torch, lambda: ref_logprobs(batch["tokens"]))
+        rewards, ms["reward"] = sync_ms(torch, lambda: reward.math_reward_tokens(
             batch["tokens"], batch["response_mask"], answers, tok))
         batch["advantages"], ms["advantage"] = sync_ms(
-            lambda: advantage(rewards, batch["response_mask"]))
-        (state, metrics), ms["actor_step"] = sync_ms(lambda: actor_step(state, batch))
+            torch, lambda: advantage(rewards, batch["response_mask"]))
+        (state, metrics), ms["actor_step"] = sync_ms(torch, lambda: actor_step(state, batch))
         got = {n: _build.LAUNCHES[n] - before[n] for n in _build.LAUNCHES}
         require(got == per_iter, f"GRPO iteration {it}: launches {got}, expected {per_iter}")
         row = {"iteration": it, "reward/mean": float(rewards.mean()),
@@ -1415,9 +1666,9 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
     counts = dict(_build.LAUNCHES)
     # once more, every kernel call held against its plain version on the
     # call's own inputs (not counted in the path's launches, timed slower)
-    with held_to_plain(torch, ops, ref) as held:
+    with held_to_plain(torch, ops, ref, names) as held:
         row = iteration(GRPO_ITERS)
-    require(all(held[n]["calls"] == per_iter[n] for n in GRPO_KERNELS),
+    require(all(held[n]["calls"] == per_iter[n] for n in names),
             f"GRPO iteration held to plain: calls {held}, expected {per_iter}")
     print(json.dumps({"check": "grpo_iteration_held_to_plain", "kernels": held,
                       "ratio_mean": row["actor/ratio_mean"]}), flush=True)
@@ -1440,58 +1691,15 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
                              device=DEV)
     batch["advantages"] = advantage(seq_rewards, mask)  # one group of 8: never all equal
 
-    # ---- 3. the gradient check at full width ----
-    def loss_and_grads():
-        _build.reset_launches()
-        (loss, metrics), grads = trainer.value_and_grad(
-            lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params)
-        torch.cuda.synchronize()
-        return float(loss), metrics, grads, dict(_build.LAUNCHES)
-
-    loss_k, metrics_k, g_k, launched = loss_and_grads()
-    require(all(launched[n] == c for n, c in step_launches.items())
-            and launched["decode_attention"] == launched["fused_sample"] == 0,
-            f"actor loss + grad: launches {launched}, expected {step_launches}")
-    ratio0 = float(metrics_k["ratio_mean"])
-    agreement["step0_ratio_mean"] = ratio0
-    print(json.dumps({"engine_agreement": agreement}), flush=True)
-    require(abs(ratio0 - 1.0) <= RATIO_TOL,
-            f"step-0 ratio_mean {ratio0}: the training engine disagrees with the sampler")
-    for i, g in enumerate(tree.leaves(g_k)):
-        require(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
-                f"leaf {i} {tuple(g.shape)}: a gradient that is not finite or is zero")
-    ops.set_mode("ref")
+    # ---- 3. the gradient check at full width: the drift of the plain path
+    # with the attention probabilities kept in fp32 ----
     plain_flash = ref.flash_attention
-    try:
-        loss_r, _, g_r, plain_launched = loss_and_grads()
-        # the same plain path with the attention probabilities kept in fp32
-        ref.flash_attention = lambda q, k, v, **kw: plain_flash(
-            q.float(), k.float(), v.float(), **kw).to(q.dtype)
-        loss_v, _, g_v, _ = loss_and_grads()
-    finally:
-        ref.flash_attention = plain_flash
-        ops.set_mode(None)
-    require(not any(plain_launched.values()), f"ref mode launched kernels: {plain_launched}")
-    drift_err, drift_cos, drift_leaf = grad_drift(tree, g_v, g_r)
-    del g_v
-    err, cos, worst_leaf = grad_drift(tree, g_k, g_r)
-    err_limit = GRAD_DRIFT_FACTOR * drift_err
-    cos_limit = 1.0 - GRAD_DRIFT_FACTOR * (1.0 - drift_cos)
-    loss_limit = GRAD_DRIFT_FACTOR * abs(loss_v - loss_r)
-    gcheck = {"loss_kernel": loss_k, "loss_plain": loss_r, "loss_plain_fp32_attention": loss_v,
-              "loss_limit": loss_limit,
-              "leaves": len(tree.leaves(g_k)), "worst_rel_l2": err, "worst_cosine": cos,
-              "worst_leaf": worst_leaf, "plain_drift_rel_l2": drift_err,
-              "plain_drift_cosine": drift_cos, "plain_drift_worst_leaf": drift_leaf,
-              "rel_l2_limit": err_limit,
-              "cosine_limit": cos_limit, "launches_per_loss_and_grad": launched}
-    print(json.dumps({"grad_check": gcheck}), flush=True)
-    require(abs(loss_k - loss_r) <= loss_limit,
-            f"actor loss: kernel path {loss_k}, plain path {loss_r} (limit {loss_limit})")
-    require(err <= err_limit and cos >= cos_limit,
-            f"grads: worst relative L2 error {err} (limit {err_limit}), worst cosine {cos} "
-            f"(limit {cos_limit}), leaf {worst_leaf}")
-    del g_k, g_r
+    gcheck = grad_check(
+        torch, ops, _build, trainer, model, rl, state, batch, step_launches,
+        patched(ref, "flash_attention", lambda q, k, v, **kw: plain_flash(
+            q.float(), k.float(), v.float(), **kw).to(q.dtype)), "grad_check")
+    agreement["step0_ratio_mean"] = gcheck["step0_ratio_mean"]
+    print(json.dumps({"engine_agreement": agreement}), flush=True)
     # a kernel without a backward refuses an input that requires grad
     qd = torch.zeros((B, HEADS, HEAD_DIM), dtype=torch.bfloat16, device=DEV, requires_grad=True)
     kc = torch.zeros((B, SMAX, 1, HEAD_DIM), dtype=torch.bfloat16, device=DEV)
@@ -1503,64 +1711,12 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
     print(json.dumps({"check": "no_backward_raises", "kernel": "decode_attention"}), flush=True)
 
     # ---- 4. one actor step, split; tokens/s and peak memory ----
-    def split_step(batch):
-        """One actor step as ``make_actor_step`` takes it, marked between the
-        forward (with remat), the backward and clip + AdamW: their ms."""
-        nonlocal state
-        marks = []
-
-        def mark():
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-
-        mark()
-        _, grads = trainer.value_and_grad(
-            lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params, on_loss=mark)
-        mark()
-        (state, _), t_opt = sync_ms(lambda: apply_fn(state, grads))
-        return (marks[1] - marks[0]) * 1e3, (marks[2] - marks[1]) * 1e3, t_opt
-
-    def timed_steps(batch, label):
-        nonlocal state
-        torch.cuda.reset_peak_memory_stats()
-        splits = [split_step(batch) for _ in range(3)]
-        fwd, bwd, opt = (statistics.median(x) for x in zip(*splits))
-        wholes = []
-        for _ in range(3):
-            (state, _), t = sync_ms(lambda: actor_step(state, batch))
-            wholes.append(t)
-        whole = statistics.median(wholes)
-        summary = {"batch": list(batch["tokens"].shape), "forward_ms": fwd,
-                   "backward_ms": bwd, "clip_adamw_ms": opt, "step_ms": whole,
-                   "trained_tokens_per_s": batch["tokens"].numel() / whole * 1e3,
-                   "response_tokens_per_s": int(batch["response_mask"].sum()) / whole * 1e3,
-                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        print(json.dumps({label: summary}), flush=True)
-        return summary
-
-    split_step(batch)  # warm
-    step_summary = timed_steps(batch, "actor_step")
+    state, _ = split_step(torch, trainer, model, rl, state, batch)  # warm
+    state, step_summary = timed_steps(torch, trainer, model, rl, state, batch, "actor_step")
 
     # ---- 5. one actor step at an RL response length ----
-    g_long = torch.Generator(device=DEV).manual_seed(3)
-    long_tokens = torch.randint(3, cfg.vocab_size, (LONG_B, LONG_S), generator=g_long,
-                                device=DEV, dtype=batch["tokens"].dtype)
-    long_mask = (torch.arange(LONG_S, device=DEV) >= LONG_PROMPT).expand(LONG_B, -1).clone()
-    with torch.no_grad():
-        long_old = model.logprobs(state.params, long_tokens)[0] * long_mask
-    long_batch = {"tokens": long_tokens, "response_mask": long_mask, "old_logprob": long_old,
-                  "ref_logprob": ref_logprobs(long_tokens) * long_mask,
-                  "advantages": torch.randn((LONG_B, 1), generator=g_long, device=DEV)
-                  * long_mask}
-    # the warm-up step holds every kernel call against its plain version
-    with held_to_plain(torch, ops, ref) as held_long:
-        split_step(long_batch)
-    require(all(held_long[n]["calls"] == step_launches.get(n, 0) for n in GRPO_KERNELS),
-            f"long actor step held to plain: calls {held_long}, expected {step_launches}")
-    print(json.dumps({"check": "actor_step_long_held_to_plain", "kernels": held_long}),
-          flush=True)
-    long_summary = timed_steps(long_batch, "actor_step_long")
-    del long_batch, long_tokens, long_mask, long_old
+    state, long_summary = long_step(torch, ops, ref, trainer, model, rl, state, ref_params,
+                                    names, step_launches, "actor_step_long")
 
     # ---- the kernels at the training shapes, and the plain-VJP backwards ----
     g = torch.Generator(device=DEV).manual_seed(99)
@@ -1602,31 +1758,9 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
                          "library": "SDPA's backward (retained graph)"}}
         print(json.dumps({"check": f"flash_attention/{tag}",
                           **records["flash_attention"][tag]}), flush=True)
-        R = Bt * S_T
-        x, w = randn(R, D_MODEL), randn(D_MODEL, scale=0.1, dtype=torch.float32)
-        gy = randn(R, D_MODEL)
-        ok, err_n = close(ops.rmsnorm(x, w), ref.rmsnorm(x, w), BF16_TOL)
-        require(ok, f"rmsnorm at the {tag} shape: max abs err {err_n}")
-        n_bound, n_by = bound_ms(2 * R * D_MODEL * 2 + D_MODEL * 4, 4 * R * D_MODEL,
-                                 FP32_FLOP_PER_S)
-        nb_bound, nb_by = bound_ms(3 * R * D_MODEL * 2 + 2 * D_MODEL * 4, 10 * R * D_MODEL,
-                                   FP32_FLOP_PER_S)
-        wl = (1.0 + w).to(torch.bfloat16)
-        xl, wll = x.detach().requires_grad_(), wl.detach().requires_grad_()
-        ln_out = F.rms_norm(xl, (D_MODEL,), weight=wll, eps=1e-6)
-        records["rmsnorm"][tag] = {
-            "shape": [R, D_MODEL], "max_abs_err": err_n,
-            "ms": device_ms(lambda: ops.rmsnorm(x, w)),
-            "plain_ms": device_ms(lambda: ref.rmsnorm(x, w)),
-            "bound_ms": n_bound, "bound_by": n_by,
-            "library_ms": device_ms(lambda: F.rms_norm(x, (D_MODEL,), weight=wl, eps=1e-6)),
-            "backward": {"plain_vjp_ms": device_ms(lambda: ref.vjp(ref.rmsnorm, (x, w), gy)),
-                         "bound_ms": nb_bound, "bound_by": nb_by,
-                         "library_ms": device_ms(lambda: torch.autograd.grad(
-                             ln_out, (xl, wll), gy, retain_graph=True)),
-                         "library": "F.rms_norm's backward (retained graph)"}}
+        records["rmsnorm"][tag] = norm_record(torch, ops, ref, F, randn, Bt * S_T, D_MODEL)
         print(json.dumps({"check": f"rmsnorm/{tag}", **records["rmsnorm"][tag]}), flush=True)
-        del sd_out, ln_out
+        del sd_out
 
     summary = {"iterations": iters, "engine_agreement": agreement, "grad_check": gcheck,
                "actor_step": step_summary, "actor_step_long": long_summary,
@@ -1661,6 +1795,11 @@ PIPE_ITERS = ["--iters", str(1 + PIPE_TIMED)]
 # half a bf16 ulp of every weight above 2^-11 in magnitude, so the
 # entry point's own default lr is taken
 PIPE_RL = {"entropy_coef": 0.01, "lr": 1e-4}
+# phases 9 and 10: the distributed arm twice (its spread), then the centralized one
+PIPE_ARMS_SHORT = (("distributed", 0), ("distributed", 1), ("centralized", 0))
+# PPO: the critic's lr as the actor's, so that its AdamW steps survive bf16
+# rounding as the actor's do
+PPO_RL = {**PIPE_RL, "critic_lr": 1e-4}
 PIPE_ARMS = {"distributed": [],
              "double_buffer_prefetch": ["--double-buffer", "--prefetch", "1"],
              "centralized": ["--centralized-baseline"]}
@@ -1671,22 +1810,29 @@ BUFFER_COUNTS = ("puts", "fast_path_hits", "redistributions", "overlap_hits", "s
 
 
 @contextlib.contextmanager
-def observed_iterations(torch, _build):
+def observed_iterations(torch, _build, hold=None):
     """While open, every ``DAGWorker.run_iteration`` is bracketed by
     ``torch.cuda.synchronize`` (its synchronised wall time and its kernel
     launches are recorded with its metrics), and the tokens of every rollout
-    of ``rl.rollout.generate`` are kept. Yields {"iterations", "tokens"}."""
+    of ``rl.rollout.generate`` are kept. With ``hold`` (a function that
+    returns a context such as ``held_to_plain``'s), the first iteration
+    runs inside that context, and what it yields is kept. Yields
+    {"iterations", "tokens", "held"}."""
     from repro_torch.core import worker as worker_mod
     from repro_torch.rl import rollout as rollout_mod
 
-    seen = {"iterations": [], "tokens": []}
+    seen = {"iterations": [], "tokens": [], "held": None}
     run_iteration, generate = worker_mod.DAGWorker.run_iteration, rollout_mod.generate
 
     def timed(self):
         torch.cuda.synchronize()
         before = dict(_build.LAUNCHES)
         t = time.perf_counter()
-        metrics = run_iteration(self)
+        if hold is not None and not seen["iterations"]:
+            with hold() as seen["held"]:
+                metrics = run_iteration(self)
+        else:
+            metrics = run_iteration(self)
         torch.cuda.synchronize()
         seen["iterations"].append({
             "ms": (time.perf_counter() - t) * 1e3, "metrics": metrics,
@@ -1707,78 +1853,116 @@ def observed_iterations(torch, _build):
         rollout_mod.generate = generate
 
 
-def pipeline_phase(torch, _build, hand_rows):
-    """GRPO through ``launch.train.main`` on full gemma-2b, in the three
-    coordinator arms one after another (each pipeline freed before the next
-    is built), the distributed arm twice to measure the run-to-run spread.
-    Every arm runs one experiment file (``PIPE_RL`` on top of the flags'
-    spec) with the arm's flags layered on. Checks each iteration's launches
-    against phase 7's count, every metric finite, ratio_mean within
-    1 +- RATIO_TOL, a nonzero gradient in every iteration and a nonzero KL
-    from iteration 1, iteration 0 bitwise equal across arms and later
+def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAGS, rl=PIPE_RL,
+                   arms=(("distributed", 0), ("distributed", 1),
+                         ("double_buffer_prefetch", 0), ("centralized", 0)),
+                   hand_rows=None):
+    """An RL algorithm through ``launch.train.main`` at full width and depth
+    (``flags``: the arch and the algorithm), in the coordinator ``arms`` one
+    after another (each pipeline freed before the next is built), the
+    distributed arm twice to measure the run-to-run spread. Every arm runs
+    one experiment file (``rl`` on top of the flags' spec) with the arm's
+    flags layered on. The first run's warm-up iteration is held to plain
+    (``held_to_plain``: every call of the path's kernels against its plain
+    version on the call's own inputs; the calls equal the launches of an
+    iteration). Checks each iteration's launches against
+    ``iteration_launches`` of the run's DAG, every metric finite, ratio_mean within
+    1 +- RATIO_TOL, a nonzero gradient in every iteration, a nonzero KL from
+    iteration 1 where the loss has one, some actor weights changed (and under
+    PPO a finite critic loss, a nonzero critic gradient and some critic
+    weights changed), iteration 0 bitwise equal across arms and later
     iterations within the distributed arm's own spread, and the buffer
     counts against a CPU run of the same DAG and iterations. ``hand_rows``
-    are phase 7's hand-composed iterations. Returns the launch counts of the
-    first (distributed) run."""
+    are phase 7's hand-composed iterations, where the path has them. Prints
+    ``{label + "_arm": ...}`` lines and ``{label: ...}``. Returns (the
+    launch counts of the first run, the summary)."""
     import numpy as np
 
     from repro_torch import tree
-    from repro_torch.configs import get_config
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core.dag import DAG
+    from repro_torch.core.pipeline import _seeds
     from repro_torch.launch import train
+    from repro_torch.rl import algorithms
+    from repro_torch.rl import critic as critic_mod
 
     t_phase = time.perf_counter()
-    per_iter, _ = grpo_launches(get_config("gemma-2b"), _build.LAUNCHES, 16)
-    exp_path = ROOT / "build" / "pipeline_experiment.json"
+    exp_path = ROOT / "build" / f"{label}_experiment.json"
     exp_path.parent.mkdir(exist_ok=True)
-    train.main(ARCH_FLAGS + PIPE_FLAGS + ["--dump-experiment", str(exp_path)])
+    train.main(flags + PIPE_FLAGS + ["--dump-experiment", str(exp_path)])
     spec = json.loads(exp_path.read_text())
-    spec["rl"].update(PIPE_RL)
+    spec["rl"].update(rl)
     exp_path.write_text(json.dumps(spec))
-    runs, main_counts = {}, None
-    for arm, rep in (("distributed", 0), ("distributed", 1),
-                     ("double_buffer_prefetch", 0), ("centralized", 0)):
+    exp = ExperimentSpec.from_json(exp_path.read_text())
+    cfg, algorithm = exp.model, algorithms.get_algorithm(exp.rl.algorithm)
+    critic = algorithm.uses_critic
+    dag = DAG.from_spec(exp.dag) if exp.dag is not None else algorithm.dag_factory()
+    per_iter, _ = iteration_launches(cfg, _build.LAUNCHES, exp.rl.max_new_tokens, dag)
+    names = path_kernels(cfg)
+    runs, main_counts, held = {}, None, None
+    for arm, rep in arms:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
-        with observed_iterations(torch, _build) as seen:
+        hold = None if runs else (lambda: held_to_plain(torch, ops, ref, names))
+        with observed_iterations(torch, _build, hold) as seen:
             out = train.main(["--experiment", str(exp_path), "--device", DEV] + PIPE_ITERS
                              + PIPE_ARMS[arm])
         if main_counts is None:
-            main_counts = dict(_build.LAUNCHES)
+            main_counts, held = dict(_build.LAUNCHES), seen["held"]
+            require(all(held[n]["calls"] == per_iter[n] for n in names),
+                    f"{label} iteration held to plain: calls {held}, expected {per_iter}")
+            print(json.dumps({"check": f"{label}_iteration_held_to_plain", "kernels": held}),
+                  flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
         pipe = out["pipeline"]
         stats = pipe.buffer.stats
-        # the share of the actor's weights that the run's steps changed
-        pairs = list(zip(tree.leaves(pipe.ctx.actor_state.params),
-                         tree.leaves(pipe.ctx.ref_params)))
-        moved = sum(int((a != b).sum()) for a, b in pairs) / sum(a.numel() for a, _ in pairs)
-        del pairs
+
+        def moved_share(pairs):  # the share of the weights that the run's steps changed
+            return (sum(int((a != b).sum()) for a, b in pairs)
+                    / sum(a.numel() for a, _ in pairs))
+
+        moved = moved_share(list(zip(tree.leaves(pipe.ctx.actor_state.params),
+                                     tree.leaves(pipe.ctx.ref_params))))
+        critic_moved = None
+        if critic:  # the critic's initial weights, drawn again from the run's seed
+            start = critic_mod.init(cfg, torch.Generator(device=DEV).manual_seed(
+                _seeds(exp.seed)[1]), device=DEV)
+            critic_moved = moved_share(list(zip(tree.leaves(pipe.ctx.critic_state.params),
+                                                tree.leaves(start))))
+            del start
         run = {"iterations": seen["iterations"], "tokens": seen["tokens"],
                "counts": {k: getattr(stats, k) for k in BUFFER_COUNTS},
                "bytes_moved": stats.bytes_moved,
                "bytes_through_controller": stats.bytes_through_controller,
                "controller_resident_bytes": getattr(pipe.buffer, "controller_resident_bytes", 0),
-               "prefetch_hits": pipe.ctx.dataloader.prefetch_hits,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+               "prefetch_hits": pipe.ctx.dataloader.prefetch_hits, "peak_gib": peak}
         del out, pipe, stats
         runs[(arm, rep)] = run
         require(len(run["iterations"]) == 1 + PIPE_TIMED == len(run["tokens"]),
-                f"pipeline {arm}: {len(run['iterations'])} iterations")
+                f"{label} {arm}: {len(run['iterations'])} iterations")
         for it, row in enumerate(run["iterations"]):
             m = row["metrics"]
             require(row["launches"] == per_iter,
-                    f"pipeline {arm} iteration {it}: launches {row['launches']}, "
+                    f"{label} {arm} iteration {it}: launches {row['launches']}, "
                     f"expected {per_iter}")
             require(all(np.isfinite(v) for v in m.values()),
-                    f"pipeline {arm} iteration {it}: non-finite metric {m}")
+                    f"{label} {arm} iteration {it}: non-finite metric {m}")
             require(abs(m["actor/ratio_mean"] - 1.0) <= RATIO_TOL,
-                    f"pipeline {arm} iteration {it}: ratio_mean {m['actor/ratio_mean']}")
-            require(m["actor/grad_norm"] > 0, f"pipeline {arm} iteration {it}: zero gradient")
-            require(it == 0 or m["actor/kl"] > 0,
-                    f"pipeline {arm} iteration {it}: KL {m['actor/kl']}, the weights did not move")
+                    f"{label} {arm} iteration {it}: ratio_mean {m['actor/ratio_mean']}")
+            require(m["actor/grad_norm"] > 0, f"{label} {arm} iteration {it}: zero gradient")
+            require(it == 0 or m.get("actor/kl", 1.0) > 0,
+                    f"{label} {arm} iteration {it}: KL {m.get('actor/kl')}, "
+                    f"the weights did not move")
+            if critic:
+                require("critic/loss" in m and m["critic/grad_norm"] > 0,
+                        f"{label} {arm} iteration {it}: critic metrics {m}")
             toks = run["tokens"][it]
-            require(bool(((toks >= 0) & (toks < VOCAB)).all()), "pipeline token out of range")
-        require(moved > 0, f"pipeline {arm}: no weight of the actor moved")
+            require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                    f"{label} token out of range")
+        require(moved > 0, f"{label} {arm}: no weight of the actor moved")
+        require(not critic or critic_moved > 0, f"{label} {arm}: no weight of the critic moved")
         timed = run["iterations"][1:]
         nodes = sorted(k for k in timed[0]["metrics"] if k.startswith("time/"))
         run["summary"] = {
@@ -1790,10 +1974,14 @@ def pipeline_phase(torch, _build, hand_rows):
             "buffer_counts": run["counts"], "bytes_through_controller":
                 run["bytes_through_controller"], "controller_resident_bytes":
                 run["controller_resident_bytes"], "prefetch_hits": run["prefetch_hits"],
-            "weights_moved_share": moved, "peak_gib": run["peak_gib"],
-            "kl": [r["metrics"]["actor/kl"] for r in run["iterations"]],
-            "grad_norm": [r["metrics"]["actor/grad_norm"] for r in run["iterations"]]}
-        print(json.dumps({"pipeline_arm": run["summary"]}), flush=True)
+            "weights_moved_share": moved, "critic_weights_moved_share": critic_moved,
+            "peak_gib": run["peak_gib"],
+            "kl": [r["metrics"].get("actor/kl") for r in run["iterations"]],
+            "grad_norm": [r["metrics"]["actor/grad_norm"] for r in run["iterations"]],
+            "critic_loss": [r["metrics"].get("critic/loss") for r in run["iterations"]],
+            "critic_grad_norm": [r["metrics"].get("critic/grad_norm")
+                                 for r in run["iterations"]]}
+        print(json.dumps({f"{label}_arm": run["summary"]}), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1805,10 +1993,10 @@ def pipeline_phase(torch, _build, hand_rows):
     # iteration 0: same seed, values that pass through the buffer unchanged
     for key, run in runs.items():
         require(torch.equal(run["tokens"][0], base["tokens"][0]),
-                f"pipeline {key}: iteration 0 rollouts differ from the distributed arm's")
+                f"{label} {key}: iteration 0 rollouts differ from the distributed arm's")
         for k in ("reward/mean", "actor/loss"):
             require(values(run, 0)[k] == values(base, 0)[k],
-                    f"pipeline {key}: iteration 0 {k} {values(run, 0)[k]} != "
+                    f"{label} {key}: iteration 0 {k} {values(run, 0)[k]} != "
                     f"{values(base, 0)[k]}")
     # later iterations: the distributed arm against itself gives the spread
     # of each metric (the largest over the later iterations) and whether the
@@ -1818,43 +2006,273 @@ def pipeline_phase(torch, _build, hand_rows):
     spread = {k: max(abs(values(again, it)[k] - values(base, it)[k]) for it in later)
               for k in values(base, 1)}
     tokens_repeat = all(torch.equal(again["tokens"][it], base["tokens"][it]) for it in later)
-    for arm in ("double_buffer_prefetch", "centralized"):
+    others = sorted({arm for arm, _ in arms} - {"distributed"})
+    for arm in others:
         run = runs[(arm, 0)]
         for it in later:
             if tokens_repeat:
                 require(torch.equal(run["tokens"][it], base["tokens"][it]),
-                        f"pipeline {arm}: iteration {it} rollouts differ, and the "
+                        f"{label} {arm}: iteration {it} rollouts differ, and the "
                         f"distributed arm's repeat does not")
             for k, v in values(run, it).items():
                 d = abs(v - values(base, it)[k])
-                require(d <= spread[k], f"pipeline {arm}: iteration {it} {k} differs by {d}, "
+                require(d <= spread[k], f"{label} {arm}: iteration {it} {k} differs by {d}, "
                                         f"beyond the run-to-run spread {spread[k]}")
     # the buffer counts of a CPU run of the same DAG, arms and iterations
-    for arm in PIPE_ARMS:
-        cpu = train.main(["--smoke", "--device", "cpu"] + PIPE_FLAGS + PIPE_ITERS + PIPE_ARMS[arm])
+    for arm in ["distributed", *others]:
+        cpu = train.main(["--smoke", "--device", "cpu"] + flags + PIPE_FLAGS + PIPE_ITERS
+                         + PIPE_ARMS[arm])
         want = {k: getattr(cpu["pipeline"].buffer.stats, k) for k in BUFFER_COUNTS}
         require(runs[(arm, 0)]["counts"] == want,
-                f"pipeline {arm}: buffer counts {runs[(arm, 0)]['counts']}, the CPU run's {want}")
-        require(runs[(arm, 0)]["bytes_moved"] == 0, f"pipeline {arm}: bytes moved on one device")
+                f"{label} {arm}: buffer counts {runs[(arm, 0)]['counts']}, the CPU run's {want}")
+        require(runs[(arm, 0)]["bytes_moved"] == 0, f"{label} {arm}: bytes moved on one device")
         require((runs[(arm, 0)]["bytes_through_controller"] > 0) == (arm == "centralized"),
-                f"pipeline {arm}: bytes through the controller")
-    require(runs[("double_buffer_prefetch", 0)]["prefetch_hits"] == PIPE_TIMED,
-            "pipeline: the dataloader's look-ahead served no batch")
+                f"{label} {arm}: bytes through the controller")
+    if ("double_buffer_prefetch", 0) in runs:
+        require(runs[("double_buffer_prefetch", 0)]["prefetch_hits"] == PIPE_TIMED,
+                f"{label}: the dataloader's look-ahead served no batch")
 
-    hand = statistics.median(sum(r["ms"].values()) for r in hand_rows[1:])
-    arms_ms = {arm: runs[(arm, 0)]["summary"]["iteration_ms_median"] for arm in PIPE_ARMS}
-    print(json.dumps({"pipeline": {
-        "hand_composed_iteration_ms": hand, "iteration_ms": arms_ms,
+    arms_ms = {arm: runs[(arm, 0)]["summary"]["iteration_ms_median"]
+               for arm in ["distributed", *others]}
+    summary = {
+        "iteration_ms": arms_ms,
         "distributed_repeat_iteration_ms": again["summary"]["iteration_ms_median"],
-        "worker_and_buffer_ms": arms_ms["distributed"] - hand,
         "centralized_extra_ms": arms_ms["centralized"] - arms_ms["distributed"],
         "bytes_through_controller": runs[("centralized", 0)]["bytes_through_controller"],
         "controller_resident_bytes": runs[("centralized", 0)]["controller_resident_bytes"],
-        "prefetch_hits": runs[("double_buffer_prefetch", 0)]["prefetch_hits"],
         "run_to_run_spread": spread, "rollouts_repeat": tokens_repeat,
+        "launches_per_iteration": per_iter, "held_to_plain": held,
         "node_ms_median": base["summary"]["node_ms_median"],
-        "phase_s": time.perf_counter() - t_phase}}), flush=True)
-    return main_counts
+        "peak_gib": max(r["peak_gib"] for r in runs.values()),
+        "phase_s": time.perf_counter() - t_phase}
+    if hand_rows is not None:
+        hand = statistics.median(sum(r["ms"].values()) for r in hand_rows[1:])
+        summary.update(hand_composed_iteration_ms=hand,
+                       worker_and_buffer_ms=arms_ms["distributed"] - hand)
+    if ("double_buffer_prefetch", 0) in runs:
+        summary["prefetch_hits"] = runs[("double_buffer_prefetch", 0)]["prefetch_hits"]
+    print(json.dumps({label: summary}), flush=True)
+    return main_counts, summary
+
+
+# phase 9: mamba2-2.7b training at full width and depth. The GRPO pipeline
+# runs through launch.train (pipeline_phase); then the gradient check on
+# lockstep rollouts of M_GRAD_PROMPT + M_GRAD_NEW positions (one chunk of the
+# scan), one actor step at LONG_B x LONG_S (16 chunks), and the scan and the
+# norms at both training shapes
+M_GRAD_PROMPT, M_GRAD_NEW = 96, 32
+M_D_INNER = M_HEADS * M_HEADDIM
+
+
+def ssd_inputs(torch, F, randn, Bs, S):
+    """One SSD call at mamba2's widths (80 heads of 64, one group of 128):
+    x, dt > 0, A < 0, Bm, Cm, D."""
+    return (randn(Bs, S, M_HEADS, M_HEADDIM),
+            F.softplus(randn(Bs, S, M_HEADS, dtype=torch.float32)),
+            -torch.exp(randn(M_HEADS, dtype=torch.float32)),
+            randn(Bs, S, 1, M_STATE), randn(Bs, S, 1, M_STATE),
+            randn(M_HEADS, dtype=torch.float32))
+
+
+def ssd_work(Bs, S, L):
+    """(bytes, bf16 tensor-core operations) of one scan at mamba2's widths:
+    x read and y written (bf16), dt read (f32), B and C read (bf16), A and D,
+    the final state written (f32); per chunk C·Bᵀ and its product with dt·x
+    over the causal half, and the state's two products."""
+    blocks = Bs * M_HEADS * (S // L)
+    flops = blocks * (L * (L + 1) // 2 * (2 * M_STATE + 2 * M_HEADDIM)
+                      + 4 * L * M_STATE * M_HEADDIM)
+    nbytes = (2 * Bs * S * M_D_INNER * 2 + Bs * M_HEADS * M_HEADDIM * M_STATE * 4
+              + Bs * S * M_HEADS * 4 + 2 * Bs * S * M_STATE * 2 + 2 * M_HEADS * 4)
+    return nbytes, flops
+
+
+def decay_reading(torch, ops, ssd_mod, trainer, model, rl, params, batch):
+    """The terms of every SSD layer's A_log gradient on the plain path, at
+    chunk 128 and at chunk 64 (the grad check's drift). The scan runs on
+    (x / u, dt u) with u = 1 and D = 0, D x added after it as the plain
+    version adds it: bitwise the same forward, and the gradient of u at (b,
+    s, h) is the term A_h dt ∂L/∂a of the log-decay a = dt A there, whose
+    sum over (b, s) is the A_log gradient of head h (A = -exp(A_log)).
+    Reports, over the layers, the median and at the layer whose sum drifts
+    most: the cancellation (sum of |term| over |sum|, median over the
+    heads), the terms' relative L2 drift and their sums' drift; and how far
+    the sums lie from autograd's A_log gradient."""
+    from repro_torch import tree
+
+    plain = ssd_mod.plain
+    blocks = [i for i, k in enumerate(model.cfg.layer_kinds()) if k[0] == "ssm"]
+
+    def terms(at):
+        us = []
+
+        def probed(x, dt, A, Bm, Cm, D, *, chunk=128):
+            u = torch.ones_like(dt, requires_grad=True)
+            us.append(u)
+            y, h = plain(x / u[..., None], dt * u, A, Bm, Cm, torch.zeros_like(D),
+                         chunk=min(at, chunk))
+            return (y + D[:, None] * x).to(x.dtype), h
+
+        p = tree.map(lambda t: t, params)
+        a_logs = []
+        for i in blocks:
+            p["blocks"][i]["ssm"]["A_log"] = params["blocks"][i]["ssm"]["A_log"].detach(
+                ).requires_grad_()
+            a_logs.append(p["blocks"][i]["ssm"]["A_log"])
+        ops.set_mode("ref")
+        try:
+            with patched(ssd_mod, "plain", probed):
+                loss, _ = trainer.actor_loss_fn(model, rl, p, batch)
+                forward = list(us)  # the remat recompute adds its own
+                got = torch.autograd.grad(loss, forward + a_logs)
+        finally:
+            ops.set_mode(None)
+        return got[:len(blocks)], got[len(blocks):]
+
+    t128, g128 = terms(128)
+    t64, _ = terms(64)
+    rows = []
+    for a, b, g in zip(t128, t64, g128):
+        sums_a, sums_b = a.sum(dim=(0, 1)), b.sum(dim=(0, 1))
+        rows.append({"cancellation": float((a.abs().sum(dim=(0, 1)) / sums_a.abs()).median()),
+                     "term_drift": rel_l2(b, a), "sum_drift": rel_l2(sums_b, sums_a),
+                     "sum_vs_grad": rel_l2(sums_a, g)})
+    worst = max(range(len(rows)), key=lambda i: rows[i]["sum_drift"])
+    return {"layers": len(rows), "terms_per_head": int(t128[0][..., 0].numel()),
+            **{f"{k}_median": statistics.median(r[k] for r in rows) for k in rows[0]},
+            "sum_vs_grad_max": max(r["sum_vs_grad"] for r in rows),
+            "worst_layer": {"block": blocks[worst], **rows[worst]}}
+
+
+def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
+    """Full mamba2-2.7b under autograd (its GRPO pipeline has run before):
+    the gradient check on lockstep rollouts (B x 128 positions: the kernel
+    path against ``ops.set_mode("ref")`` per leaf and for the loss, within
+    GRAD_DRIFT_FACTOR x the plain path's drift at chunk 64 against chunk
+    128; the step-0 ratio within 1 +- RATIO_TOL; a finite, nonzero grad on
+    every leaf), one actor step at LONG_B x LONG_S (its warm-up held to
+    plain; forward, backward, clip + AdamW ms, tokens/s, peak), and the scan
+    and the norms at both training shapes with their plain-VJP backwards.
+    Adds ``training`` and ``training_long`` entries to the ssd record and
+    ``mamba2_*`` entries to the rmsnorm record. Returns the summary."""
+    from repro_torch import tree
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.rl import algorithms, trainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, tok = build_model(torch, serve, MAMBA2_FLAGS)
+    cfg = model.cfg
+    rl = trainer.RLConfig()
+    ref_params = tree.map(torch.clone, params)
+    state = trainer.init_state(params)
+    del params
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    print(f"[train mamba2] actor, reference and fp32 AdamW moments: {resident:.2f} GiB",
+          flush=True)
+    names = path_kernels(cfg)
+    spec = algorithms.get_algorithm(rl.algorithm)
+    _, step_launches = iteration_launches(cfg, _build.LAUNCHES, rl.max_new_tokens,
+                                          spec.dag_factory())
+
+    def ref_logprobs(tokens):
+        with torch.no_grad():
+            return model.logprobs(ref_params, tokens)[0]
+
+    # ---- 1. the gradient check on lockstep rollouts ----
+    _, ids = serve.prompts(tok, B, M_GRAD_PROMPT)
+    res = generate(model, state.params, torch.from_numpy(ids).to(DEV),
+                   torch.Generator(device=DEV).manual_seed(1), max_new=M_GRAD_NEW,
+                   temperature=rl.temperature, eos_id=tok.eos_id)
+    batch = {"tokens": res.tokens.clone(), "response_mask": res.response_mask.clone(),
+             "old_logprob": res.old_logprob.clone()}
+    del res
+    require(tuple(batch["tokens"].shape) == (B, M_GRAD_PROMPT + M_GRAD_NEW),
+            f"rollouts {tuple(batch['tokens'].shape)}")
+    batch["ref_logprob"] = ref_logprobs(batch["tokens"])
+    seq_rewards = torch.rand(B, generator=torch.Generator(device=DEV).manual_seed(2),
+                             device=DEV)
+    batch["advantages"] = spec.make_advantage(rl)(
+        seq_rewards, batch["response_mask"])  # one group of 8: never all equal
+
+    # the scan runs under autograd: ssd() refuses an input that requires
+    # grad, so each of the step's scan launches comes through SSDFn. The
+    # drift: the plain path with the scan's fp32 sums in chunks of 64
+    plain_ssd = ssd_mod.plain
+    chunk64 = patched(ssd_mod, "plain",
+                      lambda *a, chunk=128: plain_ssd(*a, chunk=min(64, chunk)))
+    gcheck = grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launches,
+                        chunk64, "mamba2_grad_check")
+    # why A_log's gradient drifts most: its terms at both chunks
+    decay = decay_reading(torch, ops, ssd_mod, trainer, model, rl, state.params, batch)
+    print(json.dumps({"mamba2_a_log_terms": decay}), flush=True)
+    del batch
+
+    # ---- 2. one actor step at an RL response length: 16 chunks of the scan ----
+    state, long_summary = long_step(torch, ops, ref, trainer, model, rl, state, ref_params,
+                                    names, step_launches, "mamba2_actor_step_long")
+    del state, ref_params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 3. the scan and the norms at the training shapes, and their
+    # plain-VJP backwards (SSDFn's and RMSNormFn's) ----
+    g = torch.Generator(device=DEV).manual_seed(98)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
+
+    for tag, Bt, S_T in (("training", B, M_GRAD_PROMPT + M_GRAD_NEW),
+                         ("training_long", LONG_B, LONG_S)):
+        L = min(128, S_T)
+        ins = ssd_inputs(torch, F, randn, Bt, S_T)
+        y_k, h_k = ops.ssd(*ins, return_state=True)
+        y_r, h_r = ref.ssd_chunked(*ins, chunk=L, return_state=True)
+        (ok, err), (ok_h, err_h) = close(y_k, y_r, SSD_Y_TOL), close(h_k, h_r, SSD_STATE_TOL)
+        require(ok and ok_h, f"ssd at the {tag} shape: y err {err}, state err {err_h}")
+        # SSDFn's forward is the kernel: one launch under autograd
+        _build.reset_launches()
+        leaves = [t.detach().requires_grad_() for t in ins]
+        y_fn, _ = ops.ssd(*leaves, return_state=True)
+        require(type(y_fn.grad_fn).__name__ == "SSDFnBackward" and _build.LAUNCHES["ssd"] == 1
+                and torch.equal(y_fn, y_k), f"ssd at the {tag} shape: SSDFn's forward")
+        gy = randn(*y_k.shape)
+        grads = ref.vjp(ssd_mod.plain, ins, (gy, None), chunk=L)
+        got = torch.autograd.grad(y_fn, leaves, gy)
+        require(all(torch.equal(a, b) for a, b in zip(got, grads)),
+                f"ssd at the {tag} shape: SSDFn's backward is not the plain VJP")
+        del y_fn, leaves, got, grads
+        nbytes, flops = ssd_work(Bt, S_T, L)
+        bms, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOP_PER_S)
+        # backward: the inputs and y's cotangent read, a grad of every input
+        # written; the products 2.5x the forward's
+        in_bytes = nbytes - Bt * S_T * M_D_INNER * 2 - Bt * M_HEADS * M_HEADDIM * M_STATE * 4
+        b_bms, b_by = bound_ms(2 * in_bytes + Bt * S_T * M_D_INNER * 2, 2.5 * flops,
+                               BF16_TENSOR_FLOP_PER_S)
+        records["ssd"][tag] = {
+            "shape": {"x": list(ins[0].shape), "Bm": list(ins[3].shape), "chunk": L},
+            "max_abs_err": err, "state_max_abs_err": err_h,
+            "ms": device_ms(lambda: ops.ssd(*ins, return_state=True)),
+            "plain_ms": device_ms(lambda: ref.ssd_chunked(*ins, chunk=L, return_state=True)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "backward": {"plain_vjp_ms": device_ms(lambda: ref.vjp(ssd_mod.plain, ins,
+                                                                    (gy, None), chunk=L)),
+                         "bound_ms": b_bms, "bound_by": b_by, "library_ms": None,
+                         "library": "none: no PyTorch call differentiates the chunked scan"}}
+        print(json.dumps({"check": f"ssd/{tag}", **records["ssd"][tag]}), flush=True)
+        del ins, y_k, h_k, y_r, h_r, gy
+        for D in (M_D_MODEL, M_D_INNER):  # the block norms and the gated norms
+            rec = norm_record(torch, ops, ref, F, randn, Bt * S_T, D)
+            records["rmsnorm"][f"mamba2_{tag}_{D}"] = rec
+            print(json.dumps({"check": f"rmsnorm/mamba2_{tag}_{D}", **rec}), flush=True)
+
+    summary = {"resident_gib": resident, "grad_check": gcheck, "a_log_terms": decay,
+               "actor_step_long": long_summary,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"mamba2_training": summary}), flush=True)
+    return summary
 
 
 def main(argv=None) -> int:
@@ -1877,6 +2295,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     # ---- phase 1: device and build ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1932,7 +2351,22 @@ def main(argv=None) -> int:
     paths["grpo_training"] = train_counts
     # ---- phase 8: the GRPO pipeline through launch.train, phase 7's model
     # freed (the counts set to 0 just before its first run, read just after) ----
-    paths["grpo_pipeline"] = pipeline_phase(torch, _build, train_summary["iterations"])
+    paths["grpo_pipeline"], _ = pipeline_phase(torch, ops, ref, _build,
+                                               hand_rows=train_summary["iterations"])
+    # ---- phase 9: mamba2-2.7b training: GRPO through launch.train --arch
+    # mamba2-2.7b (gemma freed; the counts set to 0 just before its first
+    # run, read just after), then the gradient check, the long actor step and
+    # the scan under autograd ----
+    paths["mamba2_grpo_pipeline"], _ = pipeline_phase(
+        torch, ops, ref, _build, label="mamba2_pipeline", flags=MAMBA2_FLAGS, arms=PIPE_ARMS_SHORT)
+    mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 10: PPO on gemma-2b through launch.train --algorithm ppo, the
+    # critic's values and steps on the card ----
+    paths["ppo_pipeline"], _ = pipeline_phase(
+        torch, ops, ref, _build, label="ppo_pipeline", flags=ARCH_FLAGS + ["--algorithm", "ppo"],
+        rl=PPO_RL, arms=PIPE_ARMS_SHORT)
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -1947,7 +2381,10 @@ def main(argv=None) -> int:
                "grpo_training": ("rmsnorm", "flash_attention", "decode_attention",
                                  "fused_sample"),
                "grpo_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
-                                 "fused_sample")}
+                                 "fused_sample"),
+               "mamba2_grpo_pipeline": ("rmsnorm", "ssd", "fused_sample"),
+               "ppo_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
+                                "fused_sample")}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),
                 f"a kernel of the {path} path was not launched: {paths[path]}")
@@ -1973,6 +2410,7 @@ def main(argv=None) -> int:
                  "launches_by_path": {p: c[name] for p, c in paths.items()}, **rec}
         print(json.dumps(entry), flush=True)
         kernels.append(entry)
+    print(json.dumps({"script_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -146,8 +146,9 @@ def require_no_grad(name: str, *tensors) -> None:
     """Raise unless the kernel's output may go without a ``grad_fn``: a
     kernel writes its output through ``data_ptr()``, so under grad mode an
     input that requires grad would lose its gradient without a word. Only
-    ``rmsnorm`` and ``flash_attention`` have a backward (an autograd Function
-    in their modules, which launches the kernel with grad mode off)."""
+    ``rmsnorm``, ``flash_attention`` and ``ssd`` have a backward (an autograd
+    Function in their modules, which launches the kernel with grad mode
+    off)."""
     if wants_grad(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, and this kernel has no backward; "

@@ -7,11 +7,12 @@ code, as the JAX package's ``ops.set_mode`` is (the kernel checks of
 ``chip_smoke.py`` and the tests do). There is no environment variable, and a
 kernel that fails to build or launch raises: nothing falls back.
 
-Under grad mode, with an input that requires grad, ``rmsnorm`` and
-``flash_attention`` go through their autograd Functions (the kernel forward,
-the plain version's VJP backward); the other kernels have no backward and
-raise on a CUDA tensor there. In ``ref`` mode autograd differentiates the
-plain versions directly, as ``jax.grad`` does in the JAX package.
+Under grad mode, with an input that requires grad, ``rmsnorm``,
+``flash_attention`` and ``ssd`` go through their autograd Functions (the
+kernel forward, the plain version's VJP backward); the other kernels have no
+backward and raise on a CUDA tensor there. In ``ref`` mode autograd
+differentiates the plain versions directly, as ``jax.grad`` does in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.kernels.paged_decode_attention import (
 from repro_torch.kernels.rmsnorm import RMSNormFn
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.sampling import fused_sample as _fused_sample
+from repro_torch.kernels.ssd import SSDFn
 
 _MODES = (None, "ref")
 _MODE: Optional[str] = None
@@ -141,6 +143,8 @@ def ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_state: bool = False):
     (y, final fp32 state) with ``return_state``."""
     if _MODE == "ref":
         y, h = _ssd.plain(x, dt, A, Bm, Cm, D, chunk=chunk)
+    elif _build.wants_grad(x, dt, A, Bm, Cm, D):
+        y, h = SSDFn.apply(x, dt, A, Bm, Cm, D, chunk)
     else:
         y, h = _ssd.ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
     return (y, h) if return_state else y

@@ -31,13 +31,24 @@ def _up(t: torch.Tensor) -> torch.Tensor:
 def vjp(fn, inputs, cotangent, needs=None, **kw):
     """The VJP of the plain version ``fn`` at ``inputs`` against the output
     ``cotangent``, by autograd through ``fn(*inputs, **kw)``: one gradient
-    per input, ``None`` where ``needs`` says no. The backward of the
-    kernels that have one (their autograd Functions)."""
+    per input, ``None`` where ``needs`` says no. Where ``fn`` returns a
+    tuple, ``cotangent`` is a tuple too: an output whose cotangent is
+    ``None`` is left out, and an input that the other outputs do not reach
+    gets ``None`` (a single output must reach every input that needs a
+    gradient). The backward of the kernels that have one (their autograd
+    Functions)."""
     needs = needs or (True,) * len(inputs)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         out = fn(*ins, **kw)
-        got = iter(torch.autograd.grad(out, [t for t, n in zip(ins, needs) if n], cotangent))
+        several = isinstance(out, tuple)
+        if several:  # the outputs that have a cotangent
+            pairs = [(o, c) for o, c in zip(out, cotangent) if c is not None]
+            if not pairs:
+                return (None,) * len(needs)
+            out, cotangent = zip(*pairs)
+        got = iter(torch.autograd.grad(out, [t for t, n in zip(ins, needs) if n], cotangent,
+                                       allow_unused=several))
     return tuple(next(got) if n else None for n in needs)
 
 
@@ -447,16 +458,17 @@ def ssd_chunked(
     computes: within a chunk, ``y = ((C B^T) o L) @ (dt x) + (C o
     exp(a_cum)) @ h^T + D x`` with ``L[i, j] = exp(a_cum[i] - a_cum[j])``
     below the diagonal; across chunks the fp32 state ``h`` is carried.
-    ``S`` must be a multiple of ``chunk`` (ValueError otherwise)."""
+    ``S`` must be a multiple of ``chunk`` (ValueError otherwise). Sums in
+    fp32 (float64 stays float64, for ``gradcheck``)."""
     b, s, nh, p = x.shape
     n = B.shape[3]
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
     nc = s // chunk
     rep = nh // B.shape[2]
-    Bh = B.repeat_interleave(rep, dim=2).float()
-    Ch = C.repeat_interleave(rep, dim=2).float()
-    xf, dtf = x.float(), dt.float()
+    Bh = _up(B.repeat_interleave(rep, dim=2))
+    Ch = _up(C.repeat_interleave(rep, dim=2))
+    xf, dtf = _up(x), _up(dt)
     a = dtf * A[None, None, :]  # (B,S,NH) log-decay per step
 
     def ch(t):  # (B, NC, L, ...)
@@ -476,8 +488,8 @@ def ssd_chunked(
     states = torch.einsum("bclhn,bclhp->bchpn", Bc * (dtc * decay_to_end)[..., None], xc)
 
     # inter-chunk recurrence over the chunk states
-    h = (torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    h = (torch.zeros((b, nh, p, n), dtype=xf.dtype, device=x.device)
+         if h0 is None else _up(h0))
     chunk_decay = torch.exp(a_tot[:, :, 0, :])  # (B,NC,NH)
     h_in = []
     for c in range(nc):

@@ -10,6 +10,13 @@ SSD config's), and raises on any other. One chunk is one launch; past one
 chunk the wrapper's one call is three launches (each chunk's state, the
 recurrence over the chunks, each chunk's y) that pass the states through an
 fp32 workspace of (B, NH, S / chunk, P, N).
+
+:class:`SSDFn` is the autograd Function that ``ops.ssd`` takes when a
+gradient is wanted (the SSD mixer's ``full`` mode in training): its forward
+is :func:`ssd` (the kernel on a CUDA tensor), its backward the VJP of the
+plain version at the same chunk, recomputed from the saved inputs. The JAX
+package has no ``custom_vjp``: ``jax.grad`` differentiates the same plain
+``ssd_chunked``, so this is its gradient.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_chunked
+from repro_torch.kernels.ref import ssd_chunked, vjp
 
 _c = ctypes
 HEAD_DIMS = (64,)
@@ -95,3 +102,22 @@ def launch(fwd, lib, x, dt, A, Bm, Cm, D, *, chunk: int):
     # fails here, at allow_smem
     _build.check(lib, err, f"ssd (chunk {chunk}, state {n}, head dim {p})")
     return y, h
+
+
+class SSDFn(torch.autograd.Function):
+    """Forward through :func:`ssd`, backward by the plain version's VJP.
+    Returns (y, final state); either may go without a cotangent (training
+    uses y only)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        grads = vjp(plain, ctx.saved_tensors, (gy, gh), ctx.needs_input_grad[:6],
+                    chunk=ctx.chunk)
+        return (*grads, None)

@@ -23,9 +23,11 @@ decode state ``{"ssm", "conv_x", "conv_bc"}``. The serving page pool is the
 attention layout with pages for rows: ``init_caches(num_pages, page_size)``,
 each leaf (P, page_size, KVH, hd).
 
-Not ported yet: MoE, sliding-window rings, enc-dec, prefix embeds,
-parallel blocks and ``full`` mode through SSD layers; each raises
-``NotImplementedError`` naming its ROADMAP item.
+Not ported yet: MoE, sliding-window rings, enc-dec, prefix embeds and
+parallel blocks; each raises ``NotImplementedError`` naming its ROADMAP
+item. ``full`` mode through an SSD layer needs a sequence of at most 128
+positions or a multiple of 128 (the scan's chunk), as in the JAX package:
+any other length raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -280,19 +282,17 @@ def _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables, write_
 
 def _ssm_mixer(cfg: ModelConfig, p: Params, h: torch.Tensor, mode: str,
                cache: Optional[Dict[str, torch.Tensor]]):
-    """The SSD mixer (``lm._ssm_mixer``): prefill returns the decode state
-    after the prompt, decode steps it by one token."""
+    """The SSD mixer (``lm._ssm_mixer``): full mode (training, logprobs)
+    keeps no state, prefill returns the decode state after the prompt,
+    decode steps it by one token."""
     if mode == "prefill_chunk":
         raise NotImplementedError(
             "chunked prefill needs SSM state carried between chunks; "
             "use whole-prompt prefill (prefill_chunk=0) for SSM/hybrid archs")
+    if mode == "full":
+        return ssm.apply_ssm(cfg, p, h), None
     if mode == "prefill":
         return ssm.apply_ssm(cfg, p, h, return_state=True)
-    if mode == "full":
-        raise NotImplementedError(
-            "mode 'full' through SSD layers (training mamba2 and the hybrids) is not "
-            "ported yet: it needs an autograd Function for the ssd kernel "
-            "(ROADMAP queue 1, item 1b: SSD training)")
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
     return ssm.apply_ssm_decode(cfg, p, h, cache)

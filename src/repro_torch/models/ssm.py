@@ -87,9 +87,12 @@ def _gated_out(cfg: ModelConfig, p: Params, y: torch.Tensor, z: torch.Tensor) ->
 
 def apply_ssm(cfg: ModelConfig, p: Params, u: torch.Tensor, *, return_state: bool = False,
               chunk: int = 128):
-    """Full-sequence SSD mixer (prefill). u (B, S, d); with ``return_state``
-    also the decode state {"ssm", "conv_x", "conv_bc"} after the sequence.
-    ``chunk`` is the scan's chunk length (``ops.ssd``'s)."""
+    """Full-sequence SSD mixer (training and prefill). u (B, S, d); with
+    ``return_state`` also the decode state {"ssm", "conv_x", "conv_bc"}
+    after the sequence. ``chunk`` is the scan's chunk length (``ops.ssd``'s):
+    ``S`` must be at most ``chunk`` or a multiple of it (ValueError). Every
+    operation is differentiable: under grad mode the scan is ``ops.ssd``'s
+    autograd Function."""
     B, S, _ = u.shape
     din, g, n, nh, hd = (cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state,
                          cfg.ssm_nheads, cfg.ssm_headdim)

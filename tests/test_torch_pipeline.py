@@ -3,7 +3,7 @@
 coordinator arms against each other, and the ``launch.train`` entry point.
 
 The model is the reduced gemma-2b of ``tests/test_torch_rl.py`` (padded heads
-and vocab). The port's spec is the JAX spec's ``to_dict()`` loaded back. The
+and vocab), and for the greedy GRPO iterations also a reduced mamba2. The port's spec is the JAX spec's ``to_dict()`` loaded back. The
 JAX pipeline's own initial weights are bridged into the port as fp32 (the
 JAX pipeline is switched to fp32 too), with the EOS row of the tied
 embedding scaled by ``EOS_SCALE`` in both, so that some greedy rollouts end
@@ -57,10 +57,15 @@ RL_CASES = {
 }
 
 
-def jax_spec(**kw):
+# the SSD family's case: reduced mamba2 (2 SSD layers, the scan under
+# autograd in every actor step) with the entropy bonus
+SSM_CASE = ("mamba2", "mamba2-2.7b", dict(vocab_size=260, num_layers=2))
+
+
+def jax_spec(arch="gemma-2b", model_kw=SMOKE, **kw):
     rl = dict(temperature=0.0, group_size=4, max_new_tokens=4, lr=1e-3)
     rl.update(kw)
-    return JaxExperimentSpec(model=jax_reduced(jax_get_config("gemma-2b"), **SMOKE),
+    return JaxExperimentSpec(model=jax_reduced(jax_get_config(arch), **model_kw),
                              rl=jtrainer.RLConfig(**rl), prompts_per_iter=4)
 
 
@@ -116,11 +121,14 @@ def assert_iterations_match(jhist, thist, jtoks, ttoks, *, roles=("actor",)):
                 np.testing.assert_allclose(tm[k], jm[k], atol=TOL, rtol=TOL, err_msg=f"{it} {k}")
 
 
-@pytest.fixture(scope="module", params=sorted(RL_CASES))
+@pytest.fixture(scope="module", params=[*sorted(RL_CASES), SSM_CASE[0]])
 def greedy(request):
     """3 greedy GRPO iterations of each package; in the plain case a 4th
     with the length-aware load balancer on (2 buckets)."""
-    jexp = jax_spec(**RL_CASES[request.param])
+    if request.param == SSM_CASE[0]:
+        jexp = jax_spec(SSM_CASE[1], SSM_CASE[2], **RL_CASES["entropy_bonus"])
+    else:
+        jexp = jax_spec(**RL_CASES[request.param])
     (jpipe, jtoks), (tpipe, ttoks) = bridged_pair(jexp)
     out = {"case": request.param, "jexp": jexp, "jhist": jpipe.run(ITERS),
            "thist": tpipe.run(ITERS), "jtoks": jtoks, "ttoks": ttoks,
@@ -135,10 +143,10 @@ def greedy(request):
 
 
 def test_greedy_grpo_iterations_match_jax(greedy):
-    """3 greedy iterations; in the plain case then a 4th with the load
-    balancer, whose repack reorders rows, so its loss is not held bitwise
-    (under greedy GRPO it is 0 in both): its balance metrics are the JAX
-    worker's."""
+    """3 greedy iterations (gemma-2b, and mamba2 with the entropy bonus);
+    in the plain case then a 4th with the load balancer, whose repack
+    reorders rows, so its loss is not held bitwise (under greedy GRPO it is
+    0 in both): its balance metrics are the JAX worker's."""
     assert_iterations_match(greedy["jhist"], greedy["thist"], greedy["jtoks"][:ITERS],
                             greedy["ttoks"][:ITERS])
     assert greedy["tstats"] == greedy["jstats"]
@@ -146,9 +154,12 @@ def test_greedy_grpo_iterations_match_jax(greedy):
     assert greedy["tstats"]["bytes_moved"] == 0
     lens = [m["rollout/mean_len"] for m in greedy["thist"]]
     assert min(lens) < 4.0  # EOS_SCALE: some rollouts end early
-    if greedy["case"] == "entropy_bonus":
+    if greedy["case"] != "plain":
         assert all(m["actor/grad_norm"] > 0 for m in greedy["thist"])
-        assert greedy["thist"][-1]["actor/kl"] > 1e-3
+        # the weights moved: the 3 steps of the reduced mamba2 (2 layers,
+        # no MLPs) move its policy about a tenth as far as gemma's
+        assert greedy["thist"][-1]["actor/kl"] > (1e-3 if greedy["case"] == "entropy_bonus"
+                                                  else 1e-4)
         return
     jm, tm = greedy["jbal"], greedy["tbal"]
     assert set(tm) == set(jm)

@@ -4,7 +4,9 @@ JAX package on the CPU.
 The model is ``reduced(gemma-2b, vocab_size=260, num_layers=2,
 pad_heads_to=8)``, as in ``tests/test_torch_model.py``: padded heads (4 real
 of 8) and a padded vocab (260 of 512), JAX weights bridged into the port,
-inputs from numpy seeds. The JAX package runs on its reference kernel path
+inputs from numpy seeds. The SSD family trains too: reduced mamba2 and a
+reduced jamba without experts (as in ``tests/test_torch_ssm.py``), whose
+scan goes through ``SSDFn`` under autograd. The JAX package runs on its reference kernel path
 (its CPU default), so ``jax.grad`` differentiates the same plain versions
 that the port's backward takes the VJP of. Tolerances:
 
@@ -34,12 +36,18 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.rmsnorm import RMSNormFn
+from repro_torch.kernels.ssd import SSDFn
 from repro_torch.models import get_model, lm
 from repro_torch.optim import adamw
 from repro_torch.rl import trainer
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
+SSM_FAMILIES = {
+    "mamba2": ("mamba2-2.7b", dict(vocab_size=260, num_layers=2)),
+    # attention at layers 1 and 5 of 8, SSD elsewhere, dense MLPs
+    "jamba": ("jamba-v0.1-52b", dict(vocab_size=260, num_layers=8, num_experts=0)),
+}
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +65,17 @@ def jax_params(cfgs):
 
 def fp32_tree(tree_):
     return jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree_)
+
+
+@pytest.fixture(scope="module", params=sorted(SSM_FAMILIES))
+def ssm_family(request):
+    """(JAX config, port config, JAX fp32 weights, the same bridged into the
+    port in fp32) of a reduced SSD-family model."""
+    arch, kw = SSM_FAMILIES[request.param]
+    jcfg, cfg = jax_reduced(jax_get_config(arch), **kw), reduced(get_config(arch), **kw)
+    assert cfg.ssm_state and any(k[0] == "ssm" for k in cfg.layer_kinds())
+    jp = jax.tree.map(np.asarray, jlm.init(jcfg, jax.random.PRNGKey(1)))
+    return jcfg, cfg, fp32_tree(jp), bridge.from_jax(jp, device="cpu", dtype=torch.float32)
 
 
 def grpo_batch(rng, B=4, prompt=3, new=5, vocab=259):
@@ -126,11 +145,37 @@ def test_token_stats_with_a_chunk_smaller_than_the_sequence(cfgs, jax_params):
     assert not bool(got[2][0, 2]) and not bool(got[2][1, 6])
 
 
-def test_ssm_full_mode_names_its_roadmap_item():
-    cfg = reduced(get_config("mamba2-2.7b"))
+def test_ssm_logprobs_and_loss_match_jax(ssm_family):
+    """``full`` mode through SSD layers (and jamba's attention layers)."""
+    jcfg, cfg, jp, tp = ssm_family
+    rng = np.random.default_rng(20)
+    tokens = rng.integers(3, 259, (3, 9)).astype(np.int32)
+    labels = tokens.copy()
+    labels[:, :3] = jlm.IGNORE
+    lp_j, ent_j = jlm.logprobs_fn(jcfg, jp, jnp.asarray(tokens))
+    with torch.no_grad():
+        lp_t, ent_t = lm.logprobs_fn(cfg, tp, torch.from_numpy(tokens))
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), **TOL)
+    np.testing.assert_allclose(ent_t.numpy(), np.asarray(ent_j), **TOL)
+    batch = {"tokens": tokens, "labels": labels}
+    loss_j, _ = jlm.loss_fn(jcfg, jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    loss_t, _ = get_model(cfg, device="cpu").loss(tp, to_torch(batch))
+    np.testing.assert_allclose(float(loss_t), float(loss_j), **TOL)
+
+
+def test_ssm_full_mode_raises_off_the_chunk_as_jax_asserts():
+    """A sequence past one chunk (128) that is not a multiple of it: the
+    JAX plain scan asserts, the port raises ValueError; nothing is padded."""
+    arch, kw = SSM_FAMILIES["mamba2"]
+    jcfg, cfg = jax_reduced(jax_get_config(arch), **kw), reduced(get_config(arch), **kw)
+    tokens = np.full((1, 130), 5, np.int32)
+    with pytest.raises(AssertionError, match="not divisible"):
+        jlm.logprobs_fn(jcfg, jlm.init(jcfg, jax.random.PRNGKey(0)), jnp.asarray(tokens))
     params = lm.init(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        lm.logprobs_fn(cfg, params, torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="not a multiple of the chunk"):
+        lm.logprobs_fn(cfg, params, torch.from_numpy(tokens))
+    lp, _ = lm.logprobs_fn(cfg, params, torch.from_numpy(tokens[:, :128]))  # one chunk
+    assert lp.shape == (1, 128)
 
 
 # --------------------------------------------------------------------------- #
@@ -153,21 +198,57 @@ def test_actor_grads_match_jax_grad(cfgs, jax_params):
         lambda p: trainer.actor_loss_fn(get_model(cfg, device="cpu"), rl_t, p, to_torch(batch)),
         tp)
     np.testing.assert_allclose(float(loss_t), float(loss_j), **TOL)
-    want = bridge.to_jax(g_t)
-    flat_j, tree_j = jax.tree.flatten(g_j)
-    flat_t, tree_t = jax.tree.flatten(want)
-    assert tree_j == tree_t
-    for a, b in zip(flat_t, flat_j):
-        b = np.asarray(b)
-        scale = float(np.abs(b).max())
-        assert scale > 0
-        np.testing.assert_allclose(a, b, atol=1e-4 * scale, rtol=0)
+    assert_grads_match(g_t, g_j)
     pad = slice(cfg.num_heads * cfg.head_dim, None)
     for layer in range(cfg.num_layers):
         jw = np.asarray(g_j["blocks"][0]["attn"]["w_o"][layer])[pad]
         tw = g_t["blocks"][layer]["attn"]["w_o"][pad].numpy()
         assert np.abs(jw).max() > 0 and np.abs(tw).max() > 0
         np.testing.assert_allclose(tw, jw, atol=1e-4 * np.abs(jw).max(), rtol=0)
+
+
+def assert_grads_match(g_t, g_j):
+    """The port's grad tree (bridged to the JAX layout) against JAX's, each
+    leaf at 1e-4 of its largest |grad|, every leaf nonzero."""
+    flat_j, tree_j = jax.tree.flatten(g_j)
+    flat_t, tree_t = jax.tree.flatten(bridge.to_jax(g_t))
+    assert tree_j == tree_t
+    for a, b in zip(flat_t, flat_j):
+        b = np.asarray(b)
+        scale = float(np.abs(b).max())
+        assert scale > 0
+        np.testing.assert_allclose(a, b, atol=1e-4 * scale, rtol=0)
+
+
+def test_ssm_actor_grads_match_jax_grad(ssm_family):
+    """GRPO ``actor_loss_fn`` grads through the SSD mixers (the scan's
+    ``SSDFn``, the convs, the gated norm, ``A = -exp(A_log)``) against
+    ``jax.grad``, per leaf."""
+    jcfg, cfg, jp, tp = ssm_family
+    batch = grpo_batch(np.random.default_rng(21))
+    rl_j, rl_t = jtrainer.RLConfig(), trainer.RLConfig()
+    (loss_j, _), g_j = jax.value_and_grad(
+        lambda p: jtrainer.actor_loss_fn(JaxModel(jcfg), rl_j, p,
+                                         {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(jp)
+    (loss_t, _), g_t = trainer.value_and_grad(
+        lambda p: trainer.actor_loss_fn(get_model(cfg, device="cpu"), rl_t, p, to_torch(batch)),
+        tp)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), **TOL)
+    assert_grads_match(g_t, g_j)
+    assert float(g_t["blocks"][0]["ssm"]["A_log"].abs().max()) > 0
+
+
+def test_ssm_remat_gives_the_same_grads(ssm_family):
+    _, cfg, _, tp = ssm_family
+    tokens = torch.from_numpy(np.random.default_rng(22).integers(3, 259, (2, 6)).astype(np.int32))
+    grads = []
+    for remat in (False, True):
+        _, g = trainer.value_and_grad(
+            lambda p: (lm.logprobs_fn(cfg, p, tokens, remat=remat)[0].sum(), {}), tp)
+        grads.append(tree.leaves(g))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
 def test_remat_gives_the_same_grads(cfgs, jax_params):
@@ -224,19 +305,62 @@ def test_autograd_function_grads_equal_plain_autograd(case):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("which", ["rmsnorm", "flash_attention"])
+def ssd_case(rng, s, nh, g, dtype=torch.float32, n=4, p=8):
+    """Inputs of one SSD call that all require grad: x, dt > 0, A < 0, Bm,
+    Cm, D."""
+    def r(*shape):
+        return _rand(rng, *shape, dtype=dtype)
+
+    return (r(2, s, nh, p).requires_grad_(),
+            torch.nn.functional.softplus(r(2, s, nh)).detach().requires_grad_(),
+            (-torch.exp(r(nh))).detach().requires_grad_(),
+            r(2, s, g, n).requires_grad_(), r(2, s, g, n).requires_grad_(),
+            r(nh).requires_grad_())
+
+
+SSD_CASES = {"one_chunk": (8, 2, 1, 8), "three_chunks": (12, 2, 1, 4),
+             "grouped_heads": (12, 4, 2, 4)}  # (S, NH, G, chunk)
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_function_grads_equal_plain_autograd(case):
+    """``SSDFn``'s backward (the plain VJP at the same chunk) against
+    autograd straight through ``ref.ssd_chunked``, with cotangents on y and
+    on the final state, and on y alone (training's case)."""
+    s, nh, g, chunk = SSD_CASES[case]
+    ins = ssd_case(np.random.default_rng(23), s, nh, g)
+    y_fn, h_fn = SSDFn.apply(*ins, chunk)
+    y_plain, h_plain = ref.ssd_chunked(*ins, chunk=chunk, return_state=True)
+    assert type(y_fn.grad_fn).__name__ == "SSDFnBackward"
+    torch.testing.assert_close(y_fn, y_plain, atol=0, rtol=0)
+    torch.testing.assert_close(h_fn, h_plain, atol=0, rtol=0)
+    rng = np.random.default_rng(24)
+    gy, gh = _rand(rng, *y_fn.shape), _rand(rng, *h_fn.shape)
+    for outs_fn, outs_plain, cots in (((y_fn, h_fn), (y_plain, h_plain), (gy, gh)),
+                                      ((y_fn,), (y_plain,), (gy,))):
+        g_fn = torch.autograd.grad(outs_fn, ins, cots, retain_graph=True)
+        g_plain = torch.autograd.grad(outs_plain, ins, cots, retain_graph=True)
+        for a, b in zip(g_fn, g_plain):
+            assert float(b.abs().max()) > 0
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["rmsnorm", "flash_attention", "ssd"])
 def test_autograd_functions_pass_gradcheck_in_float64(which):
     rng = np.random.default_rng(15)
     if which == "rmsnorm":
         args = (_rand(rng, 3, 6, dtype=torch.float64).requires_grad_(),
                 (_rand(rng, 6, dtype=torch.float64) * 0.1).requires_grad_(), 1e-6)
         fn = RMSNormFn.apply
-    else:
+    elif which == "flash_attention":
         args = (_rand(rng, 1, 4, 2, 4, dtype=torch.float64).requires_grad_(),
                 _rand(rng, 1, 4, 1, 4, dtype=torch.float64).requires_grad_(),
                 _rand(rng, 1, 4, 1, 4, dtype=torch.float64).requires_grad_(),
                 True, None, None, 0)
         fn = FlashAttentionFn.apply
+    else:  # two chunks of 3 in two groups: the carried state and the group map
+        args = (*ssd_case(rng, 6, 2, 2, dtype=torch.float64, n=2, p=2), 3)
+        fn = SSDFn.apply
     assert torch.autograd.gradcheck(fn, args)
 
 
@@ -258,9 +382,29 @@ def test_ops_take_the_functions_only_when_a_gradient_is_wanted():
         ops.set_mode(None)
 
 
+def test_ops_ssd_takes_its_function_only_when_a_gradient_is_wanted():
+    ins = ssd_case(np.random.default_rng(25), 8, 2, 1)
+    plain = [t.detach() for t in ins]
+    assert ops.ssd(*plain).grad_fn is None
+    y, h = ops.ssd(*ins, chunk=4, return_state=True)
+    assert type(y.grad_fn).__name__ == type(h.grad_fn).__name__ == "SSDFnBackward"
+    with torch.no_grad():
+        assert ops.ssd(*ins).grad_fn is None
+    with torch.inference_mode():
+        assert ops.ssd(*ins).grad_fn is None
+    # one input that requires grad is enough: A alone (A_log's path)
+    assert type(ops.ssd(*plain[:2], ins[2], *plain[3:]).grad_fn).__name__ == "SSDFnBackward"
+    ops.set_mode("ref")
+    try:  # ref mode: autograd straight through the plain version
+        assert "SSDFn" not in type(ops.ssd(*ins).grad_fn).__name__
+    finally:
+        ops.set_mode(None)
+
+
 def test_a_kernel_without_backward_refuses_an_input_that_requires_grad():
     """The check every CUDA wrapper without a backward makes before its
-    launch (decode, paged, int8 decode, sampler, ssd)."""
+    launch (decode, paged, int8 decode, sampler; ``ssd`` for its direct
+    callers, ``ops.ssd`` takes ``SSDFn`` instead)."""
     t = torch.zeros(3, requires_grad=True)
     with pytest.raises(RuntimeError, match="has no backward"):
         _build.require_no_grad("decode_attention", torch.zeros(3), t)
