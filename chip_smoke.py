@@ -26,7 +26,10 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      kernel must give the same bits on two launches. The sampler is also
      held at B = 1, 5, 13, 64 and 100, on exact greedy ties placed across
      its warps, tiles and blocks, at vocab tails, and on two launches, and
-     timed at B = 64 as well.
+     timed at B = 64 as well; and on qwen2.5-7b's untied head as it lies,
+     (3584, 152,064) with the vocab contiguous, at B = 8 and 64: tokens
+     bit-equal to the plain version's, greedy ties across tiles and
+     blocks, two launches bit-identical, timed beside ``h @ lm_head``.
   3. Lockstep end to end: ``repro_torch.launch.serve --lockstep`` at full
      gemma-2b width and depth with random weights, greedy then temperature
      0.8; the launch counters must show every kernel of the path, the tokens
@@ -81,6 +84,10 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      each arm's synchronised iteration time, the worker's ``time/<node>``
      medians, the controller bytes of the centralized arm and the
      dataloader's prefetch hits, beside phase 7's hand-composed iteration.
+     Then one arm more on the same file: ``--rollout-slots 4``, the
+     continuous rollout engine at the GENERATE stage (16 rollouts over 4
+     slots), its first iteration held to plain and every iteration's
+     launches equal to the engine's prefills and decode steps.
   9. mamba2-2.7b training at full width and depth (gemma freed): GRPO through
      ``launch.train --arch mamba2-2.7b`` with phase 8's experiment file and
      checks, distributed twice then centralized (the scan under autograd in
@@ -96,6 +103,17 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      phase 8's checks and a finite critic loss, a nonzero critic gradient
      and some critic weights changed; reports the critic's stage times and
      the peak memory of actor, reference, critic and two sets of moments.
+ 11. The continuous rollout engine on qwen2.5-7b at full width and depth
+     (28 layers, 28 query heads on 4 KV heads of 128, an untied head;
+     PPO's models freed): with one slot a prompt and one bucket, sampled,
+     its tokens, masks and lengths bit-equal to lockstep ``generate``'s
+     from one seed; then 32 ragged prompts (true lengths 32-128, padded to
+     128; budgets 8-128; 128 new at most; buckets of 32) through lockstep,
+     the engine with one slot a prompt (early exit only) and with 16 slots
+     (refill): response tokens/s, decode steps, ``lockstep_waste``, slot
+     occupancy and wall ms, medians of 3 after a warm-up; the kernel path
+     against the plain path; the refill arm's launches equal to its
+     prefills and decode steps.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -148,6 +166,10 @@ STREAM_FLAGS = ["--slots", str(SLOTS), "--max-len", str(MAX_LEN), "--max-new", s
 # the mamba2-2.7b lockstep path (configs/mamba2_2_7b.py): 64 SSD layers of
 # 80 heads of 64, state 128, one group, vocab 50,280 tied
 M_D_MODEL, M_HEADS, M_HEADDIM, M_STATE, M_VOCAB = 2560, 80, 64, 128, 50_280
+# qwen2.5-7b (configs/qwen2_5_7b.py): 28 layers, d_model 3584, 28 query heads
+# on 4 KV heads of 128, d_ff 18,944, an untied lm_head (3584, 152,064)
+QWEN_FLAGS = ["--arch", "qwen2.5-7b"]
+Q_D_MODEL, Q_VOCAB = 3584, 152_064
 
 BF16_TOL = 2e-2
 SSD_Y_TOL = 5e-2  # y is bf16: tests/test_kernels.py's bf16 tolerance for ssd
@@ -502,6 +524,9 @@ def kernel_phase(torch, ops, ref, F):
     sample_gen = torch.Generator(device=DEV).manual_seed(777)
     records["fused_sample"]["b64"] = sampler_edges(
         torch, ops, ref, embed, lambda *shape: randn(*shape, g=sample_gen), sample_gen)
+    untied_gen = torch.Generator(device=DEV).manual_seed(2121)
+    records["fused_sample"].update(untied_sampler(
+        torch, ops, ref, lambda *shape, **kw: randn(*shape, g=untied_gen, **kw), untied_gen))
     print(json.dumps({"check": "fused_sample", **records["fused_sample"]}), flush=True)
 
     # ---- decode attention over the int8 cache: the int8-KV lockstep step,
@@ -798,6 +823,66 @@ def sampler_edges(torch, ops, ref, embed, randn, gen):
             "library_ms": device_ms(lambda: torch.matmul(h, head))}
 
 
+def untied_sampler(torch, ops, ref, randn, gen):
+    """fused_sample on qwen2.5-7b's untied head as it lies, (d, Vp) with the
+    vocab contiguous (never transposed or copied), at B = 8 and B = 64:
+    greedy and sampled tokens bit-equal to the plain version's, logprobs at
+    LOGPROB_TOL, exact greedy ties across a tile boundary, across two blocks'
+    tile ranges and between the first and last block (the lower index must
+    win; the grid from ``sampling.grid`` for this layout), and the same bits
+    on two launches; each batch timed beside ``h @ lm_head`` and its bytes
+    bound. Returns {"qwen_untied_b8": record, "qwen_untied_b64": record}."""
+    from repro_torch.kernels import sampling
+
+    D, V = Q_D_MODEL, Q_VOCAB
+    head = randn(D, V, scale=0.02)
+    require(sampling.head_layout(head) is True, "the untied head is not read as (d, Vp)")
+    out = {}
+    for Bs in (8, 64):
+        h = randn(Bs, D)
+        seeds = torch.randint(-2**31, 2**31, (Bs,), generator=gen, device=DEV,
+                              dtype=torch.int64).to(torch.int32)
+        worst = 0.0
+        for inv_t in (0.0, 1 / 0.8):
+            it = torch.full((Bs,), inv_t, device=DEV)
+            got = ops.fused_sample(h, head, seeds, it, vocab_size=V)
+            what = f"untied B={Bs} inv_temp={inv_t}"
+            worst = max(worst, check_sample(torch, ref, got, h, head, seeds, it, V, what))
+            want, _ = ref.fused_sample(h, head, seeds, it, vocab_size=V)
+            require(torch.equal(got[0], want), f"fused_sample {what}: tokens "
+                                               f"{got[0].tolist()} vs {want.tolist()}")
+            require(same_bits(lambda: ops.fused_sample(h, head, seeds, it, vocab_size=V)),
+                    f"fused_sample {what}: two launches differ")
+        blocks, tiles, tv = sampling.grid(Bs, V, head.device.index, cols=True)
+        span = tiles * tv
+        require(blocks > 1 and tiles > 1, f"untied B={Bs}: {blocks} blocks of {tiles} tiles")
+        pairs = ((tv - 1, tv), (span - 1, span), (7, V - 9))
+        hs = torch.randint(-1, 2, (Bs, D), generator=gen, device=DEV).to(torch.bfloat16)
+        idx = torch.tensor([i for p in pairs for i in p], device=DEV)
+        saved = head[:, idx].clone()
+        for k, (i, j) in enumerate(pairs):  # |z| = sum |h| in both columns: exact
+            head[:, i] = head[:, j] = torch.sign(hs[k])
+        zero = torch.zeros(Bs, device=DEV)
+        got = ops.fused_sample(hs, head, seeds, zero, vocab_size=V)
+        worst = max(worst, check_sample(torch, ref, got, hs, head, seeds, zero, V,
+                                        f"untied ties B={Bs}"))
+        head[:, idx] = saved
+        require(got[0][:len(pairs)].tolist() == [i for i, _ in pairs],
+                f"fused_sample untied ties B={Bs}: {got[0][:len(pairs)].tolist()} for {pairs}")
+        it = torch.ones(Bs, device=DEV)
+        bms, by = bound_ms(V * D * 2 + Bs * D * 2 + Bs * 8, 2 * Bs * V * D,
+                           BF16_TENSOR_FLOP_PER_S)
+        out[f"qwen_untied_b{Bs}"] = {
+            "shape": {"h": [Bs, D], "lm_head": [D, V]}, "max_abs_err": worst,
+            "grid": [blocks, tiles, tv],
+            "ms": device_ms(lambda: ops.fused_sample(h, head, seeds, it, vocab_size=V)),
+            "plain_ms": device_ms(lambda: ref.fused_sample(h, head, seeds, it, vocab_size=V),
+                                  reps=11),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": device_ms(lambda: torch.matmul(h, head))}
+    return out
+
+
 def serve_args(serve, temperature: float, arch_flags=ARCH_FLAGS):
     return serve.parse_args([
         *arch_flags, "--lockstep", "--device", DEV, "--seed", "0",
@@ -824,23 +909,23 @@ def build_model(torch, serve, arch_flags=ARCH_FLAGS):
     return model, params, tok
 
 
-def expected_launches(cfg, names, gens: int, steps: int):
-    """Launch counts of ``gens`` lockstep generates of ``steps`` decode steps
-    each: per forward a norm before every mixer and every MLP, a gated norm
-    in every SSD mixer, and the final norm; per prefill one flash attention
-    per attention layer and one scan per SSD layer; per decode step one
-    decode attention (the int8 kernel under ``kv_quant``) per attention layer
-    and one sampler call."""
+def forward_launches(cfg, names, prefills: int, steps: int):
+    """Launch counts of ``prefills`` whole-prompt prefills and ``steps``
+    decode steps: per forward a norm before every mixer and every MLP, a
+    gated norm in every SSD mixer, and the final norm; per prefill one flash
+    attention per attention layer and one scan per SSD layer; per decode step
+    one decode attention (the int8 kernel under ``kv_quant``) per attention
+    layer and one sampler call."""
     kinds = cfg.layer_kinds()
     attn = sum(k[0] == "attn" for k in kinds)
     ssd = len(kinds) - attn
     mlps = sum(k[1] != "none" for k in kinds)
     out = dict.fromkeys(names, 0)
-    out.update({"rmsnorm": gens * (len(kinds) + mlps + ssd + 1) * (1 + steps),
-                "flash_attention": gens * attn, "ssd": gens * ssd,
-                "fused_sample": gens * steps,
+    out.update({"rmsnorm": (len(kinds) + mlps + ssd + 1) * (prefills + steps),
+                "flash_attention": prefills * attn, "ssd": prefills * ssd,
+                "fused_sample": steps,
                 ("decode_attention_quant" if cfg.kv_quant else "decode_attention"):
-                    gens * attn * steps})
+                    attn * steps})
     return out
 
 
@@ -943,56 +1028,26 @@ def layerwise_agreement(torch, ops, model, params, prompt, caches_r, tok0):
     return logits_k, logits_r, tok1_k, step_r, worst
 
 
-def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
-                     label="e2e", profile_name="profile.txt", layerwise=False):
-    """Lockstep serving of ``model`` (full width and depth) on the card,
-    through ``serve.run_lockstep``. With ``layerwise``, the kernel path's
+def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
+                    layerwise: bool = False):
+    """The kernel path of ``model`` against its plain path
+    (``ops.set_mode("ref")``) on the same weights and ``prompt``: the prefill
+    logits within 2e-2 of their max, and the first token and the first
+    decoded token (the fused sampler, greedy) equal in every row whose top
+    two logits are clear by 0.05. With ``layerwise`` (SSD stacks), the
     free-running logits are held against the plain path's drift from itself
     (``plain_logits`` at chunk 64), and the kernel path against the plain
-    path layer by layer (see ``layerwise_agreement``).
-    Returns (launch counts of the greedy run, summary, a function that
-    profiles one greedy generate)."""
-    args = serve_args(serve, 0.0)  # run_lockstep reads the batch flags only, not --arch
+    path layer by layer (see ``layerwise_agreement``). Returns the checks'
+    numbers."""
+    B = prompt.shape[0]
     cfg = model.cfg
-    steps, gens = MAX_NEW - 1, TIMED_BATCHES + 1
-    expected = expected_launches(cfg, _build.LAUNCHES, gens, steps)
-
-    def checked_run(a):
-        _build.reset_launches()
-        stats = serve.run_lockstep(model, params, tok, a)
-        counts = dict(_build.LAUNCHES)
-        require(counts == expected, f"launches {counts}, expected {expected}")
-        for res in stats["results"]:
-            resp = res.tokens[:, PROMPT:]
-            require(resp.shape == (B, MAX_NEW), f"response shape {tuple(resp.shape)}")
-            require(bool(((resp >= 0) & (resp < cfg.vocab_size)).all()), "token out of range")
-            require(bool(torch.isfinite(res.old_logprob).all()), "non-finite logprob")
-        return stats, counts
-
-    def same_tokens(a, b):
-        return all(torch.equal(x.tokens, y.tokens) for x, y in zip(a["results"], b["results"]))
-
-    ops.set_mode(None)
-    sampled_args = serve_args(serve, 0.8)
-    greedy, counts = checked_run(args)
-    sampled, _ = checked_run(sampled_args)
-    require(same_tokens(greedy, checked_run(args)[0]), "two greedy runs with one seed differ")
-    require(same_tokens(sampled, checked_run(sampled_args)[0]),
-            "two sampled runs with one seed differ")
-    first = greedy["results"][0].tokens
-    require(all(torch.equal(r.tokens, first) for r in greedy["results"]),
-            "greedy batches of one run differ")
-
-    # the kernel path against the plain path on the same weights and prompt
-    _, ids = serve.prompts(tok, B, PROMPT)
-    prompt = torch.from_numpy(ids).to(DEV)
     with torch.inference_mode():
         ops.set_mode("ref")
-        logits_r, caches_r, len_r = model.prefill(params, prompt, smax=SMAX)
+        logits_r, caches_r, len_r = model.prefill(params, prompt, smax=smax)
         tok0 = torch.argmax(logits_r, dim=-1).to(torch.int32)
         step_r, _, _ = model.decode_step(params, tok0, caches_r, len_r)
         ops.set_mode(None)
-        logits_k, caches_k, len_k = model.prefill(params, prompt, smax=SMAX)
+        logits_k, caches_k, len_k = model.prefill(params, prompt, smax=smax)
         zero = torch.zeros(B, dtype=torch.int32, device=DEV)
         tok1_k, _, _, _ = model.decode_step_sample(params, tok0, caches_k, len_k, zero, 0.0)
     real = slice(0, cfg.vocab_size)  # the padded vocab is -1e30 in both
@@ -1041,6 +1096,55 @@ def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
           f"prefill logits max abs err {err:.4g} (max |logit| {scale:.4g}); first token "
           f"agrees in {clear0}/{B} clear rows, first decoded token in {clear1}/{B}", flush=True)
 
+    checks.update(first_token_clear_rows=clear0, first_decoded_clear_rows=clear1)
+    return checks
+
+
+def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
+                     label="e2e", profile_name="profile.txt", layerwise=False):
+    """Lockstep serving of ``model`` (full width and depth) on the card,
+    through ``serve.run_lockstep``. With ``layerwise``, the kernel path's
+    free-running logits are held against the plain path's drift from itself
+    (``plain_logits`` at chunk 64), and the kernel path against the plain
+    path layer by layer (see ``layerwise_agreement``).
+    Returns (launch counts of the greedy run, summary, a function that
+    profiles one greedy generate)."""
+    args = serve_args(serve, 0.0)  # run_lockstep reads the batch flags only, not --arch
+    cfg = model.cfg
+    steps, gens = MAX_NEW - 1, TIMED_BATCHES + 1
+    expected = forward_launches(cfg, _build.LAUNCHES, gens, gens * steps)
+
+    def checked_run(a):
+        _build.reset_launches()
+        stats = serve.run_lockstep(model, params, tok, a)
+        counts = dict(_build.LAUNCHES)
+        require(counts == expected, f"launches {counts}, expected {expected}")
+        for res in stats["results"]:
+            resp = res.tokens[:, PROMPT:]
+            require(resp.shape == (B, MAX_NEW), f"response shape {tuple(resp.shape)}")
+            require(bool(((resp >= 0) & (resp < cfg.vocab_size)).all()), "token out of range")
+            require(bool(torch.isfinite(res.old_logprob).all()), "non-finite logprob")
+        return stats, counts
+
+    def same_tokens(a, b):
+        return all(torch.equal(x.tokens, y.tokens) for x, y in zip(a["results"], b["results"]))
+
+    ops.set_mode(None)
+    sampled_args = serve_args(serve, 0.8)
+    greedy, counts = checked_run(args)
+    sampled, _ = checked_run(sampled_args)
+    require(same_tokens(greedy, checked_run(args)[0]), "two greedy runs with one seed differ")
+    require(same_tokens(sampled, checked_run(sampled_args)[0]),
+            "two sampled runs with one seed differ")
+    first = greedy["results"][0].tokens
+    require(all(torch.equal(r.tokens, first) for r in greedy["results"]),
+            "greedy batches of one run differ")
+
+    # the kernel path against the plain path on the same weights and prompt
+    _, ids = serve.prompts(tok, B, PROMPT)
+    prompt = torch.from_numpy(ids).to(DEV)
+    checks = plain_agreement(torch, ops, model, params, prompt, SMAX, label, layerwise)
+
     # decode rate: a whole generate minus one that stops after the prefill
     def gen_s(max_new):
         g = torch.Generator(device=DEV).manual_seed(7)
@@ -1060,7 +1164,7 @@ def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
         "sampled_p99_ms": sampled["p99_s"] * 1e3,
         "generate_ms": full * 1e3, "prefill_and_first_token_ms": prefill_only * 1e3,
         "decode_step_ms": step_ms, "decode_tok_per_s": B / step_ms * 1e3,
-        "first_token_clear_rows": clear0, "first_decoded_clear_rows": clear1, **checks,
+        **checks,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(json.dumps({label: summary}), flush=True)
 
@@ -1356,8 +1460,8 @@ def iteration_launches(cfg, names, max_new_tokens: int, dag):
     fwd = {"rmsnorm": len(kinds) + mlps + ssd + 1, "flash_attention": attn, "ssd": ssd}
     step = {n: 2 * c - (n == "rmsnorm") for n, c in fwd.items()}
     types = [node.type for node in dag.nodes.values()]
-    per_iter = expected_launches(cfg, names, types.count(NodeType.GENERATE),
-                                 max_new_tokens - 1)
+    gens = types.count(NodeType.GENERATE)
+    per_iter = forward_launches(cfg, names, gens, gens * (max_new_tokens - 1))
     for n in fwd:
         per_iter[n] += (types.count(NodeType.MODEL_INFERENCE) * fwd[n]
                         + types.count(NodeType.MODEL_TRAIN) * step[n])
@@ -2055,6 +2159,102 @@ def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAG
     return main_counts, summary
 
 
+# phase 8's continuous-engine arm: the same experiment file through
+# launch.train --rollout-slots ENGINE_SLOTS (16 rollouts over 4 slots)
+ENGINE_SLOTS = 4
+
+
+def engine_pipeline_arm(torch, ops, ref, _build, label="pipeline"):
+    """GRPO through ``launch.train --rollout-slots ENGINE_SLOTS`` on the
+    experiment file of ``pipeline_phase(label=label)``: the GENERATE stage
+    runs the continuous engine. Its first iteration is held to plain
+    (``held_to_plain``; the calls equal the iteration's launches), and every
+    iteration's launches equal ``iteration_launches`` with the lockstep
+    generate replaced by the engine's prefills and decode steps (its
+    ``rollout/refills`` and ``rollout/decode_steps``); every metric finite,
+    ratio_mean within 1 +- RATIO_TOL, a nonzero gradient, a nonzero KL from
+    iteration 1, the slot pool's counts in the metrics, some actor weights
+    changed. Prints ``{label + "_engine_arm": ...}``. Returns the launch
+    counts of the run."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core.dag import DAG
+    from repro_torch.launch import train
+    from repro_torch.rl import algorithms
+    from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
+
+    t_arm = time.perf_counter()
+    exp_path = ROOT / "build" / f"{label}_experiment.json"
+    exp = ExperimentSpec.from_json(exp_path.read_text())
+    cfg, max_new = exp.model, exp.rl.max_new_tokens
+    algorithm = algorithms.get_algorithm(exp.rl.algorithm)
+    dag = DAG.from_spec(exp.dag) if exp.dag is not None else algorithm.dag_factory()
+    per_iter, _ = iteration_launches(cfg, _build.LAUNCHES, max_new, dag)
+    lockstep = forward_launches(cfg, _build.LAUNCHES, 1, max_new - 1)
+    names = path_kernels(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with observed_iterations(torch, _build, lambda: held_to_plain(torch, ops, ref, names)) as seen:
+        out = train.main(["--experiment", str(exp_path), "--device", DEV] + PIPE_ITERS
+                         + ["--rollout-slots", str(ENGINE_SLOTS)])
+    counts = dict(_build.LAUNCHES)
+    pipe = out["pipeline"]
+    require(isinstance(pipe.ctx.engines["generate"], ContinuousRolloutEngine),
+            f"{label} engine arm: the GENERATE engine is not the continuous one")
+    rows = seen["iterations"]
+    require(len(rows) == 1 + PIPE_TIMED, f"{label} engine arm: {len(rows)} iterations")
+    rollouts = exp.prompts_per_iter * algorithm.group_size(exp.rl)
+    for it, row in enumerate(rows):
+        m = row["metrics"]
+        engine = forward_launches(cfg, _build.LAUNCHES, int(m["rollout/refills"]),
+                                  int(m["rollout/decode_steps"]))
+        want = {n: per_iter[n] - lockstep[n] + engine[n] for n in per_iter}
+        require(row["launches"] == want, f"{label} engine arm iteration {it}: launches "
+                                         f"{row['launches']}, expected {want}")
+        require(all(np.isfinite(v) for v in m.values()),
+                f"{label} engine arm iteration {it}: non-finite metric {m}")
+        require(abs(m["actor/ratio_mean"] - 1.0) <= RATIO_TOL,
+                f"{label} engine arm iteration {it}: ratio_mean {m['actor/ratio_mean']}")
+        require(m["actor/grad_norm"] > 0 and (it == 0 or m["actor/kl"] > 0),
+                f"{label} engine arm iteration {it}: grad {m['actor/grad_norm']}, "
+                f"KL {m['actor/kl']}")
+        require(m["rollout/num_slots"] == ENGINE_SLOTS
+                and m["rollout/refills"] >= rollouts / ENGINE_SLOTS
+                and 0.0 < m["rollout/slot_occupancy"] <= 1.0,
+                f"{label} engine arm iteration {it}: slot counts {m}")
+    held = seen["held"]
+    require(all(held[n]["calls"] == rows[0]["launches"][n] for n in names),
+            f"{label} engine arm iteration held to plain: calls {held}, launches "
+            f"{rows[0]['launches']}")
+    print(json.dumps({"check": f"{label}_engine_iteration_held_to_plain", "kernels": held}),
+          flush=True)
+    moved = sum(int((a != b).sum()) for a, b in zip(tree.leaves(pipe.ctx.actor_state.params),
+                                                   tree.leaves(pipe.ctx.ref_params)))
+    require(moved > 0, f"{label} engine arm: no weight of the actor moved")
+    timed = rows[1:]
+    stat_keys = ("decode_steps", "bursts", "refills", "slot_occupancy", "padding_waste",
+                 "tokens", "tokens_per_s")
+    summary = {
+        "rollout_slots": ENGINE_SLOTS,
+        "iteration_ms": [r["ms"] for r in rows],
+        "iteration_ms_median": statistics.median(r["ms"] for r in timed),
+        "node_ms_median": {k[5:]: statistics.median(r["metrics"][k] * 1e3 for r in timed)
+                           for k in sorted(timed[0]["metrics"]) if k.startswith("time/")},
+        "rollout": {k: [r["metrics"][f"rollout/{k}"] for r in rows] for k in stat_keys},
+        "launches_per_iteration": [r["launches"] for r in rows], "held_to_plain": held,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "arm_s": time.perf_counter() - t_arm}
+    print(json.dumps({f"{label}_engine_arm": summary}), flush=True)
+    del out, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # phase 9: mamba2-2.7b training at full width and depth. The GRPO pipeline
 # runs through launch.train (pipeline_phase); then the gradient check on
 # lockstep rollouts of M_GRAD_PROMPT + M_GRAD_NEW positions (one chunk of the
@@ -2275,6 +2475,205 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
     return summary
 
 
+# phase 11: the continuous rollout engine at qwen2.5-7b's full width and
+# depth. The ragged comparison: Q_PROMPTS prompts of true lengths
+# Q_MIN_PROMPT..Q_PROMPT tokens (padded to Q_PROMPT), Q_NEW new tokens at
+# most, prefill buckets of Q_BUCKET, per-row budgets of Q_MIN_BUDGET..Q_NEW,
+# all drawn from Q_SEED; lockstep generate against the engine with one slot
+# a prompt (early exit only) and with Q_SLOTS slots (refill), each arm one
+# warm-up then Q_TIMED timed runs
+Q_PROMPTS, Q_MIN_PROMPT, Q_PROMPT, Q_NEW, Q_BUCKET = 32, 32, 128, 128, 32
+Q_MIN_BUDGET, Q_SLOTS, Q_TIMED, Q_SEED = 8, 16, 3, 11
+Q_TEMPERATURE = 1.0  # RLConfig's default: rollouts are sampled
+
+
+def ragged_inputs(torch, tok):
+    """(prompts (Q_PROMPTS, Q_PROMPT) on the card, budgets (Q_PROMPTS,) int32
+    on the card, true lengths) from Q_SEED: byte tokens up to each row's
+    true length, PAD after."""
+    import numpy as np
+
+    rng = np.random.default_rng(Q_SEED)
+    true_len = rng.integers(Q_MIN_PROMPT, Q_PROMPT + 1, Q_PROMPTS)
+    prompts = np.full((Q_PROMPTS, Q_PROMPT), tok.pad_id, np.int32)
+    for i, n in enumerate(true_len):
+        prompts[i, :n] = rng.integers(tok.SPECIALS, 256 + tok.SPECIALS, n)
+    budgets = rng.integers(Q_MIN_BUDGET, Q_NEW + 1, Q_PROMPTS).astype(np.int32)
+    return (torch.from_numpy(prompts).to(DEV), torch.from_numpy(budgets).to(DEV),
+            true_len)
+
+
+class ReadEachStep:
+    """``model`` with a host read of a count after every
+    ``decode_step_sample``, as the continuous engine's burst reads its done
+    count (``int(new_done.sum())``), each read's host time kept in
+    ``wait_s``; everything else is the model's."""
+
+    def __init__(self, model, eos_id: int):
+        self._model, self._eos = model, eos_id
+        self.wait_s = []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def decode_step_sample(self, *args, **kw):
+        out = self._model.decode_step_sample(*args, **kw)
+        t = time.perf_counter()
+        int((out[0] == self._eos).sum())
+        self.wait_s.append(time.perf_counter() - t)
+        return out
+
+
+def done_read_cost(torch, generate, model, params, prompts, budgets, seed, kw):
+    """The cost of the burst's per-step host read, alone, on the ragged
+    inputs: lockstep ``generate`` as it is (no host read in its loop) and
+    with ``ReadEachStep``, Q_TIMED runs each, interleaved, after a warm-up
+    of the read. Returns both arms' walls, their medians' difference a
+    decode step, and the read's own host time a step (each run's mean over
+    its steps, and the median of those). In a host-bound loop the read's
+    own time is what it adds to the wall: the card is idle after it either
+    way, and a wall difference carries the host's noise between runs."""
+    reads = ReadEachStep(model, kw["eos_id"])
+    runs = {m: (lambda m=m: generate(m, params, prompts, seed(), max_new=Q_NEW,
+                                     temperature=Q_TEMPERATURE, budgets=budgets, **kw))
+            for m in (model, reads)}
+    sync_ms(torch, runs[reads])
+    walls = {"no_read_ms": [], "read_ms": []}
+    waits = []
+    for _ in range(Q_TIMED):
+        walls["no_read_ms"].append(sync_ms(torch, runs[model])[1])
+        reads.wait_s.clear()
+        walls["read_ms"].append(sync_ms(torch, runs[reads])[1])
+        waits.append(sum(reads.wait_s) / len(reads.wait_s) * 1e3)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    return {**walls, "decode_steps": Q_NEW - 1,
+            "wall_diff_per_step_ms": (med["read_ms"] - med["no_read_ms"]) / (Q_NEW - 1),
+            "read_ms_per_step_runs": waits, "read_ms_per_step": statistics.median(waits)}
+
+
+def qwen_engine_phase(torch, ops, ref, _build, serve, generate, label="qwen_engine"):
+    """qwen2.5-7b at full width and depth (random bf16 weights from ``--seed
+    0``, through ``serve``'s setup) with the continuous rollout engine:
+
+    1. parity: lockstep ``generate`` and the engine with one slot a prompt
+       and one bucket, sampled at 0.8 from one seed, with per-row budgets,
+       on phase 3's prompt shape: tokens, masks and lengths bit-equal (the
+       engine consumes lockstep's seed stream), logprobs within LOGPROB_TOL;
+    2. the ragged comparison (the constants above): response tokens/s,
+       decode steps, lockstep_waste, slot occupancy and wall ms of each arm,
+       medians of Q_TIMED runs after a warm-up. Each arm's warm-up run is
+       held to plain call by call (``held_to_plain``: every kernel call at
+       the shapes this phase gives it, its calls equal to the run's
+       launches), and then the cost of a host read of a count after every
+       decode step, the read the engine's burst takes, is timed on its own:
+       lockstep ``generate`` with and without that read, Q_TIMED runs each,
+       interleaved (``done_read``);
+    3. the kernel path against the plain path (``plain_agreement``);
+    4. the launch counters of the refill arm's warm-up run (set to 0 just
+       before it, read just after), equal to ``forward_launches`` of its
+       prefills and decode steps.
+
+    Prints ``{label: ...}``. Returns the launch counts of the path."""
+    from repro_torch.rl.rollout_engine import ContinuousRolloutEngine, lockstep_waste
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, tok = build_model(torch, serve, QWEN_FLAGS)
+    cfg = model.cfg
+    kw = dict(eos_id=tok.eos_id, pad_id=tok.pad_id)
+
+    # ---- 1. a fixed schedule is lockstep, bit for bit ----
+    _, ids = serve.prompts(tok, B, PROMPT)
+    prompt = torch.from_numpy(ids).to(DEV)
+    budgets = torch.randint(1, MAX_NEW + 1, (B,), generator=torch.Generator().manual_seed(5),
+                            dtype=torch.int32).to(DEV)
+    seed = lambda: torch.Generator(device=DEV).manual_seed(Q_SEED)  # noqa: E731
+    want = generate(model, params, prompt, seed(), max_new=MAX_NEW, temperature=0.8,
+                    budgets=budgets, **kw)
+    fixed = ContinuousRolloutEngine(model, max_new=MAX_NEW, temperature=0.8, num_slots=B, **kw)
+    got = fixed(params, prompt, seed(), budgets=budgets)
+    for field in ("tokens", "response_mask", "lengths"):
+        require(torch.equal(getattr(got, field), getattr(want, field)),
+                f"{label}: the fixed-schedule engine's {field} differ from lockstep's")
+    ok, lp_err = close(got.old_logprob, want.old_logprob, LOGPROB_TOL)
+    require(ok, f"{label}: fixed-schedule logprobs differ from lockstep's by {lp_err}")
+    parity = {"batch": B, "max_new": MAX_NEW, "lengths": got.lengths.tolist(),
+              "tokens_equal": True, "old_logprob_max_abs_err": lp_err,
+              "decode_steps": fixed.last_stats["decode_steps"]}
+    print(json.dumps({"check": f"{label}_fixed_schedule_equals_lockstep", **parity}), flush=True)
+
+    # ---- 3. the kernel path against the plain path ----
+    agreement = plain_agreement(torch, ops, model, params, prompt, SMAX, label)
+
+    # ---- 2. the ragged comparison, and 4. the path's launch counters ----
+    prompts, budgets, true_len = ragged_inputs(torch, tok)
+    engines = {f"engine_slots_{n}": ContinuousRolloutEngine(
+        model, max_new=Q_NEW, temperature=Q_TEMPERATURE, num_slots=n,
+        prefill_bucket=Q_BUCKET, **kw) for n in (0, Q_SLOTS)}
+    arms = {"lockstep": lambda: generate(model, params, prompts, seed(), max_new=Q_NEW,
+                                         temperature=Q_TEMPERATURE, budgets=budgets, **kw)}
+    arms.update({name: (lambda e=e: e(params, prompts, seed(), budgets=budgets))
+                 for name, e in engines.items()})
+    names = path_kernels(cfg)
+    launches, held, rows = {}, {}, {}
+    for name, run in arms.items():
+        # the warm-up run, held to plain; the refill arm's is the path's run
+        _build.reset_launches()
+        with held_to_plain(torch, ops, ref, names) as held[name]:
+            res = run()
+        torch.cuda.synchronize()
+        launches[name] = dict(_build.LAUNCHES)
+        require(all(held[name][n]["calls"] == launches[name][n] for n in names),
+                f"{label} {name} held to plain: calls {held[name]}, launches {launches[name]}")
+        walls = []
+        for _ in range(Q_TIMED):
+            res, ms = sync_ms(torch, run)
+            walls.append(ms)
+        lens = res.lengths
+        require(bool((lens >= 1).all() and (lens <= budgets).all()),
+                f"{label} {name}: lengths {lens.tolist()} past the budgets")
+        resp = res.tokens[:, Q_PROMPT:]
+        require(bool(((resp >= 0) & (resp < cfg.vocab_size)).all())
+                and bool(torch.isfinite(res.old_logprob).all()),
+                f"{label} {name}: token out of range or non-finite logprob")
+        wall = statistics.median(walls)
+        n_tok = int(lens.sum())
+        waste = lockstep_waste(lens.cpu().numpy(), Q_NEW)
+        row = {"wall_ms": wall, "wall_ms_runs": walls, "response_tokens": n_tok,
+               "response_tok_per_s": n_tok / wall * 1e3, "lockstep_waste": waste}
+        if name == "lockstep":
+            row.update(decode_steps=Q_NEW - 1, slot_occupancy=1.0 - waste, num_slots=Q_PROMPTS)
+        else:
+            st = engines[name].last_stats
+            row.update({k: st[k] for k in ("decode_steps", "bursts", "refills", "num_slots",
+                                           "slot_occupancy", "padding_waste",
+                                           "prefill_lane_tokens", "prefill_true_tokens",
+                                           "prefill_waste")})
+        rows[name] = row
+        print(json.dumps({f"{label}_arm": {"arm": name, **row}}), flush=True)
+    print(json.dumps({"check": f"{label}_held_to_plain", "arms": held}), flush=True)
+    done_read = done_read_cost(torch, generate, model, params, prompts, budgets, seed, kw)
+    print(json.dumps({f"{label}_done_read": done_read}), flush=True)
+    counts = launches[f"engine_slots_{Q_SLOTS}"]
+    refill = engines[f"engine_slots_{Q_SLOTS}"].last_stats
+    want_counts = forward_launches(cfg, _build.LAUNCHES, int(refill["refills"]),
+                                   int(refill["decode_steps"]))
+    require(counts == want_counts, f"{label}: launches {counts}, expected {want_counts} "
+                                   f"from the refill arm's prefills and decode steps")
+    summary = {"model": cfg.name, "parity": parity, "agreement": agreement,
+               "ragged": {"prompts": Q_PROMPTS, "true_prompt_tokens": int(true_len.sum()),
+                          "prompt_width": Q_PROMPT, "max_new": Q_NEW, "bucket": Q_BUCKET,
+                          "budget_tokens": int(budgets.sum()), "arms": rows},
+               "held_to_plain": held, "done_read": done_read, "launches": counts,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({label: summary}), flush=True)
+    del model, params, engines, arms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
@@ -2353,6 +2752,9 @@ def main(argv=None) -> int:
     # freed (the counts set to 0 just before its first run, read just after) ----
     paths["grpo_pipeline"], _ = pipeline_phase(torch, ops, ref, _build,
                                                hand_rows=train_summary["iterations"])
+    # and its continuous-engine arm (the counts set to 0 just before it, read
+    # just after)
+    paths["grpo_engine_pipeline"] = engine_pipeline_arm(torch, ops, ref, _build)
     # ---- phase 9: mamba2-2.7b training: GRPO through launch.train --arch
     # mamba2-2.7b (gemma freed; the counts set to 0 just before its first
     # run, read just after), then the gradient check, the long actor step and
@@ -2367,6 +2769,12 @@ def main(argv=None) -> int:
     paths["ppo_pipeline"], _ = pipeline_phase(
         torch, ops, ref, _build, label="ppo_pipeline", flags=ARCH_FLAGS + ["--algorithm", "ppo"],
         rl=PPO_RL, arms=PIPE_ARMS_SHORT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 11: the continuous rollout engine at qwen2.5-7b's full width
+    # and depth (the counts set to 0 just before the refill arm's first run,
+    # read just after) ----
+    paths["qwen_engine"] = qwen_engine_phase(torch, ops, ref, _build, serve, generate)
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -2384,7 +2792,11 @@ def main(argv=None) -> int:
                                  "fused_sample"),
                "mamba2_grpo_pipeline": ("rmsnorm", "ssd", "fused_sample"),
                "ppo_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
-                                "fused_sample")}
+                                "fused_sample"),
+               "grpo_engine_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
+                                        "fused_sample"),
+               "qwen_engine": ("rmsnorm", "flash_attention", "decode_attention",
+                               "fused_sample")}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),
                 f"a kernel of the {path} path was not launched: {paths[path]}")

@@ -55,6 +55,7 @@ from repro_torch.rl import critic as critic_mod
 from repro_torch.rl import reward as reward_mod
 from repro_torch.rl import rollout as rollout_mod
 from repro_torch.rl import trainer
+from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
 from repro_torch.rl.trainer import RLConfig
 
 
@@ -69,10 +70,15 @@ def ppo_dag() -> DAG:
 
 
 # --------------------------------------------------------------------------- #
-def _build_engines(model, rl: RLConfig, tok: ByteTokenizer, spec) -> Dict[str, Any]:
-    """The engines of one algorithm spec: the lockstep generate, logprobs,
-    the math reward, the spec's advantage, the actor step, and the critic's
-    values and step iff the spec uses a critic."""
+def _build_engines(model, rl: RLConfig, tok: ByteTokenizer, spec,
+                   rollout: Optional[RolloutEngineConfig] = None) -> Dict[str, Any]:
+    """The engines of one algorithm spec: the GENERATE engine, logprobs, the
+    math reward, the spec's advantage, the actor step, and the critic's
+    values and step iff the spec uses a critic. The GENERATE engine is
+    lockstep ``rollout.generate`` or the slot-refill
+    :class:`~repro_torch.rl.rollout_engine.ContinuousRolloutEngine`
+    (``RolloutEngineConfig.engine == "continuous"``): same call contract,
+    same RolloutResult."""
     eng: Dict[str, Any] = {}
 
     def _generate(params, prompts, gen):
@@ -82,7 +88,20 @@ def _build_engines(model, rl: RLConfig, tok: ByteTokenizer, spec) -> Dict[str, A
             eos_id=tok.eos_id, pad_id=tok.pad_id,
         )
 
-    eng["generate"] = _generate
+    if rollout is not None and rollout.engine == "continuous":
+        eng["generate"] = ContinuousRolloutEngine(
+            model,
+            max_new=rl.max_new_tokens,
+            temperature=rl.temperature,
+            eos_id=tok.eos_id,
+            pad_id=tok.pad_id,
+            num_slots=rollout.num_slots,
+            prefill_chunk=rollout.prefill_chunk,
+            prefill_bucket=rollout.prefill_bucket,
+            refill_threshold=rollout.refill_threshold,
+        )
+    else:
+        eng["generate"] = _generate
     eng["logprobs"] = lambda p, t: model.logprobs(p, t)
     eng["reward"] = lambda tokens, mask, answers: reward_mod.math_reward_tokens(
         tokens, mask, answers, tok)
@@ -113,15 +132,12 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
-def _check_ported(*, rollout: Optional[RolloutEngineConfig] = None,
-                  async_pipeline: Optional[AsyncPipelineConfig] = None,
+def _check_ported(*, async_pipeline: Optional[AsyncPipelineConfig] = None,
                   env: Optional[EnvConfig] = None,
                   distributed: Optional[DistributedConfig] = None,
                   obs: Optional[ObsConfig] = None) -> None:
     """Raise ``NotImplementedError`` for any option whose subsystem the port
     does not have yet."""
-    if rollout is not None and rollout.engine == "continuous":
-        raise _not_ported("the continuous rollout engine", "3: continuous rollout engine")
     if async_pipeline is not None and async_pipeline.enabled:
         raise _not_ported("the async off-policy pipeline", "4: async off-policy pipeline")
     if env is not None and env.enabled:
@@ -157,8 +173,7 @@ def build_pipeline(
     algorithm=None,
     seed: int = 0,
 ) -> Pipeline:
-    _check_ported(rollout=rollout, async_pipeline=async_pipeline, env=env,
-                  distributed=distributed, obs=obs)
+    _check_ported(async_pipeline=async_pipeline, env=env, distributed=distributed, obs=obs)
     spec = algorithm or algorithms.get_algorithm(rl.algorithm)
     coordinator = coordinator or DataCoordinatorConfig()
     device = resolve_device(device)
@@ -174,7 +189,7 @@ def build_pipeline(
     ctx = WorkerContext(
         mesh=mesh,
         rl=rl,
-        engines=_build_engines(model, rl, tok, spec),
+        engines=_build_engines(model, rl, tok, spec, rollout),
         dataloader=DistributedDataloader(
             dataset or SyntheticMathDataset(4096, seed=seed),
             mesh=mesh,

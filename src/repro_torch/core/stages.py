@@ -8,9 +8,10 @@ databuffer's redistribution path is taken at every model<->compute boundary
 exactly as in the JAX package (on one device it moves nothing, but it is
 counted the same).
 
-The port runs the lockstep engine only, so ``actor_generate`` has none of the
-JAX stage's branches for the continuous engine's stats and the multi-turn
-environment keys; ``env_compute`` raises.
+``actor_generate`` drives lockstep ``generate`` or the continuous engine and
+reports the engine's ``last_stats`` as ``rollout/*``; the multi-turn
+environment keys and ``env_compute`` are ROADMAP queue 1, item 5, and
+``env_compute`` raises.
 """
 from __future__ import annotations
 
@@ -40,11 +41,13 @@ def _specs(ctx):
 def actor_generate(ctx, buffer, node: Node) -> Dict:
     """(ACTOR, GENERATE): pull the iteration's prompts from the worker-bound
     prompt iterator (``ctx.prompt_source``, already group-expanded), run the
-    generation engine with the run's generator and store the trajectory.
+    generation engine (lockstep or continuous, same call contract) with the
+    run's generator and store the trajectory. The continuous engine's
+    tokens/s, padding waste and slot occupancy are reported as well.
 
-    ``rl.rollout.generate`` runs under ``torch.inference_mode``; autograd
-    cannot save its outputs for the actor step's backward. The rollouts are
-    cloned here, once, as they enter the buffer."""
+    Both engines run under ``torch.inference_mode``; autograd cannot save
+    their outputs for the actor step's backward. The rollouts are cloned
+    here, once, as they enter the buffer."""
     model_spec, _ = _specs(ctx)
     if ctx.prompt_source is None:
         # hand-rolled ctx without a worker: bind the same iterator the
@@ -53,17 +56,22 @@ def actor_generate(ctx, buffer, node: Node) -> Dict:
 
         ctx.prompt_source = PromptSource(ctx.dataloader, _algo(ctx).group_size(ctx.rl))
     prompts, answers = ctx.prompt_source.next_prompts()
-    res = ctx.engines["generate"](ctx.actor_state.params, prompts, ctx.gen)
+    engine = ctx.engines["generate"]
+    res = engine(ctx.actor_state.params, prompts, ctx.gen)
     buffer.put("tokens", res.tokens.clone(), model_spec)
     buffer.put("response_mask", res.response_mask.clone(), model_spec)
     buffer.put("old_logprob", res.old_logprob.clone(), model_spec)
     buffer.put("answers", answers, model_spec)
     gen_tokens = float(res.lengths.sum())
     ctx.counters["gen_tokens"] = ctx.counters.get("gen_tokens", 0.0) + gen_tokens
-    return {
+    out = {
         "rollout/mean_len": float(res.lengths.float().mean()),
         "rollout/tokens": gen_tokens,
     }
+    stats = getattr(engine, "last_stats", None)
+    if stats:  # continuous engine: slot and throughput accounting
+        out.update({f"rollout/{k}": float(v) for k, v in stats.items()})
+    return out
 
 
 def actor_logprobs(ctx, buffer, node: Node) -> Dict:

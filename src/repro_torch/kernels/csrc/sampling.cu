@@ -7,9 +7,9 @@
 // (_sample_kernel, _hash_u32, _uniform_01), which walked a (B, vocab tiles)
 // grid in order and carried the running max, sum and winner in VMEM scratch.
 //
-// What bounds it on an H100: bytes. The head is the tied embedding, 256000 x
-// 2048 bf16 = 1.05 GB at gemma-2b, read once per decode step: ~0.31 ms at
-// 3.35 TB/s. Its products (2 B Vp d) take 0.068 ms on the bf16 tensor cores
+// What bounds it on an H100: bytes. The head is read once per decode step:
+// the tied embedding, 256000 x 2048 bf16 = 1.05 GB at gemma-2b (~0.31 ms at
+// 3.35 TB/s), or an untied lm_head, 3584 x 152064 = 1.09 GB at qwen2.5-7b. Its products (2 B Vp d) take 0.068 ms on the bf16 tensor cores
 // at B = 64, but 1.0 ms on the fp32 CUDA cores: they must be tensor-core
 // products. A sampled row also costs two logf and an expf per vocab entry,
 // ~55 us of issue per SM at B = 64, which has to hide under the stream.
@@ -18,17 +18,27 @@
 // - Tensor-core products: wgmma m64nNk16, bf16 in, fp32 accumulate, with N
 //   the batch rows rounded up to 8, 16, 32 or 64. A warpgroup of 4 consumer
 //   warps takes 64 vocab rows as the A operand and h as the B operand, both
-//   read by the tensor cores straight from shared memory, K-major, as the
-//   tied embedding lies (it is never transposed or copied). Products of
-//   bf16 pairs are exact in fp32, and every row sums its products in the
-//   same order, so equal rows give equal logits wherever they lie.
+//   read by the tensor cores straight from shared memory. The head is
+//   never transposed or copied: it is read as it lies, in one of two
+//   layouts (COLS, a template flag). The tied embedding lies as (Vp, d)
+//   rows, d contiguous: a K-major A tile, one TMA box of 64 k by TV vocab
+//   rows. An untied lm_head lies as (d, Vp), vocab contiguous: an MN-major A
+//   tile (wgmma's transpose bit on A), TV / 64 TMA boxes of 64 vocab columns
+//   by 64 k rows, each the canonical MN-major 128-byte swizzle atom (8 k rows
+//   of 128 bytes, 8-row groups 1024 bytes apart). Either way a tile holds TV
+//   whole vocab rows and a stage the same bytes, so the grid, the scan and
+//   the merge are one code. Products of bf16 pairs are exact in fp32, and
+//   every row sums its products in k order, so equal rows give equal logits
+//   wherever they lie.
 // - The head is read once for every B <= 64: a block carries all the
 //   n-tiles of up to 64 batch rows. Above 64 rows the batch is tiled by 64
 //   (grid.y), and each slice reads the head again.
 // - A producer warp streams a ring of stages through the Tensor Memory
 //   Accelerator: 2D TMA copies of 64-wide k-slices of the block's head tile
 //   and of h, in the 128-byte swizzle that wgmma reads; rows past the head
-//   or the batch and columns past d come in as zeros. mbarriers say when a
+//   or the batch and columns past d come in as zeros. An (Vp, d) head is read
+//   in 256-byte pieces of its rows at KC = 128, a (d, Vp) head in 256-byte
+//   (TV = 128) or 512-byte (TV = 256) pieces of its k rows. mbarriers say when a
 //   stage has landed (full) and when every consumer warp is done with it
 //   (empty), so the loads run ahead of the products and the scans by the
 //   whole ring and no consumer waits on another. A stage is 128 wide (256
@@ -59,8 +69,8 @@
 //   multiply-add), and logf/expf are the full-precision ones (no fast math).
 //   On equal scores the lower index wins, whatever tile or block holds it.
 // - Every instantiation is spill-free (-Xptxas -v, printed by chip_smoke.py).
-//   The wrapper requires d % 8 == 0 (TMA's 16-byte row stride), which every
-//   configs/registry.py arch meets.
+//   The wrapper requires d % 8 == 0, and Vp % 8 == 0 for a (d, Vp) head
+//   (TMA's 16-byte row stride), which every configs/registry.py arch meets.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
@@ -205,6 +215,17 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// wgmma operand descriptor of an MN-major tile in the 128-byte swizzle, as
+// TMA writes a box of 64 MN columns by k rows: each k row 128 bytes (64 MN
+// elements), 8-row k groups 1024 bytes apart (the stride byte offset), and
+// the next 64 MN elements one 64 x 64 box (8192 bytes) on (the leading byte
+// offset; an m64 operand spans one).
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(8192 >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
 __device__ __forceinline__ void gmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -218,53 +239,59 @@ __device__ __forceinline__ void gmma_wait_all() {
 #define REPRO_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 
 // d (64 x N fp32; a warp's 16 rows, n-tile j of 8 columns at d[4j .. 4j + 3]
-// as mma.sync's C fragment) += A (64 x 16 bf16) * B (16 x N bf16), both
-// K-major in shared memory, issued by one warpgroup.
-template <int N>
-__device__ __forceinline__ void gmma_bf16(float* d, uint64_t da, uint64_t db);
-
-template <>
-__device__ __forceinline__ void gmma_bf16<8>(float* d, uint64_t da, uint64_t db) {
+// as mma.sync's C fragment) += A (64 x 16 bf16) * B (16 x N bf16), both in
+// shared memory, B K-major, A K-major (TA = 0) or MN-major (TA = 1), issued
+// by one warpgroup.
+template <int TA>
+__device__ __forceinline__ void gmma8(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"
       : REPRO_F4(0)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
-template <>
-__device__ __forceinline__ void gmma_bf16<16>(float* d, uint64_t da, uint64_t db) {
+template <int TA>
+__device__ __forceinline__ void gmma16(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
       : REPRO_F4(0), REPRO_F4(4)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
-template <>
-__device__ __forceinline__ void gmma_bf16<32>(float* d, uint64_t da, uint64_t db) {
+template <int TA>
+__device__ __forceinline__ void gmma32(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      "%16, %17, p, 1, 1, %19, 0;\n}\n"
       : REPRO_F4(0), REPRO_F4(4), REPRO_F4(8), REPRO_F4(12)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
-template <>
-__device__ __forceinline__ void gmma_bf16<64>(float* d, uint64_t da, uint64_t db) {
+template <int TA>
+__device__ __forceinline__ void gmma64(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, 0;\n}\n"
       : REPRO_F4(0), REPRO_F4(4), REPRO_F4(8), REPRO_F4(12), REPRO_F4(16), REPRO_F4(20),
         REPRO_F4(24), REPRO_F4(28)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+}
+
+template <int N, int TA>
+__device__ __forceinline__ void gmma_bf16(float* d, uint64_t da, uint64_t db) {
+  if constexpr (N == 8) gmma8<TA>(d, da, db);
+  else if constexpr (N == 16) gmma16<TA>(d, da, db);
+  else if constexpr (N == 32) gmma32<TA>(d, da, db);
+  else gmma64<TA>(d, da, db);
 }
 
 #undef REPRO_F4
@@ -275,7 +302,9 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
 
-template <int CW, int NT, int KC, int STAGES, int MIN_BLOCKS>
+// COLS: the head lies as (d, Vp), vocab contiguous (tm_head maps it with
+// vocab as the inner dimension); else as (Vp, d) rows.
+template <int CW, int NT, int KC, int STAGES, int MIN_BLOCKS, bool COLS>
 __global__ void __launch_bounds__(32 * CW + 32, MIN_BLOCKS)
     sample_kernel(const __grid_constant__ CUtensorMap tm_head,
                   const __grid_constant__ CUtensorMap tm_h, const int* __restrict__ seeds,
@@ -330,8 +359,16 @@ __global__ void __launch_bounds__(32 * CW + 32, MIN_BLOCKS)
         mbar_arrive_expect(full + slot, S::kStageBytes);
 #pragma unroll
         for (int sub = 0; sub < S::kSubs; ++sub) {
-          tma_load(st + sub * S::TV * 64, &tm_head, k0 + sub * 64, r0 + tile * S::TV,
-                   full + slot);
+          if constexpr (COLS) {
+            // TV / 64 boxes of 64 vocab columns by 64 k rows, 8192 bytes apart
+#pragma unroll
+            for (int j = 0; j < S::TV / 64; ++j)
+              tma_load(st + sub * S::TV * 64 + j * 64 * 64, &tm_head,
+                       r0 + tile * S::TV + 64 * j, k0 + sub * 64, full + slot);
+          } else {
+            tma_load(st + sub * S::TV * 64, &tm_head, k0 + sub * 64, r0 + tile * S::TV,
+                     full + slot);
+          }
           tma_load(st + S::kHeadElems + sub * S::NB * 64, &tm_h, k0 + sub * 64, b0,
                    full + slot);
         }
@@ -392,17 +429,21 @@ __global__ void __launch_bounds__(32 * CW + 32, MIN_BLOCKS)
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + slot);
 #else
-      // warpgroup warp / 4 takes rows [64 (warp / 4), + 64) of the tile, 16
-      // k (32 bytes) a step
+      // warpgroup warp / 4 takes rows [64 (warp / 4), + 64) of the tile (64
+      // rows of 64 k, or one box of 64 columns by 64 k rows: 8192 bytes
+      // either way), 16 k a step: 32 bytes along a (Vp, d) row, 16 k rows
+      // (2048 bytes) of a (d, Vp) box
       const __nv_bfloat16* stg = ring + slot * S::kStageElems;
       gmma_fence();
 #pragma unroll
       for (int sub = 0; sub < S::kSubs; ++sub)
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          gmma_bf16<S::NB>(acc,
-                           sw128_desc(stg + sub * S::TV * 64 + (warp >> 2) * 64 * 64 + ks * 16),
-                           sw128_desc(stg + S::kHeadElems + sub * S::NB * 64 + ks * 16));
+        for (int ks = 0; ks < 4; ++ks) {
+          const __nv_bfloat16* a = stg + sub * S::TV * 64 + (warp >> 2) * 64 * 64;
+          gmma_bf16<S::NB, COLS ? 1 : 0>(
+              acc, COLS ? sw128_mn_desc(a + ks * 16 * 64) : sw128_desc(a + ks * 16),
+              sw128_desc(stg + S::kHeadElems + sub * S::NB * 64 + ks * 16));
+        }
       gmma_commit();
       gmma_wait_all();
       __syncwarp();  // the warp's products of the slot are done: release it
@@ -476,21 +517,22 @@ struct Variant {
 };
 
 template <int CW, int NT, int KC, int STAGES, int MIN_BLOCKS>
-Variant variant() {
+Variant variant(bool cols) {
   using S = Shape<CW, NT, KC, STAGES>;
-  return {sample_kernel<CW, NT, KC, STAGES, MIN_BLOCKS>, S::kThreads + 32, S::TV, S::NB,
-          S::kSmem};
+  return {cols ? sample_kernel<CW, NT, KC, STAGES, MIN_BLOCKS, true>
+               : sample_kernel<CW, NT, KC, STAGES, MIN_BLOCKS, false>,
+          S::kThreads + 32, S::TV, S::NB, S::kSmem};
 }
 
-// The instantiation for a batch: NT n-tiles of 8 rows cover min(B, 64).
-// Shared memory: 142 KB at NT = 1 (one block an SM), 82 KB at NT = 2 (two),
-// 178 KB at NT = 4 and 187 KB at NT = 8 (one).
-Variant pick(int B) {
+// The instantiation for a batch and a head layout: NT n-tiles of 8 rows
+// cover min(B, 64). Shared memory: 142 KB at NT = 1 (one block an SM), 82 KB
+// at NT = 2 (two), 178 KB at NT = 4 and 187 KB at NT = 8 (one).
+Variant pick(int B, bool cols) {
   const int rows = B < kMaxRowsB ? B : kMaxRowsB;
-  if (rows <= 8) return variant<8, 1, 128, 4, 1>();
-  if (rows <= 16) return variant<8, 2, 64, 4, 2>();
-  if (rows <= 32) return variant<16, 4, 64, 4, 1>();
-  return variant<16, 8, 64, 3, 1>();
+  if (rows <= 8) return variant<8, 1, 128, 4, 1>(cols);
+  if (rows <= 16) return variant<8, 2, 64, 4, 2>(cols);
+  if (rows <= 32) return variant<16, 4, 64, 4, 1>(cols);
+  return variant<16, 8, 64, 3, 1>(cols);
 }
 
 // Tiles per block: the fewest that let every block be resident at once.
@@ -513,6 +555,8 @@ int tiles_for(const Variant& v, int Vp, int device, cudaError_t* err) {
 
 // A TMA map of a row-major (rows, d) bf16 matrix, boxes of 64 columns by
 // box_rows rows with the 128-byte swizzle; reads past its edges give zeros.
+// A (d, Vp) head is mapped as rows = d of width Vp, in boxes of 64 vocab
+// columns by 64 k rows.
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int d, int box_rows) {
   static PFN_cuTensorMapEncodeTiled encode = nullptr;
   if (encode == nullptr) {
@@ -546,11 +590,11 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int d, int 
 // and the vocab rows of a tile (block k takes rows [k tiles tile_rows,
 // (k + 1) tiles tile_rows)); the wrapper sizes the partials (blocks, B) with
 // it. Returns a CUDA error code.
-REPRO_EXPORT int fused_sample_grid(int B, int Vp, int device, int* blocks, int* tiles,
-                                   int* tile_rows) {
+REPRO_EXPORT int fused_sample_grid(int B, int Vp, int cols, int device, int* blocks,
+                                   int* tiles, int* tile_rows) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Variant v = pick(B);
+  const Variant v = pick(B, cols != 0);
   *tiles = tiles_for(v, Vp, device, &err);
   if (err != cudaSuccess) return err;
   const int ntiles = (Vp + v.tv - 1) / v.tv;
@@ -559,20 +603,21 @@ REPRO_EXPORT int fused_sample_grid(int B, int Vp, int device, int* blocks, int* 
   return cudaSuccess;
 }
 
-// rows: the head as (Vp, d) rows (the tied embedding as it lies), 16-byte
-// aligned with d % 8 == 0. part (blocks, B) float4 and part_idx (blocks, B)
+// head: 16-byte aligned, as (Vp, d) rows with d % 8 == 0 (cols == 0: the
+// tied embedding as it lies) or as (d, Vp) with Vp % 8 == 0 (cols != 0: an
+// untied lm_head as it lies). part (blocks, B) float4 and part_idx (blocks, B)
 // int32 are the wrapper's scratch for the blocks' partials; ticket is one
 // uint32, zero between launches (the last block of a launch leaves it at
 // zero).
-REPRO_EXPORT int fused_sample_fwd(const void* h, const void* rows, const void* seeds,
+REPRO_EXPORT int fused_sample_fwd(const void* h, const void* head, const void* seeds,
                                   const void* inv_temp, void* part, void* part_idx, void* ticket,
-                                  void* tok, void* lp, int B, int d, int Vp, int vocab, int blocks,
-                                  int tiles, int device, void* stream) {
+                                  void* tok, void* lp, int B, int d, int Vp, int vocab, int cols,
+                                  int blocks, int tiles, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Variant v = pick(B);
+  const Variant v = pick(B, cols != 0);
   CUtensorMap tm_head, tm_h;
-  err = tensor_map(&tm_head, rows, Vp, d, v.tv);
+  err = cols ? tensor_map(&tm_head, head, d, Vp, 64) : tensor_map(&tm_head, head, Vp, d, v.tv);
   if (err != cudaSuccess) return err;
   err = tensor_map(&tm_h, h, B, d, v.nb);
   if (err != cudaSuccess) return err;

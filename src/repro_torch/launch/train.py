@@ -13,15 +13,19 @@ package) and dumped with ``--dump-experiment``. The Data Coordinator flags
 ``--centralized-baseline`` layer on top of either, so that one experiment
 file runs in every coordinator arm.
 
+``--rollout-slots N`` generates with the continuous rollout engine over N
+decode slots (0: one a sequence), on top of either.
+
 The default arch is gemma-2b, the port's main model. The flags of
 subsystems the port does not have yet (``--ckpt-dir``, ``--resume``,
-``--max-staleness``, ``--rollout-slots``, ``--env``, ``--num-hosts`` > 1,
-``--obs-trace``, ``--obs-metrics``) raise ``NotImplementedError``.
+``--max-staleness``, ``--env``, ``--num-hosts`` > 1, ``--obs-trace``,
+``--obs-metrics``) raise ``NotImplementedError``.
 
 Usage:
   python -m repro_torch.launch.train --arch gemma-2b --iters 3 \
       --prompts-per-iter 2 --group-size 8 --max-new-tokens 16
   python -m repro_torch.launch.train --smoke --device cpu --iters 2
+  python -m repro_torch.launch.train --smoke --device cpu --iters 2 --rollout-slots 4
   python -m repro_torch.launch.train --experiment exp.json --iters 100
 """
 from __future__ import annotations
@@ -33,7 +37,7 @@ import time
 from typing import Any, Dict
 
 from repro_torch.api import ExperimentSpec
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import RolloutEngineConfig, get_config, reduced
 from repro_torch.rl import RLConfig, list_algorithms
 
 # flag -> the ROADMAP queue 1 item that ports its subsystem
@@ -41,7 +45,6 @@ NOT_PORTED = {
     "ckpt_dir": "7: fault tolerance (checkpoints)",
     "resume": "7: fault tolerance (checkpoints)",
     "max_staleness": "4: async off-policy pipeline",
-    "rollout_slots": "3: continuous rollout engine",
     "env": "5: multi-turn environments",
     "obs_trace": "7: telemetry",
     "obs_metrics": "7: telemetry",
@@ -83,11 +86,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="load-balancer buckets (0 = the mesh's DP degree)")
     ap.add_argument("--balance-tolerance", type=float, default=None,
                     help="balance/over_tolerance threshold of max/mean bucket tokens")
+    ap.add_argument("--rollout-slots", type=int, default=None,
+                    help="continuous rollout engine over this many decode slots "
+                         "(0 = one per sequence); unset = the spec's engine")
     # subsystems not ported yet: each raises NotImplementedError
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", default=None)
     ap.add_argument("--max-staleness", type=int, default=None)
-    ap.add_argument("--rollout-slots", type=int, default=None)
     ap.add_argument("--env", default=None)
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--obs-trace", default=None, metavar="PATH")
@@ -109,7 +114,8 @@ def check_flags(args: argparse.Namespace) -> None:
 
 def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
     """CLI flags -> ExperimentSpec (or load one wholesale from JSON), with the
-    coordinator flags and ``--centralized-baseline`` on top."""
+    coordinator flags, ``--centralized-baseline`` and ``--rollout-slots`` on
+    top."""
     if args.experiment:
         with open(args.experiment) as f:
             exp = ExperimentSpec.from_json(f.read())
@@ -141,6 +147,9 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
         exp = dataclasses.replace(exp, coordinator=dataclasses.replace(exp.coordinator, **given))
     if args.centralized_baseline:
         exp = dataclasses.replace(exp, centralized=True)
+    if args.rollout_slots is not None:
+        exp = dataclasses.replace(exp, rollout=RolloutEngineConfig(
+            engine="continuous", num_slots=args.rollout_slots))
     return exp
 
 

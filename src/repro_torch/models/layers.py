@@ -29,14 +29,14 @@ def _dense_init(gen: torch.Generator, shape, *, device=None) -> torch.Tensor:
 def init_norm(cfg: ModelConfig, *, device=None) -> Params:
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(
-            "layernorm is not ported yet (ROADMAP queue 1, item 7: other families)")
+            "layernorm is not ported yet (ROADMAP queue 1, item 6: other families)")
     return {"w": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)}
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(
-            "layernorm is not ported yet (ROADMAP queue 1, item 7: other families)")
+            "layernorm is not ported yet (ROADMAP queue 1, item 6: other families)")
     d = x.shape[-1]
     return ops.rmsnorm(x.reshape(-1, d), p["w"]).reshape(x.shape)
 
@@ -68,7 +68,7 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.use_bias:
         raise NotImplementedError(
-            "biased layers are not ported yet (ROADMAP queue 1, item 7: other families)")
+            "biased layers are not ported yet (ROADMAP queue 1, item 6: other families)")
     p: Params = {"w_in": _dense_init(gen, (d, f), device=device),
                  "w_out": _dense_init(gen, (f, d), device=device)}
     if cfg.mlp_type in ("swiglu", "geglu"):
@@ -100,7 +100,7 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Pa
     W_q columns and W_o rows are zero, so padded heads are exact."""
     if cfg.use_bias:
         raise NotImplementedError(
-            "biased layers are not ported yet (ROADMAP queue 1, item 7: other families)")
+            "biased layers are not ported yet (ROADMAP queue 1, item 6: other families)")
     d, hd = cfg.d_model, cfg.head_dim
     hp, kvh = cfg.padded_heads, cfg.num_kv_heads
     wq = _dense_init(gen, (d, hp * hd), device=device)

@@ -49,7 +49,7 @@ IGNORE = -1  # label id excluded from the loss
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of ``ModelConfig`` the port does not have yet."""
-    other = "(ROADMAP queue 1, item 7: other families)"
+    other = "(ROADMAP queue 1, item 6: other families)"
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"enc-dec is not ported yet {other}")
     if cfg.num_experts:

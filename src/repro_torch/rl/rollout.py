@@ -80,7 +80,7 @@ def generate(
     the per-step seeds and lives on the model's device."""
     if top_p < 1.0:
         raise NotImplementedError(
-            "top_p < 1 is not ported yet (ROADMAP queue 1, item 7: other families)")
+            "top_p < 1 is not ported yet (ROADMAP queue 1, item 6: other families)")
     B, Lp = prompt.shape
     logits, caches, cache_len = model.prefill(params, prompt, smax=Lp + max_new)
 

@@ -141,13 +141,13 @@ def sample_call(torch, _build, lib, h, head, seeds, it, V):
 
     c = ctypes
     B, d = h.shape
-    rows = head.t()
-    Vp = rows.shape[0]
+    Vp = head.shape[1]
+    cols = int(sampling.head_layout(head))
     dev, stream = _build.launch_site(h)
     grid = lib.fused_sample_grid
-    grid.argtypes, grid.restype = [c.c_int] * 3 + [c.POINTER(c.c_int)] * 3, c.c_int
+    grid.argtypes, grid.restype = [c.c_int] * 4 + [c.POINTER(c.c_int)] * 3, c.c_int
     out = [c.c_int() for _ in range(3)]
-    _build.check(lib, grid(B, Vp, dev, *(c.byref(x) for x in out)), "fused_sample grid")
+    _build.check(lib, grid(B, Vp, cols, dev, *(c.byref(x) for x in out)), "fused_sample grid")
     blocks, tiles, _ = (x.value for x in out)
     fwd = lib.fused_sample_fwd
     fwd.argtypes, fwd.restype = sampling._fwd().argtypes, c.c_int
@@ -158,10 +158,10 @@ def sample_call(torch, _build, lib, h, head, seeds, it, V):
     lp = torch.empty((B,), dtype=torch.float32, device=h.device)
 
     def call():
-        _build.check(lib, fwd(h.data_ptr(), rows.data_ptr(), seeds.data_ptr(), it.data_ptr(),
+        _build.check(lib, fwd(h.data_ptr(), head.data_ptr(), seeds.data_ptr(), it.data_ptr(),
                               part.data_ptr(), part_idx.data_ptr(), ticket.data_ptr(),
-                              tok.data_ptr(), lp.data_ptr(), B, d, Vp, V, blocks, tiles, dev,
-                              stream), "fused_sample (probe build)")
+                              tok.data_ptr(), lp.data_ptr(), B, d, Vp, V, cols, blocks, tiles,
+                              dev, stream), "fused_sample (probe build)")
         return tok, lp
     return call
 

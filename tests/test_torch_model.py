@@ -3,7 +3,10 @@
 Both run ``reduced(gemma-2b, vocab_size=260, num_layers=2, pad_heads_to=8)``:
 padded heads (4 real of 8) and a padded vocab (260 of 512). The JAX weights
 are bridged into the port; the comparisons run in fp32 at 2e-5, with the
-JAX package on its reference kernel path (its CPU default).
+JAX package on its reference kernel path (its CPU default). The untied
+archs (qwen2.5-7b and deepseek-67b: GQA, SwiGLU, an ``lm_head`` of its own)
+are held the same way in reduced form, and the fused sampler on their
+(d, Vp) head layout against the Pallas kernel in interpret mode.
 """
 import jax
 import jax.numpy as jnp
@@ -13,11 +16,16 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
+from repro.kernels.sampling import fused_sample as fs_pallas
+from repro.models import get_model as jax_get_model
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
+from repro.rl.rollout import generate as jax_generate
 from repro_torch import bridge
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import ref, sampling
 from repro_torch.models import get_model, layers, lm
+from repro_torch.rl.rollout import generate
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
@@ -191,3 +199,98 @@ def test_decode_at_a_full_cache_writes_nothing_and_matches_jax(jax_params, kv_qu
     for name in caches_j[0]:  # the JAX step wrote nothing either
         np.testing.assert_array_equal(np.asarray(caches_j2[0][name]),
                                       np.asarray(caches_j[0][name]))
+
+
+# --------------------------------------------------------------------------- #
+# the untied archs: an lm_head of their own, stored (d, Vp) as in JAX
+# --------------------------------------------------------------------------- #
+UNTIED = ("qwen2.5-7b", "deepseek-67b")
+
+
+@pytest.fixture(scope="module", params=UNTIED)
+def untied(request):
+    """(JAX config, port config, JAX fp32 params, port fp32 params) of a
+    reduced untied arch (2 layers, vocab 260)."""
+    kw = dict(vocab_size=260, num_layers=2)
+    jcfg = jax_reduced(jax_get_config(request.param), **kw)
+    cfg = reduced(get_config(request.param), **kw)
+    assert not cfg.tie_embeddings and cfg.num_kv_heads < cfg.num_heads
+    params = jax.tree.map(np.asarray, jlm.init(jcfg, jax.random.PRNGKey(1)))
+    tp = bridge.from_jax(params, device="cpu", dtype=torch.float32)
+    assert tp["lm_head"].shape == (cfg.d_model, cfg.padded_vocab)
+    assert sampling.head_layout(lm._head_matrix(cfg, tp)) is True  # (d, Vp) as it lies
+    return jcfg, cfg, fp32_tree(params), tp
+
+
+def test_untied_prefill_decode_and_logprobs_match(untied):
+    """Prefill, three teacher-forced decode steps and the training engine's
+    logprobs and entropy, at 2e-5 in fp32."""
+    jcfg, cfg, jp, tp = untied
+    model = get_model(cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(3, 259, (3, 7)).astype(np.int32)
+    forced = rng.integers(3, 259, (3, 3)).astype(np.int32)
+    logits_j, caches_j, len_j = jlm.prefill(jcfg, jp, jnp.asarray(prompt), smax=10)
+    with torch.inference_mode():
+        logits_t, caches_t, len_t = model.prefill(tp, torch.from_numpy(prompt), smax=10)
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), **TOL)
+    for j in range(forced.shape[1]):
+        logits_j, caches_j, len_j = jlm.decode_step(jcfg, jp, jnp.asarray(forced[:, j]),
+                                                    caches_j, len_j)
+        with torch.inference_mode():
+            logits_t, caches_t, len_t = model.decode_step(
+                tp, torch.from_numpy(forced[:, j]), caches_t, len_t)
+        np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), **TOL)
+    np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
+    tokens = np.concatenate([prompt, forced], axis=1)
+    lp_j, ent_j = jlm.logprobs_fn(jcfg, jp, jnp.asarray(tokens))
+    with torch.no_grad():
+        lp_t, ent_t = model.logprobs(tp, torch.from_numpy(tokens))
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), **TOL)
+    np.testing.assert_allclose(ent_t.numpy(), np.asarray(ent_j), **TOL)
+
+
+def test_untied_greedy_generate_matches_jax(untied):
+    """Lockstep greedy generate through the fused sampler on the (d, Vp)
+    head: tokens and masks equal, behaviour logprobs at 2e-5."""
+    jcfg, cfg, jp, tp = untied
+    prompt = np.random.default_rng(6).integers(3, 259, (4, 5)).astype(np.int32)
+    want = jax_generate(jax_get_model(jcfg), jp, jnp.asarray(prompt), jax.random.PRNGKey(0),
+                        max_new=6, temperature=0.0, eos_id=2, pad_id=0)
+    got = generate(get_model(cfg, device="cpu"), tp, torch.from_numpy(prompt),
+                   torch.Generator().manual_seed(0), max_new=6, temperature=0.0, eos_id=2,
+                   pad_id=0)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.response_mask.numpy(), np.asarray(want.response_mask))
+    np.testing.assert_allclose(got.old_logprob.numpy(), np.asarray(want.old_logprob), **TOL)
+
+
+@pytest.mark.parametrize("layout", ["cols", "rows"])
+def test_fused_sample_on_both_head_layouts_matches_pallas(layout):
+    """The sampler on an untied head (d, Vp) as it lies ("cols", vocab
+    contiguous) and on the transpose of a contiguous (Vp, d) matrix
+    ("rows", the tied ``embed.T``): ``sampling.head_layout`` tells them
+    apart, and ``ref.fused_sample`` and the CUDA kernel's decomposition
+    ``ref.fused_sample_partials`` (tiles of 128 rows, blocks of 3 tiles)
+    give the Pallas kernel's tokens (interpret mode) bit for bit and its
+    logprobs at 1e-5, greedy and sampled rows mixed, on reduced qwen2.5-7b's
+    head width with a vocab ending mid-tile."""
+    rng = np.random.default_rng(8)
+    B, d, Vp, vocab = 6, 64, 512, 260
+    h = rng.standard_normal((B, d)).astype(np.float32)
+    w = rng.standard_normal((d, Vp)).astype(np.float32)
+    seeds = rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32)
+    inv_t = np.array([0.0, 1 / 0.7, 2.5, 0.0, 1.0, 1 / 0.7], np.float32)
+    head = (torch.from_numpy(w) if layout == "cols"
+            else torch.from_numpy(np.ascontiguousarray(w.T)).t())
+    assert sampling.head_layout(head) is (layout == "cols")
+    assert sampling.head_layout(torch.from_numpy(w)[:, ::2]) is None  # neither: the kernel raises
+    args = (torch.from_numpy(h), head, torch.from_numpy(seeds), torch.from_numpy(inv_t))
+    tok_p, lp_p = fs_pallas(*(jnp.asarray(a) for a in (h, w, seeds, inv_t)), vocab_size=vocab,
+                            block_v=128, interpret=True)
+    for tok, lp in (ref.fused_sample(*args, vocab_size=vocab),
+                    ref.fused_sample_partials(*args, vocab_size=vocab, tile=128,
+                                              tiles_per_block=3)):
+        assert bool((tok < vocab).all())
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_p))
+        np.testing.assert_allclose(lp.numpy(), np.asarray(lp_p), atol=1e-5, rtol=1e-5)

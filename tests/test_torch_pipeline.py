@@ -13,6 +13,11 @@ Tolerances: tokens, rewards, rollout counts and ``BufferStats`` counts are
 equal; the actor and critic metrics agree within 2e-5 (the fp32 tolerance of
 ``tests/test_torch_rl.py``); the coordinator arms of the port are bitwise
 equal to each other.
+
+The continuous rollout engine runs in both pipelines on fp32 cache arenas
+(:func:`fp32_arenas`, ``tests/torch_arena.py``): the JAX engine's arena is
+bf16, on which fp32 weights cannot run its decode ``while_loop``. Its slot
+counts (``rollout/*``) are equal.
 """
 import dataclasses
 import json
@@ -25,6 +30,7 @@ import torch
 
 from repro.api import ExperimentSpec as JaxExperimentSpec
 from repro.configs import DataCoordinatorConfig as JaxCoordinatorConfig
+from repro.configs import RolloutEngineConfig as JaxRolloutEngineConfig
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.rl import trainer as jtrainer
@@ -43,6 +49,8 @@ from repro_torch.configs import (
 from repro_torch.core import DAG, Node, NodeType, Role, build_pipeline, default_registry, stages
 from repro_torch.launch import train
 from repro_torch.rl import trainer
+from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
+from torch_arena import EPISODE_KEYS, fp32_arena, jax_fp32_arena
 
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
 EOS_ID, EOS_SCALE = 2, 3.0
@@ -73,18 +81,54 @@ def counts(stats):
     return {**dataclasses.asdict(stats), "max_host_inbound_bytes": stats.max_host_inbound_bytes}
 
 
-def record_rollouts(pipe, np_of):
-    """Wrap the pipeline's generate engine to keep each iteration's tokens."""
-    seen = []
-    engine = pipe.ctx.engines["generate"]
+class Recorded:
+    """A generate engine that keeps each call's tokens (``np_of`` of them)
+    in ``seen``; every other attribute (``last_stats``, ``model``) is the
+    engine's."""
 
-    def generate(params, prompts, key):
-        res = engine(params, prompts, key)
-        seen.append(np_of(res.tokens))
+    def __init__(self, engine, np_of):
+        self.engine, self.np_of, self.seen = engine, np_of, []
+
+    def __call__(self, params, prompts, key):
+        res = self.engine(params, prompts, key)
+        self.seen.append(self.np_of(res.tokens))
         return res
 
-    pipe.ctx.engines["generate"] = generate
-    return seen
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def record_rollouts(pipe, np_of):
+    """Wrap the pipeline's generate engine to keep each iteration's tokens."""
+    rec = pipe.ctx.engines["generate"] = Recorded(pipe.ctx.engines["generate"], np_of)
+    return rec.seen
+
+
+def fp32_arenas(jpipe, tpipe):
+    """Give both pipelines' continuous engines an fp32 cache arena."""
+    jeng, teng = (p.ctx.engines["generate"].engine for p in (jpipe, tpipe))
+    jeng.model, teng.model = jax_fp32_arena(jeng.model), fp32_arena(teng.model)
+
+
+# rollout/* keys that move with the host clock
+CLOCK_KEYS = {"wall_s", "tokens_per_s"}
+
+
+def assert_continuous_iterations_match(jhist, thist, jtoks, ttoks):
+    """The continuous engine's iterations: the JAX stage's metrics but the
+    episode-only ``rollout/*`` keys, tokens equal, every count of the slot
+    schedule equal, the actor's metrics at 2e-5."""
+    only_jax = {f"rollout/{k}" for k in EPISODE_KEYS}
+    clock = {f"rollout/{k}" for k in CLOCK_KEYS}
+    for it, (jm, tm) in enumerate(zip(jhist, thist)):
+        assert set(jm) - set(tm) == only_jax and set(tm) <= set(jm), it
+        np.testing.assert_array_equal(ttoks[it], jtoks[it])
+        for k in tm:
+            if k.startswith(("rollout/", "reward/")) and k not in clock:
+                assert tm[k] == jm[k], (it, k)
+            elif k.startswith("actor/"):
+                np.testing.assert_allclose(tm[k], jm[k], atol=TOL, rtol=TOL, err_msg=f"{it} {k}")
+    assert len(thist) == len(jhist) == len(ttoks) == len(jtoks)
 
 
 def bridged_pair(jexp, *, critic=False):
@@ -355,7 +399,7 @@ def test_coordinator_flags_layer_on_an_experiment_file(tmp_path, flag, field, va
 
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "ckpts"], ["--resume", "ckpts"],
-                                  ["--max-staleness", "1"], ["--rollout-slots", "4"],
+                                  ["--max-staleness", "1"],
                                   ["--env", "calculator"], ["--num-hosts", "2"],
                                   ["--obs-trace", "t.json"], ["--obs-metrics", "m.jsonl"]])
 def test_unported_flags_raise(flag):
@@ -363,11 +407,10 @@ def test_unported_flags_raise(flag):
         train.main(["--smoke", "--device", "cpu", "--iters", "1", *flag])
 
 
-@pytest.mark.parametrize("option", ["rollout", "async_pipeline", "env", "distributed", "obs",
+@pytest.mark.parametrize("option", ["async_pipeline", "env", "distributed", "obs",
                                     "mesh_shape"])
 def test_unported_options_raise(option):
-    value = {"rollout": RolloutEngineConfig(engine="continuous"),
-             "async_pipeline": AsyncPipelineConfig(enabled=True),
+    value = {"async_pipeline": AsyncPipelineConfig(enabled=True),
              "env": EnvConfig(name="calculator"),
              "distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c"),
              "obs": ObsConfig(enabled=True), "mesh_shape": (2, 1)}[option]
@@ -386,3 +429,122 @@ def test_without_cuda_every_entry_point_raises_unless_the_cpu_is_asked():
         ExperimentSpec(model=cfg).compile()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--smoke", "--iters", "1"])
+
+
+# --------------------------------------------------------------------------- #
+# the continuous rollout engine through ExperimentSpec and launch.train
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("num_slots", [4, 0], ids=["refill", "early_exit"])
+def test_continuous_engine_option_matches_jax(num_slots):
+    """``ExperimentSpec(rollout=RolloutEngineConfig(engine="continuous"))``
+    builds the continuous engine: 2 greedy GRPO iterations (16 rollouts over
+    4 slots, or one slot each) equal the JAX pipeline's with its engine, with
+    ``rollout/*`` in the metrics."""
+    jexp = dataclasses.replace(jax_spec(), rollout=JaxRolloutEngineConfig(
+        engine="continuous", num_slots=num_slots))
+    (jpipe, jtoks), (tpipe, ttoks) = bridged_pair(jexp)
+    engine = tpipe.ctx.engines["generate"].engine
+    assert isinstance(engine, ContinuousRolloutEngine) and engine.num_slots == num_slots
+    fp32_arenas(jpipe, tpipe)
+    jhist, thist = jpipe.run(2), tpipe.run(2)
+    assert_continuous_iterations_match(jhist, thist, jtoks, ttoks)
+    assert counts(tpipe.buffer.stats) == counts(jpipe.buffer.stats)
+    for m in thist:
+        assert m["rollout/num_slots"] == (num_slots or 16)
+        assert 0.0 < m["rollout/slot_occupancy"] <= 1.0
+        assert (m["rollout/refills"] > 1) == (num_slots == 4)
+    assert min(m["rollout/mean_len"] for m in thist) < 4.0  # EOS_SCALE: early ends
+
+
+def test_rollout_slots_flag_builds_the_continuous_engine(tmp_path):
+    """``launch.train --rollout-slots 2``: the spec's engine is the continuous
+    one over 2 slots, also layered on an experiment file; an iteration runs
+    through it and reports ``rollout/*``; and the flag's experiment, made
+    greedy, gives the JAX pipeline's rollout on the same weights."""
+    base, path = tmp_path / "base.json", tmp_path / "exp.json"
+    train.main(SMALL + ["--dump-experiment", str(base)])
+    train.main(["--experiment", str(base), "--rollout-slots", "2", "--dump-experiment",
+                str(path)])
+    d = json.loads(path.read_text())
+    assert d["rollout"] == dataclasses.asdict(RolloutEngineConfig(engine="continuous",
+                                                                  num_slots=2))
+    out = train.main(SMALL + ["--iters", "1", "--rollout-slots", "2"])
+    assert out["experiment"].rollout.num_slots == 2
+    assert isinstance(out["pipeline"].ctx.engines["generate"], ContinuousRolloutEngine)
+    m = out["history"][0]
+    assert m["rollout/num_slots"] == 2 and m["rollout/refills"] >= 4 and "actor/loss" in m
+
+    d["rl"]["temperature"] = 0.0
+    (jpipe, jtoks), (tpipe, ttoks) = bridged_pair(JaxExperimentSpec.from_dict(d))
+    fp32_arenas(jpipe, tpipe)
+    assert_continuous_iterations_match(jpipe.run(1), tpipe.run(1), jtoks, ttoks)
+
+
+def _layer_cfg(**kw):
+    return dataclasses.replace(reduced(get_config("gemma-2b"), **SMOKE), **kw)
+
+
+# every NotImplementedError of the port, and the ROADMAP queue 1 item that
+# ports its subsystem
+NOT_PORTED_CASES = {
+    "flag_max_staleness": (4, lambda: train.main(SMALL + ["--max-staleness", "1"])),
+    "option_async_pipeline": (4, lambda: ExperimentSpec(
+        model=_layer_cfg(), async_pipeline=AsyncPipelineConfig(enabled=True)).compile(
+        device="cpu")),
+    "flag_env": (5, lambda: train.main(SMALL + ["--env", "calculator"])),
+    "option_env": (5, lambda: ExperimentSpec(
+        model=_layer_cfg(), env=EnvConfig(name="calculator")).compile(device="cpu")),
+    "stage_env_compute": (5, lambda: stages.env_compute(None, None, None)),
+    "engine_env": (5, lambda: ContinuousRolloutEngine(
+        get_model_cpu(_layer_cfg()), max_new=2, env=object())),
+    "moe": (6, lambda: get_model_cpu(reduced(get_config("mixtral-8x7b")))),
+    "enc_dec": (6, lambda: get_model_cpu(reduced(get_config("seamless-m4t-medium")))),
+    "prefix_embeds": (6, lambda: get_model_cpu(reduced(get_config("llava-next-34b")))),
+    "parallel_block": (6, lambda: get_model_cpu(_layer_cfg(parallel_block=True))),
+    "sliding_window": (6, lambda: get_model_cpu(_layer_cfg(sliding_window=16))),
+    "layernorm": (6, lambda: get_model_cpu(_layer_cfg(norm_type="layernorm")).init(
+        torch.Generator().manual_seed(0))),
+    "bias": (6, lambda: get_model_cpu(_layer_cfg(use_bias=True)).init(
+        torch.Generator().manual_seed(0))),
+    "top_p": (6, lambda: train_generate(top_p=0.9)),
+    "engine_top_p": (6, lambda: ContinuousRolloutEngine(
+        get_model_cpu(_layer_cfg()), max_new=2, top_p=0.9)),
+    "flag_ckpt_dir": (7, lambda: train.main(SMALL + ["--ckpt-dir", "ckpts"])),
+    "flag_resume": (7, lambda: train.main(SMALL + ["--resume", "ckpts"])),
+    "flag_obs_trace": (7, lambda: train.main(SMALL + ["--obs-trace", "t.json"])),
+    "option_obs": (7, lambda: ExperimentSpec(
+        model=_layer_cfg(), obs=ObsConfig(enabled=True)).compile(device="cpu")),
+    "flag_num_hosts": (8, lambda: train.main(SMALL + ["--num-hosts", "2"])),
+    "option_distributed": (8, lambda: ExperimentSpec(
+        model=_layer_cfg(), distributed=DistributedConfig(
+            num_hosts=2, coordinator="/tmp/c")).compile(device="cpu")),
+    "option_mesh": (8, lambda: ExperimentSpec(model=_layer_cfg(), mesh_shape=(2, 1)).compile(
+        device="cpu")),
+}
+ITEM_NAMES = {4: "async off-policy pipeline", 5: "multi-turn environments",
+              6: "other families", 7: "(fault tolerance|telemetry)", 8: "distributed"}
+
+
+def get_model_cpu(cfg):
+    from repro_torch.models import get_model
+
+    return get_model(cfg, device="cpu")
+
+
+def train_generate(**kw):
+    from repro_torch.rl.rollout import generate
+
+    cfg = _layer_cfg()
+    model = get_model_cpu(cfg)
+    return generate(model, model.init(torch.Generator().manual_seed(0)),
+                    torch.ones((1, 2), dtype=torch.int32), torch.Generator(), max_new=2, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(NOT_PORTED_CASES))
+def test_not_implemented_messages_cite_their_item(case):
+    """Each refusal names the ROADMAP queue 1 item that ports it, by number
+    and by name."""
+    item, call = NOT_PORTED_CASES[case]
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP queue 1, item {item}: {ITEM_NAMES[item]}"):
+        call()

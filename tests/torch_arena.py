@@ -1,0 +1,46 @@
+"""Shared by the tests that hold the port's continuous rollout engine against
+the JAX package's: an fp32 cache arena for either package's model, and the
+``last_stats`` keys that only the JAX engine's episode loop fills.
+
+Both engines' cache arenas are bf16 (``init_caches``). On fp32 weights the
+JAX engine cannot run on one at all (its decode writes turn the
+``while_loop`` carry's caches fp32), and the port's would hold lockstep's
+fp32 prefill caches rounded, so the fp32 comparisons give both engines an
+fp32 arena.
+"""
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro_torch import tree
+
+# last_stats keys of the JAX engine that only its episode loop (ROADMAP
+# queue 1, item 5) gives a meaning beyond the single-turn counts
+EPISODE_KEYS = {"prefill_tokens", "prefill_tokens_turn1", "prefill_tokens_turn2plus",
+                "obs_tokens", "cont_refills", "turns"}
+
+
+class Fp32Arena:
+    """``model`` (of either package) with its ``init_caches`` leaves cast
+    from bf16 to fp32 by ``cast``; everything else is the model's."""
+
+    def __init__(self, model, cast):
+        self._model, self._cast = model, cast
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def init_caches(self, batch, smax):
+        return self._cast(self._model.init_caches(batch, smax))
+
+
+def jax_fp32_arena(model):
+    """A JAX package model whose cache arena is fp32."""
+    return Fp32Arena(model, lambda c: jax.tree.map(
+        lambda a: a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a, c))
+
+
+def fp32_arena(model):
+    """A port model whose cache arena is fp32."""
+    return Fp32Arena(model, lambda c: tree.map(
+        lambda t: t.float() if t.dtype == torch.bfloat16 else t, c))
