@@ -114,6 +114,21 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      occupancy and wall ms, medians of 3 after a warm-up; the kernel path
      against the plain path; the refill arm's launches equal to its
      prefills and decode steps.
+ 12. The async off-policy pipeline and multi-turn episodes (qwen freed):
+     ``launch.train`` at full gemma-2b width on phase 8's experiment file
+     and RL settings, one warm-up and 3 timed iterations an arm, each arm's
+     warm-up held to plain and its launches checked per iteration: a
+     synchronous arm and ``--max-staleness 0``, bitwise equal (metrics,
+     rollouts, a bit checksum of every actor leaf); ``--max-staleness 1``,
+     its staleness and weight versions, and each dispatch's behaviour
+     weights byte for byte the copy saved at the previous publish, not the
+     live weights an in-place AdamW step wrote; a GRPO variant with the
+     truncated-IS correction at staleness 1, its recomputed ``old_logprob``
+     held to the plain path's and its IS weights in (0, ``is_rho_max``];
+     and ``--env dialog --max-turns 3 --turn-budget 8 --rollout-slots 4
+     --max-staleness 1``: exact turn, observation and carried-token counts,
+     observation tokens out of ``response_mask``, continuations through
+     ``decode_attention`` at each row's own offset.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -1915,46 +1930,77 @@ BUFFER_COUNTS = ("puts", "fast_path_hits", "redistributions", "overlap_hits", "s
 
 @contextlib.contextmanager
 def observed_iterations(torch, _build, hold=None):
-    """While open, every ``DAGWorker.run_iteration`` is bracketed by
-    ``torch.cuda.synchronize`` (its synchronised wall time and its kernel
-    launches are recorded with its metrics), and the tokens of every rollout
-    of ``rl.rollout.generate`` are kept. With ``hold`` (a function that
-    returns a context such as ``held_to_plain``'s), the first iteration
-    runs inside that context, and what it yields is kept. Yields
-    {"iterations", "tokens", "held"}."""
+    """While open, every ``run_iteration`` of the DAG worker and of the async
+    worker is bracketed by ``torch.cuda.synchronize`` (its synchronised wall
+    time and its kernel launches are recorded with its metrics), the tokens
+    of every rollout of ``rl.rollout.generate`` are kept, and so is every
+    result of the continuous engine. With ``hold`` (a function that returns
+    a context such as ``held_to_plain``'s), the first iteration runs inside
+    that context, and what it yields is kept. Yields {"iterations",
+    "tokens", "engine", "held"}."""
+    from repro_torch.core import async_worker as async_mod
     from repro_torch.core import worker as worker_mod
     from repro_torch.rl import rollout as rollout_mod
+    from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
 
-    seen = {"iterations": [], "tokens": [], "held": None}
-    run_iteration, generate = worker_mod.DAGWorker.run_iteration, rollout_mod.generate
+    seen = {"iterations": [], "tokens": [], "engine": [], "held": None}
+    workers = (worker_mod.DAGWorker, async_mod.AsyncDAGWorker)
+    run_iterations = [cls.__dict__["run_iteration"] for cls in workers]
+    generate, engine_call = rollout_mod.generate, ContinuousRolloutEngine.__call__
 
-    def timed(self):
-        torch.cuda.synchronize()
-        before = dict(_build.LAUNCHES)
-        t = time.perf_counter()
-        if hold is not None and not seen["iterations"]:
-            with hold() as seen["held"]:
+    def timed(run_iteration):
+        def run(self):
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t = time.perf_counter()
+            if hold is not None and not seen["iterations"]:
+                with hold() as seen["held"]:
+                    metrics = run_iteration(self)
+            else:
                 metrics = run_iteration(self)
-        else:
-            metrics = run_iteration(self)
-        torch.cuda.synchronize()
-        seen["iterations"].append({
-            "ms": (time.perf_counter() - t) * 1e3, "metrics": metrics,
-            "launches": {n: _build.LAUNCHES[n] - before[n] for n in _build.LAUNCHES}})
-        return metrics
+            torch.cuda.synchronize()
+            seen["iterations"].append({
+                "ms": (time.perf_counter() - t) * 1e3, "metrics": metrics,
+                "launches": {n: _build.LAUNCHES[n] - before[n] for n in _build.LAUNCHES}})
+            return metrics
+        return run
 
     def kept(*args, **kw):
         res = generate(*args, **kw)
         seen["tokens"].append(res.tokens)
         return res
 
-    worker_mod.DAGWorker.run_iteration = timed
+    def engine_kept(self, *args, **kw):
+        res = engine_call(self, *args, **kw)
+        seen["engine"].append({"result": res, "stats": dict(self.last_stats)})
+        return res
+
+    for cls, run_iteration in zip(workers, run_iterations):
+        cls.run_iteration = timed(run_iteration)
     rollout_mod.generate = kept
+    ContinuousRolloutEngine.__call__ = engine_kept
     try:
         yield seen
     finally:
-        worker_mod.DAGWorker.run_iteration = run_iteration
+        for cls, run_iteration in zip(workers, run_iterations):
+            cls.run_iteration = run_iteration
         rollout_mod.generate = generate
+        ContinuousRolloutEngine.__call__ = engine_call
+
+
+def experiment_file(label: str, flags, rl) -> Path:
+    """``build/<label>_experiment.json``: the spec ``launch.train`` dumps for
+    ``flags`` (the arch, the algorithm, the env) and PIPE_FLAGS, with ``rl``
+    written over its RLConfig."""
+    from repro_torch.launch import train
+
+    path = ROOT / "build" / f"{label}_experiment.json"
+    path.parent.mkdir(exist_ok=True)
+    train.main(flags + PIPE_FLAGS + ["--dump-experiment", str(path)])
+    spec = json.loads(path.read_text())
+    spec["rl"].update(rl)
+    path.write_text(json.dumps(spec))
+    return path
 
 
 def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAGS, rl=PIPE_RL,
@@ -1991,12 +2037,7 @@ def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAG
     from repro_torch.rl import critic as critic_mod
 
     t_phase = time.perf_counter()
-    exp_path = ROOT / "build" / f"{label}_experiment.json"
-    exp_path.parent.mkdir(exist_ok=True)
-    train.main(flags + PIPE_FLAGS + ["--dump-experiment", str(exp_path)])
-    spec = json.loads(exp_path.read_text())
-    spec["rl"].update(rl)
-    exp_path.write_text(json.dumps(spec))
+    exp_path = experiment_file(label, flags, rl)
     exp = ExperimentSpec.from_json(exp_path.read_text())
     cfg, algorithm = exp.model, algorithms.get_algorithm(exp.rl.algorithm)
     critic = algorithm.uses_critic
@@ -2674,9 +2715,403 @@ def qwen_engine_phase(torch, ops, ref, _build, serve, generate, label="qwen_engi
     return counts
 
 
+# phase 12: the async off-policy pipeline and multi-turn environments through
+# launch.train at full gemma-2b width and depth, on phase 8's experiment file
+# and RL settings (2 prompts x 8 rollouts of 16 new tokens, --seed 0, one
+# warm-up iteration then PIPE_TIMED timed ones an arm)
+TIS_ALGORITHM = "grpo_tis"  # GRPO with the truncated-IS correction, registered here
+MT_FLAGS = ["--env", "dialog", "--max-turns", "3", "--turn-budget", "8"]
+MT_SLOTS = 4
+MT_TURNS = 3
+# arm -> (experiment file, flags on top of it)
+ASYNC_ARMS = {"sync": ("async", []),
+              "async_s0": ("async", ["--max-staleness", "0"]),
+              "async_s1": ("async", ["--max-staleness", "1"]),
+              "async_tis": ("async_tis", ["--max-staleness", "1"]),
+              "multiturn": ("multiturn", ["--rollout-slots", str(MT_SLOTS),
+                                          "--max-staleness", "1"])}
+
+
+def bit_checksum(torch, params) -> list:
+    """Per leaf of ``params``, a position-weighted sum of its bits (int64 on
+    the card, in chunks): equal weights give equal sums, and one flipped bit
+    changes its leaf's."""
+    from repro_torch import tree
+
+    out = []
+    for leaf in tree.leaves(params):
+        bits = leaf.detach().contiguous().view(
+            torch.int16 if leaf.element_size() == 2 else torch.int32).flatten()
+        total, step = 0, 1 << 26
+        for i in range(0, bits.numel(), step):
+            b = bits[i:i + step].to(torch.int64)
+            w = torch.arange(i, i + b.numel(), device=b.device) % 65521 + 1
+            total += int((b * w).sum())
+        out.append(total)
+    return out
+
+
+def pick_leaf(params):
+    """The leaf the in-place checks read: the final norm's weight (every
+    AdamW step of the arms moves it)."""
+    from repro_torch import tree
+
+    return tree.leaves(params["final_norm"])[0]
+
+
+@contextlib.contextmanager
+def observed_versions(torch):
+    """While open, the async worker's weight versions are observed: a copy
+    of ``pick_leaf`` of every published version; for each dispatch the
+    behaviour version it took and that version's own leaf (a reference to
+    the store's tensor, so its later bytes are what the store then holds;
+    the rest of the copy is not kept alive); a copy of the leaf that each
+    generation ran; a copy of the live leaf after each update; and each
+    publish's synchronised wall ms (the copy of the weights). Yields those
+    lists."""
+    from repro_torch.core.async_worker import AsyncDAGWorker
+    from repro_torch.distributed.weight_sync import WeightVersionStore
+    from repro_torch.rl import rollout as rollout_mod
+
+    seen = {"published": {}, "behaviour": [], "ran": [], "live_after_update": [],
+            "publish_ms": []}
+    publish, behavior = WeightVersionStore.publish, AsyncDAGWorker._behavior_weights
+    consume, generate = AsyncDAGWorker.consume_and_train, rollout_mod.generate
+
+    def publish_kept(self, params, **kw):
+        out, ms = sync_ms(torch, lambda: publish(self, params, **kw))
+        seen["publish_ms"].append(ms)
+        seen["published"][out.version] = pick_leaf(out.params).clone()
+        return out
+
+    def behavior_kept(self):
+        out = behavior(self)
+        seen["behaviour"].append((out.version, pick_leaf(out.params)))
+        return out
+
+    def consume_kept(self, metrics=None):
+        out = consume(self, metrics)
+        seen["live_after_update"].append(
+            (len(seen["behaviour"]) - 1, pick_leaf(self.ctx.actor_state.params).clone()))
+        return out
+
+    def generate_kept(model, params, *args, **kw):
+        seen["ran"].append(pick_leaf(params).clone())
+        return generate(model, params, *args, **kw)
+
+    WeightVersionStore.publish, AsyncDAGWorker._behavior_weights = publish_kept, behavior_kept
+    AsyncDAGWorker.consume_and_train, rollout_mod.generate = consume_kept, generate_kept
+    try:
+        yield seen
+    finally:
+        WeightVersionStore.publish, AsyncDAGWorker._behavior_weights = publish, behavior
+        AsyncDAGWorker.consume_and_train, rollout_mod.generate = consume, generate
+
+
+@contextlib.contextmanager
+def observed_recompute(torch, ops, rho_max: float):
+    """While open, every ``logprobs`` call of the async worker's truncated
+    correction (inside ``consume_and_train``) is also run on the plain path
+    (``ops.set_mode("ref")``) on the same weights and tokens. Yields a list
+    of {"ratio_mean", "max_abs_diff", "rho_min", "rho_max", "tokens",
+    "plain_ms"}: the masked mean of exp(kernel - plain), the largest
+    |kernel - plain|, the range of the truncated IS weights
+    min(exp(recomputed - behaviour), rho_max) over the response tokens, and
+    the synchronised ms of the plain recompute (a check, inside the timed
+    iteration: the arm reports its iterations without it too)."""
+    from repro_torch.core.async_worker import AsyncDAGWorker
+
+    seen = []
+    consume = AsyncDAGWorker.consume_and_train
+
+    def consume_checked(self, metrics=None):
+        pending = self._inflight[0] if self._inflight else None
+        engine = self.ctx.engines["logprobs"]
+
+        def logprobs(params, tokens):
+            lp, ent = engine(params, tokens)
+            ops.set_mode("ref")
+            try:
+                (lp_ref, _), plain_ms = sync_ms(torch, lambda: engine(params, tokens))
+            finally:
+                ops.set_mode(None)
+            m = pending.data["response_mask"]
+            d = (lp - lp_ref)[m].float()
+            rho = torch.exp(lp[m].float() - pending.data["old_logprob"][m].float()).clamp(
+                max=rho_max)
+            seen.append({"ratio_mean": float(torch.exp(d).mean()),
+                         "max_abs_diff": float(d.abs().max()), "rho_min": float(rho.min()),
+                         "rho_max": float(rho.max()), "tokens": int(m.sum()),
+                         "plain_ms": plain_ms})
+            return lp, ent
+
+        self.ctx.engines["logprobs"] = logprobs
+        try:
+            return consume(self, metrics)
+        finally:
+            self.ctx.engines["logprobs"] = engine
+
+    AsyncDAGWorker.consume_and_train = consume_checked
+    try:
+        yield seen
+    finally:
+        AsyncDAGWorker.consume_and_train = consume
+
+
+def continuation_launches(cfg, names, steps: int):
+    """Launch counts of ``steps`` teacher-forced ``decode_step`` calls (a
+    continuation's feed): a decode step's norms and decode attention, no
+    sampler (the head is a plain product)."""
+    out = forward_launches(cfg, names, 0, steps)
+    out["fused_sample"] = 0
+    return out
+
+
+def async_phase(torch, ops, ref, _build, label="async"):
+    """Phase 12: the async pipeline and multi-turn episodes through
+    ``launch.train.main`` at gemma-2b's full width and depth, arm after arm
+    (each pipeline freed before the next is built), the launch counters set
+    to 0 just before each arm and read just after it, each arm's warm-up
+    iteration held to plain (calls equal to its launches):
+
+    - ``sync`` and ``async_s0`` (``--max-staleness 0``) on phase 8's file:
+      every iteration's metrics bitwise equal (clock keys and the
+      scheduler's own accounting aside), the rollouts equal, and the bit
+      checksums of every actor leaf after the last iteration equal;
+    - ``async_s1`` (``--max-staleness 1``): the first tick only generates,
+      the second trains the warm-up batch at staleness 0 (version 0 is
+      published lazily, at the first dispatch), every later tick at
+      staleness 1, the weight version rising by 1 a tick; each dispatch ran
+      the copy published at the previous update, byte for byte, which an
+      in-place AdamW step did not change and which differs from the live
+      weights after the tick's update;
+    - ``async_tis``: GRPO with the truncated-IS correction (``--algorithm
+      grpo_tis`` in its file) at ``--max-staleness 1``: every stale batch
+      corrected, its recomputed ``old_logprob`` held to the plain path's on
+      the same tokens (masked mean of exp(kernel - plain) within 1 +-
+      RATIO_TOL), its IS weights in (0, rl.is_rho_max];
+    - ``multiturn`` (``--env dialog --max-turns 3 --turn-budget 8`` in its
+      file, ``--rollout-slots 4 --max-staleness 1``): every episode runs 3
+      turns (48 a tick), the role-2 tokens are ``obs_tokens``, the later
+      turns' prefill is ``obs_tokens`` + 32 carried tokens, no observation
+      token is in ``response_mask`` (which is role 1 exactly), and every
+      launch is the engine's prefills, decode steps and continuation feed
+      steps.
+
+    Every iteration: every metric finite, the launches as expected, and
+    where it trains a nonzero gradient and ratio_mean within 1 +- RATIO_TOL.
+    Prints ``{label + "_arm": ...}`` per arm and ``{label: ...}``. Returns
+    {path: the arm's launch counts}."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core.async_worker import AsyncDAGWorker
+    from repro_torch.launch import train
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    grpo = algorithms.get_algorithm("grpo")
+    algorithms.register_algorithm(dataclasses.replace(grpo, name=TIS_ALGORITHM,
+                                                      is_correction="truncated"), override=True)
+    files = {"async": experiment_file(label, ARCH_FLAGS, PIPE_RL),
+             "async_tis": experiment_file(f"{label}_tis", ARCH_FLAGS
+                                          + ["--algorithm", TIS_ALGORITHM], PIPE_RL),
+             "multiturn": experiment_file(f"{label}_multiturn", ARCH_FLAGS + MT_FLAGS, PIPE_RL)}
+    exp = ExperimentSpec.from_json(files["async"].read_text())
+    cfg, rl = exp.model, exp.rl
+    rollouts = exp.prompts_per_iter * grpo.group_size(rl)
+    per_iter, step = iteration_launches(cfg, _build.LAUNCHES, rl.max_new_tokens,
+                                        grpo.dag_factory())
+    lockstep = forward_launches(cfg, _build.LAUNCHES, 1, rl.max_new_tokens - 1)
+    fwd = forward_launches(cfg, _build.LAUNCHES, 1, 0)
+    names = path_kernels(cfg)
+    runs, counts, summary = {}, {}, {}
+    for arm, (file_key, flags) in ASYNC_ARMS.items():
+        t_arm = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(observed_iterations(
+                torch, _build, lambda: held_to_plain(torch, ops, ref, names)))
+            versions = stack.enter_context(observed_versions(torch))
+            recompute = stack.enter_context(observed_recompute(torch, ops, rl.is_rho_max))
+            out = train.main(["--experiment", str(files[file_key]), "--device", DEV]
+                             + PIPE_ITERS + flags)
+        counts[arm] = dict(_build.LAUNCHES)
+        pipe = out["pipeline"]
+        rows = seen["iterations"]
+        require(len(rows) == 1 + PIPE_TIMED, f"{label} {arm}: {len(rows)} iterations")
+        require(isinstance(pipe.worker, AsyncDAGWorker) == (arm != "sync"),
+                f"{label} {arm}: worker {type(pipe.worker).__name__}")
+        held = seen["held"]
+        require(all(held[n]["calls"] == rows[0]["launches"][n] for n in names),
+                f"{label} {arm} warm-up held to plain: calls {held}, launches "
+                f"{rows[0]['launches']}")
+        print(json.dumps({"check": f"{label}_{arm}_warmup_held_to_plain", "kernels": held}),
+              flush=True)
+        for it, row in enumerate(rows):
+            m = row["metrics"]
+            require(all(np.isfinite(v) for v in m.values()),
+                    f"{label} {arm} iteration {it}: non-finite metric {m}")
+            trains = "actor/loss" in m
+            if arm in ("sync", "async_s0"):
+                require(trains, f"{label} {arm} iteration {it} did not train")
+            else:
+                require(trains == (it > 0), f"{label} {arm} iteration {it}: trains {trains}")
+            if trains:
+                # the step-0 ratio holds the sampler's logprobs to the training
+                # forward's on an on-policy batch; on a stale one it is
+                # exp(new - old policy) and measures the last update instead
+                if m.get("async/staleness", 0.0) == 0.0:
+                    require(abs(m["actor/ratio_mean"] - 1.0) <= RATIO_TOL,
+                            f"{label} {arm} iteration {it}: ratio_mean {m['actor/ratio_mean']}")
+                require(m["actor/grad_norm"] > 0, f"{label} {arm} iteration {it}: zero gradient")
+            want = dict(per_iter)
+            if arm == "multiturn":
+                st = seen["engine"][it]["stats"]
+                gen = forward_launches(cfg, _build.LAUNCHES, int(st["refills"]),
+                                       int(st["decode_steps"]))
+                # every continuation of a dialog tick feeds one width (the
+                # carried token and the re-asked question), and a refill of
+                # any lane count runs that many teacher-forced steps
+                width = st["prefill_tokens_turn2plus"] / (st["turns"] - rollouts)
+                require(width == int(width), f"{label} {arm}: feed widths differ: {st}")
+                cont = continuation_launches(cfg, _build.LAUNCHES,
+                                             int(width) * int(st["cont_refills"]))
+                want = {n: per_iter[n] - lockstep[n] + gen[n] + cont[n] for n in per_iter}
+            if not trains:
+                want = {n: want[n] - step.get(n, 0) for n in want}
+            if m.get("async/is_corrected"):
+                want = {n: want[n] + fwd[n] for n in want}
+            require(row["launches"] == want, f"{label} {arm} iteration {it}: launches "
+                                             f"{row['launches']}, expected {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        timed = rows[1:]
+        run = {
+            "iteration_ms": [r["ms"] for r in rows],
+            "iteration_ms_median": statistics.median(r["ms"] for r in timed),
+            "node_ms_median": {k[5:]: statistics.median(r["metrics"][k] * 1e3 for r in timed)
+                               for k in sorted(timed[-1]["metrics"]) if k.startswith("time/")},
+            "async": {k: [r["metrics"].get(k) for r in rows]
+                      for k in sorted({k for r in rows for k in r["metrics"]})
+                      if k.startswith("async/") or k == "pipeline/staleness"},
+            **{k[6:]: [r["metrics"].get(k) for r in rows]
+               for k in ("actor/ratio_mean", "actor/kl", "actor/entropy", "actor/grad_norm",
+                         "actor/loss", "actor/clipfrac")},
+            "launches_per_iteration": [r["launches"] for r in rows], "held_to_plain": held,
+            "peak_gib": peak}
+        if arm in ("sync", "async_s0"):
+            runs[arm] = {"values": [{k: v for k, v in r["metrics"].items()
+                                     if not k.startswith(("time/", "async/"))
+                                     and k != "pipeline/staleness"} for r in rows],
+                         "tokens": [t.clone() for t in seen["tokens"]],
+                         "checksum": bit_checksum(torch, pipe.ctx.actor_state.params)}
+        if arm != "sync":
+            run["publish_ms"] = versions["publish_ms"]
+        if arm in ("async_s1", "async_tis", "multiturn"):
+            stale = [r["metrics"].get("async/staleness") for r in rows]
+            require(stale == [None, 0.0] + [1.0] * (PIPE_TIMED - 1),
+                    f"{label} {arm}: staleness {stale}")
+            ver = [r["metrics"].get("async/weight_version") for r in rows]
+            require(ver == [None] + [float(v) for v in range(1, 1 + PIPE_TIMED)],
+                    f"{label} {arm}: weight versions {ver}")
+        if arm == "async_s1":
+            # tick t >= 1 dispatches under version t - 1 and then updates
+            ran, beh = versions["ran"], versions["behaviour"]
+            after = dict(versions["live_after_update"])
+            require(len(ran) == len(beh) == 1 + PIPE_TIMED,
+                    f"{label} {arm}: {len(ran)} generations, {len(beh)} dispatches")
+            checks = []
+            for t in range(1, 1 + PIPE_TIMED):
+                version, now = beh[t]
+                saved = versions["published"][version]
+                c = {"tick": t, "behaviour_version": version,
+                     "ran_equals_saved": torch.equal(ran[t], saved),
+                     "snapshot_unchanged": torch.equal(now, saved),
+                     "differs_from_live": not torch.equal(now, after[t])}
+                checks.append(c)
+                require(c["behaviour_version"] == t - 1 and c["ran_equals_saved"]
+                        and c["snapshot_unchanged"] and c["differs_from_live"],
+                        f"{label} {arm}: in-place check {c}")
+            run["in_place_checks"] = checks
+            print(json.dumps({"check": f"{label}_{arm}_behaviour_weights", "ticks": checks}),
+                  flush=True)
+        if arm == "async_tis":
+            corrected = [r["metrics"].get("async/is_corrected") for r in rows]
+            require(corrected == [None, 0.0] + [1.0] * (PIPE_TIMED - 1),
+                    f"{label} {arm}: is_corrected {corrected}")
+            require(len(recompute) == PIPE_TIMED - 1, f"{label} {arm}: {len(recompute)} "
+                                                      f"recomputes")
+            for rc in recompute:
+                require(abs(rc["ratio_mean"] - 1.0) <= RATIO_TOL
+                        and 0.0 < rc["rho_min"] and rc["rho_max"] <= rl.is_rho_max,
+                        f"{label} {arm}: recompute {rc}")
+            for r in rows[2:]:
+                require(0.0 < r["metrics"]["actor/rho_mean"] <= rl.is_rho_max,
+                        f"{label} {arm}: rho_mean {r['metrics']['actor/rho_mean']}")
+            run["recompute"] = recompute
+            checks_ms = [0.0, 0.0] + [rc["plain_ms"] for rc in recompute]
+            less = [r["ms"] - c for r, c in zip(rows, checks_ms)]
+            run["iteration_ms_less_check"] = less
+            run["iteration_ms_median_less_check"] = statistics.median(less[1:])
+            run["rho_mean"] = [r["metrics"].get("actor/rho_mean") for r in rows]
+        if arm == "multiturn":
+            require(len(seen["engine"]) == 1 + PIPE_TIMED,
+                    f"{label} {arm}: {len(seen['engine'])} engine calls")
+            episodes = []
+            for it, (row, call) in enumerate(zip(rows, seen["engine"])):
+                m, res, st = row["metrics"], call["result"], call["stats"]
+                roles, mask = res.role_mask, res.response_mask
+                obs = int((roles == 2).sum())
+                ep = {k: st[k] for k in ("prefill_tokens_turn1", "prefill_tokens_turn2plus",
+                                         "obs_tokens", "cont_refills", "turns", "turns_mean",
+                                         "tool_calls", "refills", "decode_steps", "bursts",
+                                         "slot_occupancy")}
+                ep["role2_tokens"] = obs
+                episodes.append(ep)
+                require(m["env/turns_mean"] == MT_TURNS and st["turns"] == MT_TURNS * rollouts
+                        and obs == st["obs_tokens"]
+                        and st["prefill_tokens_turn2plus"] == obs + (MT_TURNS - 1) * rollouts
+                        and not bool((mask & (roles == 2)).any())
+                        and torch.equal(mask, roles == 1),
+                        f"{label} {arm} iteration {it}: episode counts {ep}")
+            run["episodes"] = episodes
+        summary[arm] = run
+        run["launches"] = counts[arm]
+        run["arm_s"] = time.perf_counter() - t_arm
+        print(json.dumps({f"{label}_arm": {"arm": arm, **run}}), flush=True)
+        del out, pipe, seen, versions, recompute
+        gc.collect()
+        torch.cuda.empty_cache()
+    algorithms._ALGORITHMS.pop(TIS_ALGORITHM)
+
+    sync, s0 = runs["sync"], runs["async_s0"]
+    for it, (a, b) in enumerate(zip(sync["values"], s0["values"])):
+        diff = {k: (a.get(k), b.get(k)) for k in set(a) | set(b) if a.get(k) != b.get(k)}
+        require(not diff, f"{label}: async_s0 iteration {it} metrics differ from sync: {diff}")
+    require(len(sync["tokens"]) == len(s0["tokens"]) == 1 + PIPE_TIMED
+            and all(torch.equal(a, b) for a, b in zip(sync["tokens"], s0["tokens"])),
+            f"{label}: async_s0 rollouts differ from sync")
+    require(sync["checksum"] == s0["checksum"],
+            f"{label}: async_s0 actor weights differ from sync after the last iteration")
+    out = {"arms": {arm: {"iteration_ms_median": r["iteration_ms_median"],
+                          "peak_gib": r["peak_gib"]} for arm, r in summary.items()},
+           "s0_bitwise_equal_to_sync": True, "checksum_leaves": len(sync["checksum"]),
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({label: out}), flush=True)
+    return {f"{'async_' if arm == 'sync' else ''}{arm}_pipeline": c for arm, c in counts.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--only-phase", type=int, choices=[12], default=None,
+                    help="build the kernels, run this phase alone and stop, without "
+                         "the kernels line and the last line (a quick check of one "
+                         "phase; the full run takes no argument)")
     opts = ap.parse_args(argv)
 
     import torch
@@ -2710,6 +3145,12 @@ def main(argv=None) -> int:
         print(f"[build] {name}: " + " | ".join(lines), flush=True)
     print(f"[build] {len(_build.KERNELS)} kernels built in {build_s:.1f}s (nvcc, sm_90a)",
           flush=True)
+
+    if opts.only_phase == 12:
+        counts = async_phase(torch, ops, ref, _build)
+        print(json.dumps({"only_phase": 12, "launches": counts,
+                          "script_s": time.perf_counter() - t_start}), flush=True)
+        return 0
 
     # ---- phase 2: kernels against their plain versions ----
     records = kernel_phase(torch, ops, ref, F)
@@ -2775,6 +3216,12 @@ def main(argv=None) -> int:
     # and depth (the counts set to 0 just before the refill arm's first run,
     # read just after) ----
     paths["qwen_engine"] = qwen_engine_phase(torch, ops, ref, _build, serve, generate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 12: the async pipeline and multi-turn episodes through
+    # launch.train at gemma-2b's full width (qwen freed; the counts set to 0
+    # just before each arm, read just after) ----
+    paths.update(async_phase(torch, ops, ref, _build))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -2796,7 +3243,10 @@ def main(argv=None) -> int:
                "grpo_engine_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
                                         "fused_sample"),
                "qwen_engine": ("rmsnorm", "flash_attention", "decode_attention",
-                               "fused_sample")}
+                               "fused_sample"),
+               **{f"{arm}_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
+                                      "fused_sample")
+                  for arm in ("async_sync", "async_s0", "async_s1", "async_tis", "multiturn")}}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),
                 f"a kernel of the {path} path was not launched: {paths[path]}")

@@ -7,7 +7,11 @@ takes one directly) and wires together model init, the engines, the DAG (the
 spec's template or user-supplied), the planner's serialized chain, the Data
 Coordinator (Distributed Dataloader + Databuffer) and a DAG Worker, all on
 one device. ``centralized=True`` swaps in the single-controller databuffer,
-the baseline arm of the paper's comparisons.
+the baseline arm of the paper's comparisons. An enabled ``async_pipeline``
+runs the staleness-bounded :class:`~repro_torch.core.async_worker.
+AsyncDAGWorker`, and an enabled ``env`` binds an environment runtime
+(``repro_torch.rl.envs``): its (ENV, COMPUTE) stage takes the reward node's
+place, and with ``max_turns > 1`` the continuous engine runs the episodes.
 
 The engines are plain callables where the JAX package jits. The pipeline
 runs on the card unless ``device="cpu"`` is asked for; without CUDA it
@@ -35,6 +39,7 @@ from repro_torch.configs.base import (
     ObsConfig,
     RolloutEngineConfig,
 )
+from repro_torch.core.async_worker import AsyncDAGWorker
 from repro_torch.core.dag import DAG
 from repro_torch.core.databuffer import (
     CentralizedDatabuffer,
@@ -52,7 +57,7 @@ from repro_torch.models import get_model
 from repro_torch.models.api import resolve_device
 from repro_torch.rl import algorithms
 from repro_torch.rl import critic as critic_mod
-from repro_torch.rl import reward as reward_mod
+from repro_torch.rl import envs as envs_mod
 from repro_torch.rl import rollout as rollout_mod
 from repro_torch.rl import trainer
 from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
@@ -71,14 +76,17 @@ def ppo_dag() -> DAG:
 
 # --------------------------------------------------------------------------- #
 def _build_engines(model, rl: RLConfig, tok: ByteTokenizer, spec,
-                   rollout: Optional[RolloutEngineConfig] = None) -> Dict[str, Any]:
+                   rollout: Optional[RolloutEngineConfig] = None,
+                   env_runtime=None) -> Dict[str, Any]:
     """The engines of one algorithm spec: the GENERATE engine, logprobs, the
-    math reward, the spec's advantage, the actor step, and the critic's
-    values and step iff the spec uses a critic. The GENERATE engine is
-    lockstep ``rollout.generate`` or the slot-refill
+    reward (the registered reward ``env.reward`` names, ``math`` by
+    default), the spec's advantage, the actor step, and the critic's values
+    and step iff the spec uses a critic. The GENERATE engine is lockstep
+    ``rollout.generate`` or the slot-refill
     :class:`~repro_torch.rl.rollout_engine.ContinuousRolloutEngine`
     (``RolloutEngineConfig.engine == "continuous"``): same call contract,
-    same RolloutResult."""
+    same RolloutResult. An ``env_runtime`` turns the continuous engine's
+    slot loop into the multi-turn episode loop."""
     eng: Dict[str, Any] = {}
 
     def _generate(params, prompts, gen):
@@ -89,6 +97,11 @@ def _build_engines(model, rl: RLConfig, tok: ByteTokenizer, spec,
         )
 
     if rollout is not None and rollout.engine == "continuous":
+        env_kw = {}
+        if env_runtime is not None:
+            env_kw = dict(env=env_runtime, max_turns=env_runtime.cfg.max_turns,
+                          turn_budget=env_runtime.cfg.turn_budget,
+                          obs_budget=env_runtime.cfg.obs_budget)
         eng["generate"] = ContinuousRolloutEngine(
             model,
             max_new=rl.max_new_tokens,
@@ -99,12 +112,14 @@ def _build_engines(model, rl: RLConfig, tok: ByteTokenizer, spec,
             prefill_chunk=rollout.prefill_chunk,
             prefill_bucket=rollout.prefill_bucket,
             refill_threshold=rollout.refill_threshold,
+            **env_kw,
         )
     else:
         eng["generate"] = _generate
     eng["logprobs"] = lambda p, t: model.logprobs(p, t)
-    eng["reward"] = lambda tokens, mask, answers: reward_mod.math_reward_tokens(
-        tokens, mask, answers, tok)
+    token_fn = envs_mod.get_reward(
+        env_runtime.cfg.reward if env_runtime is not None else "math").token_fn
+    eng["reward"] = lambda tokens, mask, answers: token_fn(tokens, mask, answers, tok)
     eng["advantage"] = spec.make_advantage(rl)
     if spec.uses_critic:
         eng["values"] = lambda p, t: critic_mod.values_fn(model.cfg, p, t)
@@ -132,16 +147,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
-def _check_ported(*, async_pipeline: Optional[AsyncPipelineConfig] = None,
-                  env: Optional[EnvConfig] = None,
-                  distributed: Optional[DistributedConfig] = None,
+def _check_ported(*, distributed: Optional[DistributedConfig] = None,
                   obs: Optional[ObsConfig] = None) -> None:
     """Raise ``NotImplementedError`` for any option whose subsystem the port
     does not have yet."""
-    if async_pipeline is not None and async_pipeline.enabled:
-        raise _not_ported("the async off-policy pipeline", "4: async off-policy pipeline")
-    if env is not None and env.enabled:
-        raise _not_ported("the environment subsystem", "5: multi-turn environments")
     if distributed is not None and distributed.enabled:
         raise _not_ported("the multi-host fleet (DistributedConfig)", "8: distributed")
     if obs is not None and obs.enabled:
@@ -173,7 +182,7 @@ def build_pipeline(
     algorithm=None,
     seed: int = 0,
 ) -> Pipeline:
-    _check_ported(async_pipeline=async_pipeline, env=env, distributed=distributed, obs=obs)
+    _check_ported(distributed=distributed, obs=obs)
     spec = algorithm or algorithms.get_algorithm(rl.algorithm)
     coordinator = coordinator or DataCoordinatorConfig()
     device = resolve_device(device)
@@ -182,6 +191,15 @@ def build_pipeline(
     assert cfg.vocab_size >= tok.vocab_size, "model vocab must cover the tokenizer"
     model = get_model(cfg, device=device)
 
+    env_runtime = None
+    if env is not None and env.enabled:
+        if env.max_turns > 1 and (rollout is None or rollout.engine != "continuous"):
+            raise ValueError(
+                "multi-turn environments need the continuous rollout "
+                "engine's episode loop: set RolloutEngineConfig("
+                "engine='continuous') (single-turn envs run on either engine)")
+        env_runtime = envs_mod.EnvRuntime(envs_mod.get_env(env.name), env, tok)
+
     s_actor, s_critic, s_run = _seeds(seed)
     actor_params = model.init(torch.Generator(device=device).manual_seed(s_actor))
     ref_params = tree.map(torch.clone, actor_params)  # frozen reference
@@ -189,7 +207,7 @@ def build_pipeline(
     ctx = WorkerContext(
         mesh=mesh,
         rl=rl,
-        engines=_build_engines(model, rl, tok, spec, rollout),
+        engines=_build_engines(model, rl, tok, spec, rollout, env_runtime),
         dataloader=DistributedDataloader(
             dataset or SyntheticMathDataset(4096, seed=seed),
             mesh=mesh,
@@ -202,12 +220,17 @@ def build_pipeline(
         tokenizer=tok,
         gen=torch.Generator(device=device).manual_seed(s_run),
         algorithm=spec,
+        env=env_runtime,
     )
     if spec.uses_critic:
         critic_gen = torch.Generator(device=device).manual_seed(s_critic)
         ctx.critic_state = trainer.init_state(critic_mod.init(cfg, critic_gen, device=device))
 
     dag = dag or spec.dag_factory()
+    if env_runtime is not None:
+        # retarget the reward node at the environment stage (it writes the
+        # same `rewards` key; validate_dag takes ENV for REWARD)
+        dag = envs_mod.with_env_stage(dag)
     spec.validate_dag(dag)
     plan = DAGPlanner().plan(dag)
     if centralized:
@@ -217,5 +240,14 @@ def build_pipeline(
     else:
         buffer_cls = DistributedDatabuffer
     buffer = buffer_cls(mesh)
-    worker = DAGWorker(ctx, plan, registry or default_registry(), buffer, coordinator)
+    if async_pipeline is not None and async_pipeline.enabled:
+        if centralized:
+            raise ValueError(
+                "the centralized baseline gathers every stage output through "
+                "one controller and is inherently synchronous; async_pipeline "
+                "cannot be combined with centralized=True")
+        worker = AsyncDAGWorker(ctx, plan, registry or default_registry(), buffer, coordinator,
+                                async_cfg=async_pipeline)
+    else:
+        worker = DAGWorker(ctx, plan, registry or default_registry(), buffer, coordinator)
     return Pipeline(worker=worker, ctx=ctx, buffer=buffer, dag=dag, plan=plan)

@@ -9,14 +9,15 @@ exactly as in the JAX package (on one device it moves nothing, but it is
 counted the same).
 
 ``actor_generate`` drives lockstep ``generate`` or the continuous engine and
-reports the engine's ``last_stats`` as ``rollout/*``; the multi-turn
-environment keys and ``env_compute`` are ROADMAP queue 1, item 5, and
-``env_compute`` raises.
+reports the engine's ``last_stats`` as ``rollout/*``; episodes the engine
+stepped put their ``role_mask``, ``env_rewards`` and ``env_turns`` for
+``env_compute``, the (ENV, COMPUTE) stage of ``repro_torch.rl.envs``.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from repro_torch.core.dag import Node
@@ -62,6 +63,18 @@ def actor_generate(ctx, buffer, node: Node) -> Dict:
     buffer.put("response_mask", res.response_mask.clone(), model_spec)
     buffer.put("old_logprob", res.old_logprob.clone(), model_spec)
     buffer.put("answers", answers, model_spec)
+    if res.role_mask is not None:
+        # multi-turn episodes: per-token roles (0 prompt, 1 action, 2 env
+        # observation); response_mask already excludes observation tokens
+        buffer.put("role_mask", res.role_mask.clone(), model_spec)
+    env_out = getattr(engine, "last_env", None)
+    if env_out:
+        # engine-driven episodes: env rewards and turns ride the buffer to
+        # the (ENV, COMPUTE) stage (the load balancer repacks them with the
+        # batch like every other per-sequence key)
+        dev = res.tokens.device
+        buffer.put("env_rewards", torch.from_numpy(env_out["rewards"]).to(dev), model_spec)
+        buffer.put("env_turns", torch.from_numpy(env_out["turns"]).to(dev), model_spec)
     gen_tokens = float(res.lengths.sum())
     ctx.counters["gen_tokens"] = ctx.counters.get("gen_tokens", 0.0) + gen_tokens
     out = {
@@ -118,11 +131,31 @@ def reward_compute(ctx, buffer, node: Node) -> Dict:
 
 
 def env_compute(ctx, buffer, node: Node) -> Dict:
-    """(ENV, COMPUTE): episode rewards from the environment subsystem, which
-    the port does not have yet."""
-    raise NotImplementedError(
-        "the (ENV, COMPUTE) stage is not ported yet (ROADMAP queue 1, item 5: "
-        "multi-turn environments)")
+    """(ENV, COMPUTE): episode rewards from the environment subsystem
+    (``repro_torch.rl.envs``; replaces the REWARD stage when ``EnvConfig``
+    names an env). Engine-driven episodes were stepped during generation:
+    their rewards ride the buffer as ``env_rewards``. On the lockstep
+    engine, a single-turn env steps each episode here over the finished
+    rollout."""
+    _, compute_spec = _specs(ctx)
+    seq_spec = (compute_spec[0],)
+    out: Dict[str, float] = {}
+    if "env_rewards" in buffer.keys():
+        rewards = buffer.get("env_rewards", seq_spec)
+        turns = buffer.get("env_turns", seq_spec)
+        out["env/turns_mean"] = float(turns.float().mean())
+    else:
+        if ctx.env is None:
+            raise RuntimeError(
+                "env_compute needs WorkerContext.env (an EnvRuntime); "
+                "was the pipeline built with an enabled EnvConfig?")
+        tokens = buffer.get("tokens", compute_spec)
+        mask = buffer.get("response_mask", compute_spec)
+        scored = ctx.env.score_single_turn(tokens.cpu().numpy(), mask.cpu().numpy())
+        rewards = torch.from_numpy(np.asarray(scored, np.float32)).to(tokens.device)
+    buffer.put("rewards", rewards, seq_spec)
+    out["reward/mean"] = float(rewards.mean())
+    return out
 
 
 def advantage_compute(ctx, buffer, node: Node) -> Dict:

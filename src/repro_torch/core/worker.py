@@ -9,8 +9,8 @@ no coordinator process anywhere. The port runs one worker on one device.
 
 JAX's ``key``/``next_key()`` becomes an explicit ``torch.Generator`` on the
 run's device (``WorkerContext.gen``), which the generate engine draws its
-per-step sampling seeds from. Telemetry (``ObsConfig``) and environments are
-not ported yet, so the context has no ``obs`` or ``env``.
+per-step sampling seeds from. Telemetry (``ObsConfig``) is not ported yet
+(ROADMAP queue 1, item 7), so the context has no ``obs``.
 """
 from __future__ import annotations
 
@@ -51,6 +51,9 @@ class WorkerContext:
     # the prompt iterator the GENERATE stage pulls from (bound by the worker
     # at init, see PromptSource); None falls back to ctx.dataloader directly
     prompt_source: Any = None
+    # the bound environment (repro_torch.rl.envs.EnvRuntime) when the run's
+    # EnvConfig names one; the (ENV, COMPUTE) stage reads it
+    env: Any = None
     counters: Dict[str, float] = field(default_factory=dict)
 
 

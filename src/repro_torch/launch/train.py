@@ -2,8 +2,8 @@
 ``repro.launch.train``).
 
 Compiles a :class:`repro_torch.api.ExperimentSpec` for ``--arch`` and runs
-``--iters`` synchronous RL iterations through the DAG worker and the Data
-Coordinator on one device: ``--device`` (``cuda`` unless the CPU is asked
+``--iters`` RL iterations through the DAG worker and the Data Coordinator on
+one device: ``--device`` (``cuda`` unless the CPU is asked
 for; without CUDA it raises). The weights are random, drawn from
 ``--seed``. A full experiment can also be loaded from a JSON file
 (``--experiment spec.json``, the ``ExperimentSpec.to_json`` form of either
@@ -14,18 +14,28 @@ package) and dumped with ``--dump-experiment``. The Data Coordinator flags
 file runs in every coordinator arm.
 
 ``--rollout-slots N`` generates with the continuous rollout engine over N
-decode slots (0: one a sequence), on top of either.
+decode slots (0: one a sequence), on top of either. ``--max-staleness W``
+runs the staleness-bounded async pipeline (0: the lockstep scheduler,
+bitwise equal to the synchronous worker), and overrides an experiment
+file's setting. ``--env NAME`` (with ``--max-turns`` and ``--turn-budget``)
+runs a registered environment of ``repro_torch.rl.envs``; more than one
+turn selects the continuous engine's episode loop. As in the JAX package,
+``--experiment`` takes the file's env, and these three flags shape only a
+spec built from the flags.
 
 The default arch is gemma-2b, the port's main model. The flags of
 subsystems the port does not have yet (``--ckpt-dir``, ``--resume``,
-``--max-staleness``, ``--env``, ``--num-hosts`` > 1, ``--obs-trace``,
-``--obs-metrics``) raise ``NotImplementedError``.
+``--num-hosts`` > 1, ``--obs-trace``, ``--obs-metrics``) raise
+``NotImplementedError``.
 
 Usage:
   python -m repro_torch.launch.train --arch gemma-2b --iters 3 \
       --prompts-per-iter 2 --group-size 8 --max-new-tokens 16
   python -m repro_torch.launch.train --smoke --device cpu --iters 2
   python -m repro_torch.launch.train --smoke --device cpu --iters 2 --rollout-slots 4
+  python -m repro_torch.launch.train --smoke --device cpu --iters 3 --max-staleness 1
+  python -m repro_torch.launch.train --smoke --device cpu --iters 2 --env dialog \
+      --max-turns 3 --turn-budget 4 --rollout-slots 4
   python -m repro_torch.launch.train --experiment exp.json --iters 100
 """
 from __future__ import annotations
@@ -37,15 +47,19 @@ import time
 from typing import Any, Dict
 
 from repro_torch.api import ExperimentSpec
-from repro_torch.configs import RolloutEngineConfig, get_config, reduced
+from repro_torch.configs import (
+    AsyncPipelineConfig,
+    EnvConfig,
+    RolloutEngineConfig,
+    get_config,
+    reduced,
+)
 from repro_torch.rl import RLConfig, list_algorithms
 
 # flag -> the ROADMAP queue 1 item that ports its subsystem
 NOT_PORTED = {
     "ckpt_dir": "7: fault tolerance (checkpoints)",
     "resume": "7: fault tolerance (checkpoints)",
-    "max_staleness": "4: async off-policy pipeline",
-    "env": "5: multi-turn environments",
     "obs_trace": "7: telemetry",
     "obs_metrics": "7: telemetry",
 }
@@ -89,11 +103,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rollout-slots", type=int, default=None,
                     help="continuous rollout engine over this many decode slots "
                          "(0 = one per sequence); unset = the spec's engine")
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="enable the async off-policy pipeline with this "
+                         "staleness bound (0 = lockstep scheduler, bitwise-"
+                         "identical to sync; see docs/async_pipeline.md)")
+    ap.add_argument("--env", default=None,
+                    help="registered environment name (repro_torch.rl.envs: "
+                         "function_reward | calculator | dialog); enables "
+                         "the env/reward subsystem (docs/environments.md)")
+    ap.add_argument("--max-turns", type=int, default=1,
+                    help="episode turn cap for --env (>1 auto-enables the "
+                         "continuous rollout engine's episode loop)")
+    ap.add_argument("--turn-budget", type=int, default=0,
+                    help="per-turn response-token cap for --env "
+                         "(0 = --max-new-tokens)")
     # subsystems not ported yet: each raises NotImplementedError
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", default=None)
-    ap.add_argument("--max-staleness", type=int, default=None)
-    ap.add_argument("--env", default=None)
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--obs-trace", default=None, metavar="PATH")
     ap.add_argument("--obs-metrics", default=None, metavar="PATH")
@@ -114,8 +140,8 @@ def check_flags(args: argparse.Namespace) -> None:
 
 def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
     """CLI flags -> ExperimentSpec (or load one wholesale from JSON), with the
-    coordinator flags, ``--centralized-baseline`` and ``--rollout-slots`` on
-    top."""
+    coordinator flags, ``--centralized-baseline``, ``--max-staleness`` and
+    ``--rollout-slots`` on top."""
     if args.experiment:
         with open(args.experiment) as f:
             exp = ExperimentSpec.from_json(f.read())
@@ -134,9 +160,20 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
             from repro_torch.core import DAG
 
             dag = DAG.from_json(args.dag_json).to_spec()
+        rollout = RolloutEngineConfig()
+        env = EnvConfig()
+        if args.env:
+            env = EnvConfig(name=args.env, max_turns=args.max_turns,
+                            turn_budget=args.turn_budget)
+            if env.max_turns > 1:
+                # the episode loop lives in the continuous engine: one slot a
+                # sequence unless --rollout-slots says otherwise
+                rollout = RolloutEngineConfig(engine="continuous", num_slots=0)
         exp = ExperimentSpec(
             model=cfg,
             rl=rl,
+            rollout=rollout,
+            env=env,
             prompts_per_iter=args.prompts_per_iter,
             centralized=args.centralized_baseline,
             seed=args.seed,
@@ -147,6 +184,10 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
         exp = dataclasses.replace(exp, coordinator=dataclasses.replace(exp.coordinator, **given))
     if args.centralized_baseline:
         exp = dataclasses.replace(exp, centralized=True)
+    if args.max_staleness is not None:
+        # the flag overrides the file, as the usage line says
+        exp = dataclasses.replace(exp, async_pipeline=AsyncPipelineConfig(
+            enabled=True, max_staleness=args.max_staleness))
     if args.rollout_slots is not None:
         exp = dataclasses.replace(exp, rollout=RolloutEngineConfig(
             engine="continuous", num_slots=args.rollout_slots))

@@ -25,6 +25,10 @@ class RolloutResult(NamedTuple):
     response_mask: torch.Tensor  # (B, Lp + T) True on counted response tokens
     old_logprob: torch.Tensor  # (B, Lp + T) behaviour logprobs (0 on prompt)
     lengths: torch.Tensor  # (B,) response lengths
+    # (B, L) int8 per-token roles of a multi-turn episode: 0 prompt or pad, 1
+    # action, 2 env observation; response_mask == (role_mask == 1). None for
+    # single-turn rollouts
+    role_mask: Optional[torch.Tensor] = None
 
 
 def row_seeds(gen: torch.Generator, batch: int) -> torch.Tensor:

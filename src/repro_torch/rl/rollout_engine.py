@@ -1,6 +1,6 @@
-"""Continuous-batching rollout engine of the PyTorch port (port of the
-single-turn engine of ``repro.rl.rollout_engine``): slot-refill generation
-for the GENERATE stage.
+"""Continuous-batching rollout engine of the PyTorch port (port of
+``repro.rl.rollout_engine``): slot-refill generation for the GENERATE stage,
+with a multi-turn episode loop for agentic environments.
 
 The lockstep path (:func:`repro_torch.rl.rollout.generate`) pads every
 prompt to a common length and runs all ``max_new - 1`` decode steps even
@@ -17,35 +17,48 @@ after every sequence has emitted EOS. This engine instead:
     refill batch prefills at its bucket width, and optionally chunks them
     (``model.prefill_chunk``);
   * leaves the decode loop as soon as every slot is done, or as soon as
-    ``refill_threshold`` slots have newly finished while prompts pend.
+    ``refill_threshold`` slots have newly finished while work pends.
 
-The slot state lives in device tensors. The refill and the burst are
-methods over them; the burst is a host loop of ``model.decode_step_sample``
-that reads the slots' done count back before its first step and after
-each step, to take the JAX ``lax.while_loop``'s exit decision, so the
-slot schedule is the JAX engine's.
+The slot state lives in device tensors. The refill, the continuation and
+the burst are methods over them; the burst is a host loop of
+``model.decode_step_sample`` that reads the slots' done count back before
+its first step and after each step, to take the JAX ``lax.while_loop``'s
+exit decision, so the slot schedule is the JAX engine's.
+
+Multi-turn episodes (``env=`` an :class:`repro_torch.rl.envs.EnvRuntime`): a
+slot whose sequence finishes a *turn* hands its response to the
+environment; if the episode continues, it re-enters the :class:`PromptQueue`
+as a :class:`_Continuation` carrying its saved cache rows
+(``model.gather_cache_rows``, one gather for every continuing slot of a
+visit) and the feed tokens ``[last response token] + observation``. When it
+is scheduled, the feed is teacher-forced through ``model.decode_step`` over
+the saved rows, each row at its own cache offset, and the rows are
+scattered over a free slot's arena rows: the shared prompt/response prefix
+is never prefilled again, so ``last_stats["prefill_tokens_turn2plus"]``
+counts observation tokens plus one carried token a continuation.
+Observation tokens are excluded from ``response_mask`` and tagged 2 in the
+emitted ``role_mask``. Attention caches only: an SSM's recurrent state
+absorbs the steps a done slot keeps taking, so ``max_turns > 1`` on an SSM
+stack raises ``ValueError``, as in JAX.
 
 Seed contract: sampling draws hash seeds from the caller's
-``torch.Generator`` (``rollout.row_seeds``), one draw of the refill's lane
-count for every refill prefill and one of ``num_slots`` for every decode
-step, in schedule order. Under a *fixed slot schedule* (one length bucket,
-``num_slots >= batch``: every prompt prefilled at once, no refill) that is
-exactly the stream lockstep ``generate`` consumes (one ``row_seeds(gen, B)``
-for the prefill sample, then one per decode step) on the same shapes, so
-the engine is token for token equal to lockstep ``generate``, sampled as
-well as greedy (``tests/test_torch_rollout_engine.py``). The JAX engine's
-draws come from threefry keys, so sampled parity with it holds in
-distribution only; greedy streams match it token for token.
-
-Multi-turn episodes (``env=``) are ROADMAP queue 1, item 5, and raise.
-:class:`PromptQueue`'s continuation lane (``push`` and ``pop_work``'s
-``"cont"`` branch) is ported with the queue but has no caller yet: the
-single-turn engine pushes nothing, so its ``pop_work`` is ``pop``; the
-episode loop of item 5 is the lane's caller.
+``torch.Generator`` (``rollout.row_seeds``), one draw of the lane count for
+every refill prefill and every continuation, and one of ``num_slots`` for
+every decode step, in schedule order. Under a *fixed slot schedule* (one
+length bucket, ``num_slots >= batch``: every prompt prefilled at once, no
+refill) that is exactly the stream lockstep ``generate`` consumes (one
+``row_seeds(gen, B)`` for the prefill sample, then one per decode step) on
+the same shapes, so the engine is token for token equal to lockstep
+``generate``, sampled as well as greedy
+(``tests/test_torch_rollout_engine.py``). The JAX engine's draws come from
+threefry keys, so sampled parity with it holds in distribution only; greedy
+streams match it token for token, episodes included.
 
 Metrics (``engine.last_stats``, surfaced by the GENERATE stage as
 ``rollout/*``): tokens/s, padding waste, slot occupancy, decode steps,
-bursts and refills, and the prefill token accounting.
+bursts and refills, the prefill token accounting per turn, and under an env
+the mean turns and tool calls; ``engine.last_env`` holds each episode's
+reward and turns.
 """
 from __future__ import annotations
 
@@ -70,6 +83,20 @@ def _true_lengths(prompts: np.ndarray, pad_id: int) -> np.ndarray:
     return np.where(nonpad.any(axis=1), last, 1).astype(np.int64)
 
 
+class _Continuation:
+    """A continuing episode waiting for a slot: the dataset row, the feed
+    tokens (last response token + clipped observation), the saved cache rows
+    (one row of every leaf) and the cache offset the feed starts at."""
+
+    __slots__ = ("row", "feed", "cache_rows", "cache_len")
+
+    def __init__(self, row: int, feed: np.ndarray, cache_rows, cache_len: int):
+        self.row = row
+        self.feed = np.asarray(feed, np.int32)
+        self.cache_rows = cache_rows
+        self.cache_len = int(cache_len)
+
+
 class PromptQueue:
     """Length-bucketed FIFO over one iteration's pending work.
 
@@ -79,11 +106,11 @@ class PromptQueue:
     at a time so every prefill batch shares a padded length. Within a
     bucket, dataset order (or ``order``) is preserved.
 
-    Continuations (:meth:`push`, any item with a ``feed`` of tokens) re-enter
-    the queue in exact-feed-length buckets. ``pop_work`` prefers them, but
-    only for ``STARVATION_LIMIT`` consecutive pops while fresh prompts wait.
-    The single-turn engine pushes none; the multi-turn episode loop that
-    does is ROADMAP queue 1, item 5.
+    Continuations (:meth:`push`, any item with a ``feed`` of tokens, the
+    episode loop's :class:`_Continuation`) re-enter the queue in
+    exact-feed-length buckets. ``pop_work`` prefers them, bounding the saved
+    cache rows held off the arena, but only for ``STARVATION_LIMIT``
+    consecutive pops while fresh prompts wait.
 
     Both lanes pick the *fullest* bucket; a pass counter ages each non-empty
     bucket that loses the selection and force-serves any bucket passed over
@@ -169,6 +196,31 @@ class PromptQueue:
         return "prefill", lb, idxs
 
 
+class _Episode:
+    """Host-side record of one multi-turn episode (dataset row)."""
+
+    __slots__ = ("env", "toks", "roles", "lps", "reward", "turn", "infos")
+
+    def __init__(self, env):
+        self.env = env
+        self.toks: List[int] = []   # tokens after the prompt region
+        self.roles: List[int] = []  # 1 = action, 2 = observation
+        self.lps: List[float] = []  # behaviour logprobs (0 on observations)
+        self.reward = 0.0
+        self.turn = 0
+        self.infos: List[dict] = []
+
+    def record_turn(self, resp: np.ndarray, lps: np.ndarray) -> None:
+        self.toks.extend(int(t) for t in resp)
+        self.roles.extend([1] * len(resp))
+        self.lps.extend(float(v) for v in lps)
+
+    def record_obs(self, obs: np.ndarray) -> None:
+        self.toks.extend(int(t) for t in obs)
+        self.roles.extend([2] * len(obs))
+        self.lps.extend([0.0] * len(obs))
+
+
 class _Slots:
     """The slot pool's device state: the cache arena and, per slot, the
     current token, cache length, response length, done flag, budget and the
@@ -195,8 +247,16 @@ class ContinuousRolloutEngine:
     Drop-in for lockstep ``generate`` at the GENERATE stage: callable as
     ``engine(params, prompts, gen) -> RolloutResult`` with the same output
     contract (tokens / response_mask / old_logprob / lengths in dataset
-    order). Host code keeps the slot bookkeeping; the refill prefill and the
-    early-exiting decode burst run on the model's device."""
+    order). Host code keeps the slot bookkeeping; the refill prefill, the
+    continuation feed and the early-exiting decode burst run on the model's
+    device.
+
+    ``env`` (an :class:`repro_torch.rl.envs.EnvRuntime`) switches the slot
+    loop to the episode loop: one environment per sequence, up to
+    ``max_turns`` turns of at most ``turn_budget`` tokens, observations of
+    at most ``obs_budget`` tokens appended through cache-preserving
+    continuations. With ``env=None`` (the default) it is the single-turn
+    engine."""
 
     def __init__(
         self,
@@ -212,15 +272,14 @@ class ContinuousRolloutEngine:
         prefill_bucket: int = 0,
         refill_threshold: int = 1,
         env=None,
+        max_turns: int = 1,
+        turn_budget: int = 0,
+        obs_budget: int = 16,
     ):
         if model.is_encdec or model.cfg.num_prefix_embeds:
             raise ValueError(
                 "the continuous engine supports text decoder-only archs; "
                 "use engine='lockstep' for enc-dec / prefix-modality models")
-        if env is not None:
-            raise NotImplementedError(
-                "multi-turn environments in the continuous engine are not ported yet "
-                "(ROADMAP queue 1, item 5: multi-turn environments)")
         if top_p < 1.0:
             raise NotImplementedError(
                 "top_p < 1 is not ported yet (ROADMAP queue 1, item 6: other families)")
@@ -232,20 +291,69 @@ class ContinuousRolloutEngine:
         self.num_slots = num_slots
         self.prefill_bucket = prefill_bucket
         # minimum count of newly-freed slots before a burst hands control
-        # back for refill (while prompts pend): 1 refills eagerly (maximum
+        # back for refill (while work pends): 1 refills eagerly (maximum
         # occupancy); more trades slot idleness for fewer host round trips
         self.refill_threshold = max(1, refill_threshold)
+        # multi-turn episode loop (None = single-turn slot loop)
+        self.env = env
+        self.max_turns = max(1, max_turns)
+        cfg = model.cfg
+        if env is not None and self.max_turns > 1 and any(
+                k[0] == "ssm" for k in cfg.layer_kinds()):
+            # a done slot keeps taking decode steps (fed PAD) until the burst
+            # exits; attention tolerates that (the stray K/V lies past the
+            # valid cache_len and is overwritten before it is attended), but
+            # SSM recurrent state absorbs every update, so the rows saved at
+            # a turn's end would resume the next turn from a wrong state
+            raise ValueError(
+                "multi-turn environments support attention-only archs; "
+                f"{cfg.name!r} has SSM mixer layers whose recurrent "
+                "state cannot be preserved across turns (use max_turns=1 "
+                "or an attention arch)")
+        # per-turn response cap (0 = max_new); observation clip per turn
+        self.turn_budget = min(turn_budget, max_new) if turn_budget else max_new
+        self.obs_budget = max(1, obs_budget)
         # chunked prefill is attention-only (SSM state does not carry between
         # chunks), needs an unwrapped cache (no SWA ring), and excludes int8
         # caches: a chunk would attend the quantized and dequantized K/V of
         # its own prefix, far from whole-prompt prefill
-        cfg = model.cfg
         can_chunk = (all(k[0] == "attn" for k in cfg.layer_kinds())
                      and cfg.sliding_window is None and not cfg.kv_quant)
         self.prefill_chunk = prefill_chunk if can_chunk else 0
         self.last_stats: Dict[str, float] = {}
+        # per-episode env outputs of the last call (None when env is off):
+        # {"rewards": (B,), "turns": (B,), "tool_calls": int}
+        self.last_env: Optional[Dict[str, np.ndarray]] = None
 
     # ------------------------------------------------------------------ #
+    def _seed(self, st: _Slots, logits: torch.Tensor, seeds: torch.Tensor, slots: List[int],
+              lane_budget: torch.Tensor, new_len) -> None:
+        """Shared epilogue of the refill and the continuation: sample each
+        lane's first response token from ``logits``, reset the slots' output
+        rows and write the lanes' state into the slot tensors (ids past the
+        pool are padding lanes, dropped). ``new_len`` is the lanes' cache
+        length after the fill: the bucket width of a refill, a per-lane
+        tensor for a continuation."""
+        tok0 = sample_token(logits, seeds, self.temperature)
+        lp0 = torch.log_softmax(logits, dim=-1).gather(1, tok0[:, None].long())[:, 0]
+        done0 = lane_budget <= 1
+        if self.eos_id is not None:
+            done0 = done0 | (tok0 == self.eos_id)
+        S = st.done.shape[0]
+        keep = [j for j, s in enumerate(slots) if s < S]
+        lanes = torch.tensor(keep, dtype=torch.long, device=tok0.device)
+        ids = torch.tensor([slots[j] for j in keep], dtype=torch.long, device=tok0.device)
+        st.cur_tok[ids] = tok0[lanes]
+        st.cache_len[ids] = (new_len[lanes].to(torch.int32) if isinstance(new_len, torch.Tensor)
+                             else new_len)
+        st.resp_len[ids] = 1
+        st.done[ids] = done0[lanes]
+        st.budget[ids] = lane_budget[lanes]
+        st.out_tok[ids] = self.pad_id
+        st.out_tok[ids, 0] = tok0[lanes]
+        st.out_lp[ids] = 0.0
+        st.out_lp[ids, 0] = lp0[lanes].float()
+
     def _refill(self, params, st: _Slots, prompts: torch.Tensor, slots: List[int],
                 lane_budget: torch.Tensor, seeds: torch.Tensor, smax: int) -> None:
         """Prefill ``prompts`` (R, Lb), scatter the fresh cache rows over the
@@ -261,29 +369,27 @@ class ContinuousRolloutEngine:
         else:
             logits, rows, _ = model.prefill(params, prompts, smax=smax)
         model.scatter_cache_rows(st.caches, rows, slots)
+        self._seed(st, logits, seeds, slots, lane_budget, Lb)
 
-        tok0 = sample_token(logits, seeds, self.temperature)
-        lp0 = torch.log_softmax(logits, dim=-1).gather(1, tok0[:, None].long())[:, 0]
-        done0 = lane_budget <= 1
-        if self.eos_id is not None:
-            done0 = done0 | (tok0 == self.eos_id)
-        S = st.done.shape[0]
-        keep = [j for j, s in enumerate(slots) if s < S]
-        lanes = torch.tensor(keep, dtype=torch.long, device=tok0.device)
-        ids = torch.tensor([slots[j] for j in keep], dtype=torch.long, device=tok0.device)
-        st.cur_tok[ids] = tok0[lanes]
-        st.cache_len[ids] = Lb
-        st.resp_len[ids] = 1
-        st.done[ids] = done0[lanes]
-        st.budget[ids] = lane_budget[lanes]
-        st.out_tok[ids] = self.pad_id
-        st.out_tok[ids, 0] = tok0[lanes]
-        st.out_lp[ids] = 0.0
-        st.out_lp[ids, 0] = lp0[lanes].float()
+    def _continue(self, params, st: _Slots, rows, slots: List[int], feed: torch.Tensor,
+                  start_len: torch.Tensor, lane_budget: torch.Tensor,
+                  seeds: torch.Tensor) -> None:
+        """Resume continuing episodes on free slots: teacher-force the ``K``
+        feed tokens (R, K) (last response token + observation) through
+        ``model.decode_step`` over their saved cache rows, each lane at its
+        own offset ``start_len``, scatter the rows over the arena at
+        ``slots``, and sample each lane's first next-turn token from the last
+        feed position's logits. Only the feed is run: the shared prefix is
+        reused from the saved rows."""
+        model, clen = self.model, start_len
+        for k in range(feed.shape[1]):
+            logits, rows, clen = model.decode_step(params, feed[:, k], rows, clen)
+        model.scatter_cache_rows(st.caches, rows, slots)
+        self._seed(st, logits, seeds, slots, lane_budget, clen)
 
     def _burst(self, params, st: _Slots, gen: torch.Generator, has_pending: bool) -> None:
         """Step every slot until every slot is done, or until
-        ``refill_threshold`` slots have newly finished while prompts pend
+        ``refill_threshold`` slots have newly finished while work pends
         (the JAX burst's ``cond``, checked before each step as its
         ``while_loop`` does). Reads the done count back before the first
         step and after each step."""
@@ -309,6 +415,21 @@ class ContinuousRolloutEngine:
             st.steps += 1
             n_done = int(new_done.sum())
 
+    @staticmethod
+    def _stack_cont_rows(items: List[_Continuation], R: int):
+        """Stack the saved cache rows of ``items`` (leaves (1, ...)) into
+        caches of ``R`` rows, the unused lanes zero."""
+        out = []
+        for layer in zip(*[c.cache_rows for c in items]):
+            stacked = {}
+            for name in layer[0]:
+                t = torch.cat([rows[name] for rows in layer], dim=0)
+                if R > len(items):
+                    t = torch.cat([t, t.new_zeros((R - len(items),) + tuple(t.shape[1:]))])
+                stacked[name] = t
+            out.append(stacked)
+        return out
+
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def __call__(self, params, prompts: torch.Tensor, gen: torch.Generator,
@@ -316,21 +437,46 @@ class ContinuousRolloutEngine:
         """``budgets`` (B,) caps each sequence's response length at
         ``min(budgets[b], max_new)``, as lockstep ``generate(budgets=...)``
         does, but a capped sequence frees its slot instead of padding out
-        the schedule. ``gen`` draws the sampling seeds and lives on the
+        the schedule; under an env the cap applies per turn (jointly with
+        ``turn_budget``). ``gen`` draws the sampling seeds and lives on the
         model's device."""
         t_start = time.perf_counter()
         model, max_new, pad = self.model, self.max_new, self.pad_id
         dev = model.device
         prompts_np = np.asarray(prompts.cpu(), np.int32)
         B, Lp = prompts_np.shape
+        env_on = self.env is not None
+        max_turns = self.max_turns if env_on else 1
+        turn_cap = min(self.turn_budget, max_new) if env_on else max_new
         if budgets is None:
-            budgets_np = np.full(B, max_new, np.int32)
+            budgets_np = np.full(B, turn_cap, np.int32)
         else:
             b = budgets.cpu() if isinstance(budgets, torch.Tensor) else budgets
-            budgets_np = np.clip(np.asarray(b, np.int32), 1, max_new)
+            budgets_np = np.clip(np.asarray(b, np.int32), 1, turn_cap)
         S = self.num_slots if self.num_slots > 0 else B
         S = max(1, min(S, B))
-        smax = Lp + max_new
+        # the arena holds the longest possible episode: the prompt, every
+        # turn's response and every inter-turn feed (observation + 1 carried
+        # response token)
+        smax = Lp + max_turns * max_new + (max_turns - 1) * (self.obs_budget + 1)
+
+        # episode setup: one env per dataset row; reset() gives the turn-1
+        # context (the built-ins return the prompt unchanged, so the
+        # single-turn schedule and its tokens are untouched)
+        episodes: List[Optional[_Episode]] = [None] * B
+        if env_on:
+            true0 = _true_lengths(prompts_np, pad)
+            queue_rows = np.full((B, Lp), pad, np.int32)
+            for b in range(B):
+                ep = _Episode(self.env.make_episode())
+                obs0 = np.asarray(ep.env.reset(prompts_np[b, :true0[b]]), np.int32).ravel()
+                if len(obs0) > Lp:
+                    raise ValueError(f"env reset() returned {len(obs0)} tokens > prompt "
+                                     f"width {Lp}")
+                queue_rows[b, :len(obs0)] = obs0
+                episodes[b] = ep
+        else:
+            queue_rows = prompts_np
 
         # known budgets and a real queue (S < B): longest-first (LPT) slot
         # packing, so long sequences start first instead of draining alone
@@ -338,7 +484,7 @@ class ContinuousRolloutEngine:
         # kept: that is the lockstep-equivalent fixed schedule.
         order = (np.argsort(-budgets_np, kind="stable")
                  if budgets is not None and S < B else None)
-        queue = PromptQueue(prompts_np, pad_id=pad, bucket=self.prefill_bucket, order=order)
+        queue = PromptQueue(queue_rows, pad_id=pad, bucket=self.prefill_bucket, order=order)
         prefill_true_tokens = int(queue.true_len.sum())
 
         st = _Slots(model, S, smax, max_new, pad)
@@ -346,14 +492,16 @@ class ContinuousRolloutEngine:
         res_lp = torch.zeros((B, max_new), dtype=torch.float32, device=dev)
         res_len = torch.zeros((B,), dtype=torch.int32, device=dev)
         slot_seq = np.full(S, -1, np.int64)  # dataset row held by each slot
-        completed = refills = bursts = prefill_lane_tokens = 0
+        row_cache_pos = np.zeros(B, np.int64)  # cache offset of each episode
+        completed = refills = cont_refills = bursts = prefill_lane_tokens = 0
+        cont_feed_tokens = obs_tokens = total_turns = tool_calls = 0
         tracer = get_tracer()
 
         while completed < B:
             # one host read a visit: which held slots are done
             done_h = st.done.cpu().numpy()
             fin = [s for s in range(S) if done_h[s] and slot_seq[s] >= 0]
-            if fin:
+            if fin and not env_on:
                 rows = torch.tensor(slot_seq[fin], dtype=torch.long, device=dev)
                 src = torch.tensor(fin, dtype=torch.long, device=dev)
                 res_tok[rows] = st.out_tok[src, :max_new]
@@ -361,58 +509,153 @@ class ContinuousRolloutEngine:
                 res_len[rows] = st.resp_len[src]
                 slot_seq[fin] = -1
                 completed += len(fin)
+            elif fin:
+                # step each finished slot's episode: finish it, or queue a
+                # continuation (the cache rows of every continuing slot are
+                # gathered in ONE call below, then sliced per episode)
+                src = torch.tensor(fin, dtype=torch.long, device=dev)
+                n_h = st.resp_len[src].cpu().numpy()
+                tok_h = st.out_tok[src, :max_new].cpu().numpy()
+                lp_h = st.out_lp[src, :max_new].cpu().numpy()
+                pending_conts = []
+                for j, s in enumerate(fin):
+                    row = int(slot_seq[s])
+                    slot_seq[s] = -1
+                    ep = episodes[row]
+                    n = int(n_h[j])
+                    rtoks = tok_h[j, :n].copy()
+                    ep.record_turn(rtoks, lp_h[j, :n])
+                    row_cache_pos[row] += n - 1  # decode steps this turn
+                    obs, r, ep_done, info = ep.env.step(rtoks)
+                    ep.reward += float(r)
+                    ep.turn += 1
+                    ep.infos.append(info or {})
+                    total_turns += 1
+                    if info and info.get("tool_call"):
+                        tool_calls += 1
+                    if ep_done or ep.turn >= max_turns:
+                        completed += 1
+                        continue
+                    obs = np.asarray(obs, np.int32).ravel()[:self.obs_budget]
+                    ep.record_obs(obs)
+                    # the last response token's K/V was never written (it
+                    # was sampled, not fed), so it leads the feed; the saved
+                    # rows carry the whole shared prefix
+                    feed = np.concatenate([rtoks[-1:], obs])
+                    pending_conts.append((s, row, feed))
+                    cont_feed_tokens += len(feed)
+                    obs_tokens += len(obs)
+                if pending_conts:
+                    saved = model.gather_cache_rows(st.caches, [s for s, _, _ in pending_conts])
+                    for j, (_, row, feed) in enumerate(pending_conts):
+                        rows_j = [{name: leaf[j:j + 1] for name, leaf in c.items()}
+                                  for c in saved]
+                        queue.push(_Continuation(row, feed, rows_j, row_cache_pos[row]))
+                        row_cache_pos[row] += len(feed)
             if completed >= B:
                 break
-            # refill every free slot, one prefill per homogeneous batch
+            # refill every free slot, one call per homogeneous batch
+            # (continuations first, then fresh-prompt length buckets)
             free = [s for s in range(S) if slot_seq[s] < 0]
             while free and len(queue):
-                _, L, idxs = queue.pop_work(len(free))
-                lanes, free = free[:len(idxs)], free[len(idxs):]
+                kind, L, items = queue.pop_work(len(free))
+                lanes, free = free[:len(items)], free[len(items):]
                 # pad the batch to the next power of two (capped at the pool
                 # size): a late single-slot refill runs 1 lane, and a
                 # full-pool fill keeps the pool's shape, which is what the
                 # lockstep-equivalent schedule runs
                 R = 1
-                while R < len(idxs):
+                while R < len(items):
                     R *= 2
                 R = min(R, S)
-                batch = np.zeros((R, L), np.int32)
-                batch[:len(idxs)] = queue.prompts[idxs][:, :L]
+                slots = lanes + [S] * (R - len(lanes))
                 lane_budget = np.full(R, max_new, np.int32)
-                lane_budget[:len(idxs)] = budgets_np[idxs]
-                with tracer.span("rollout/prefill", cat="rollout", lanes=R, width=L,
-                                 seqs=len(idxs)):
-                    self._refill(params, st, torch.from_numpy(batch).to(dev),
-                                 lanes + [S] * (R - len(lanes)),
-                                 torch.from_numpy(lane_budget).to(dev), row_seeds(gen, R), smax)
-                slot_seq[lanes] = idxs
-                refills += 1
-                # the lanes the prefill ran, padding lanes included
-                prefill_lane_tokens += R * L
+                if kind == "prefill":
+                    batch = np.zeros((R, L), np.int32)
+                    batch[:len(items)] = queue.prompts[items][:, :L]
+                    lane_budget[:len(items)] = budgets_np[items]
+                    with tracer.span("rollout/prefill", cat="rollout", lanes=R, width=L,
+                                     seqs=len(items)):
+                        self._refill(params, st, torch.from_numpy(batch).to(dev), slots,
+                                     torch.from_numpy(lane_budget).to(dev), row_seeds(gen, R),
+                                     smax)
+                    slot_seq[lanes] = items
+                    row_cache_pos[items] = L
+                    refills += 1
+                    # the lanes the prefill ran, padding lanes included
+                    prefill_lane_tokens += R * L
+                else:  # continuation: feed tokens only, saved rows reused
+                    feed = np.zeros((R, L), np.int32)
+                    start_len = np.zeros(R, np.int32)
+                    for j, c in enumerate(items):
+                        feed[j], start_len[j] = c.feed, c.cache_len
+                        lane_budget[j] = budgets_np[c.row]
+                    with tracer.span("rollout/refill", cat="rollout", lanes=R, width=L,
+                                     conts=len(items)):
+                        self._continue(params, st, self._stack_cont_rows(items, R), slots,
+                                       torch.from_numpy(feed).to(dev),
+                                       torch.from_numpy(start_len).to(dev),
+                                       torch.from_numpy(lane_budget).to(dev), row_seeds(gen, R))
+                    slot_seq[lanes] = [c.row for c in items]
+                    cont_refills += 1
             if not (slot_seq >= 0).any():
                 break  # queue drained and nothing in flight
             # a lane refilled already done (EOS at its first token, or budget
             # 1) is in the burst's entry count, so the burst does not take it
-            # for a fresh completion; it flushes on the next visit
+            # for a fresh completion; it flushes on the next visit.
+            # Work pends while prompts wait or while an in-flight episode may
+            # come back as a continuation; without the second, a drained
+            # prompt queue would hold every finished slot until the slowest
+            # turn ends (lockstep turns). An episode below its turn cap counts
+            # even if its env ends it (one extra host visit at most).
+            cont_possible = env_on and max_turns > 1 and any(
+                slot_seq[s] >= 0 and episodes[slot_seq[s]].turn + 1 < max_turns
+                for s in range(S))
             with tracer.span("rollout/decode", cat="rollout", burst=bursts,
                              completed=completed):
-                self._burst(params, st, gen, has_pending=len(queue) > 0)
+                self._burst(params, st, gen, has_pending=len(queue) > 0 or cont_possible)
             bursts += 1
 
         # assemble the RolloutResult in dataset order
-        pos = torch.arange(max_new, device=dev)
-        resp_mask = pos[None, :] < res_len[:, None]
-        prompt_t = torch.from_numpy(prompts_np).to(dev)
-        tokens = torch.cat([prompt_t, res_tok], dim=1)
-        mask = torch.cat([torch.zeros((B, Lp), dtype=torch.bool, device=dev), resp_mask], dim=1)
-        old_lp = torch.cat([torch.zeros((B, Lp), device=dev), res_lp], dim=1)
+        roles = None
+        if not env_on:
+            pos = torch.arange(max_new, device=dev)
+            resp_mask = pos[None, :] < res_len[:, None]
+            prompt_t = torch.from_numpy(prompts_np).to(dev)
+            tokens = torch.cat([prompt_t, res_tok], dim=1)
+            mask = torch.cat([torch.zeros((B, Lp), dtype=torch.bool, device=dev), resp_mask],
+                             dim=1)
+            old_lp = torch.cat([torch.zeros((B, Lp), device=dev), res_lp], dim=1)
+            total_turns = completed  # one turn a sequence
+            self.last_env = None
+        else:
+            Lmax = Lp + max_turns * max_new + (max_turns - 1) * self.obs_budget
+            tok_np = np.full((B, Lmax), pad, np.int32)
+            tok_np[:, :Lp] = queue_rows
+            role_np = np.zeros((B, Lmax), np.int8)
+            lp_np = np.zeros((B, Lmax), np.float32)
+            rewards = np.zeros(B, np.float32)
+            turns = np.zeros(B, np.int32)
+            for b, ep in enumerate(episodes):
+                n = len(ep.toks)
+                tok_np[b, Lp:Lp + n] = ep.toks
+                role_np[b, Lp:Lp + n] = ep.roles
+                lp_np[b, Lp:Lp + n] = ep.lps
+                rewards[b], turns[b] = ep.reward, ep.turn
+            mask_np = role_np == 1
+            tokens = torch.from_numpy(tok_np).to(dev)
+            mask = torch.from_numpy(mask_np).to(dev)
+            old_lp = torch.from_numpy(np.where(mask_np, lp_np, 0.0).astype(np.float32)).to(dev)
+            res_len = torch.from_numpy(mask_np.sum(axis=1).astype(np.int32)).to(dev)
+            roles = torch.from_numpy(role_np).to(dev)
+            self.last_env = {"rewards": rewards, "turns": turns, "tool_calls": tool_calls}
 
         steps, occ_steps = st.steps, int(st.occ)
         gen_tokens = int(res_len.sum())
         wall = time.perf_counter() - t_start
-        # each sequence's first token comes from its refill's sample, not a
-        # decode step
-        decode_tokens = gen_tokens - B
+        # each turn's first token comes from its refill's or continuation's
+        # sample, not a decode step
+        decode_tokens = gen_tokens - total_turns
         lane_steps = S * steps
         self.last_stats = {
             "tokens": float(gen_tokens),
@@ -428,8 +671,20 @@ class ContinuousRolloutEngine:
             "prefill_true_tokens": float(prefill_true_tokens),
             "prefill_waste": (1.0 - prefill_true_tokens / prefill_lane_tokens
                               if prefill_lane_tokens else 0.0),
+            # turn 1 prefills the true prompt tokens; every later turn feeds
+            # ONLY the observation plus one carried response token through
+            # the decode path (the saved rows hold the rest)
+            "prefill_tokens": float(prefill_true_tokens + cont_feed_tokens),
+            "prefill_tokens_turn1": float(prefill_true_tokens),
+            "prefill_tokens_turn2plus": float(cont_feed_tokens),
+            "obs_tokens": float(obs_tokens),
+            "cont_refills": float(cont_refills),
+            "turns": float(total_turns),
         }
-        return RolloutResult(tokens, mask, old_lp, res_len)
+        if env_on:
+            self.last_stats["turns_mean"] = total_turns / B if B else 0.0
+            self.last_stats["tool_calls"] = float(tool_calls)
+        return RolloutResult(tokens, mask, old_lp, res_len, roles)
 
 
 def lockstep_waste(lengths, max_new: int) -> float:

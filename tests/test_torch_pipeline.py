@@ -37,20 +37,19 @@ from repro.rl import trainer as jtrainer
 from repro_torch import bridge
 from repro_torch.api import ExperimentSpec
 from repro_torch.configs import (
-    AsyncPipelineConfig,
     DataCoordinatorConfig,
     DistributedConfig,
-    EnvConfig,
     ObsConfig,
     RolloutEngineConfig,
     get_config,
     reduced,
 )
 from repro_torch.core import DAG, Node, NodeType, Role, build_pipeline, default_registry, stages
+from repro_torch.distributed.weight_sync import WeightVersionStore
 from repro_torch.launch import train
 from repro_torch.rl import trainer
 from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
-from torch_arena import EPISODE_KEYS, fp32_arena, jax_fp32_arena
+from torch_arena import fp32_arena, jax_fp32_arena
 
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
 EOS_ID, EOS_SCALE = 2, 3.0
@@ -115,13 +114,12 @@ CLOCK_KEYS = {"wall_s", "tokens_per_s"}
 
 
 def assert_continuous_iterations_match(jhist, thist, jtoks, ttoks):
-    """The continuous engine's iterations: the JAX stage's metrics but the
-    episode-only ``rollout/*`` keys, tokens equal, every count of the slot
-    schedule equal, the actor's metrics at 2e-5."""
-    only_jax = {f"rollout/{k}" for k in EPISODE_KEYS}
+    """The continuous engine's iterations: the JAX stage's metrics, tokens
+    equal, every count of the slot schedule and of the episodes equal, the
+    actor's metrics at 2e-5."""
     clock = {f"rollout/{k}" for k in CLOCK_KEYS}
     for it, (jm, tm) in enumerate(zip(jhist, thist)):
-        assert set(jm) - set(tm) == only_jax and set(tm) <= set(jm), it
+        assert set(tm) == set(jm), it
         np.testing.assert_array_equal(ttoks[it], jtoks[it])
         for k in tm:
             if k.startswith(("rollout/", "reward/")) and k not in clock:
@@ -399,20 +397,16 @@ def test_coordinator_flags_layer_on_an_experiment_file(tmp_path, flag, field, va
 
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "ckpts"], ["--resume", "ckpts"],
-                                  ["--max-staleness", "1"],
-                                  ["--env", "calculator"], ["--num-hosts", "2"],
+                                  ["--num-hosts", "2"],
                                   ["--obs-trace", "t.json"], ["--obs-metrics", "m.jsonl"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
         train.main(["--smoke", "--device", "cpu", "--iters", "1", *flag])
 
 
-@pytest.mark.parametrize("option", ["async_pipeline", "env", "distributed", "obs",
-                                    "mesh_shape"])
+@pytest.mark.parametrize("option", ["distributed", "obs", "mesh_shape"])
 def test_unported_options_raise(option):
-    value = {"async_pipeline": AsyncPipelineConfig(enabled=True),
-             "env": EnvConfig(name="calculator"),
-             "distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c"),
+    value = {"distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c"),
              "obs": ObsConfig(enabled=True), "mesh_shape": (2, 1)}[option]
     exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value})
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
@@ -487,16 +481,6 @@ def _layer_cfg(**kw):
 # every NotImplementedError of the port, and the ROADMAP queue 1 item that
 # ports its subsystem
 NOT_PORTED_CASES = {
-    "flag_max_staleness": (4, lambda: train.main(SMALL + ["--max-staleness", "1"])),
-    "option_async_pipeline": (4, lambda: ExperimentSpec(
-        model=_layer_cfg(), async_pipeline=AsyncPipelineConfig(enabled=True)).compile(
-        device="cpu")),
-    "flag_env": (5, lambda: train.main(SMALL + ["--env", "calculator"])),
-    "option_env": (5, lambda: ExperimentSpec(
-        model=_layer_cfg(), env=EnvConfig(name="calculator")).compile(device="cpu")),
-    "stage_env_compute": (5, lambda: stages.env_compute(None, None, None)),
-    "engine_env": (5, lambda: ContinuousRolloutEngine(
-        get_model_cpu(_layer_cfg()), max_new=2, env=object())),
     "moe": (6, lambda: get_model_cpu(reduced(get_config("mixtral-8x7b")))),
     "enc_dec": (6, lambda: get_model_cpu(reduced(get_config("seamless-m4t-medium")))),
     "prefix_embeds": (6, lambda: get_model_cpu(reduced(get_config("llava-next-34b")))),
@@ -520,9 +504,9 @@ NOT_PORTED_CASES = {
             num_hosts=2, coordinator="/tmp/c")).compile(device="cpu")),
     "option_mesh": (8, lambda: ExperimentSpec(model=_layer_cfg(), mesh_shape=(2, 1)).compile(
         device="cpu")),
+    "publish_reshard": (8, lambda: WeightVersionStore().publish({}, mesh=object())),
 }
-ITEM_NAMES = {4: "async off-policy pipeline", 5: "multi-turn environments",
-              6: "other families", 7: "(fault tolerance|telemetry)", 8: "distributed"}
+ITEM_NAMES = {6: "other families", 7: "(fault tolerance|telemetry)", 8: "distributed"}
 
 
 def get_model_cpu(cfg):

@@ -43,7 +43,7 @@ from repro_torch.rl.rollout_engine import (
     PromptQueue,
     lockstep_waste,
 )
-from torch_arena import EPISODE_KEYS, fp32_arena, jax_fp32_arena
+from torch_arena import fp32_arena, jax_fp32_arena
 
 ARCH = "qwen2.5-7b"
 SMOKE = dict(vocab_size=260, num_layers=2)
@@ -167,9 +167,9 @@ def test_greedy_engine_matches_jax(qwen, case):
     _assert_same(got, want, lp_tol=TOL)
     lens = got.lengths.numpy()
     assert lens.min() < c["T"] and (budgets is not None or lens.max() > 1), lens
-    # the same slot schedule: every count of the single-turn stats is JAX's
+    # the same slot schedule: every count of the stats is JAX's
     js, s = jeng.last_stats, eng.last_stats
-    assert set(js) - set(s) == EPISODE_KEYS and set(s) <= set(js)
+    assert set(s) == set(js)
     for k in s:
         if k not in ("wall_s", "tokens_per_s"):
             assert s[k] == pytest.approx(js[k], abs=1e-12), k
@@ -359,8 +359,8 @@ def test_lockstep_waste_equals_jax(seed):
 
 
 def test_env_and_prefix_models_are_refused(qwen):
+    """top_p < 1 is refused (other families); environments run in the
+    episode loop (``tests/test_torch_envs.py``)."""
     _, _, model, _, _ = qwen
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 5: multi-turn"):
-        ContinuousRolloutEngine(model, max_new=4, env=object())
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 6: other families"):
         ContinuousRolloutEngine(model, max_new=4, top_p=0.9)

@@ -154,7 +154,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     "repro_torch.core.stages", "repro_torch.core.worker",
                     "repro_torch.core.pipeline", "repro_torch.data.dataset",
                     "repro_torch.data.dataloader", "repro_torch.ft.straggler",
-                    "repro_torch.api", "repro_torch.launch.train"]) <= set(names)
+                    "repro_torch.api", "repro_torch.launch.train",
+                    "repro_torch.core.async_worker", "repro_torch.distributed.weight_sync",
+                    "repro_torch.rl.envs.base", "repro_torch.rl.envs.builtin"]) <= set(names)
         import chip_smoke
         assert not [m for m in sys.modules if m.startswith(("jax.", "repro.", "jaxlib"))]
         print(len(names))
@@ -163,4 +165,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 55
+    assert int(res.stdout.strip()) >= 60

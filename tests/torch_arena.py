@@ -1,6 +1,5 @@
 """Shared by the tests that hold the port's continuous rollout engine against
-the JAX package's: an fp32 cache arena for either package's model, and the
-``last_stats`` keys that only the JAX engine's episode loop fills.
+the JAX package's: an fp32 cache arena for either package's model.
 
 Both engines' cache arenas are bf16 (``init_caches``). On fp32 weights the
 JAX engine cannot run on one at all (its decode writes turn the
@@ -13,11 +12,6 @@ import jax.numpy as jnp
 import torch
 
 from repro_torch import tree
-
-# last_stats keys of the JAX engine that only its episode loop (ROADMAP
-# queue 1, item 5) gives a meaning beyond the single-turn counts
-EPISODE_KEYS = {"prefill_tokens", "prefill_tokens_turn1", "prefill_tokens_turn2plus",
-                "obs_tokens", "cont_refills", "turns"}
 
 
 class Fp32Arena:
