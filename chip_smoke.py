@@ -129,6 +129,31 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      --max-staleness 1``: exact turn, observation and carried-token counts,
      observation tokens out of ``response_mask``, continuations through
      ``decode_attention`` at each row's own offset.
+ 13. The MoE family (the async models freed), each model freed before the
+     next is drawn: granite-moe-3b-a800m at full width and depth (32
+     layers, 40 experts of 512, top-8, 24 heads padded to 32 on 8 KV heads
+     of 64, a tied head of 49,408) through ``serve --arch
+     granite-moe-3b-a800m --lockstep`` with phase 3's checks (routes flip
+     between the kernel and the plain path and the flips compound, so the
+     routes that flip are counted per layer, the free-running logits are
+     held to 2x the plain path's drift from itself row by row, and the
+     kernel path to the plain path layer by layer, as mamba2's), one
+     generate held to plain call by call,
+     each kernel timed on its own inputs at the path's shapes, one MoE
+     layer at decode (8 tokens) and prefill (1,024) beside its bounds, and
+     ``model.loss`` at 8 x 160 (finite ``moe_aux``, the plain path's loss
+     at 2e-2); GRPO through ``launch.train --arch granite-moe-3b-a800m`` on
+     phase 8's experiment file, distributed arm (warm-up held to plain, 3
+     timed iterations, phase 8's checks, peak GiB); then mixtral-8x7b at
+     full width and 4 of its 32 layers (its 93 GB of bf16 weights exceed
+     the card): two greedy generates of B = 2 with the window of 4,096,
+     a prompt of 4,080 (the ring wraps at decode step 16) and of 4,352 (the
+     prefill keeps the last 4,096 tokens, the window cuts the last 256
+     queries), held to plain call by call, and ``logprobs_fn`` over each
+     whole sequence against the sampler's logprobs (step-0 ratio within
+     1 +- 0.02; the full forward's argmax equal to the greedy token where
+     the top two are clear by 0.05 and no route of the row flipped up to
+     that position).
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -194,7 +219,9 @@ LOGPROB_TOL = 1e-3
 SAMPLE_GAP = 1e-4
 # mamba2's free-running kernel-path logits may drift from the plain path's at
 # most this many times as far as the plain path drifts from itself at chunk
-# 64 (the full model on an H100 measured 0.258 against 0.242, a ratio of 1.07)
+# 64 (the full model on an H100 measured 0.258 against 0.242, a ratio of 1.07);
+# granite-moe-3b's as far as the plain path drifts from itself row by row
+# (0.2031 against 0.1797, a ratio of 1.13)
 DRIFT_FACTOR = 2.0
 
 
@@ -898,11 +925,11 @@ def untied_sampler(torch, ops, ref, randn, gen):
     return out
 
 
-def serve_args(serve, temperature: float, arch_flags=ARCH_FLAGS):
+def serve_args(serve, temperature: float, arch_flags=ARCH_FLAGS, batches=TIMED_BATCHES):
     return serve.parse_args([
         *arch_flags, "--lockstep", "--device", DEV, "--seed", "0",
         "--batch", str(B), "--prompt-len", str(PROMPT), "--max-new", str(MAX_NEW),
-        "--requests", str(TIMED_BATCHES), "--temperature", str(temperature)])
+        "--requests", str(batches), "--temperature", str(temperature)])
 
 
 def build_model(torch, serve, arch_flags=ARCH_FLAGS):
@@ -990,20 +1017,26 @@ def plain_logits(torch, ops, model, params, prompt, chunk: int):
     return logits
 
 
-def layerwise_agreement(torch, ops, model, params, prompt, caches_r, tok0):
-    """Every layer of an SSD stack on the plain path's input of that layer,
-    kernel path against plain path: norm1, the SSD mixer over the prompt
-    (the scan kernel and the gated norm), and the one-token mixer step from
-    the plain prefill's state, each within 2e-2 of its max |output|. Returns
-    the kernel and plain prefill logits from the plain last hidden state, the
-    kernel sampler's greedy token and the plain logits of the decode step,
-    and the worst layer's error over its max."""
-    from repro_torch.models import layers, lm
+def layerwise_agreement(torch, ops, model, params, prompt, caches_r, len_r, tok0,
+                        smax: int):
+    """Every layer on the plain path's input of that layer, kernel path
+    against plain path, over the prompt and for the one-token step from the
+    plain prefill's caches: norm1, the mixer (the SSD mixer with its scan
+    and gated norm, or attention with its cache), and where the layer has an
+    MLP, norm2 and the MLP, each within 2e-2 of its max |output|. An MoE
+    layer's tokens whose top-k experts differ between the two paths (route
+    flips: the two norms' roundings move a token whose k-th and (k+1)-th
+    router logits lie that close) are counted and left out, and every token
+    beyond the limit must be one of them. Returns the kernel and plain
+    prefill logits from the plain last hidden state, the kernel sampler's
+    greedy token and the plain logits of the decode step, the worst layer's
+    error over its max, and the route flips of each MoE layer (prefill,
+    decode)."""
+    from repro_torch.models import layers, lm, moe
 
     cfg = model.cfg
-    require(all(k == ("ssm", "none") for k in cfg.layer_kinds()),
-            "the layer-by-layer check covers SSD stacks without MLPs")
-    worst = 0.0
+    S = prompt.shape[1]
+    worst, flips = 0.0, []
 
     def both(fn):  # (kernel path, plain path) of fn
         ops.set_mode("ref")
@@ -1011,26 +1044,59 @@ def layerwise_agreement(torch, ops, model, params, prompt, caches_r, tok0):
         ops.set_mode(None)
         return fn(), plain
 
-    def check(a, b, what):
+    def check(a, b, what, skip=None):
         nonlocal worst
-        s, e = float(b.float().abs().max()), float((a.float() - b.float()).abs().max())
+        s, e = float(b.float().abs().max()), (a.float() - b.float()).abs()
+        e = e.reshape(-1, e.shape[-1]).amax(dim=-1)
+        if skip is not None:
+            require(not bool((e > 2e-2 * s)[~skip].any()),
+                    f"{what}: a token whose route did not flip is off by more than 2e-2 of "
+                    f"max |out| {s}: {float(e[~skip].max())}")
+            e = e[~skip]
+        e = float(e.max()) if e.numel() else 0.0
         require(e <= 2e-2 * s, f"{what}: max abs err {e} vs max |out| {s}")
         worst = max(worst, e / s)
 
     head = lm._head_matrix(cfg, params)
+    positions = torch.arange(S, device=DEV)[None, :]
     with torch.inference_mode():
         h = lm.embed_tokens(cfg, params, prompt)
         hd = lm.embed_tokens(cfg, params, tok0.reshape(-1, 1))
-        for i, (block, state) in enumerate(zip(params["blocks"], caches_r)):
-            for x, mode, cache in ((h, "prefill", None), (hd, "decode", state)):
+        for i, (block, kind, cache_r) in enumerate(zip(params["blocks"], cfg.layer_kinds(),
+                                                       caches_r)):
+            for mode in ("prefill", "decode"):
+                x, cache = (h, None) if mode == "prefill" else (hd, cache_r)
                 hn_k, hn = both(lambda: layers.apply_norm(cfg, block["norm1"], x))
                 check(hn_k, hn, f"layer {i} norm1 ({mode})")
-                (mk, _), (mr, _) = both(lambda: lm._ssm_mixer(cfg, block["ssm"], hn, mode, cache))
-                check(mk, mr, f"layer {i} SSD mixer ({mode})")
-                if mode == "prefill":
-                    h = h + mr
+                if kind[0] == "ssm":
+                    (mk, _), (mr, _) = both(
+                        lambda: lm._ssm_mixer(cfg, block["ssm"], hn, mode, cache))
                 else:
-                    hd = hd + mr
+                    (mk, _), (mr, _) = both(lambda: lm._attn_mixer(
+                        cfg, block["attn"], hn, positions, mode, cache, len_r, smax))
+                check(mk, mr, f"layer {i} {kind[0]} mixer ({mode})")
+                x = x + mr
+                if kind[1] != "none":
+                    hn2_k, hn2 = both(lambda: layers.apply_norm(cfg, block["norm2"], x))
+                    check(hn2_k, hn2, f"layer {i} norm2 ({mode})")
+                    if kind[1] == "dense":
+                        ok_, or_ = both(lambda: layers.apply_mlp(cfg, block["mlp"], hn2))
+                        skip = None
+                    else:
+                        # the MoE on each path's own normed input, as the model runs it
+                        with routes_recorded(torch) as routes:
+                            ops.set_mode("ref")
+                            or_, _ = moe.apply_moe(cfg, block["moe"], hn2)
+                            ops.set_mode(None)
+                            ok_, _ = moe.apply_moe(cfg, block["moe"], hn2_k)
+                        skip = (routes[0] != routes[1]).any(dim=-1)
+                        flips.append((i, mode, int(skip.sum())))
+                    check(ok_, or_, f"layer {i} {kind[1]} MLP ({mode})", skip)
+                    x = x + or_
+                if mode == "prefill":
+                    h = x
+                else:
+                    hd = x
         fk, fr = both(lambda: layers.apply_norm(cfg, params["final_norm"], h[:, -1].contiguous()))
         logits_k = lm.mask_padded_vocab(cfg, (fk @ head).float())
         logits_r = lm.mask_padded_vocab(cfg, (fr @ head).float())
@@ -1038,9 +1104,39 @@ def layerwise_agreement(torch, ops, model, params, prompt, caches_r, tok0):
         hdf = layers.apply_norm(cfg, params["final_norm"], hd[:, 0])
         step_r = lm.mask_padded_vocab(cfg, (hdf @ head).float())
         ops.set_mode(None)
-        zero = torch.zeros(B, dtype=torch.int32, device=DEV)
+        zero = torch.zeros(hdf.shape[0], dtype=torch.int32, device=DEV)
         tok1_k, _ = ops.fused_sample(hdf, head, zero, zero.float(), vocab_size=cfg.vocab_size)
-    return logits_k, logits_r, tok1_k, step_r, worst
+    return logits_k, logits_r, tok1_k, step_r, worst, flips
+
+
+@contextlib.contextmanager
+def routes_recorded(torch):
+    """While open, the expert ids of every MoE routing (``moe.route``) are
+    kept in call order, each (T, k) sorted along k. Yields the list."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def recording(cfg, router, xt):
+        out = route(cfg, router, xt)
+        seen.append(out[2].sort(dim=-1).values)
+        return out
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def flipped(torch, a, b, rows: int):
+    """(rows, positions) bool: the tokens whose experts differ between two
+    routings of the same layers (lists of (rows * positions, k))."""
+    out = None
+    for x, y in zip(a, b):
+        f = (x != y).any(dim=-1).reshape(rows, -1)
+        out = f if out is None else out | f
+    return out
 
 
 def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
@@ -1049,13 +1145,21 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
     (``ops.set_mode("ref")``) on the same weights and ``prompt``: the prefill
     logits within 2e-2 of their max, and the first token and the first
     decoded token (the fused sampler, greedy) equal in every row whose top
-    two logits are clear by 0.05. With ``layerwise`` (SSD stacks), the
-    free-running logits are held against the plain path's drift from itself
-    (``plain_logits`` at chunk 64), and the kernel path against the plain
-    path layer by layer (see ``layerwise_agreement``). Returns the checks'
+    two logits are clear by 0.05. With ``layerwise``, the kernel path
+    is held against the plain path layer by layer (``layerwise_agreement``)
+    and the first tokens on the plain path's last hidden states; an SSD
+    stack's free-running logits are also held against the plain path's
+    drift from itself (``plain_logits`` at chunk 64), a deep MoE stack's
+    against the plain path's drift from itself between a batched prefill
+    and one row at a time: its free-running paths part wherever a route
+    flips (each path routes its own hidden states, and a token whose k-th
+    and (k+1)-th router logits lie within the paths' rounding takes another
+    expert), and the flips compound through the layers. Returns the checks'
     numbers."""
     B = prompt.shape[0]
     cfg = model.cfg
+    n = sum(k[1] == "moe" for k in cfg.layer_kinds())
+    require(layerwise or not n, "an MoE stack is held to the plain path layer by layer")
     with torch.inference_mode():
         ops.set_mode("ref")
         logits_r, caches_r, len_r = model.prefill(params, prompt, smax=smax)
@@ -1069,7 +1173,27 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
     scale = float(logits_r[:, real].abs().max())
     err = float((logits_k[:, real] - logits_r[:, real]).abs().max())
     checks = {"prefill_logits_max_abs_err": err, "max_abs_logit": scale}
-    if layerwise:
+    if layerwise and n:
+        # the plain path against itself, one prompt row at a time (another
+        # shape of every product, so another order of its sums)
+        ops.set_mode("ref")
+        with torch.inference_mode():
+            rows = torch.cat([model.prefill(params, prompt[b:b + 1], smax=smax)[0]
+                              for b in range(B)])
+        ops.set_mode(None)
+        drift = float((rows[:, real] - logits_r[:, real]).abs().max())
+        checks.update(
+            plain_row_by_row_logits_max_abs_err=drift,
+            free_running_first_token_equal_rows=int(
+                (torch.argmax(logits_k, dim=-1) == torch.argmax(logits_r, dim=-1)).sum()))
+        print(f"[{label}] free-running: prefill logits max abs err {err:.4g} (the plain "
+              f"path row by row against itself {drift:.4g}, max |logit| {scale:.4g}); first "
+              f"token equal in {checks['free_running_first_token_equal_rows']}/{B} rows",
+              flush=True)
+        require(err <= DRIFT_FACTOR * drift,
+                f"free-running prefill logits: max abs err {err}, more than {DRIFT_FACTOR} "
+                f"x the plain path's drift against itself row by row ({drift})")
+    if layerwise and not n:
         # 64 random SSD layers in bf16 carry a rounding difference of one
         # layer's output into every later layer: the free-running logits of
         # two correct paths drift apart with depth. The plain path against
@@ -1089,9 +1213,12 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
         print(f"[{label}] free-running: prefill logits max abs err {err:.4g}, the plain path "
               f"at chunk 64 {drift:.4g} (max |logit| {scale:.4g}); first token equal in "
               f"{own0}/{B} rows", flush=True)
-        logits_k, logits_r, tok1_k, step_r, worst = layerwise_agreement(
-            torch, ops, model, params, prompt, caches_r, tok0)
+    if layerwise:
+        logits_k, logits_r, tok1_k, step_r, worst, flips = layerwise_agreement(
+            torch, ops, model, params, prompt, caches_r, len_r, tok0, smax)
         checks["worst_layer_err_over_max"] = worst
+        if flips:
+            checks["layerwise_route_flips"] = flips
         err = float((logits_k[:, real] - logits_r[:, real]).abs().max())
         scale = float(logits_r[:, real].abs().max())
         checks.update({"teacher_forced_logits_max_abs_err": err,
@@ -1116,17 +1243,20 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
 
 
 def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
-                     label="e2e", profile_name="profile.txt", layerwise=False):
+                     label="e2e", profile_name="profile.txt", layerwise=False,
+                     batches=TIMED_BATCHES, reps=5):
     """Lockstep serving of ``model`` (full width and depth) on the card,
-    through ``serve.run_lockstep``. With ``layerwise``, the kernel path's
-    free-running logits are held against the plain path's drift from itself
-    (``plain_logits`` at chunk 64), and the kernel path against the plain
-    path layer by layer (see ``layerwise_agreement``).
-    Returns (launch counts of the greedy run, summary, a function that
-    profiles one greedy generate)."""
-    args = serve_args(serve, 0.0)  # run_lockstep reads the batch flags only, not --arch
+    through ``serve.run_lockstep`` (a warm-up and ``batches`` timed
+    batches a run; the decode rate from ``reps`` generates of each length).
+    With ``layerwise``, the kernel path's free-running logits are held
+    against the plain path's drift from itself (``plain_logits`` at chunk
+    64), and the kernel path against the plain path layer by layer (see
+    ``layerwise_agreement``). Returns (launch counts of the greedy run,
+    summary, a function that profiles one greedy generate)."""
+    # run_lockstep reads the batch flags only, not --arch
+    args = serve_args(serve, 0.0, batches=batches)
     cfg = model.cfg
-    steps, gens = MAX_NEW - 1, TIMED_BATCHES + 1
+    steps, gens = MAX_NEW - 1, batches + 1
     expected = forward_launches(cfg, _build.LAUNCHES, gens, gens * steps)
 
     def checked_run(a):
@@ -1145,7 +1275,7 @@ def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
         return all(torch.equal(x.tokens, y.tokens) for x, y in zip(a["results"], b["results"]))
 
     ops.set_mode(None)
-    sampled_args = serve_args(serve, 0.8)
+    sampled_args = serve_args(serve, 0.8, batches=batches)
     greedy, counts = checked_run(args)
     sampled, _ = checked_run(sampled_args)
     require(same_tokens(greedy, checked_run(args)[0]), "two greedy runs with one seed differ")
@@ -1169,8 +1299,8 @@ def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
-    full = statistics.median(gen_s(MAX_NEW) for _ in range(5))
-    prefill_only = statistics.median(gen_s(1) for _ in range(5))
+    full = statistics.median(gen_s(MAX_NEW) for _ in range(reps))
+    prefill_only = statistics.median(gen_s(1) for _ in range(reps))
     step_ms = (full - prefill_only) / (MAX_NEW - 1) * 1e3
     summary = {
         "greedy_tok_per_s": greedy["tok_per_s"], "greedy_p50_ms": greedy["p50_s"] * 1e3,
@@ -2022,7 +2152,9 @@ def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAG
     PPO a finite critic loss, a nonzero critic gradient and some critic
     weights changed), iteration 0 bitwise equal across arms and later
     iterations within the distributed arm's own spread, and the buffer
-    counts against a CPU run of the same DAG and iterations. ``hand_rows``
+    counts against a CPU run of the same DAG and iterations (with the
+    distributed arm alone in ``arms``, its per-iteration checks and the
+    buffer counts). ``hand_rows``
     are phase 7's hand-composed iterations, where the path has them. Prints
     ``{label + "_arm": ...}`` lines and ``{label: ...}``. Returns (the
     launch counts of the first run, the summary)."""
@@ -2135,6 +2267,18 @@ def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAG
                 if not k.startswith("time/")}
 
     base = runs[("distributed", 0)]
+    if len(runs) == 1:  # the distributed arm alone: no spread and no other arm
+        cpu = train.main(["--smoke", "--device", "cpu"] + flags + PIPE_FLAGS + PIPE_ITERS)
+        want = {k: getattr(cpu["pipeline"].buffer.stats, k) for k in BUFFER_COUNTS}
+        require(base["counts"] == want and base["bytes_moved"] == 0
+                and base["bytes_through_controller"] == 0,
+                f"{label}: buffer counts {base['counts']}, the CPU run's {want}")
+        summary = {"iteration_ms": {"distributed": base["summary"]["iteration_ms_median"]},
+                   "launches_per_iteration": per_iter, "held_to_plain": held,
+                   "node_ms_median": base["summary"]["node_ms_median"],
+                   "peak_gib": base["peak_gib"], "phase_s": time.perf_counter() - t_phase}
+        print(json.dumps({label: summary}), flush=True)
+        return main_counts, summary
     # iteration 0: same seed, values that pass through the buffer unchanged
     for key, run in runs.items():
         require(torch.equal(run["tokens"][0], base["tokens"][0]),
@@ -3105,10 +3249,379 @@ def async_phase(torch, ops, ref, _build, label="async"):
     return {f"{'async_' if arm == 'sync' else ''}{arm}_pipeline": c for arm, c in counts.items()}
 
 
+# phase 13: the MoE family. granite-moe-3b-a800m at full width and depth
+# (configs/granite_moe_3b.py: 32 layers, d_model 1536, 24 query heads padded
+# to 32 on 8 KV heads of 64, 40 SwiGLU experts of 512, top-8, vocab 49,155
+# tied); mixtral-8x7b (configs/mixtral_8x7b.py: d_model 4096, 32 query heads
+# on 8 KV heads of 128, 8 SwiGLU experts of 14,336, top-2, a window of 4,096,
+# an untied head of 32,000) at full width and 4 of its 32 layers: its 93 GB
+# of bf16 weights exceed the card's 80 GB, 4 layers hold 12.1 GB
+GRANITE_FLAGS = ["--arch", "granite-moe-3b-a800m"]
+MIXTRAL_LAYERS, MIXTRAL_B = 4, 2
+# prompt lengths: a prompt of 4,080 wraps the ring of 4,096 at decode step
+# 16; one of 4,352 fills the ring from its last 4,096 tokens and the window
+# cuts its last 256 queries
+MIXTRAL_PROMPTS = {"ring_wraps": 4080, "prefill_past_window": 4352}
+LOSS_B, LOSS_S = 8, 160  # the actor step's shape of phase 7
+
+
+@contextlib.contextmanager
+def first_calls(torch, ops, names):
+    """While open, keeps a copy of the inputs of the first call of each
+    kernel of ``names`` through ``ops`` for each of its shapes (a decode
+    step's caches change in place after the call). Yields {(name, shape of
+    the first input): (args, kwargs)}."""
+    seen = {}
+    kernel = {n: getattr(ops, n) for n in names}
+
+    def keep(name):
+        def call(*args, **kw):
+            key = (name, tuple(args[0].shape))
+            if key not in seen:
+                seen[key] = (tuple(a.clone() if hasattr(a, "clone") else a for a in args),
+                             dict(kw))
+            return kernel[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, keep(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(ops, n, kernel[n])
+
+
+def attended_pairs(sq: int, sk: int, q_offset: int, window) -> int:
+    """Causal (query, key) pairs of a prefill: the query at position p sees
+    the keys at positions (p - window, p] below sk."""
+    return sum(min(p + 1, sk, window or sk) for p in range(q_offset, q_offset + sq))
+
+
+def path_records(torch, ops, ref, F, calls, label: str):
+    """Each kernel call of ``calls`` (``first_calls``) again on its own
+    inputs: the kernel's time, its plain version's, one PyTorch call's as a
+    yardstick (``F.rms_norm``, SDPA, ``h @ W``) and the bound of the work of
+    these inputs. Prints a ``{"check": "<label>/<kernel>"}`` line each and
+    returns {kernel: {shape tag: record}}."""
+    out = {}
+    for (name, shape), (args, kw) in calls.items():
+        if name == "rmsnorm":
+            x, w = args
+            R, D = x.shape
+            bms, by = bound_ms(2 * R * D * 2 + D * 4, 4 * R * D, FP32_FLOP_PER_S)
+            wl = (1.0 + w).to(torch.bfloat16)
+            lib = lambda: F.rms_norm(x, (D,), weight=wl, eps=1e-6)  # noqa: E731
+            tag = f"{R}x{D}"
+        elif name == "flash_attention":
+            q, k, v = args
+            Bq, Sq, H, HD = q.shape
+            Sk, KVH = k.shape[1], k.shape[2]
+            win, off = kw.get("window"), kw.get("q_offset", 0)
+            pairs = attended_pairs(Sq, Sk, off, win)
+            nbytes = 2 * q.numel() * 2 + 2 * Bq * Sk * KVH * HD * 2
+            bms, by = bound_ms(nbytes, 4 * Bq * H * HD * pairs, BF16_TENSOR_FLOP_PER_S)
+            i = torch.arange(Sq, device=q.device)[:, None] + off
+            j = torch.arange(Sk, device=q.device)[None, :]
+            mask = j <= i
+            if win:
+                mask &= i - j < win
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            tag = f"B{Bq}_S{Sq}_H{H}_KVH{KVH}_D{HD}" + (f"_window{win}" if win else "")
+        elif name == "decode_attention":
+            q, k, v, n = args
+            Bq, H, HD = q.shape
+            S, KVH = k.shape[1], k.shape[2]
+            live = int(n.sum())
+            nbytes = 2 * q.numel() * 2 + Bq * H * 4 + live * KVH * HD * 2 * 2
+            bms, by = bound_ms(nbytes, 4 * H * HD * live, BF16_TENSOR_FLOP_PER_S)
+            mask = (torch.arange(S, device=q.device)[None, :] < n[:, None])[:, None, None, :]
+            qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            tag = f"B{Bq}_slots{S}_H{H}_KVH{KVH}_D{HD}"
+        else:  # fused_sample
+            h, head = args[0], args[1]
+            Bq, D = h.shape
+            V = head.shape[1]
+            bms, by = bound_ms(V * D * 2 + Bq * D * 2 + Bq * 8, 2 * Bq * V * D,
+                               BF16_TENSOR_FLOP_PER_S)
+            lib = lambda: torch.matmul(h, head)  # noqa: E731
+            tag = f"B{Bq}_head{D}x{V}_{'tied' if head.stride(0) == 1 else 'untied'}"
+        with torch.inference_mode():
+            rec = {"inputs": [list(a.shape) for a in args if hasattr(a, "shape")], **{
+                k_: v_ for k_, v_ in kw.items() if v_ is not None},
+                "ms": device_ms(lambda: getattr(ops, name)(*args, **kw), reps=11),
+                "plain_ms": device_ms(lambda: getattr(ref, name)(*args, **kw), reps=5),
+                "bound_ms": bms, "bound_by": by, "library_ms": device_ms(lib, reps=11)}
+        out.setdefault(name, {})[tag] = rec
+        print(json.dumps({"check": f"{label}/{name}/{tag}", **rec}), flush=True)
+    return out
+
+
+def moe_layer_record(torch, cfg, p, T: int, label: str):
+    """One MoE layer (``moe.apply_moe``, the dense dispatch) on T random
+    bf16 tokens: its device time beside two bounds, the dense dispatch's
+    (every expert's weights once, every expert on every token) and the work
+    the routing of these tokens needs (the experts they reach, top-k on
+    each token); the router's fp32 product counts at the fp32 rate."""
+    from repro_torch.models import moe
+
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.num_experts_per_tok
+    x = (torch.randn((1, T, d), generator=torch.Generator(device=DEV).manual_seed(T),
+                     device=DEV) * 0.5).to(torch.bfloat16)
+    with torch.inference_mode():
+        # the memory one call takes beyond its inputs: a copy of an expert
+        # stack (a permute and reshape of "td,edf->etf" into one GEMM) would
+        # take d * f * E * 2 bytes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        moe.apply_moe(cfg, p, x)
+        transient = torch.cuda.max_memory_allocated() - base
+        ms = device_ms(lambda: moe.apply_moe(cfg, p, x), reps=11)
+        _, _, idx = moe.route(cfg, p["router"], x[0])
+    stack = E * d * f * 2
+    activations = 4 * E * T * f * 2 + 2 * T * d * 4  # h, g and their products; fp32 out
+    require(transient < stack / 4 or transient <= 2 * activations,
+            f"{label} MoE layer at T={T}: {transient} bytes beyond its inputs, an expert "
+            f"stack is {stack}")
+    expert_bytes = 3 * d * f * 2
+    router_bytes = d * E * 4
+    io = 2 * T * d * 2
+    router_s = 2 * T * d * E / FP32_FLOP_PER_S
+    reached = int(torch.unique(idx).numel())
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOP_PER_S + router_s
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+    dense, dense_by = bound(E * expert_bytes + router_bytes + io, 3 * 2 * T * d * f * E)
+    topk, topk_by = bound(reached * expert_bytes + router_bytes + io, 3 * 2 * T * d * f * k)
+    rec = {"tokens": T, "ms": ms, "dense_bound_ms": dense, "dense_bound_by": dense_by,
+           "transient_mb": transient / 1e6, "expert_stack_mb": stack / 1e6,
+           "dense_tflop": 6 * T * d * f * E / 1e12, "topk_bound_ms": topk,
+           "topk_bound_by": topk_by, "experts_reached": reached,
+           "weight_mb": (E * expert_bytes + router_bytes) / 1e6}
+    print(json.dumps({"check": f"{label}/moe_layer/T{T}", **rec}), flush=True)
+    return rec
+
+
+def route_flips(torch, ops, model, params, prompt, smax: int):
+    """Per MoE layer, the tokens whose top-k experts differ between the
+    plain path's prefill and the kernel path's on ``prompt`` (free running:
+    each path routes its own hidden states, so a rounding difference moves
+    a token whose k-th and (k+1)-th router logits lie that close)."""
+    with torch.inference_mode(), routes_recorded(torch) as seen:
+        for mode in ("ref", None):
+            ops.set_mode(mode)
+            model.prefill(params, prompt, smax=smax)
+    ops.set_mode(None)
+    n = len(seen) // 2
+    return [int((a != b).any(dim=-1).sum()) for a, b in zip(seen[:n], seen[n:])]
+
+
+def held_generate(torch, ops, ref, _build, generate, model, params, prompt, label: str,
+                  **kw):
+    """One greedy ``generate`` with the launch counters set to 0 just before
+    it and read just after, every kernel call held to plain, the first call
+    of each shape kept and the routings recorded. Returns (result, launches,
+    held, first calls, routings)."""
+    names = path_kernels(model.cfg)
+    _build.reset_launches()
+    with first_calls(torch, ops, names) as calls, \
+            held_to_plain(torch, ops, ref, names) as held, routes_recorded(torch) as routes:
+        res = generate(model, params, prompt, torch.Generator(device=DEV).manual_seed(7),
+                       max_new=MAX_NEW, temperature=0.0, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = forward_launches(model.cfg, _build.LAUNCHES, 1, MAX_NEW - 1)
+    require(launches == want, f"{label}: launches {launches}, expected {want}")
+    require(all(held[n]["calls"] == launches[n] for n in names),
+            f"{label} held to plain: calls {held}, launches {launches}")
+    print(json.dumps({"check": f"{label}_held_to_plain", "kernels": held}), flush=True)
+    return res, launches, held, calls, routes
+
+
+def moe_phase(torch, ops, ref, F, _build, serve, generate, records, label="moe"):
+    """The MoE family at full width (random bf16 weights from ``--seed 0``),
+    each model freed before the next is drawn:
+
+    1. granite-moe-3b lockstep at full depth (``serve --arch
+       granite-moe-3b-a800m --lockstep``, phase 3's shape and checks): the
+       launch counters, tokens in range and repeatable, the plain path's
+       agreement, with the route flips between the two paths per layer;
+       one greedy generate with every kernel call held to plain and each
+       kernel timed on the inputs of its first call of each shape; one MoE
+       layer at decode (8 tokens) and at prefill (1,024) beside its bounds;
+       ``model.loss`` at 8 x 160 (a finite ``moe_aux``, the loss within
+       2e-2 of the plain path's);
+    2. GRPO through ``launch.train --arch granite-moe-3b-a800m`` on phase
+       8's experiment file, distributed arm: the warm-up iteration held to
+       plain, then 3 timed ones, each with phase 8's checks;
+    3. mixtral-8x7b at 4 of its 32 layers: two greedy generates of B = 2
+       (``MIXTRAL_PROMPTS``, 32 new tokens) with every kernel call held to
+       plain and timed as in 1, then ``logprobs_fn`` over each whole
+       sequence (windowed full attention): the step-0 ratio against the
+       sampler's logprobs within 1 +- RATIO_TOL, and the argmax of its
+       logits equal to the greedy token wherever their top two are clear by
+       0.05 and no token of the row up to that position took other experts
+       in the two forwards (route flips, counted and printed); one MoE layer
+       at decode (2 tokens) and at the 2 x 4,352 prefill.
+
+    The kernels' records at the new shapes join ``records`` (under each
+    kernel's ``"phase13"``). Prints ``{label: ...}``. Returns {path: launch
+    counts}."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, lm
+
+    t_phase = time.perf_counter()
+    counts, summary = {}, {}
+    # ---- 1. granite lockstep ----
+    torch.cuda.reset_peak_memory_stats()
+    model, params, tok = build_model(torch, serve, GRANITE_FLAGS)
+    cfg = model.cfg
+    # the route flips first: they are what an agreement check would miss on
+    _, ids = serve.prompts(tok, B, PROMPT)
+    prompt = torch.from_numpy(ids).to(DEV)
+    flips = route_flips(torch, ops, model, params, prompt, SMAX)
+    print(json.dumps({"check": "granite_route_flips", "tokens": B * PROMPT,
+                      "flipped_per_layer": flips}), flush=True)
+    counts["granite_lockstep"], e2e, _ = end_to_end_phase(
+        torch, ops, _build, serve, generate, model, params, tok, label="e2e_granite",
+        layerwise=True, batches=1, reps=3)
+    _, _, held, calls, _ = held_generate(torch, ops, ref, _build, generate, model, params,
+                                         prompt, "granite_generate", eos_id=tok.eos_id)
+    kernels = {"granite": path_records(torch, ops, ref, F, calls, "granite")}
+    layer = {T: moe_layer_record(torch, cfg, params["blocks"][0]["moe"], T, "granite")
+             for T in (B, 1024)}
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    tokens = torch.randint(3, cfg.vocab_size, (LOSS_B, LOSS_S), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    labels = torch.cat([tokens[:, 1:], torch.full((LOSS_B, 1), lm.IGNORE, device=DEV,
+                                                  dtype=torch.int32)], dim=1)
+    batch = {"tokens": tokens, "labels": labels}
+    with torch.no_grad():
+        loss_k, m_k = model.loss(params, batch)
+        ops.set_mode("ref")
+        loss_r, m_r = model.loss(params, batch)
+        ops.set_mode(None)
+    aux_k, aux_r = float(m_k["moe_aux"]), float(m_r["moe_aux"])
+    require(bool(torch.isfinite(m_k["moe_aux"])) and aux_k > 0,
+            f"granite loss: moe_aux {aux_k}")
+    err = abs(float(loss_k) - float(loss_r))
+    require(err <= 2e-2 * abs(float(loss_r)),
+            f"granite loss {float(loss_k)} against the plain path's {float(loss_r)}")
+    summary["granite_lockstep"] = {
+        "decode_step_ms": e2e["decode_step_ms"], "decode_tok_per_s": e2e["decode_tok_per_s"],
+        "prefill_and_first_token_ms": e2e["prefill_and_first_token_ms"],
+        "route_flips_per_layer": flips, "held_to_plain": held, "moe_layer": layer,
+        "loss": {"kernel": float(loss_k), "plain": float(loss_r), "abs_err": err,
+                 "moe_aux": aux_k, "plain_moe_aux": aux_r},
+        "peak_gib": e2e["peak_gib"]}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 2. granite GRPO through launch.train ----
+    counts["granite_grpo_pipeline"], summary["granite_pipeline"] = pipeline_phase(
+        torch, ops, ref, _build, label="granite_pipeline", flags=GRANITE_FLAGS,
+        arms=(("distributed", 0),))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 3. mixtral-8x7b at 4 layers, across its window ----
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = dc.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
+    model = get_model(mcfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[model] {mcfg.name} at {MIXTRAL_LAYERS} of 32 layers: d_model {mcfg.d_model}, "
+          f"{mcfg.num_heads} heads on {mcfg.num_kv_heads} KV heads of {mcfg.head_dim}, "
+          f"{mcfg.num_experts} experts of {mcfg.d_ff}, window {mcfg.sliding_window}; weights "
+          f"drawn in {time.perf_counter() - t0:.2f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    head = lm._head_matrix(mcfg, params)
+    arms = {}
+    for arm, L in MIXTRAL_PROMPTS.items():
+        _, ids = serve.prompts(tok, MIXTRAL_B, L)
+        prompt = torch.from_numpy(ids).to(DEV)
+        res, launches, held, calls, gen_routes = held_generate(
+            torch, ops, ref, _build, generate, model, params, prompt, f"mixtral_{arm}")
+        counts.setdefault("mixtral_ring", dict.fromkeys(launches, 0))
+        for n, c in launches.items():
+            counts["mixtral_ring"][n] += c
+        kernels[f"mixtral_{arm}"] = path_records(torch, ops, ref, F, calls, f"mixtral_{arm}")
+        W = lm.ring_width(mcfg, L + MAX_NEW)
+        require(W == mcfg.sliding_window, f"mixtral ring width {W}")
+        resp = res.tokens[:, L:]
+        require(bool(((resp >= 0) & (resp < mcfg.vocab_size)).all()), "mixtral token range")
+        with torch.inference_mode():
+            with routes_recorded(torch) as full_routes:
+                lp, _ = model.logprobs(params, res.tokens)
+            h, _ = lm._full_hidden(mcfg, params, res.tokens, False)
+            # the logits that predict positions L .., the padded vocab masked
+            logits = lm.mask_padded_vocab(mcfg, (h[:, L - 1:-1] @ head).float())
+        mask = res.response_mask[:, L:]
+        ratio = float((torch.exp(lp[:, L:] - res.old_logprob[:, L:]) * mask).sum() / mask.sum())
+        require(abs(ratio - 1.0) <= RATIO_TOL,
+                f"mixtral {arm}: step-0 ratio {ratio} of logprobs_fn against the sampler")
+        # route flips between generate (the prefill, then one token a step)
+        # and the full forward, by row and position (the last token is never
+        # fed to generate); the prediction of position t reads positions < t
+        n = len(full_routes)
+
+        def at(routes, lo, hi):  # the routings of positions [lo, hi) of each row
+            return [r.reshape(MIXTRAL_B, -1, r.shape[-1])[:, lo:hi].reshape(-1, r.shape[-1])
+                    for r in routes]
+
+        gen_flip = torch.cat(
+            [flipped(torch, gen_routes[:n], at(full_routes, 0, L), MIXTRAL_B)]
+            + [flipped(torch, gen_routes[n * (1 + j):n * (2 + j)],
+                       at(full_routes, L + j, L + j + 1), MIXTRAL_B) for j in range(MAX_NEW - 1)],
+            dim=1)
+        before = torch.cumsum(gen_flip.int(), dim=1) > 0  # a flip at or before position p
+        explained = before[:, L - 1:]  # for the predictions of positions L ..
+        top2 = logits.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 0.05
+        agree = logits.argmax(dim=-1) == resp
+        require(bool(agree[clear & ~explained].all()),
+                f"mixtral {arm}: the windowed full forward's argmax differs from a greedy "
+                f"token in a clear position with no route flip before it")
+        _, ms = sync_ms(torch, lambda: generate(
+            model, params, prompt, torch.Generator(device=DEV).manual_seed(7),
+            max_new=MAX_NEW, temperature=0.0))
+        arms[arm] = {"prompt": L, "ring_slots": W, "step0_ratio": ratio,
+                     "clear_positions": int(clear.sum()), "positions": int(mask.sum()),
+                     "route_flips": int(gen_flip.sum()),
+                     "clear_disagreeing": int((clear & ~agree).sum()),
+                     "clear_disagreeing_after_a_flip": int((clear & ~agree & explained).sum()),
+                     "max_abs_dlogprob": float(((lp[:, L:] - res.old_logprob[:, L:]) * mask)
+                                               .abs().max()),
+                     "generate_ms": ms, "held_to_plain": held}
+        print(json.dumps({"mixtral_arm": {"arm": arm, **arms[arm]}}), flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mlayer = {T: moe_layer_record(torch, mcfg, params["blocks"][0]["moe"], T, "mixtral")
+              for T in (MIXTRAL_B, MIXTRAL_B * MIXTRAL_PROMPTS["prefill_past_window"])}
+    summary["mixtral"] = {"arms": arms, "moe_layer": mlayer, "peak_gib": peak}
+    for where, recs in kernels.items():
+        for name, by_shape in recs.items():
+            records.setdefault(name, {}).setdefault("phase13", {})[where] = by_shape
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: summary}), flush=True)
+    del model, params, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12], default=None,
+    ap.add_argument("--only-phase", type=int, choices=[12, 13], default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
                          "phase; the full run takes no argument)")
@@ -3146,9 +3659,10 @@ def main(argv=None) -> int:
     print(f"[build] {len(_build.KERNELS)} kernels built in {build_s:.1f}s (nvcc, sm_90a)",
           flush=True)
 
-    if opts.only_phase == 12:
-        counts = async_phase(torch, ops, ref, _build)
-        print(json.dumps({"only_phase": 12, "launches": counts,
+    if opts.only_phase is not None:
+        counts = (async_phase(torch, ops, ref, _build) if opts.only_phase == 12
+                  else moe_phase(torch, ops, ref, F, _build, serve, generate, {}))
+        print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
         return 0
 
@@ -3222,6 +3736,12 @@ def main(argv=None) -> int:
     # launch.train at gemma-2b's full width (qwen freed; the counts set to 0
     # just before each arm, read just after) ----
     paths.update(async_phase(torch, ops, ref, _build))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 13: the MoE family, granite-moe-3b lockstep and GRPO at full
+    # width and depth, mixtral-8x7b's ring at full width (the counts set to 0
+    # just before each path, read just after) ----
+    paths.update(moe_phase(torch, ops, ref, F, _build, serve, generate, records))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -3246,7 +3766,9 @@ def main(argv=None) -> int:
                                "fused_sample"),
                **{f"{arm}_pipeline": ("rmsnorm", "flash_attention", "decode_attention",
                                       "fused_sample")
-                  for arm in ("async_sync", "async_s0", "async_s1", "async_tis", "multiturn")}}
+                  for arm in ("async_sync", "async_s0", "async_s1", "async_tis", "multiturn")},
+               **{path: ("rmsnorm", "flash_attention", "decode_attention", "fused_sample")
+                  for path in ("granite_lockstep", "granite_grpo_pipeline", "mixtral_ring")}}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),
                 f"a kernel of the {path} path was not launched: {paths[path]}")

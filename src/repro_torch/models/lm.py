@@ -1,6 +1,8 @@
 """Decoder-only LM of the PyTorch port (port of ``repro.models.lm``): the
-dense attention family, the Mamba2 (SSD) family and the hybrids that mix
-attention and SSD layers with dense MLPs.
+dense attention family, the MoE family (``models/moe.py``, the dense
+dispatch), sliding-window attention with its ring cache, the Mamba2 (SSD)
+family and the hybrids that mix attention and SSD layers with dense and MoE
+MLPs.
 
 Params are nested dicts like the JAX package's, with one difference: the JAX
 pytree stacks each block parameter over layers, ``(N, ...)`` per pattern
@@ -16,18 +18,20 @@ Four execution modes share the backbone:
                    ``page_tables``) against the serving page pool
 
 Caches: a list with one dict per layer. An attention layer holds
-``{"k", "v"}``, each (B, smax, KVH, hd) bf16, or with ``cfg.kv_quant`` the
-int8 cache ``{"k", "v"}`` int8 with ``{"k_scale", "v_scale"}`` (B, smax, KVH)
-f32, one scale per slot and KV head. An SSD layer holds its constant-size
+``{"k", "v"}``, each (B, W, KVH, hd) bf16, or with ``cfg.kv_quant`` the
+int8 cache ``{"k", "v"}`` int8 with ``{"k_scale", "v_scale"}`` (B, W, KVH)
+f32, one scale per slot and KV head. W is ``smax``, or with a sliding
+window ``min(smax, window)``: a ring whose slot ``pos % W`` holds the
+newest token of that residue. An SSD layer holds its constant-size
 decode state ``{"ssm", "conv_x", "conv_bc"}``. The serving page pool is the
 attention layout with pages for rows: ``init_caches(num_pages, page_size)``,
 each leaf (P, page_size, KVH, hd).
 
-Not ported yet: MoE, sliding-window rings, enc-dec, prefix embeds and
-parallel blocks; each raises ``NotImplementedError`` naming its ROADMAP
-item. ``full`` mode through an SSD layer needs a sequence of at most 128
-positions or a multiple of 128 (the scan's chunk), as in the JAX package:
-any other length raises ``ValueError``.
+Not ported yet: enc-dec, prefix embeds and parallel blocks; each raises
+``NotImplementedError`` naming its ROADMAP item. ``full`` mode through an
+SSD layer needs a sequence of at most 128 positions or a multiple of 128
+(the scan's chunk), as in the JAX package: any other length raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
@@ -52,10 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
     other = "(ROADMAP queue 1, item 6: other families)"
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"enc-dec is not ported yet {other}")
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE is not ported yet {other}")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(f"sliding-window rings are not ported yet {other}")
     if cfg.num_prefix_embeds > 1:
         raise NotImplementedError(f"prefix embeds are not ported yet {other}")
     if cfg.parallel_block:
@@ -84,7 +84,8 @@ def pattern_length(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------------- #
 def _init_block(cfg: ModelConfig, gen: torch.Generator, kind, *, device=None) -> Params:
     """One layer's weights (``lm._init_block_pos``): norm1, the attention or
-    SSD mixer, and norm2 + the MLP unless the MLP kind is ``none``."""
+    SSD mixer, and norm2 + the dense or MoE MLP unless the MLP kind is
+    ``none``."""
     mixer_kind, mlp_kind = kind
     p: Params = {"norm1": layers.init_norm(cfg, device=device)}
     if mixer_kind == "attn":
@@ -93,7 +94,10 @@ def _init_block(cfg: ModelConfig, gen: torch.Generator, kind, *, device=None) ->
         p["ssm"] = ssm.init_ssm(cfg, gen, device=device)
     if mlp_kind != "none":
         p["norm2"] = layers.init_norm(cfg, device=device)
+    if mlp_kind == "dense":
         p["mlp"] = layers.init_mlp(cfg, gen, device=device)
+    elif mlp_kind == "moe":
+        p["moe"] = moe.init_moe(cfg, gen, device=device)
     return p
 
 
@@ -137,6 +141,14 @@ def dequant_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(torch.bfloat16)
 
 
+def ring_width(cfg: ModelConfig, smax: int) -> int:
+    """Slots of an attention layer's decode cache (``lm._ring_width``):
+    ``smax``, or with a sliding window at most the window."""
+    if cfg.sliding_window is not None:
+        return min(smax, cfg.sliding_window)
+    return smax
+
+
 def _attn_mixer(
     cfg: ModelConfig,
     p: Params,
@@ -174,25 +186,33 @@ def _attn_mixer(
             vc[:, chunk_offset:hi], vs[:, chunk_offset:hi] = quant_kv(v)
             o = ops.flash_attention(q, dequant_kv(kc[:, :hi], ks[:, :hi]),
                                     dequant_kv(vc[:, :hi], vs[:, :hi]), causal=True,
-                                    q_offset=chunk_offset)
+                                    window=cfg.sliding_window, q_offset=chunk_offset)
             return layers.out_proj(cfg, p, o), cache
         kc[:, chunk_offset:hi] = k.to(kc.dtype)
         vc[:, chunk_offset:hi] = v.to(vc.dtype)
         o = ops.flash_attention(q, kc[:, :hi], vc[:, :hi], causal=True,
-                                q_offset=chunk_offset)
+                                window=cfg.sliding_window, q_offset=chunk_offset)
         return layers.out_proj(cfg, p, o), {"k": kc, "v": vc}
 
     if mode == "prefill":
         q, k, v = layers.qkv_proj(cfg, p, h, positions)
-        o = ops.flash_attention(q, k, v, causal=True)
+        o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
         B, S = h.shape[0], h.shape[1]
-        if S > smax:
+        if S > smax and cfg.sliding_window is None:
             raise ValueError(f"prompt of {S} tokens does not fit a cache of {smax}")
+        W = ring_width(cfg, smax)
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
-        kc = torch.zeros((B, smax, kvh, hd), dtype=k.dtype, device=k.device)
-        vc = torch.zeros((B, smax, kvh, hd), dtype=v.dtype, device=v.device)
-        kc[:, :S] = k
-        vc[:, :S] = v
+        kc = torch.zeros((B, W, kvh, hd), dtype=k.dtype, device=k.device)
+        vc = torch.zeros((B, W, kvh, hd), dtype=v.dtype, device=v.device)
+        if S >= W:
+            # a ring keeps the last W tokens at their slots pos % W
+            # (lm.py:183-186); without a window this is S == smax in order
+            slot = torch.arange(S - W, S, device=k.device) % W
+            kc[:, slot] = k[:, S - W:]
+            vc[:, slot] = v[:, S - W:]
+        else:
+            kc[:, :S] = k
+            vc[:, :S] = v
         if cfg.kv_quant:
             # the whole zero-padded cache is quantized, as lm.py:190-194 does:
             # the rows past the prompt get values 0 and scale 1e-8 / 127
@@ -211,46 +231,60 @@ def _attn_mixer(
     if cfg.kv_quant:
         return _decode_quant(cfg, p, q, k_new, v_new, cache, cache_len)
     kc, vc = cache["k"], cache["v"]
-    # The new K/V row is written into the cache in place at slot cache_len.
-    # The JAX package rewrites the whole cache with a masked select instead
+    # The new K/V row is written into the cache in place at its slot. The
+    # JAX package rewrites the whole cache with a masked select instead
     # (lm.py:216-219), which keeps a sequence-sharded cache in place under
     # GSPMD; PyTorch updates the one row and returns the same tensors.
-    rows, slot, inside = _write_slot(cache_len, kc.shape[1])
+    rows, slot, inside, kv_len, window = _write_slot(cfg, cache_len, kc.shape[1])
     kc[rows, slot] = _keep_outside(inside, k_new[:, 0].to(kc.dtype), kc[rows, slot])
     vc[rows, slot] = _keep_outside(inside, v_new[:, 0].to(vc.dtype), vc[rows, slot])
-    o, _ = ops.decode_attention(q[:, 0], kc, vc, cache_len + 1)
+    o, _ = ops.decode_attention(q[:, 0], kc, vc, kv_len, window=window)
     return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
 
 
-def _write_slot(cache_len: torch.Tensor, width: int):
-    """(row ids, slot, inside) of a contiguous decode write: a row whose
-    ``cache_len`` is at or past the cache width writes nothing, as the JAX
-    masked select (lm.py:216-219, :247-253) matches no slot there. Its slot
-    is clamped into the cache and rewritten with its own old value, so no
-    index is out of range and nothing is read on the host."""
+def _write_slot(cfg: ModelConfig, cache_len: torch.Tensor, width: int):
+    """(row ids, slot, inside, attended length, window) of a contiguous
+    decode step (lm.py:209-229, :242-260).
+
+    A ring (a sliding window no narrower than the cache) writes slot
+    ``cache_len % width`` and attends the ``min(cache_len + 1, width)`` live
+    slots without a window: they are the window, in ring order. Otherwise a
+    row whose ``cache_len`` is at or past the cache width writes nothing, as
+    the JAX masked select matches no slot there: its slot is clamped into
+    the cache and rewritten with its own old value, so no index is out of
+    range and nothing is read on the host; it attends ``cache_len + 1``
+    slots under the window. ``inside`` is None where every row writes."""
     rows = torch.arange(cache_len.shape[0], device=cache_len.device)
-    return rows, cache_len.clamp(max=width - 1).long(), cache_len < width
+    window = cfg.sliding_window
+    if window is not None and width <= window:
+        return rows, (cache_len % width).long(), None, torch.clamp(cache_len + 1, max=width), None
+    return (rows, cache_len.clamp(max=width - 1).long(), cache_len < width, cache_len + 1,
+            window)
 
 
-def _keep_outside(inside: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+def _keep_outside(inside: Optional[torch.Tensor], new: torch.Tensor,
+                  old: torch.Tensor) -> torch.Tensor:
     """``new`` on the rows inside the cache, ``old`` on the others."""
+    if inside is None:
+        return new
     return torch.where(inside.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
 def _decode_quant(cfg, p, q, k_new, v_new, cache, cache_len):
     """int8-cache decode step (``lm._decode_quant``): the new K/V row is
-    quantized and written into the int8 cache in place at slot cache_len, and
-    nothing is written past the cache width (the JAX package rewrites the
-    cache with a masked select); then the fused-dequant decode kernel attends
-    the int8 cache: it stays int8 in device memory."""
+    quantized and written into the int8 cache in place at its slot (a ring's
+    ``cache_len % W``), and nothing is written past the width of a cache
+    that is not a ring (the JAX package rewrites the cache with a masked
+    select); then the fused-dequant decode kernel attends the int8 cache: it
+    stays int8 in device memory."""
     kq, vq = cache["k"], cache["v"]
     ks, vs = cache["k_scale"], cache["v_scale"]
-    rows, slot, inside = _write_slot(cache_len, kq.shape[1])
+    rows, slot, inside, kv_len, window = _write_slot(cfg, cache_len, kq.shape[1])
     for cq, cs, new_row in ((kq, ks, k_new), (vq, vs, v_new)):
         nq, ns = quant_kv(new_row[:, 0])
         cq[rows, slot] = _keep_outside(inside, nq, cq[rows, slot])
         cs[rows, slot] = _keep_outside(inside, ns, cs[rows, slot])
-    o, _ = ops.decode_attention_quant(q[:, 0], kq, vq, ks, vs, cache_len + 1)
+    o, _ = ops.decode_attention_quant(q[:, 0], kq, vq, ks, vs, kv_len, window=window)
     return layers.out_proj(cfg, p, o)[:, None], cache
 
 
@@ -265,7 +299,10 @@ def _decode_paged(cfg, p, q, k_new, v_new, cache, cache_len, page_tables, write_
     ``write_enable`` False (retired lanes that keep stepping in the burst)
     write there. The JAX package drops those writes with an out-of-range
     index and ``mode="drop"``; on CUDA an out-of-range index is a device
-    assert, and a boolean mask would cost a host sync."""
+    assert, and a boolean mask would cost a host sync. Full-window caches
+    only: a sliding window raises, as JAX asserts (lm.py:279)."""
+    if cfg.sliding_window is not None:
+        raise ValueError("paged decode: sliding-window rings are not paged")
     kc, vc = cache["k"], cache["v"]
     sink, ps = kc.shape[0] - 1, kc.shape[1]
     T = page_tables.shape[1]
@@ -313,7 +350,8 @@ def _apply_block(
     write_enable: Optional[torch.Tensor] = None,
 ):
     """One layer of kind (mixer, mlp): pre-norm mixer and, unless the MLP
-    kind is ``none``, pre-norm dense MLP, each added to the residual."""
+    kind is ``none``, pre-norm dense or MoE MLP, each added to the residual.
+    Returns (h, the layer's MoE aux loss or None, the layer's cache)."""
     mixer_kind, mlp_kind = kind
     hn = layers.apply_norm(cfg, p["norm1"], h)
     if mixer_kind == "attn":
@@ -325,10 +363,15 @@ def _apply_block(
             raise ValueError("paged decode: attention-only archs")
         mix_out, new_cache = _ssm_mixer(cfg, p["ssm"], hn, mode, cache)
     h = h + mix_out
+    aux = None
     if mlp_kind != "none":
         hn2 = layers.apply_norm(cfg, p["norm2"], h)
-        h = h + layers.apply_mlp(cfg, p["mlp"], hn2)
-    return h, new_cache
+        if mlp_kind == "dense":
+            h = h + layers.apply_mlp(cfg, p["mlp"], hn2)
+        else:
+            mlp_out, aux = moe.apply_moe(cfg, p["moe"], hn2)
+            h = h + mlp_out
+    return h, aux, new_cache
 
 
 def backbone(
@@ -345,14 +388,17 @@ def backbone(
     page_tables: Optional[torch.Tensor] = None,
     write_enable: Optional[torch.Tensor] = None,
     remat: bool = False,
-) -> Tuple[torch.Tensor, Caches]:
-    """Returns (final-normed h, new caches): a Python loop over the layers.
+) -> Tuple[torch.Tensor, torch.Tensor, Caches]:
+    """Returns (final-normed h, the MoE aux loss summed over the layers (a
+    zero fp32 scalar without MoE layers), new caches): a Python loop over
+    the layers.
 
     ``remat`` (when a gradient is being taken) checkpoints each layer, as
     ``jax.checkpoint`` does the JAX backbone's body: only the layer's input
     is kept, and the backward runs the layer's forward again, kernels and
     all. The final norm is not checkpointed."""
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (block, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
         cache = None if caches is None else caches[i]
 
@@ -361,11 +407,13 @@ def backbone(
                                 chunk_offset, page_tables, write_enable)
 
         if remat and torch.is_grad_enabled():
-            h, c = checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
+            h, a, c = checkpoint(layer, h, use_reentrant=False, preserve_rng_state=False)
         else:
-            h, c = layer(h)
+            h, a, c = layer(h)
+        if a is not None:
+            aux = aux + a
         new_caches.append(c)
-    return layers.apply_norm(cfg, params["final_norm"], h), new_caches
+    return layers.apply_norm(cfg, params["final_norm"], h), aux, new_caches
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -443,28 +491,35 @@ def ce_loss(cfg: ModelConfig, params: Params, h, labels):
 
 
 def _full_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, remat: bool):
+    """(final-normed h, summed MoE aux loss) of ``full`` mode."""
     check_supported(cfg)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    h, _ = backbone(cfg, params, h, positions, mode="full", remat=remat)
-    return h
+    h, aux, _ = backbone(cfg, params, h, positions, mode="full", remat=remat)
+    return h, aux
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             remat: bool = True):
     """LM training loss (``lm.loss_fn``): batch tokens (B, S) and labels
     (B, S) with ``IGNORE`` at positions not predicted. Returns (loss,
-    {"ce", "entropy"})."""
-    h = _full_hidden(cfg, params, batch["tokens"], remat)
-    return ce_loss(cfg, params, h, batch["labels"])
+    {"ce", "entropy"}); with MoE layers the loss adds 0.01 x the summed aux
+    loss, reported as ``"moe_aux"``."""
+    h, aux = _full_hidden(cfg, params, batch["tokens"], remat)
+    loss, metrics = ce_loss(cfg, params, h, batch["labels"])
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux
+        metrics["moe_aux"] = aux
+    return loss, metrics
 
 
 def logprobs_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                 remat: bool = False):
     """Per-token logprob and entropy of ``tokens`` under the model
     (``lm.logprobs_fn``): (B, S) each, position i scoring tokens[:, i] given
-    tokens[:, :i]; position 0 gets 0."""
-    h = _full_hidden(cfg, params, tokens, remat)
+    tokens[:, :i]; position 0 gets 0. The MoE aux loss is dropped, as in
+    JAX."""
+    h, _ = _full_hidden(cfg, params, tokens, remat)
     lp, ent, _ = token_stats(cfg, params, h[:, :-1], tokens[:, 1:])
     zero = torch.zeros((tokens.shape[0], 1), dtype=lp.dtype, device=lp.device)
     return torch.cat([zero, lp], dim=1), torch.cat([zero, ent], dim=1)
@@ -475,11 +530,11 @@ def logprobs_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 # --------------------------------------------------------------------------- #
 def init_caches(cfg: ModelConfig, batch: int, smax: int, *, device=None) -> Caches:
     """Zero caches, one dict per layer (``lm.init_caches``): an attention
-    layer's ``{"k", "v"}`` (B, smax, KVH, hd) bf16, or int8 with f32
-    ``{"k_scale", "v_scale"}`` (B, smax, KVH) under ``kv_quant``; an SSD
-    layer's ``{"ssm", "conv_x", "conv_bc"}`` state."""
+    layer's ``{"k", "v"}`` (B, W, KVH, hd) bf16 with W = ``ring_width``, or
+    int8 with f32 ``{"k_scale", "v_scale"}`` (B, W, KVH) under ``kv_quant``;
+    an SSD layer's ``{"ssm", "conv_x", "conv_bc"}`` state."""
     check_supported(cfg)
-    shape = (batch, smax, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, ring_width(cfg, smax), cfg.num_kv_heads, cfg.head_dim)
 
     def zeros(shape_, dtype):
         return torch.zeros(shape_, dtype=dtype, device=device)
@@ -504,7 +559,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, smax: int
     check_supported(cfg)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    h, caches = backbone(cfg, params, h, positions, mode="prefill", smax=smax)
+    h, _, caches = backbone(cfg, params, h, positions, mode="prefill", smax=smax)
     logits = (h[:, -1] @ _head_matrix(cfg, params)).float()
     logits = mask_padded_vocab(cfg, logits)
     cache_len = torch.full((tokens.shape[0],), h.shape[1], dtype=torch.int32,
@@ -518,7 +573,7 @@ def _decode_hidden(cfg, params, token, caches, cache_len, page_tables=None,
     With ``page_tables``, ``caches`` is the serving page pool and attention
     runs through the block table (see :func:`_decode_paged`)."""
     h = embed_tokens(cfg, params, token.reshape(-1, 1))
-    h, new_caches = backbone(cfg, params, h, None, mode="decode", caches=caches,
+    h, _, new_caches = backbone(cfg, params, h, None, mode="decode", caches=caches,
                              cache_len=cache_len, page_tables=page_tables,
                              write_enable=write_enable)
     return h[:, 0], new_caches
@@ -597,7 +652,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches
     caller owns ``cache_len``."""
     check_supported(cfg)
     h = embed_tokens(cfg, params, tokens)
-    h, new_caches = backbone(cfg, params, h, None, mode="prefill_chunk", caches=caches,
+    h, _, new_caches = backbone(cfg, params, h, None, mode="prefill_chunk", caches=caches,
                              chunk_offset=offset)
     logits = (h[:, -1] @ _head_matrix(cfg, params)).float()
     return mask_padded_vocab(cfg, logits), new_caches

@@ -23,5 +23,5 @@ def values_fn(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat: bool = F
     """Token values (B, S) fp32."""
     h = lm.embed_tokens(cfg, params["backbone"], tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    h, _ = lm.backbone(cfg, params["backbone"], h, positions, mode="full", remat=remat)
+    h, _, _ = lm.backbone(cfg, params["backbone"], h, positions, mode="full", remat=remat)
     return (h.float() @ params["v_head"])[..., 0]

@@ -144,9 +144,9 @@ def test_prefill_and_teacher_forced_decode_logits_match(cfgs, jax_params):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config("mixtral-8x7b")), device="cpu")
+        get_model(reduced(get_config("seamless-m4t-medium")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config("jamba-v0.1-52b")), device="cpu")
+        get_model(reduced(get_config("llava-next-34b")), device="cpu")
 
 
 def test_model_and_bridge_have_no_cpu_default(jax_params):

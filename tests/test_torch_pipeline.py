@@ -481,11 +481,9 @@ def _layer_cfg(**kw):
 # every NotImplementedError of the port, and the ROADMAP queue 1 item that
 # ports its subsystem
 NOT_PORTED_CASES = {
-    "moe": (6, lambda: get_model_cpu(reduced(get_config("mixtral-8x7b")))),
     "enc_dec": (6, lambda: get_model_cpu(reduced(get_config("seamless-m4t-medium")))),
     "prefix_embeds": (6, lambda: get_model_cpu(reduced(get_config("llava-next-34b")))),
     "parallel_block": (6, lambda: get_model_cpu(_layer_cfg(parallel_block=True))),
-    "sliding_window": (6, lambda: get_model_cpu(_layer_cfg(sliding_window=16))),
     "layernorm": (6, lambda: get_model_cpu(_layer_cfg(norm_type="layernorm")).init(
         torch.Generator().manual_seed(0))),
     "bias": (6, lambda: get_model_cpu(_layer_cfg(use_bias=True)).init(

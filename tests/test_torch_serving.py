@@ -502,14 +502,13 @@ def test_request_stream_metrics():
 
 
 def test_engine_gates_unsupported_archs(tiny_model):
-    """The gate reads the config, as in JAX: a sliding-window model is
-    refused (the port's ``Model`` refuses it before that, so a stand-in
-    with the mixtral config goes to the engine)."""
+    """The gate reads the config, as in JAX: a sliding-window model (reduced
+    mixtral, whose ring the page pool cannot address) is refused."""
     bad = reduced(get_config("mixtral-8x7b"), vocab_size=260, num_layers=2)
     assert bad.sliding_window is not None
-    stand_in = types.SimpleNamespace(cfg=bad, is_encdec=False, device=torch.device("cpu"))
+    model = get_model(bad, device="cpu")
     with pytest.raises(ValueError, match="serving engine"):
-        ServingEngine(stand_in, _scfg(), params={})
+        ServingEngine(model, _scfg(), params=model.init(torch.Generator().manual_seed(0)))
 
 
 # --------------------------------------------------------------------------- #
