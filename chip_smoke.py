@@ -951,19 +951,31 @@ def build_model(torch, serve, arch_flags=ARCH_FLAGS):
     return model, params, tok
 
 
+def norm_launches(cfg) -> int:
+    """``rmsnorm`` launches of one forward: a norm before every mixer and
+    every MLP (one shared norm in a parallel block), a gated norm in every
+    SSD mixer, and the final norm; none where the norm is layernorm (plain
+    torch, as in JAX)."""
+    if cfg.norm_type != "rmsnorm":
+        return 0
+    kinds = cfg.layer_kinds()
+    mlps = 0 if cfg.parallel_block else sum(k[1] != "none" for k in kinds)
+    return len(kinds) + mlps + sum(k[0] == "ssm" for k in kinds) + 1
+
+
 def forward_launches(cfg, names, prefills: int, steps: int):
     """Launch counts of ``prefills`` whole-prompt prefills and ``steps``
     decode steps: per forward a norm before every mixer and every MLP, a
     gated norm in every SSD mixer, and the final norm; per prefill one flash
     attention per attention layer and one scan per SSD layer; per decode step
     one decode attention (the int8 kernel under ``kv_quant``) per attention
-    layer and one sampler call."""
+    layer and one sampler call. A layernorm model launches no norm kernel
+    (``norm_launches``)."""
     kinds = cfg.layer_kinds()
     attn = sum(k[0] == "attn" for k in kinds)
     ssd = len(kinds) - attn
-    mlps = sum(k[1] != "none" for k in kinds)
     out = dict.fromkeys(names, 0)
-    out.update({"rmsnorm": (len(kinds) + mlps + ssd + 1) * (prefills + steps),
+    out.update({"rmsnorm": norm_launches(cfg) * (prefills + steps),
                 "flash_attention": prefills * attn, "ssd": prefills * ssd,
                 "fused_sample": steps,
                 ("decode_attention_quant" if cfg.kv_quant else "decode_attention"):
@@ -1018,7 +1030,7 @@ def plain_logits(torch, ops, model, params, prompt, chunk: int):
 
 
 def layerwise_agreement(torch, ops, model, params, prompt, caches_r, len_r, tok0,
-                        smax: int):
+                        smax: int, prefix=None):
     """Every layer on the plain path's input of that layer, kernel path
     against plain path, over the prompt and for the one-token step from the
     plain prefill's caches: norm1, the mixer (the SSD mixer with its scan
@@ -1031,11 +1043,12 @@ def layerwise_agreement(torch, ops, model, params, prompt, caches_r, len_r, tok0
     prefill logits from the plain last hidden state, the kernel sampler's
     greedy token and the plain logits of the decode step, the worst layer's
     error over its max, and the route flips of each MoE layer (prefill,
-    decode)."""
+    decode). A parallel block feeds norm1's output to its MLP too and adds
+    both outputs to the residual; ``prefix`` embeddings run ahead of the
+    prompt."""
     from repro_torch.models import layers, lm, moe
 
     cfg = model.cfg
-    S = prompt.shape[1]
     worst, flips = 0.0, []
 
     def both(fn):  # (kernel path, plain path) of fn
@@ -1058,9 +1071,9 @@ def layerwise_agreement(torch, ops, model, params, prompt, caches_r, len_r, tok0
         worst = max(worst, e / s)
 
     head = lm._head_matrix(cfg, params)
-    positions = torch.arange(S, device=DEV)[None, :]
     with torch.inference_mode():
-        h = lm.embed_tokens(cfg, params, prompt)
+        h = lm.assemble_input(cfg, params, prompt, prefix)
+        positions = torch.arange(h.shape[1], device=DEV)[None, :]
         hd = lm.embed_tokens(cfg, params, tok0.reshape(-1, 1))
         for i, (block, kind, cache_r) in enumerate(zip(params["blocks"], cfg.layer_kinds(),
                                                        caches_r)):
@@ -1075,10 +1088,13 @@ def layerwise_agreement(torch, ops, model, params, prompt, caches_r, len_r, tok0
                     (mk, _), (mr, _) = both(lambda: lm._attn_mixer(
                         cfg, block["attn"], hn, positions, mode, cache, len_r, smax))
                 check(mk, mr, f"layer {i} {kind[0]} mixer ({mode})")
-                x = x + mr
-                if kind[1] != "none":
+                x_in, x = x, x + mr
+                if kind[1] != "none" and cfg.parallel_block:
+                    hn2_k, hn2 = hn_k, hn
+                elif kind[1] != "none":
                     hn2_k, hn2 = both(lambda: layers.apply_norm(cfg, block["norm2"], x))
                     check(hn2_k, hn2, f"layer {i} norm2 ({mode})")
+                if kind[1] != "none":
                     if kind[1] == "dense":
                         ok_, or_ = both(lambda: layers.apply_mlp(cfg, block["mlp"], hn2))
                         skip = None
@@ -1092,7 +1108,7 @@ def layerwise_agreement(torch, ops, model, params, prompt, caches_r, len_r, tok0
                         skip = (routes[0] != routes[1]).any(dim=-1)
                         flips.append((i, mode, int(skip.sum())))
                     check(ok_, or_, f"layer {i} {kind[1]} MLP ({mode})", skip)
-                    x = x + or_
+                    x = x_in + mr + or_ if cfg.parallel_block else x + or_
                 if mode == "prefill":
                     h = x
                 else:
@@ -1139,8 +1155,18 @@ def flipped(torch, a, b, rows: int):
     return out
 
 
+def fp32_attention(ref):
+    """A context in which the plain attention keeps its probabilities in
+    fp32 for the value product: another, equally valid rounding of the same
+    function (the plain path rounds them to bf16, as the JAX package
+    does)."""
+    plain_flash = ref.flash_attention
+    return patched(ref, "flash_attention", lambda q, k, v, **kw: plain_flash(
+        q.float(), k.float(), v.float(), **kw).to(q.dtype))
+
+
 def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
-                    layerwise: bool = False):
+                    layerwise: bool = False, prefix=None):
     """The kernel path of ``model`` against its plain path
     (``ops.set_mode("ref")``) on the same weights and ``prompt``: the prefill
     logits within 2e-2 of their max, and the first token and the first
@@ -1154,19 +1180,25 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
     and one row at a time: its free-running paths part wherever a route
     flips (each path routes its own hidden states, and a token whose k-th
     and (k+1)-th router logits lie within the paths' rounding takes another
-    expert), and the flips compound through the layers. Returns the checks'
-    numbers."""
+    expert), and the flips compound through the layers; a deep dense stack's
+    against the plain path's drift from itself when its attention keeps the
+    probabilities in fp32 (``fp32_attention``). ``prefix`` embeddings run
+    ahead of the prompt. Returns the checks' numbers."""
+    from repro_torch.kernels import ref
+
     B = prompt.shape[0]
     cfg = model.cfg
     n = sum(k[1] == "moe" for k in cfg.layer_kinds())
+    ssd = any(k[0] == "ssm" for k in cfg.layer_kinds())
     require(layerwise or not n, "an MoE stack is held to the plain path layer by layer")
+    kw = {} if prefix is None else {"prefix_embeds": prefix}
     with torch.inference_mode():
         ops.set_mode("ref")
-        logits_r, caches_r, len_r = model.prefill(params, prompt, smax=smax)
+        logits_r, caches_r, len_r = model.prefill(params, prompt, smax=smax, **kw)
         tok0 = torch.argmax(logits_r, dim=-1).to(torch.int32)
         step_r, _, _ = model.decode_step(params, tok0, caches_r, len_r)
         ops.set_mode(None)
-        logits_k, caches_k, len_k = model.prefill(params, prompt, smax=smax)
+        logits_k, caches_k, len_k = model.prefill(params, prompt, smax=smax, **kw)
         zero = torch.zeros(B, dtype=torch.int32, device=DEV)
         tok1_k, _, _, _ = model.decode_step_sample(params, tok0, caches_k, len_k, zero, 0.0)
     real = slice(0, cfg.vocab_size)  # the padded vocab is -1e30 in both
@@ -1193,7 +1225,26 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
         require(err <= DRIFT_FACTOR * drift,
                 f"free-running prefill logits: max abs err {err}, more than {DRIFT_FACTOR} "
                 f"x the plain path's drift against itself row by row ({drift})")
-    if layerwise and not n:
+    if layerwise and not n and not ssd:
+        # a deep random bf16 stack carries each layer's rounding into every
+        # later layer; the plain path with fp32 attention probabilities
+        # measures how far two correct paths drift apart
+        ops.set_mode("ref")
+        with torch.inference_mode(), fp32_attention(ref):
+            other = model.prefill(params, prompt, smax=smax, **kw)[0]
+        ops.set_mode(None)
+        drift = float((other[:, real] - logits_r[:, real]).abs().max())
+        del other
+        own0 = int((torch.argmax(logits_k, dim=-1) == torch.argmax(logits_r, dim=-1)).sum())
+        checks.update(plain_fp32_attention_logits_max_abs_err=drift,
+                      free_running_first_token_equal_rows=own0)
+        print(f"[{label}] free-running: prefill logits max abs err {err:.4g}, the plain path "
+              f"with fp32 attention probabilities {drift:.4g} (max |logit| {scale:.4g}); first "
+              f"token equal in {own0}/{B} rows", flush=True)
+        require(err <= DRIFT_FACTOR * drift,
+                f"free-running prefill logits: max abs err {err}, more than {DRIFT_FACTOR} "
+                f"x the plain path's drift with fp32 attention probabilities ({drift})")
+    if layerwise and ssd:
         # 64 random SSD layers in bf16 carry a rounding difference of one
         # layer's output into every later layer: the free-running logits of
         # two correct paths drift apart with depth. The plain path against
@@ -1215,7 +1266,7 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
               f"{own0}/{B} rows", flush=True)
     if layerwise:
         logits_k, logits_r, tok1_k, step_r, worst, flips = layerwise_agreement(
-            torch, ops, model, params, prompt, caches_r, len_r, tok0, smax)
+            torch, ops, model, params, prompt, caches_r, len_r, tok0, smax, prefix)
         checks["worst_layer_err_over_max"] = worst
         if flips:
             checks["layerwise_route_flips"] = flips
@@ -1548,10 +1599,12 @@ def held_to_plain(torch, ops, ref, names):
             kw.get("pos_offset", 0), f"decode_attention q {tuple(q.shape)} on the path"))
         return got
 
-    def fused_sample(h, w_head, seeds, inv_temp, *, vocab_size=None):
-        got = kernel["fused_sample"](h, w_head, seeds, inv_temp, vocab_size=vocab_size)
-        note("fused_sample", check_sample(torch, ref, got, h, w_head, seeds, inv_temp,
-                                          vocab_size, f"B={h.shape[0]} on the path"))
+    def fused_sample(h, w_head, seeds, inv_temp, *, vocab_size=None, top_p=1.0):
+        got = kernel["fused_sample"](h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                                     top_p=top_p)
+        if top_p >= 1.0:  # below 1 the call takes the plain sampler itself
+            note("fused_sample", check_sample(torch, ref, got, h, w_head, seeds, inv_temp,
+                                              vocab_size, f"B={h.shape[0]} on the path"))
         return got
 
     def ssd(x, dt, A, Bm, Cm, D, *, chunk=128, return_state=False):
@@ -1577,11 +1630,12 @@ def held_to_plain(torch, ops, ref, names):
 
 
 def path_kernels(cfg):
-    """The kernels an RL iteration of ``cfg`` launches: the norm and the
-    sampler; flash and decode attention with attention layers; the scan with
-    SSD layers."""
+    """The kernels an RL iteration of ``cfg`` launches: the norm (unless it
+    is layernorm) and the sampler; flash and decode attention with
+    attention layers; the scan with SSD layers."""
     mixers = {k[0] for k in cfg.layer_kinds()}
-    return (("rmsnorm",) + (("flash_attention", "decode_attention") if "attn" in mixers else ())
+    return ((("rmsnorm",) if cfg.norm_type == "rmsnorm" else ())
+            + (("flash_attention", "decode_attention") if "attn" in mixers else ())
             + (("ssd",) if "ssm" in mixers else ()) + ("fused_sample",))
 
 
@@ -1601,9 +1655,8 @@ def iteration_launches(cfg, names, max_new_tokens: int, dag):
     kinds = cfg.layer_kinds()
     attn = sum(k[0] == "attn" for k in kinds)
     ssd = len(kinds) - attn
-    mlps = sum(k[1] != "none" for k in kinds)
-    fwd = {"rmsnorm": len(kinds) + mlps + ssd + 1, "flash_attention": attn, "ssd": ssd}
-    step = {n: 2 * c - (n == "rmsnorm") for n, c in fwd.items()}
+    fwd = {"rmsnorm": norm_launches(cfg), "flash_attention": attn, "ssd": ssd}
+    step = {n: 2 * c - (n == "rmsnorm" and c > 0) for n, c in fwd.items()}
     types = [node.type for node in dag.nodes.values()]
     gens = types.count(NodeType.GENERATE)
     per_iter = forward_launches(cfg, names, gens, gens * (max_new_tokens - 1))
@@ -1675,12 +1728,13 @@ def patched(obj, name: str, value):
         setattr(obj, name, old)
 
 
-def grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launches,
-               control, label):
-    """The actor's loss and gradient on ``batch`` through the kernels against
+def grad_check(torch, ops, _build, trainer, loss_fn, params, step_launches, control, label,
+               zero_grad=()):
+    """A loss (``loss_fn(params) -> (loss, metrics)``: the actor's on a
+    batch, or a model's own) and its gradient through the kernels against
     ``ops.set_mode("ref")``. The launches of the loss + grad equal
-    ``step_launches``; the step-0 ratio_mean lies within 1 +- RATIO_TOL;
-    every leaf is finite and nonzero; the loss lies within GRAD_DRIFT_FACTOR
+    ``step_launches``; an actor loss's step-0 ratio_mean lies within 1 +-
+    RATIO_TOL; every leaf is finite and nonzero; the loss lies within GRAD_DRIFT_FACTOR
     x the plain path's own drift. The drift is the plain path against
     itself under ``control`` (a context that makes it another, equally
     valid rounding of the same function). The leaves are held per
@@ -1690,27 +1744,32 @@ def grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launch
     GRAD_DRIFT_FACTOR x its median drift (drifts no less than GRAD_FLOOR).
     A leaf of 80 elements (A_log, D, dt_bias) draws a noisy drift, so its
     own drift alone makes no limit: the kind's leaves pool it. Every leaf's
-    numbers go to build/<label>_leaves.json. Prints and returns {label:
-    summary}."""
+    numbers go to build/<label>_leaves.json. The leaves whose names end
+    with one of ``zero_grad`` have a gradient that is zero in exact
+    arithmetic (a cross-attention's key bias: it adds the same to every
+    score of a query, which the softmax cancels): they are held finite, and
+    their largest |grad| is reported, not held to a drift. Prints and
+    returns {label: summary}."""
     from repro_torch import tree
 
     def loss_and_grads():
         _build.reset_launches()
-        (loss, metrics), grads = trainer.value_and_grad(
-            lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params)
+        (loss, metrics), grads = trainer.value_and_grad(loss_fn, params)
         torch.cuda.synchronize()
         return float(loss), metrics, grads, dict(_build.LAUNCHES)
 
     loss_k, metrics_k, g_k, launched = loss_and_grads()
     require(all(launched[n] == step_launches.get(n, 0) for n in launched),
             f"{label}: launches per loss + grad {launched}, expected {step_launches}")
-    ratio0 = float(metrics_k["ratio_mean"])
-    require(abs(ratio0 - 1.0) <= RATIO_TOL,
+    ratio0 = float(metrics_k["ratio_mean"]) if "ratio_mean" in metrics_k else None
+    require(ratio0 is None or abs(ratio0 - 1.0) <= RATIO_TOL,
             f"{label}: step-0 ratio_mean {ratio0}: the training engine disagrees with the "
             f"sampler")
     names = leaf_names(g_k)
+    zero = {name: float(g.float().abs().max()) for name, g in zip(names, tree.leaves(g_k))
+            if name.endswith(tuple(zero_grad))}
     for name, g in zip(names, tree.leaves(g_k)):
-        require(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+        require(bool(torch.isfinite(g).all()) and (name in zero or bool((g != 0).any())),
                 f"{label}: {name} {tuple(g.shape)}: a gradient that is not finite or is zero")
     ops.set_mode("ref")
     try:
@@ -1723,7 +1782,7 @@ def grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launch
     leaves = [{"leaf": name, "numel": r.numel(), "rel_l2": rel_l2(k, r),
                "cosine": cosine(k, r), "drift_rel_l2": rel_l2(v, r), "drift_cosine": cosine(v, r)}
               for name, k, r, v in zip(names, tree.leaves(g_k), tree.leaves(g_r),
-                                       tree.leaves(g_v))]
+                                       tree.leaves(g_v)) if name not in zero]
     del g_k, g_r, g_v
     kinds = {}
     for e in leaves:
@@ -1757,7 +1816,7 @@ def grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launch
     worst_c = max(leaves, key=lambda e: e["cosine_ratio"])
     loss_limit = GRAD_DRIFT_FACTOR * abs(loss_v - loss_r)
     summary = {
-        "batch": list(batch["tokens"].shape), "step0_ratio_mean": ratio0,
+        "step0_ratio_mean": ratio0,
         "loss_kernel": loss_k, "loss_plain": loss_r, "loss_plain_control": loss_v,
         "loss_limit": loss_limit, "leaves": len(leaves), "leaves_beyond_limit": len(bad),
         "worst_ratio": worst["ratio"], "worst_ratio_leaf": worst["leaf"],
@@ -1767,10 +1826,11 @@ def grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launch
         "worst_cosine": min(e["cosine"] for e in leaves),
         "plain_drift_rel_l2": max(e["drift_rel_l2"] for e in leaves),
         "plain_drift_worst_leaf": max(leaves, key=lambda e: e["drift_rel_l2"])["leaf"],
-        "by_kind": by_kind, "launches_per_loss_and_grad": launched}
+        "by_kind": by_kind, "launches_per_loss_and_grad": launched,
+        "zero_in_exact_arithmetic_max_abs_grad": zero}
     print(json.dumps({label: summary}), flush=True)
     require(abs(loss_k - loss_r) <= loss_limit,
-            f"{label}: actor loss: kernel path {loss_k}, plain path {loss_r} (limit {loss_limit})")
+            f"{label}: loss: kernel path {loss_k}, plain path {loss_r} (limit {loss_limit})")
     require(not bad, f"{label}: {len(bad)} leaves or kinds beyond {GRAD_DRIFT_FACTOR}x their "
                      f"kind's drift, e.g. {bad[:4]}; worst ratio {worst['ratio']} at "
                      f"{worst['leaf']}")
@@ -1942,11 +2002,9 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
 
     # ---- 3. the gradient check at full width: the drift of the plain path
     # with the attention probabilities kept in fp32 ----
-    plain_flash = ref.flash_attention
     gcheck = grad_check(
-        torch, ops, _build, trainer, model, rl, state, batch, step_launches,
-        patched(ref, "flash_attention", lambda q, k, v, **kw: plain_flash(
-            q.float(), k.float(), v.float(), **kw).to(q.dtype)), "grad_check")
+        torch, ops, _build, trainer, lambda p: trainer.actor_loss_fn(model, rl, p, batch),
+        state.params, step_launches, fp32_attention(ref), "grad_check")
     agreement["step0_ratio_mean"] = gcheck["step0_ratio_mean"]
     print(json.dumps({"engine_agreement": agreement}), flush=True)
     # a kernel without a backward refuses an input that requires grad
@@ -2587,8 +2645,9 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
     plain_ssd = ssd_mod.plain
     chunk64 = patched(ssd_mod, "plain",
                       lambda *a, chunk=128: plain_ssd(*a, chunk=min(64, chunk)))
-    gcheck = grad_check(torch, ops, _build, trainer, model, rl, state, batch, step_launches,
-                        chunk64, "mamba2_grad_check")
+    gcheck = grad_check(torch, ops, _build, trainer,
+                        lambda p: trainer.actor_loss_fn(model, rl, p, batch), state.params,
+                        step_launches, chunk64, "mamba2_grad_check")
     # why A_log's gradient drifts most: its terms at both chunks
     decay = decay_reading(torch, ops, ssd_mod, trainer, model, rl, state.params, batch)
     print(json.dumps({"mamba2_a_log_terms": decay}), flush=True)
@@ -3269,14 +3328,15 @@ LOSS_B, LOSS_S = 8, 160  # the actor step's shape of phase 7
 def first_calls(torch, ops, names):
     """While open, keeps a copy of the inputs of the first call of each
     kernel of ``names`` through ``ops`` for each of its shapes (a decode
-    step's caches change in place after the call). Yields {(name, shape of
-    the first input): (args, kwargs)}."""
+    step's caches change in place after the call). Yields {(name, shapes of
+    the tensor inputs, the flags): (args, kwargs)}."""
     seen = {}
     kernel = {n: getattr(ops, n) for n in names}
 
     def keep(name):
         def call(*args, **kw):
-            key = (name, tuple(args[0].shape))
+            key = (name, tuple(tuple(a.shape) for a in args if hasattr(a, "shape")),
+                   tuple(sorted((k, v) for k, v in kw.items() if not hasattr(v, "shape"))))
             if key not in seen:
                 seen[key] = (tuple(a.clone() if hasattr(a, "clone") else a for a in args),
                              dict(kw))
@@ -3292,9 +3352,12 @@ def first_calls(torch, ops, names):
             setattr(ops, n, kernel[n])
 
 
-def attended_pairs(sq: int, sk: int, q_offset: int, window) -> int:
-    """Causal (query, key) pairs of a prefill: the query at position p sees
-    the keys at positions (p - window, p] below sk."""
+def attended_pairs(sq: int, sk: int, q_offset: int, window, causal: bool = True) -> int:
+    """(query, key) pairs of a prefill: causally the query at position p
+    sees the keys at positions (p - window, p] below sk; without the causal
+    mask every query sees every key."""
+    if not causal:
+        return sq * sk
     return sum(min(p + 1, sk, window or sk) for p in range(q_offset, q_offset + sq))
 
 
@@ -3305,7 +3368,7 @@ def path_records(torch, ops, ref, F, calls, label: str):
     these inputs. Prints a ``{"check": "<label>/<kernel>"}`` line each and
     returns {kernel: {shape tag: record}}."""
     out = {}
-    for (name, shape), (args, kw) in calls.items():
+    for (name, _, _), (args, kw) in calls.items():
         if name == "rmsnorm":
             x, w = args
             R, D = x.shape
@@ -3318,18 +3381,20 @@ def path_records(torch, ops, ref, F, calls, label: str):
             Bq, Sq, H, HD = q.shape
             Sk, KVH = k.shape[1], k.shape[2]
             win, off = kw.get("window"), kw.get("q_offset", 0)
-            pairs = attended_pairs(Sq, Sk, off, win)
+            causal = kw.get("causal", True)
+            pairs = attended_pairs(Sq, Sk, off, win, causal)
             nbytes = 2 * q.numel() * 2 + 2 * Bq * Sk * KVH * HD * 2
             bms, by = bound_ms(nbytes, 4 * Bq * H * HD * pairs, BF16_TENSOR_FLOP_PER_S)
             i = torch.arange(Sq, device=q.device)[:, None] + off
             j = torch.arange(Sk, device=q.device)[None, :]
-            mask = j <= i
+            mask = (j <= i) if causal else None
             if win:
                 mask &= i - j < win
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            tag = f"B{Bq}_S{Sq}_H{H}_KVH{KVH}_D{HD}" + (f"_window{win}" if win else "")
+            tag = (f"B{Bq}_S{Sq}" + (f"_Sk{Sk}" if Sk != Sq else "") + f"_H{H}_KVH{KVH}_D{HD}"
+                   + (f"_window{win}" if win else "") + ("" if causal else "_noncausal"))
         elif name == "decode_attention":
             q, k, v, n = args
             Bq, H, HD = q.shape
@@ -3618,10 +3683,359 @@ def moe_phase(torch, ops, ref, F, _build, serve, generate, records, label="moe")
     return counts
 
 
+NEMOTRON_FLAGS = ["--arch", "nemotron-4-15b"]
+SEAMLESS_FLAGS = ["--arch", "seamless-m4t-medium"]
+LLAVA_FLAGS = ["--arch", "llava-next-34b"]
+COMMAND_R_LAYERS = 4  # of 64: the full model's 208 GB of bf16 weights exceed the card
+SEAMLESS_B = 2  # frames (2, 4,096, 1,024): the memory of the encoder_len of the config
+LLAVA_B = 1
+TOP_P, TINY_TOP_P, TOP_P_TEMPERATURE = 0.9, 1e-6, 0.8
+
+
+def top_p_checks(torch, ops, ref, _build, generate, model, params, prompt, label: str):
+    """Nucleus sampling on ``model``: a generate at ``TOP_P`` and
+    temperature 0.8 (its sampler calls recorded), in which ``fused_sample``
+    launches 0 times while the attention kernels launch as in a greedy
+    generate, and every drawn token (the prefill's, through
+    ``rollout.sample_token``, and every decode step's) lies in its row's
+    nucleus recomputed from that step's plain logits; then a generate at
+    ``TINY_TOP_P``, whose streams must equal the kernel path's greedy
+    streams bit for bit: only each row's top token survives the filter. If
+    they part, the step where they first part must be a near tie of the
+    plain logits (top two within SAMPLE_GAP), as the sampler checks allow.
+    Returns the numbers."""
+    from repro_torch.models import lm
+    from repro_torch.rl import rollout as rollout_mod
+
+    cfg = model.cfg
+    head = lm._head_matrix(cfg, params)
+    steps, first = [], []
+    fused, sample_token = ops.fused_sample, rollout_mod.sample_token
+
+    def recording_fused(h, w_head, seeds, inv_temp, *, vocab_size=None, top_p=1.0):
+        tok, lp = fused(h, w_head, seeds, inv_temp, vocab_size=vocab_size, top_p=top_p)
+        steps.append((h.clone(), seeds.clone(), inv_temp.clone(), tok.clone()))
+        return tok, lp
+
+    def recording_first(logits, seeds, temperature, top_p=1.0):
+        tok = sample_token(logits, seeds, temperature, top_p)
+        first.append((logits.clone(), tok.clone()))
+        return tok
+
+    def run(top_p, temperature):
+        steps.clear()
+        first.clear()
+        _build.reset_launches()
+        with patched(ops, "fused_sample", recording_fused), \
+                patched(rollout_mod, "sample_token", recording_first):
+            res, ms = sync_ms(torch, lambda: generate(
+                model, params, prompt, torch.Generator(device=DEV).manual_seed(5),
+                max_new=MAX_NEW, temperature=temperature, top_p=top_p))
+        return res, ms, dict(_build.LAUNCHES)
+
+    res, ms, launches = run(TOP_P, TOP_P_TEMPERATURE)
+    want = forward_launches(cfg, _build.LAUNCHES, 1, MAX_NEW - 1)
+    want["fused_sample"] = 0
+    require(launches == want, f"{label} top_p: launches {launches}, expected {want}")
+    kept, inside, outside = [], 0, []
+
+    def hold(step, scaled, tok):
+        nonlocal inside
+        keep = ref.nucleus(scaled, TOP_P)
+        ok = keep.gather(1, tok[:, None].long())[:, 0]
+        inside += int(ok.sum())
+        kept.append(keep.sum(dim=1))
+        for row in (~ok).nonzero()[:, 0].tolist():  # where a draw left it: its place
+            x, t = scaled[row], int(tok[row])
+            first_ = (x > x[t]) | ((x == x[t]) & (torch.arange(x.numel(), device=DEV) < t))
+            outside.append({"step": step, "row": row, "token": t, "rank": int(first_.sum()),
+                            "nucleus": int(keep[row].sum()),
+                            "mass_before": float(torch.softmax(x, -1)[first_].sum())})
+
+    with torch.inference_mode():
+        logits, tok = first[0]
+        hold(0, logits.float() * (1.0 / TOP_P_TEMPERATURE), tok)
+        for j, (h, seeds, it, tok) in enumerate(steps):
+            z, _ = ref.sample_scores(h, head, seeds, it, vocab_size=cfg.vocab_size)
+            hold(j + 1, z * it[:, None], tok)
+    drawn = prompt.shape[0] * (1 + len(steps))
+    require(len(steps) == MAX_NEW - 1 and inside == drawn,
+            f"{label} top_p: {drawn - inside} of {drawn} drawn tokens outside their nucleus: "
+            f"{outside}")
+    kept = torch.stack(kept).float()
+    out = {"top_p": TOP_P, "temperature": TOP_P_TEMPERATURE, "drawn_tokens": drawn,
+           "inside_nucleus": inside, "nucleus_size_median": float(kept.median()),
+           "nucleus_size_max": float(kept.max()), "generate_ms": ms, "launches": launches}
+    tiny, tiny_ms, _ = run(TINY_TOP_P, TOP_P_TEMPERATURE)
+    tiny_steps = list(steps)
+    greedy, greedy_ms, _ = run(1.0, 0.0)
+    same = torch.equal(tiny.tokens, greedy.tokens)
+    out.update(tiny_top_p=TINY_TOP_P, tiny_equals_greedy=same, tiny_generate_ms=tiny_ms,
+               greedy_generate_ms=greedy_ms)
+    if not same:
+        # the first response position where a row parts, and its decode step
+        col = int((tiny.tokens != greedy.tokens).any(dim=0).nonzero()[0])
+        r = col - prompt.shape[1]
+        require(r >= 1, f"{label}: the tiny top_p stream parts from greedy at the prefill")
+        h, seeds, it, _ = tiny_steps[r - 1]
+        with torch.inference_mode():
+            z, _ = ref.sample_scores(h, head, seeds, it, vocab_size=cfg.vocab_size)
+            top2 = z.topk(2, dim=-1).values
+        rows = tiny.tokens[:, col] != greedy.tokens[:, col]
+        gap = float((top2[:, 0] - top2[:, 1])[rows].max())
+        out.update(first_parting_position=r, first_parting_gap=gap)
+        require(gap < SAMPLE_GAP, f"{label}: the tiny top_p stream parts from greedy at "
+                                  f"response position {r}, top-two gap {gap}")
+    print(json.dumps({"check": f"{label}_top_p", **out}), flush=True)
+    return out
+
+
+def seamless_serving(torch, ops, ref, _build, model, params, prompt, frames):
+    """``Model.prefill`` over ``prompt`` with ``frames``, then MAX_NEW steps
+    of ``Model.decode_step`` with the caller's argmax (enc-dec has no fused
+    sampler, as in JAX): once with every kernel call held to plain and the
+    first call of each shape kept, then timed. The kernel path's prefill
+    logits against the plain path's, within DRIFT_FACTOR x the plain path's
+    drift with fp32 attention probabilities. Returns (launches, held, first
+    calls, summary)."""
+    names = ("flash_attention", "decode_attention")
+    cfg = model.cfg
+    Bq, S = prompt.shape
+
+    def serve_once():
+        logits, caches, clen = model.prefill(params, prompt, smax=S + MAX_NEW, frames=frames)
+        toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
+        for _ in range(MAX_NEW):
+            logits, caches, clen = model.decode_step(params, toks[-1], caches, clen)
+            toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        return torch.stack(toks, dim=1), logits
+
+    with torch.inference_mode():
+        _build.reset_launches()
+        with first_calls(torch, ops, names) as calls, \
+                held_to_plain(torch, ops, ref, names) as held:
+            toks, last = serve_once()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention=cfg.num_encoder_layers + 2 * cfg.num_layers,
+                    decode_attention=2 * cfg.num_layers * MAX_NEW)
+        require(launches == want, f"seamless serving: launches {launches}, expected {want}")
+        require(all(held[n]["calls"] == launches[n] for n in names),
+                f"seamless held to plain: calls {held}, launches {launches}")
+        print(json.dumps({"check": "seamless_serving_held_to_plain", "kernels": held}),
+              flush=True)
+        require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+                and bool(torch.isfinite(last[:, :cfg.vocab_size]).all()),
+                "seamless serving: a token out of range or a non-finite logit")
+        real = slice(0, cfg.vocab_size)
+        logits_k = model.prefill(params, prompt, smax=S + MAX_NEW, frames=frames)[0]
+        ops.set_mode("ref")
+        logits_r = model.prefill(params, prompt, smax=S + MAX_NEW, frames=frames)[0]
+        with fp32_attention(ref):
+            logits_v = model.prefill(params, prompt, smax=S + MAX_NEW, frames=frames)[0]
+        ops.set_mode(None)
+        err = float((logits_k - logits_r)[:, real].abs().max())
+        drift = float((logits_v - logits_r)[:, real].abs().max())
+        scale = float(logits_r[:, real].abs().max())
+        require(err <= DRIFT_FACTOR * drift,
+                f"seamless prefill logits: max abs err {err}, more than {DRIFT_FACTOR} x the "
+                f"plain path's drift with fp32 attention probabilities ({drift})")
+
+    def timed(fn):
+        return statistics.median(sync_ms(torch, fn)[1] for _ in range(3))
+
+    with torch.inference_mode():
+        whole = timed(serve_once)
+        prefill = timed(lambda: model.prefill(params, prompt, smax=S + MAX_NEW, frames=frames))
+    step = (whole - prefill) / MAX_NEW
+    summary = {"batch": Bq, "prompt": S, "frames": list(frames.shape), "decode_steps": MAX_NEW,
+               "serve_ms": whole, "prefill_ms": prefill, "decode_step_ms": step,
+               "decode_tok_per_s": Bq / step * 1e3, "prefill_logits_max_abs_err": err,
+               "plain_fp32_attention_logits_max_abs_err": drift, "max_abs_logit": scale,
+               "held_to_plain": held}
+    return launches, held, calls, summary
+
+
+def families_phase(torch, ops, ref, F, _build, serve, generate, records, label="families"):
+    """The remaining families at full width (random bf16 weights from
+    ``--seed 0``), each model freed before the next is drawn:
+
+    1. nemotron-4-15b at full width and depth (32 layers, layernorm, squared
+       ReLU, 48 heads on 8 KV heads of 128, an untied 6,144 x 256,000 head)
+       through ``serve --arch nemotron-4-15b --lockstep``, phase 3's shape
+       and checks, held to the plain path as a deep dense stack is (the
+       free-running logits within DRIFT_FACTOR x the plain path's drift with
+       fp32 attention probabilities, then layer by layer); one greedy
+       generate held to plain call by call, each kernel timed on the inputs
+       of its first call of each shape; then ``top_p_checks``;
+    2. command-r-plus-104b at full width on 4 of its 64 layers (parallel
+       blocks, 96 heads on 8 KV heads of 128), as 1 without the ``top_p``
+       checks;
+    3. seamless-m4t-medium at full width and depth (12 + 12 layers, 16 MHA
+       heads of 64, layernorm, biases, the GELU MLP) on random frames (2,
+       4,096, 1,024): ``seamless_serving``, then ``Model.loss`` at 2 x 128
+       decoder tokens held by ``grad_check`` (the fp32-attention drift; the
+       loss also within 2e-2 of plain) and one AdamW step of
+       ``trainer.make_lm_train_step``;
+    4. llava-next-34b at full width and depth, B = 1: random prefix
+       embeddings (1, 2,880, 7,168) ahead of a 128-token prompt, 32 new
+       tokens through ``generate(prefix_embeds=...)`` held to plain call by
+       call; the agreement of 1 with the prefix; ``logprobs_fn`` with the
+       prefix against the sampler's logprobs (step-0 ratio within 1 +-
+       RATIO_TOL).
+
+    The kernels' records at the new shapes join ``records`` (under each
+    kernel's ``"phase14"``). Prints ``{label: ...}``. Returns {path: launch
+    counts}."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.rl import trainer
+
+    t_phase = time.perf_counter()
+    counts, summary, kernels = {}, {}, {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def lockstep(model, params, tok, name):
+        counts[f"{name}_lockstep"], e2e, _ = end_to_end_phase(
+            torch, ops, _build, serve, generate, model, params, tok, label=f"e2e_{name}",
+            layerwise=True, batches=1, reps=3)
+        _, ids = serve.prompts(tok, B, PROMPT)
+        prompt = torch.from_numpy(ids).to(DEV)
+        _, _, held, calls, _ = held_generate(torch, ops, ref, _build, generate, model, params,
+                                             prompt, f"{name}_generate", eos_id=tok.eos_id)
+        kernels[name] = path_records(torch, ops, ref, F, calls, name)
+        keys = ("decode_step_ms", "decode_tok_per_s", "prefill_and_first_token_ms",
+                "greedy_tok_per_s", "sampled_tok_per_s", "peak_gib",
+                "prefill_logits_max_abs_err", "plain_fp32_attention_logits_max_abs_err",
+                "worst_layer_err_over_max", "free_running_first_token_equal_rows")
+        return prompt, {**{k: e2e.get(k) for k in keys}, "held_to_plain": held}
+
+    # ---- 1. nemotron-4-15b ----
+    free()
+    model, params, tok = build_model(torch, serve, NEMOTRON_FLAGS)
+    prompt, summary["nemotron"] = lockstep(model, params, tok, "nemotron")
+    summary["nemotron"]["top_p"] = top_p_checks(torch, ops, ref, _build, generate, model,
+                                                params, prompt, "nemotron")
+    del model, params
+    free()
+    # ---- 2. command-r-plus-104b at 4 layers ----
+    ccfg = dc.replace(get_config("command-r-plus-104b"), num_layers=COMMAND_R_LAYERS)
+    model = get_model(ccfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[model] {ccfg.name} at {COMMAND_R_LAYERS} of 64 layers: d_model {ccfg.d_model}, "
+          f"{ccfg.num_heads} heads on {ccfg.num_kv_heads} KV heads of {ccfg.head_dim}, "
+          f"SwiGLU {ccfg.d_ff}, parallel blocks; weights drawn in "
+          f"{time.perf_counter() - t0:.2f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    _, summary["command_r"] = lockstep(model, params, tok, "command_r")
+    del model, params
+    free()
+    # ---- 3. seamless-m4t-medium: serving, then one training step ----
+    model, params, tok = build_model(torch, serve, SEAMLESS_FLAGS)
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    frames = torch.randn((SEAMLESS_B, cfg.encoder_len, cfg.d_model), generator=gen,
+                         device=DEV).to(torch.bfloat16)
+    _, ids = serve.prompts(tok, SEAMLESS_B, PROMPT)
+    prompt = torch.from_numpy(ids).to(DEV)
+    counts["seamless_serving"], _, calls, serving = seamless_serving(
+        torch, ops, ref, _build, model, params, prompt, frames)
+    serving["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    kernels["seamless"] = path_records(torch, ops, ref, F, calls, "seamless")
+    tokens = torch.randint(3, cfg.vocab_size, (SEAMLESS_B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    labels = torch.cat([tokens[:, 1:], torch.full((SEAMLESS_B, 1), -1, device=DEV,
+                                                  dtype=torch.int32)], dim=1)
+    batch = {"frames": frames, "tokens": tokens, "labels": labels}
+    torch.cuda.reset_peak_memory_stats()
+    # the forward's flash calls, then the layers again in the backward (remat)
+    step_launches = {"flash_attention": 2 * (cfg.num_encoder_layers + 2 * cfg.num_layers)}
+    gcheck = grad_check(torch, ops, _build, trainer, lambda p: model.loss(p, batch), params,
+                        step_launches, fp32_attention(ref), "seamless_grad_check",
+                        zero_grad=("cross_attn.b_k",))
+    loss_k, loss_r = gcheck["loss_kernel"], gcheck["loss_plain"]
+    require(abs(loss_k - loss_r) <= 2e-2 * abs(loss_r),
+            f"seamless loss {loss_k} against the plain path's {loss_r}")
+    counts["seamless_training"] = gcheck["launches_per_loss_and_grad"]
+    leaf = params["decoder"][0]["self_attn"]["w_q"]
+    before = leaf.clone()
+    state = trainer.init_state(params)
+    (state, metrics), step_ms = sync_ms(
+        torch, lambda: trainer.make_lm_train_step(model)(state, batch))
+    require(bool(torch.isfinite(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+            and not torch.equal(before, leaf), "seamless AdamW step: no finite move")
+    summary["seamless"] = {
+        "serving": serving,
+        "training": {"batch": [SEAMLESS_B, PROMPT], "loss_kernel": loss_k, "loss_plain": loss_r,
+                     "grad_check_worst_ratio": gcheck["worst_ratio"],
+                     "grad_check_worst_leaf": gcheck["worst_ratio_leaf"],
+                     "leaves_beyond_limit": gcheck["leaves_beyond_limit"],
+                     "first_step_ms": step_ms, "grad_norm": float(metrics["grad_norm"]),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}}
+    print(json.dumps({"seamless": summary["seamless"]}), flush=True)
+    del model, params, state, batch, frames, before, leaf
+    free()
+    # ---- 4. llava-next-34b, B = 1, with its prefix ----
+    model, params, tok = build_model(torch, serve, LLAVA_FLAGS)
+    cfg = model.cfg
+    P = cfg.num_prefix_embeds
+    prefix = (torch.randn((LLAVA_B, P, cfg.d_model), generator=torch.Generator(
+        device=DEV).manual_seed(17), device=DEV) * 0.02).to(torch.bfloat16)
+    _, ids = serve.prompts(tok, LLAVA_B, PROMPT)
+    prompt = torch.from_numpy(ids).to(DEV)
+    res, launches, held, calls, _ = held_generate(
+        torch, ops, ref, _build, generate, model, params, prompt, "llava_generate",
+        prefix_embeds=prefix)
+    counts["llava_generate"] = launches
+    resp = res.tokens[:, PROMPT:]
+    require(bool(((resp >= 0) & (resp < cfg.vocab_size)).all()), "llava token range")
+    kernels["llava"] = path_records(torch, ops, ref, F, calls, "llava")
+    with torch.inference_mode():
+        lp, _ = model.logprobs(params, res.tokens, prefix_embeds=prefix)
+    mask = res.response_mask[:, PROMPT:]
+    ratio = float((torch.exp(lp[:, PROMPT:] - res.old_logprob[:, PROMPT:]) * mask).sum()
+                  / mask.sum())
+    require(abs(ratio - 1.0) <= RATIO_TOL,
+            f"llava: step-0 ratio {ratio} of logprobs_fn against the sampler")
+    checks = plain_agreement(torch, ops, model, params, prompt, P + PROMPT + MAX_NEW, "llava",
+                             layerwise=True, prefix=prefix)
+
+    def gen_ms(max_new):
+        return statistics.median(sync_ms(torch, lambda: generate(
+            model, params, prompt, torch.Generator(device=DEV).manual_seed(7),
+            max_new=max_new, temperature=0.0, prefix_embeds=prefix))[1] for _ in range(3))
+
+    whole, prefill = gen_ms(MAX_NEW), gen_ms(1)
+    step = (whole - prefill) / (MAX_NEW - 1)
+    summary["llava"] = {"batch": LLAVA_B, "prefix": P, "prompt": PROMPT, "generate_ms": whole,
+                        "prefill_and_first_token_ms": prefill, "decode_step_ms": step,
+                        "decode_tok_per_s": LLAVA_B / step * 1e3, "step0_ratio": ratio,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "held_to_plain": held, **checks}
+    print(json.dumps({"llava": summary["llava"]}), flush=True)
+    del model, params, res, lp, prefix
+    free()
+    for where, recs in kernels.items():
+        for name, by_shape in recs.items():
+            records.setdefault(name, {}).setdefault("phase14", {})[where] = by_shape
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: summary}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13], default=None,
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14], default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
                          "phase; the full run takes no argument)")
@@ -3660,8 +4074,10 @@ def main(argv=None) -> int:
           flush=True)
 
     if opts.only_phase is not None:
-        counts = (async_phase(torch, ops, ref, _build) if opts.only_phase == 12
-                  else moe_phase(torch, ops, ref, F, _build, serve, generate, {}))
+        phase = {12: lambda: async_phase(torch, ops, ref, _build),
+                 13: lambda: moe_phase(torch, ops, ref, F, _build, serve, generate, {}),
+                 14: lambda: families_phase(torch, ops, ref, F, _build, serve, generate, {})}
+        counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
         return 0
@@ -3742,6 +4158,12 @@ def main(argv=None) -> int:
     # width and depth, mixtral-8x7b's ring at full width (the counts set to 0
     # just before each path, read just after) ----
     paths.update(moe_phase(torch, ops, ref, F, _build, serve, generate, records))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 14: the remaining families, nemotron-4-15b, command-r-plus's
+    # parallel blocks, seamless-m4t's encoder-decoder and llava-next's prefix
+    # (the counts set to 0 just before each path, read just after) ----
+    paths.update(families_phase(torch, ops, ref, F, _build, serve, generate, records))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -3768,7 +4190,13 @@ def main(argv=None) -> int:
                                       "fused_sample")
                   for arm in ("async_sync", "async_s0", "async_s1", "async_tis", "multiturn")},
                **{path: ("rmsnorm", "flash_attention", "decode_attention", "fused_sample")
-                  for path in ("granite_lockstep", "granite_grpo_pipeline", "mixtral_ring")}}
+                  for path in ("granite_lockstep", "granite_grpo_pipeline", "mixtral_ring",
+                               "llava_generate")},
+               # layernorm models launch no norm kernel, enc-dec no sampler
+               **{path: ("flash_attention", "decode_attention", "fused_sample")
+                  for path in ("nemotron_lockstep", "command_r_lockstep")},
+               "seamless_serving": ("flash_attention", "decode_attention"),
+               "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():
         require(all(paths[path][n] > 0 for n in names),
                 f"a kernel of the {path} path was not launched: {paths[path]}")

@@ -114,14 +114,18 @@ def combine_decode_shards(o_parts, lse_parts):
 
 
 def fused_sample(
-    h, w_head, seeds, inv_temp, *, vocab_size=None
+    h, w_head, seeds, inv_temp, *, vocab_size=None, top_p: float = 1.0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Head product + hash Gumbel-max sampler: (token, untempered logprob).
     Unlike the JAX ``ops.fused_sample``, it takes the per-row int32 seeds and
     inverse temperatures directly (the kernel's own inputs), so both modes
-    draw the same tokens from the same seeds."""
-    if _MODE == "ref":
-        return _ref.fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
+    draw the same tokens from the same seeds. ``top_p < 1`` takes the plain
+    sampler on every device, as the JAX dispatch does: the kernel's online
+    sweep over the vocab cannot see the sorted distribution. That route is
+    chosen by the argument; a kernel that fails still raises."""
+    if _MODE == "ref" or top_p < 1.0:
+        return _ref.fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                                 top_p=top_p)
     return _fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
 
 

@@ -241,6 +241,37 @@ def uniform_01(seed: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return (bits.to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
+def nucleus(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Per row, the smallest set of the largest logits whose probability
+    mass reaches ``top_p``, as a bool mask (the top-1 token always in it).
+    The sort is stable, so equal logits keep their index order, as JAX's
+    ``argsort`` does."""
+    order = torch.argsort(-logits, dim=-1, stable=True)
+    probs = torch.softmax(logits.gather(-1, order), dim=-1)
+    # kept while the mass before the token is < top_p: the first token that
+    # crosses the threshold is kept too
+    keep_sorted = torch.cumsum(probs, dim=-1) - probs < top_p
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+
+
+def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filter (``ref.top_p_filter`` of the JAX package): the logits
+    of each row's :func:`nucleus`, everything else NEG_INF. ``top_p >= 1``
+    returns ``logits`` itself."""
+    if top_p >= 1.0:
+        return logits
+    return torch.where(nucleus(logits, top_p), logits, NEG_INF)
+
+
+def gumbel_max_scores(scaled: torch.Tensor, g: torch.Tensor, top_p: float) -> torch.Tensor:
+    """``scaled + g``, and NEG_INF outside each row's nucleus of ``scaled``
+    when ``top_p < 1``. The mask is applied after the noise: the hash draw
+    gives ``g = +inf`` where ``u`` rounds to 1 (24 one bits), which would
+    lift a filtered logit of NEG_INF back over the nucleus."""
+    y = scaled + g
+    return y if top_p >= 1.0 else torch.where(nucleus(scaled, top_p), y, NEG_INF)
+
+
 def sample_scores(
     h: torch.Tensor,  # (B, d)
     w_head: torch.Tensor,  # (d, Vp)
@@ -248,10 +279,14 @@ def sample_scores(
     inv_temp: torch.Tensor,  # (B,) f32; 0.0 = greedy
     *,
     vocab_size: Optional[int] = None,
+    top_p: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused sampler's fp32 logits ``z`` (padded vocab at NEG_INF) and
     Gumbel-max scores ``y = where(inv_temp == 0, z, z * inv_temp + g)`` with
-    ``g = -log(-log(u))``, both (B, Vp)."""
+    ``g = -log(-log(u))``, both (B, Vp); with ``top_p < 1`` the sampled
+    rows' scores outside the nucleus of their tempered logits are NEG_INF
+    (:func:`gumbel_max_scores`; the filter runs after the temperature, as
+    JAX's sampler runs it)."""
     z = h.float() @ w_head.float()
     Vp = z.shape[1]
     vocab = Vp if vocab_size is None else vocab_size
@@ -261,7 +296,7 @@ def sample_scores(
     u = uniform_01(seeds[:, None], pos[None, :])
     g = -torch.log(-torch.log(u))
     it = inv_temp.float()[:, None]
-    y = torch.where(it == 0.0, z, z * it + g)
+    y = torch.where(it == 0.0, z, gumbel_max_scores(z * it, g, top_p))
     return z, torch.where(valid, y, NEG_INF)
 
 
@@ -272,12 +307,15 @@ def fused_sample(
     inv_temp: torch.Tensor,  # (B,) f32; 0.0 = greedy
     *,
     vocab_size: Optional[int] = None,
+    top_p: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The hash Gumbel-max sampler the kernel computes, on materialised fp32
     logits (:func:`sample_scores`): the first-max argmax of the scores, padded
     vocab never sampled, and the logprob ``z[tok] - logsumexp(z)`` of the
-    untempered masked logits. Returns (token (B,) int32, logprob (B,) f32)."""
-    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
+    untempered, unfiltered masked logits (as JAX's). With ``top_p < 1`` the
+    sampled rows draw from the nucleus of their tempered logits; the kernel
+    has no such filter. Returns (token (B,) int32, logprob (B,) f32)."""
+    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size, top_p=top_p)
     tok = torch.argmax(y, dim=-1)
     lp = z.gather(1, tok[:, None])[:, 0] - torch.logsumexp(z, dim=-1)
     return tok.to(torch.int32), lp

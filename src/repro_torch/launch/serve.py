@@ -98,14 +98,24 @@ def run_lockstep(model, params, tok: ByteTokenizer, args) -> Dict[str, Any]:
     """Serve ``args.requests`` timed batches after one warm-up batch. Returns
     the counted tokens, the rate, the batch-latency percentiles and every
     batch's ``RolloutResult`` (the warm-up's first)."""
-    device = model.device
+    device, cfg = model.device, model.cfg
     texts, ids = prompts(tok, args.batch, args.prompt_len)
     prompt = torch.from_numpy(ids).to(device)
+    # zero modality inputs, as the JAX package's launch.serve passes: an
+    # enc-dec model's frames (generate refuses it: it has no fused sampler)
+    # and a VLM's prefix embeddings
+    kw = {}
+    if cfg.is_encoder_decoder:
+        kw["frames"] = torch.zeros((args.batch, cfg.encoder_len, cfg.d_model),
+                                   dtype=torch.bfloat16, device=device)
+    if cfg.num_prefix_embeds > 1:
+        kw["prefix_embeds"] = torch.zeros((args.batch, cfg.num_prefix_embeds, cfg.d_model),
+                                          dtype=torch.bfloat16, device=device)
 
     def one_batch(r: int):
         gen = torch.Generator(device=device).manual_seed(args.seed + r + 1)
         res = generate(model, params, prompt, gen, max_new=args.max_new,
-                       temperature=args.temperature, eos_id=tok.eos_id)
+                       temperature=args.temperature, eos_id=tok.eos_id, **kw)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return res

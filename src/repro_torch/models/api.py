@@ -1,5 +1,6 @@
 """Model facade of the PyTorch port (port of ``repro.models.api``): the
-serving and rollout code talks to :class:`Model` only."""
+serving and rollout code talks to :class:`Model` only, and the family
+dispatch (decoder-only LM or encoder-decoder) stays here."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -7,7 +8,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 def resolve_device(name) -> torch.device:
@@ -25,7 +26,6 @@ def resolve_device(name) -> torch.device:
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
-        lm.check_supported(cfg)
         self.cfg = cfg
         self.is_encdec = cfg.is_encoder_decoder
         self.device = resolve_device(device)
@@ -33,43 +33,63 @@ class Model:
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random weights on ``self.device`` from ``gen`` (a generator on that
         device)."""
-        return lm.init(self.cfg, gen, device=self.device)
+        return (encdec.init if self.is_encdec else lm.init)(self.cfg, gen, device=self.device)
 
     # ---- training and RL scoring ----
     def loss(self, params, batch, *, remat: bool = True):
-        """LM loss of ``batch`` (tokens, labels): (loss, metrics)."""
+        """Loss of ``batch`` (tokens, labels [, prefix_embeds | frames]):
+        (loss, metrics)."""
+        if self.is_encdec:
+            return encdec.loss_fn(self.cfg, params, batch, remat=remat)
         return lm.loss_fn(self.cfg, params, batch, remat=remat)
 
-    def logprobs(self, params, tokens, *, remat: bool = False):
+    def logprobs(self, params, tokens, *, prefix_embeds=None, frames=None,
+                 remat: bool = False):
         """(logprob, entropy) of ``tokens``, each (B, S); position 0 gets 0."""
-        return lm.logprobs_fn(self.cfg, params, tokens, remat=remat)
+        if self.is_encdec:
+            return encdec.logprobs_fn(self.cfg, params, tokens, frames, remat=remat)
+        return lm.logprobs_fn(self.cfg, params, tokens, prefix_embeds=prefix_embeds,
+                              remat=remat)
 
     def init_caches(self, batch: int, smax: int):
+        if self.is_encdec:
+            return encdec.init_caches(self.cfg, batch, smax, device=self.device)
         return lm.init_caches(self.cfg, batch, smax, device=self.device)
 
-    def prefill(self, params, tokens, *, smax: int):
-        return lm.prefill(self.cfg, params, tokens, smax=smax)
+    def prefill(self, params, tokens, *, smax: int, prefix_embeds=None, frames=None):
+        if self.is_encdec:
+            return encdec.prefill(self.cfg, params, tokens, frames, smax=smax)
+        return lm.prefill(self.cfg, params, tokens, smax=smax, prefix_embeds=prefix_embeds)
 
     def decode_step(self, params, token, caches, cache_len):
+        if self.is_encdec:
+            return encdec.decode_step(self.cfg, params, token, caches, cache_len)
         return lm.decode_step(self.cfg, params, token, caches, cache_len)
 
     def decode_step_sample(self, params, token, caches, cache_len, seeds,
-                           temperature: float):
-        """Decode step with the fused head + sampler. Returns (token,
-        behaviour logprob, caches, cache_len + 1)."""
+                           temperature: float, *, top_p: float = 1.0):
+        """Decode step with the fused head + sampler (LM only). Returns
+        (token, behaviour logprob, caches, cache_len + 1); ``top_p < 1``
+        samples through the plain sampler, as in JAX."""
+        if self.is_encdec:
+            raise NotImplementedError("fused sampling is decoder-only")
         return lm.decode_step_sample(self.cfg, params, token, caches, cache_len,
-                                     seeds, temperature)
+                                     seeds, temperature, top_p=top_p)
 
     # ---- streaming serving: paged decode over the page pool ----
     def decode_step_paged(self, params, token, pool, cache_len, page_tables,
                           *, write_enable=None):
-        """Paged decode step over a shared page pool."""
+        """Paged decode step over a shared page pool (LM only)."""
+        if self.is_encdec:
+            raise NotImplementedError("paged decode is decoder-only")
         return lm.decode_step_paged(self.cfg, params, token, pool, cache_len,
                                     page_tables, write_enable=write_enable)
 
     def decode_step_paged_sample(self, params, token, pool, cache_len,
                                  page_tables, seeds, temps, *, write_enable=None):
         """Paged decode + fused per-row sampling (the serving burst step)."""
+        if self.is_encdec:
+            raise NotImplementedError("paged decode is decoder-only")
         return lm.decode_step_paged_sample(self.cfg, params, token, pool,
                                            cache_len, page_tables, seeds, temps,
                                            write_enable=write_enable)
@@ -77,6 +97,10 @@ class Model:
     def prefill_chunk(self, params, tokens, caches, *, offset: int):
         """One chunk of a chunked prefill into existing caches (see
         ``lm.prefill_chunk``)."""
+        if self.is_encdec:
+            raise NotImplementedError(
+                "chunked prefill is decoder-only; enc-dec prefill runs the "
+                "encoder over the whole input")
         return lm.prefill_chunk(self.cfg, params, tokens, caches, offset=offset)
 
     def gather_cache_rows(self, caches, slots):

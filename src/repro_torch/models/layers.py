@@ -1,8 +1,12 @@
 """Shared model layers (port of ``repro.models.layers``): norms, RoPE, the MLP
-flavours, and the attention projections with padded heads.
+flavours, and the attention projections with padded heads, their optional
+biases, and cross-attention over an encoder's memory.
 
 Plain functions on (params-dict, tensors), like the JAX package. Weights keep
-JAX's ``(d_in, d_out)`` layout, so a layer is ``x @ W``.
+JAX's ``(d_in, d_out)`` layout, so a layer is ``x @ W``; a product of two
+dtypes promotes both, as ``jnp.matmul`` does (an encoder's bf16 frames
+against fp32 weights). Biases are fp32 and are added after a cast to the
+activation's dtype, as in JAX.
 """
 from __future__ import annotations
 
@@ -27,18 +31,22 @@ def _dense_init(gen: torch.Generator, shape, *, device=None) -> torch.Tensor:
 # norms
 # --------------------------------------------------------------------------- #
 def init_norm(cfg: ModelConfig, *, device=None) -> Params:
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            "layernorm is not ported yet (ROADMAP queue 1, item 6: other families)")
-    return {"w": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)}
+    """Zero weight (and, for layernorm, zero bias) in fp32."""
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)  # noqa: E731
+    if cfg.norm_type == "rmsnorm":
+        return {"w": zeros()}
+    return {"w": zeros(), "b": zeros()}
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            "layernorm is not ported yet (ROADMAP queue 1, item 6: other families)")
+    """RMSNorm through the kernel, or layernorm as plain torch (the JAX
+    package computes it in jnp): ``(1 + w) * y + b`` over fp32 statistics
+    with eps 1e-5, in x's dtype."""
     d = x.shape[-1]
-    return ops.rmsnorm(x.reshape(-1, d), p["w"]).reshape(x.shape)
+    if cfg.norm_type == "rmsnorm":
+        return ops.rmsnorm(x.reshape(-1, d), p["w"]).reshape(x.shape)
+    y = F.layer_norm(x.float(), (d,), eps=1e-5)
+    return ((1.0 + p["w"]) * y + p["b"]).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -61,35 +69,53 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, both promoted to a common dtype first when they differ."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
+def _biased(cfg: ModelConfig, y: torch.Tensor, p: Params, name: str) -> torch.Tensor:
+    """``y + b`` with the fp32 bias cast to y's dtype first, where the
+    config has biases."""
+    return y + p[name].to(y.dtype) if cfg.use_bias else y
+
+
+def _zero_bias(n: int, device) -> torch.Tensor:
+    return torch.zeros((n,), dtype=torch.float32, device=device)
+
+
 # --------------------------------------------------------------------------- #
 # MLP flavours
 # --------------------------------------------------------------------------- #
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.use_bias:
-        raise NotImplementedError(
-            "biased layers are not ported yet (ROADMAP queue 1, item 6: other families)")
     p: Params = {"w_in": _dense_init(gen, (d, f), device=device),
                  "w_out": _dense_init(gen, (f, d), device=device)}
     if cfg.mlp_type in ("swiglu", "geglu"):
         p["w_gate"] = _dense_init(gen, (d, f), device=device)
+    if cfg.use_bias:
+        p["b_in"] = _zero_bias(f, device)
+        p["b_out"] = _zero_bias(d, device)
     return p
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["w_in"]
+    h = _biased(cfg, matmul(x, p["w_in"]), p, "b_in")
     if cfg.mlp_type == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * h
+        h = F.silu(matmul(x, p["w_gate"])) * h
     elif cfg.mlp_type == "geglu":
         # jax.nn.gelu(approximate=True) is the tanh form
-        h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
+        h = F.gelu(matmul(x, p["w_gate"]), approximate="tanh") * h
     elif cfg.mlp_type == "relu2":
         h = torch.square(F.relu(h))
     elif cfg.mlp_type == "gelu":
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.mlp_type)
-    return h @ p["w_out"]
+    return _biased(cfg, matmul(h, p["w_out"]), p, "b_out")
 
 
 # --------------------------------------------------------------------------- #
@@ -97,10 +123,9 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Params:
     """Q/K/V/O projections. Q/O use padded_heads; the padded head slots of
-    W_q columns and W_o rows are zero, so padded heads are exact."""
-    if cfg.use_bias:
-        raise NotImplementedError(
-            "biased layers are not ported yet (ROADMAP queue 1, item 6: other families)")
+    W_q columns and W_o rows are zero, so padded heads are exact. With
+    ``use_bias``, zero fp32 biases ``b_q``, ``b_k``, ``b_v``, ``b_o``. A
+    decoder's cross-attention is initialised the same way."""
     d, hd = cfg.d_model, cfg.head_dim
     hp, kvh = cfg.padded_heads, cfg.num_kv_heads
     wq = _dense_init(gen, (d, hp * hd), device=device)
@@ -110,7 +135,16 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Pa
     if cfg.padded_heads != cfg.num_heads:
         wq[:, cfg.num_heads * hd:] = 0
         wo[cfg.num_heads * hd:, :] = 0
-    return {"w_q": wq, "w_k": wk, "w_v": wv, "w_o": wo}
+    p: Params = {"w_q": wq, "w_k": wk, "w_v": wv, "w_o": wo}
+    if cfg.use_bias:
+        p.update(b_q=_zero_bias(hp * hd, device), b_k=_zero_bias(kvh * hd, device),
+                 b_v=_zero_bias(kvh * hd, device), b_o=_zero_bias(d, device))
+    return p
+
+
+def q_proj(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (..., d) -> q (..., Hp * hd), no RoPE."""
+    return _biased(cfg, matmul(x, p["w_q"]), p, "b_q")
 
 
 def qkv_proj(
@@ -119,9 +153,8 @@ def qkv_proj(
     """x (B,S,d) -> q (B,S,Hp,hd), k/v (B,S,KVH,hd); RoPE applied if positions."""
     B, S, _ = x.shape
     hp, kvh, hd = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["w_q"]).reshape(B, S, hp, hd)
-    k = (x @ p["w_k"]).reshape(B, S, kvh, hd)
-    v = (x @ p["w_v"]).reshape(B, S, kvh, hd)
+    q = q_proj(cfg, p, x).reshape(B, S, hp, hd)
+    k, v = memory_kv(cfg, p, x)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -130,7 +163,7 @@ def qkv_proj(
 
 def out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
     """o (B,S,Hp,hd) or (B,Hp,hd) -> (..., d)."""
-    return o.reshape(*o.shape[:-2], -1) @ p["w_o"]
+    return _biased(cfg, matmul(o.reshape(*o.shape[:-2], -1), p["w_o"]), p, "b_o")
 
 
 def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -140,3 +173,23 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torc
     q, k, v = qkv_proj(cfg, p, x, positions)
     o = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return out_proj(cfg, p, o)
+
+
+def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    memory: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """A decoder's attention over the encoder memory's K/V (:func:`memory_kv`):
+    non-causal, no RoPE, every query against every memory position."""
+    B, S, _ = x.shape
+    q = q_proj(cfg, p, x).reshape(B, S, cfg.padded_heads, cfg.head_dim)
+    k, v = memory
+    return out_proj(cfg, p, ops.flash_attention(q, k, v, causal=False))
+
+
+def memory_kv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """K/V projections of x (B, S, d), each (B, S, KVH, hd), no RoPE: an
+    encoder memory's cross-attention K/V, computed once a prefill."""
+    B, S, _ = x.shape
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    k = _biased(cfg, matmul(x, p["w_k"]), p, "b_k")
+    v = _biased(cfg, matmul(x, p["w_v"]), p, "b_v")
+    return k.reshape(B, S, kvh, hd), v.reshape(B, S, kvh, hd)

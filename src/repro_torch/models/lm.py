@@ -1,8 +1,11 @@
 """Decoder-only LM of the PyTorch port (port of ``repro.models.lm``): the
-dense attention family, the MoE family (``models/moe.py``, the dense
-dispatch), sliding-window attention with its ring cache, the Mamba2 (SSD)
-family and the hybrids that mix attention and SSD layers with dense and MoE
-MLPs.
+dense attention family (RMSNorm or layernorm, biased or not, sequential or
+parallel blocks), the MoE family (``models/moe.py``, the dense dispatch),
+sliding-window attention with its ring cache, the Mamba2 (SSD) family, the
+hybrids that mix attention and SSD layers with dense and MoE MLPs, and
+models whose input carries precomputed prefix embeddings ahead of the
+tokens (a VLM's patches, ``assemble_input``). The encoder-decoder family is
+``models/encdec.py``.
 
 Params are nested dicts like the JAX package's, with one difference: the JAX
 pytree stacks each block parameter over layers, ``(N, ...)`` per pattern
@@ -27,11 +30,9 @@ decode state ``{"ssm", "conv_x", "conv_bc"}``. The serving page pool is the
 attention layout with pages for rows: ``init_caches(num_pages, page_size)``,
 each leaf (P, page_size, KVH, hd).
 
-Not ported yet: enc-dec, prefix embeds and parallel blocks; each raises
-``NotImplementedError`` naming its ROADMAP item. ``full`` mode through an
-SSD layer needs a sequence of at most 128 positions or a multiple of 128
-(the scan's chunk), as in the JAX package: any other length raises
-``ValueError``.
+``full`` mode through an SSD layer needs a sequence of at most 128
+positions or a multiple of 128 (the scan's chunk), as in the JAX package:
+any other length raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -49,17 +50,6 @@ Caches = List[Dict[str, torch.Tensor]]
 
 LOSS_CHUNK = 1024  # sequence chunking for the CE/logprob head (memory bound)
 IGNORE = -1  # label id excluded from the loss
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of ``ModelConfig`` the port does not have yet."""
-    other = "(ROADMAP queue 1, item 6: other families)"
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"enc-dec is not ported yet {other}")
-    if cfg.num_prefix_embeds > 1:
-        raise NotImplementedError(f"prefix embeds are not ported yet {other}")
-    if cfg.parallel_block:
-        raise NotImplementedError(f"parallel blocks are not ported yet {other}")
 
 
 # --------------------------------------------------------------------------- #
@@ -84,15 +74,16 @@ def pattern_length(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------------- #
 def _init_block(cfg: ModelConfig, gen: torch.Generator, kind, *, device=None) -> Params:
     """One layer's weights (``lm._init_block_pos``): norm1, the attention or
-    SSD mixer, and norm2 + the dense or MoE MLP unless the MLP kind is
-    ``none``."""
+    SSD mixer, and the dense or MoE MLP unless the MLP kind is ``none``,
+    with its own norm2 unless the block is parallel (its MLP reads norm1's
+    output)."""
     mixer_kind, mlp_kind = kind
     p: Params = {"norm1": layers.init_norm(cfg, device=device)}
     if mixer_kind == "attn":
         p["attn"] = layers.init_attention(cfg, gen, device=device)
     else:
         p["ssm"] = ssm.init_ssm(cfg, gen, device=device)
-    if mlp_kind != "none":
+    if mlp_kind != "none" and not cfg.parallel_block:
         p["norm2"] = layers.init_norm(cfg, device=device)
     if mlp_kind == "dense":
         p["mlp"] = layers.init_mlp(cfg, gen, device=device)
@@ -108,7 +99,6 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Params:
     one layer after another; ``gen`` must live on ``device``. The numbers
     differ from ``jax.random``'s: use the bridge to run both packages on the
     same weights."""
-    check_supported(cfg)
     blocks = [_init_block(cfg, gen, kind, device=device) for kind in cfg.layer_kinds()]
     v, d = cfg.padded_vocab, cfg.d_model
     embed = torch.randn((v, d), generator=gen, dtype=torch.float32, device=device)
@@ -351,7 +341,10 @@ def _apply_block(
 ):
     """One layer of kind (mixer, mlp): pre-norm mixer and, unless the MLP
     kind is ``none``, pre-norm dense or MoE MLP, each added to the residual.
-    Returns (h, the layer's MoE aux loss or None, the layer's cache)."""
+    A parallel block (``cfg.parallel_block``) feeds norm1's output to both
+    and returns ``h + mix_out + mlp_out``, summed in that order as JAX does
+    (bf16 sums depend on it). Returns (h, the layer's MoE aux loss or None,
+    the layer's cache)."""
     mixer_kind, mlp_kind = kind
     hn = layers.apply_norm(cfg, p["norm1"], h)
     if mixer_kind == "attn":
@@ -365,7 +358,7 @@ def _apply_block(
     h = h + mix_out
     aux = None
     if mlp_kind != "none":
-        hn2 = layers.apply_norm(cfg, p["norm2"], h)
+        hn2 = hn if cfg.parallel_block else layers.apply_norm(cfg, p["norm2"], h)
         if mlp_kind == "dense":
             h = h + layers.apply_mlp(cfg, p["mlp"], hn2)
         else:
@@ -421,6 +414,16 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torc
     if cfg.embed_scale:
         # a scalar in h's dtype, as lm.py:433: sqrt(2048) becomes 45.25 in bf16
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype, device=h.device)
+    return h
+
+
+def assemble_input(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, with the precomputed prefix embeddings (B, P, d)
+    ahead of them when the config takes a prefix (``lm.assemble_input``)."""
+    h = embed_tokens(cfg, params, tokens)
+    if prefix_embeds is not None and cfg.num_prefix_embeds > 1:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     return h
 
 
@@ -490,10 +493,11 @@ def ce_loss(cfg: ModelConfig, params: Params, h, labels):
     return loss, {"ce": loss, "entropy": torch.sum(ent * mask) / denom}
 
 
-def _full_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, remat: bool):
-    """(final-normed h, summed MoE aux loss) of ``full`` mode."""
-    check_supported(cfg)
-    h = embed_tokens(cfg, params, tokens)
+def _full_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, remat: bool,
+                 prefix_embeds: Optional[torch.Tensor] = None):
+    """(final-normed h, summed MoE aux loss) of ``full`` mode, over the
+    prefix (if any) and the tokens."""
+    h = assemble_input(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux, _ = backbone(cfg, params, h, positions, mode="full", remat=remat)
     return h, aux
@@ -501,11 +505,12 @@ def _full_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, remat: 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
             remat: bool = True):
-    """LM training loss (``lm.loss_fn``): batch tokens (B, S) and labels
-    (B, S) with ``IGNORE`` at positions not predicted. Returns (loss,
-    {"ce", "entropy"}); with MoE layers the loss adds 0.01 x the summed aux
-    loss, reported as ``"moe_aux"``."""
-    h, aux = _full_hidden(cfg, params, batch["tokens"], remat)
+    """LM training loss (``lm.loss_fn``): batch tokens (B, S), optional
+    ``prefix_embeds`` (B, P, d), and labels (B, P + S) with ``IGNORE`` at
+    positions not predicted. Returns (loss, {"ce", "entropy"}); with MoE
+    layers the loss adds 0.01 x the summed aux loss, reported as
+    ``"moe_aux"``."""
+    h, aux = _full_hidden(cfg, params, batch["tokens"], remat, batch.get("prefix_embeds"))
     loss, metrics = ce_loss(cfg, params, h, batch["labels"])
     if cfg.num_experts:
         loss = loss + 0.01 * aux
@@ -514,13 +519,14 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
 
 
 def logprobs_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-                remat: bool = False):
+                prefix_embeds: Optional[torch.Tensor] = None, remat: bool = False):
     """Per-token logprob and entropy of ``tokens`` under the model
     (``lm.logprobs_fn``): (B, S) each, position i scoring tokens[:, i] given
-    tokens[:, :i]; position 0 gets 0. The MoE aux loss is dropped, as in
-    JAX."""
-    h, _ = _full_hidden(cfg, params, tokens, remat)
-    lp, ent, _ = token_stats(cfg, params, h[:, :-1], tokens[:, 1:])
+    the prefix and tokens[:, :i]; position 0 gets 0. The MoE aux loss is
+    dropped, as in JAX."""
+    h, _ = _full_hidden(cfg, params, tokens, remat, prefix_embeds)
+    off = h.shape[1] - tokens.shape[1]  # the prefix's length
+    lp, ent, _ = token_stats(cfg, params, h[:, off:off + tokens.shape[1] - 1], tokens[:, 1:])
     zero = torch.zeros((tokens.shape[0], 1), dtype=lp.dtype, device=lp.device)
     return torch.cat([zero, lp], dim=1), torch.cat([zero, ent], dim=1)
 
@@ -533,7 +539,6 @@ def init_caches(cfg: ModelConfig, batch: int, smax: int, *, device=None) -> Cach
     layer's ``{"k", "v"}`` (B, W, KVH, hd) bf16 with W = ``ring_width``, or
     int8 with f32 ``{"k_scale", "v_scale"}`` (B, W, KVH) under ``kv_quant``;
     an SSD layer's ``{"ssm", "conv_x", "conv_bc"}`` state."""
-    check_supported(cfg)
     shape = (batch, ring_width(cfg, smax), cfg.num_kv_heads, cfg.head_dim)
 
     def zeros(shape_, dtype):
@@ -553,11 +558,11 @@ def init_caches(cfg: ModelConfig, batch: int, smax: int, *, device=None) -> Cach
     return caches
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, smax: int):
-    """Run the prompt, return (last-position logits (B, Vp) fp32, caches,
-    cache_len (B,) int32)."""
-    check_supported(cfg)
-    h = embed_tokens(cfg, params, tokens)
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, smax: int,
+            prefix_embeds: Optional[torch.Tensor] = None):
+    """Run the prefix (if any) and the prompt, return (last-position logits
+    (B, Vp) fp32, caches, cache_len (B,) int32: the positions run)."""
+    h = assemble_input(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, _, caches = backbone(cfg, params, h, positions, mode="prefill", smax=smax)
     logits = (h[:, -1] @ _head_matrix(cfg, params)).float()
@@ -595,6 +600,8 @@ def decode_step_sample(
     cache_len,
     seeds: torch.Tensor,  # (B,) int32 per-row hash seeds
     temperature: float,  # 0.0 = greedy
+    *,
+    top_p: float = 1.0,  # < 1 takes the plain sampler, as in JAX
 ):
     """One decode step with the fused head + sampler
     (``ops.fused_sample``): the (B, Vp) logits never exist as a tensor on the
@@ -605,7 +612,7 @@ def decode_step_sample(
     inv_temp = torch.full((B,), 0.0 if temperature == 0.0 else 1.0 / temperature,
                           dtype=torch.float32, device=h.device)
     tok, lp = ops.fused_sample(h, _head_matrix(cfg, params), seeds, inv_temp,
-                               vocab_size=cfg.vocab_size)
+                               vocab_size=cfg.vocab_size, top_p=top_p)
     return tok, lp, new_caches, cache_len + 1
 
 
@@ -650,7 +657,6 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches
     and dequantized, which whole-prompt prefill never does. SSD layers raise
     (their state would have to carry between chunks). Returns (last-position logits (B, Vp) fp32, caches); the
     caller owns ``cache_len``."""
-    check_supported(cfg)
     h = embed_tokens(cfg, params, tokens)
     h, _, new_caches = backbone(cfg, params, h, None, mode="prefill_chunk", caches=caches,
                              chunk_offset=offset)

@@ -38,16 +38,20 @@ def row_seeds(gen: torch.Generator, batch: int) -> torch.Tensor:
                          dtype=torch.int64, device=gen.device).to(torch.int32)
 
 
-def sample_token(logits: torch.Tensor, seeds: torch.Tensor, temperature: float) -> torch.Tensor:
+def sample_token(logits: torch.Tensor, seeds: torch.Tensor, temperature: float,
+                 top_p: float = 1.0) -> torch.Tensor:
     """Sample from materialised (B, V) logits: argmax when greedy, else the
-    fused sampler's hash Gumbel-max rule with the rows' seeds. Padded-vocab
-    logits are already masked to -1e30 by the model."""
+    fused sampler's hash Gumbel-max rule with the rows' seeds over the
+    tempered logits, restricted to their nucleus when ``top_p < 1``
+    (``ref.gumbel_max_scores``, after the temperature, as in JAX).
+    Padded-vocab logits are already masked to -1e30 by the model."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     pos = torch.arange(logits.shape[-1], device=logits.device)
     u = _ref.uniform_01(seeds[:, None], pos[None, :])
     g = -torch.log(-torch.log(u))
-    return torch.argmax(logits.float() * (1.0 / temperature) + g, dim=-1).to(torch.int32)
+    scores = _ref.gumbel_max_scores(logits.float() * (1.0 / temperature), g, top_p)
+    return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
 def sample_token_rows(logits: torch.Tensor, seeds: torch.Tensor,
@@ -77,18 +81,32 @@ def generate(
     eos_id: Optional[int] = None,
     pad_id: int = 0,
     budgets: Optional[torch.Tensor] = None,  # (B,) per-sequence response caps
+    frames: Optional[torch.Tensor] = None,
+    prefix_embeds: Optional[torch.Tensor] = None,  # (B, P, d)
 ) -> RolloutResult:
     """``budgets`` caps each sequence's counted response length at
     ``min(budgets[b], max_new)`` (>= 1: the first sampled token always
     counts). Lockstep runs all ``max_new`` steps regardless. ``gen`` draws
-    the per-step seeds and lives on the model's device."""
-    if top_p < 1.0:
-        raise NotImplementedError(
-            "top_p < 1 is not ported yet (ROADMAP queue 1, item 6: other families)")
-    B, Lp = prompt.shape
-    logits, caches, cache_len = model.prefill(params, prompt, smax=Lp + max_new)
+    the per-step seeds and lives on the model's device. ``top_p < 1``
+    samples each row from the nucleus of its tempered distribution through
+    the plain sampler; the logprobs stay those of the unfiltered
+    distribution.
 
-    tok = sample_token(logits, row_seeds(gen, B), temperature)
+    With ``prefix_embeds`` the prefix runs ahead of the prompt, and the
+    cache holds ``P + Lp + max_new`` positions. (The JAX package sizes it
+    ``Lp + max_new``, so there its prefill keeps only the last positions, or
+    its decode writes past the cache are lost, and the tokens go wrong.)
+    An encoder-decoder model has no fused sampler: it raises
+    ``NotImplementedError`` before its prefill, where the JAX package
+    raises at its first decode step."""
+    if model.is_encdec:
+        raise NotImplementedError("fused sampling is decoder-only")
+    B, Lp = prompt.shape
+    P = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    logits, caches, cache_len = model.prefill(params, prompt, smax=P + Lp + max_new,
+                                              prefix_embeds=prefix_embeds, frames=frames)
+
+    tok = sample_token(logits, row_seeds(gen, B), temperature, top_p)
     lp0 = torch.log_softmax(logits, dim=-1).gather(1, tok[:, None].long())[:, 0]
     done = (tok == eos_id) if eos_id is not None else torch.zeros(
         B, dtype=torch.bool, device=tok.device)
@@ -98,7 +116,7 @@ def generate(
     toks, lps, dones = [tok], [lp0], [torch.zeros_like(done)]
     for j in range(max_new - 1):  # step j emits response position j + 2
         nxt, lp, caches, cache_len = model.decode_step_sample(
-            params, tok, caches, cache_len, row_seeds(gen, B), temperature)
+            params, tok, caches, cache_len, row_seeds(gen, B), temperature, top_p=top_p)
         nxt = torch.where(done, pad_id, nxt)
         lp = torch.where(done, 0.0, lp)
         toks.append(nxt)

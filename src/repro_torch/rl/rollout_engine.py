@@ -280,12 +280,10 @@ class ContinuousRolloutEngine:
             raise ValueError(
                 "the continuous engine supports text decoder-only archs; "
                 "use engine='lockstep' for enc-dec / prefix-modality models")
-        if top_p < 1.0:
-            raise NotImplementedError(
-                "top_p < 1 is not ported yet (ROADMAP queue 1, item 6: other families)")
         self.model = model
         self.max_new = max_new
         self.temperature = temperature
+        self.top_p = top_p
         self.eos_id = eos_id
         self.pad_id = pad_id
         self.num_slots = num_slots
@@ -334,7 +332,7 @@ class ContinuousRolloutEngine:
         pool are padding lanes, dropped). ``new_len`` is the lanes' cache
         length after the fill: the bucket width of a refill, a per-lane
         tensor for a continuation."""
-        tok0 = sample_token(logits, seeds, self.temperature)
+        tok0 = sample_token(logits, seeds, self.temperature, self.top_p)
         lp0 = torch.log_softmax(logits, dim=-1).gather(1, tok0[:, None].long())[:, 0]
         done0 = lane_budget <= 1
         if self.eos_id is not None:
@@ -400,7 +398,7 @@ class ContinuousRolloutEngine:
             st.occ += (~done).sum()
             nxt, lp, st.caches, st.cache_len = self.model.decode_step_sample(
                 params, st.cur_tok, st.caches, st.cache_len, row_seeds(gen, S),
-                self.temperature)
+                self.temperature, top_p=self.top_p)
             nxt = torch.where(done, pad, nxt)
             lp = torch.where(done, 0.0, lp)
             wr = (~done) & (st.resp_len < max_new)

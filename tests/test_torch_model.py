@@ -142,13 +142,6 @@ def test_prefill_and_teacher_forced_decode_logits_match(cfgs, jax_params):
                                np.asarray(caches_j[0]["k"][1]), **TOL)
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config("seamless-m4t-medium")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config("llava-next-34b")), device="cpu")
-
-
 def test_model_and_bridge_have_no_cpu_default(jax_params):
     """``get_model(cfg)`` means the card: without CUDA it raises instead of
     running on the CPU, and the bridge takes its device only by name."""

@@ -481,16 +481,6 @@ def _layer_cfg(**kw):
 # every NotImplementedError of the port, and the ROADMAP queue 1 item that
 # ports its subsystem
 NOT_PORTED_CASES = {
-    "enc_dec": (6, lambda: get_model_cpu(reduced(get_config("seamless-m4t-medium")))),
-    "prefix_embeds": (6, lambda: get_model_cpu(reduced(get_config("llava-next-34b")))),
-    "parallel_block": (6, lambda: get_model_cpu(_layer_cfg(parallel_block=True))),
-    "layernorm": (6, lambda: get_model_cpu(_layer_cfg(norm_type="layernorm")).init(
-        torch.Generator().manual_seed(0))),
-    "bias": (6, lambda: get_model_cpu(_layer_cfg(use_bias=True)).init(
-        torch.Generator().manual_seed(0))),
-    "top_p": (6, lambda: train_generate(top_p=0.9)),
-    "engine_top_p": (6, lambda: ContinuousRolloutEngine(
-        get_model_cpu(_layer_cfg()), max_new=2, top_p=0.9)),
     "flag_ckpt_dir": (7, lambda: train.main(SMALL + ["--ckpt-dir", "ckpts"])),
     "flag_resume": (7, lambda: train.main(SMALL + ["--resume", "ckpts"])),
     "flag_obs_trace": (7, lambda: train.main(SMALL + ["--obs-trace", "t.json"])),
@@ -504,22 +494,13 @@ NOT_PORTED_CASES = {
         device="cpu")),
     "publish_reshard": (8, lambda: WeightVersionStore().publish({}, mesh=object())),
 }
-ITEM_NAMES = {6: "other families", 7: "(fault tolerance|telemetry)", 8: "distributed"}
+ITEM_NAMES = {7: "(fault tolerance|telemetry)", 8: "distributed"}
 
 
 def get_model_cpu(cfg):
     from repro_torch.models import get_model
 
     return get_model(cfg, device="cpu")
-
-
-def train_generate(**kw):
-    from repro_torch.rl.rollout import generate
-
-    cfg = _layer_cfg()
-    model = get_model_cpu(cfg)
-    return generate(model, model.init(torch.Generator().manual_seed(0)),
-                    torch.ones((1, 2), dtype=torch.int32), torch.Generator(), max_new=2, **kw)
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED_CASES))

@@ -358,9 +358,11 @@ def test_lockstep_waste_equals_jax(seed):
     assert lockstep_waste(np.array([1, 8]), 8) == pytest.approx(0.5)
 
 
-def test_env_and_prefix_models_are_refused(qwen):
-    """top_p < 1 is refused (other families); environments run in the
-    episode loop (``tests/test_torch_envs.py``)."""
-    _, _, model, _, _ = qwen
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 6: other families"):
-        ContinuousRolloutEngine(model, max_new=4, top_p=0.9)
+def test_env_and_prefix_models_are_refused():
+    """Enc-dec and prefix-modality models are refused (ValueError), as the
+    JAX engine refuses them; environments run in the episode loop
+    (``tests/test_torch_envs.py``)."""
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        model = get_model(reduced(get_config(arch)), device="cpu")
+        with pytest.raises(ValueError, match="text decoder-only archs"):
+            ContinuousRolloutEngine(model, max_new=4)

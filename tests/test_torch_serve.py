@@ -133,6 +133,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import repro_torch.kernels.ssd
         import repro_torch.models.ssm
         import repro_torch.models.moe
+        import repro_torch.models.encdec
         import repro_torch.core.dag
         import repro_torch.optim.adamw
         import repro_torch.rl.trainer
@@ -144,7 +145,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             importlib.import_module(name)
         assert set(["repro_torch.serving.engine", "repro_torch.serving.paged_arena",
                     "repro_torch.obs.trace", "repro_torch.models.ssm",
-                    "repro_torch.models.moe",
+                    "repro_torch.models.moe", "repro_torch.models.encdec",
                     "repro_torch.kernels.ssd",
                     "repro_torch.kernels.decode_attention_quant",
                     "repro_torch.core.dag", "repro_torch.optim.adamw",
