@@ -154,6 +154,19 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      1 +- 0.02; the full forward's argmax equal to the greedy token where
      the top two are clear by 0.05 and no route of the row flipped up to
      that position).
+ 14. The remaining families (the MoE models freed), each model freed before
+     the next is drawn: nemotron-4-15b at full width and depth, command-r-
+     plus-104b at full width on 4 of its 64 layers, seamless-m4t-medium
+     (serving and one training step) and llava-next-34b at B = 1 behind
+     2,880 prefix embeddings (``families_phase`` says what each is held to).
+ 15. Checkpoints and telemetry (``ckpt_phase``): ``launch.train`` at full
+     gemma-2b width and depth on phase 8's experiment file saves its
+     ``TrainState`` after 2 iterations with the trace and the metrics file
+     on (run A), resumes from it (run B, and run C at ``--max-staleness
+     1``): the restored state bit for bit A's in the template's own tensors,
+     the resumed iteration held to phase 8's checks, the async worker's
+     first dispatch on the restored weights, the JSONL and the Chrome trace
+     complete; save and restore timed, the peak host RSS.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -4032,10 +4045,300 @@ def families_phase(torch, ops, ref, F, _build, serve, generate, records, label="
     return counts
 
 
+# phase 15: checkpoints and telemetry through launch.train at gemma-2b's full
+# width and depth, on phase 8's experiment file
+CKPT_ITERS = 2  # run A: a warm-up held to plain, a timed iteration, then the save
+CKPT_RESUMED_ITERS = 3  # runs B and C: iteration 2 after the restore
+
+
+def state_bytes(torch, cfg) -> int:
+    """Bytes of the actor's TrainState of ``cfg`` (bf16 and fp32 params,
+    fp32 AdamW moments, the int32 step), from shapes on the meta device."""
+    from repro_torch import tree
+    from repro_torch.models import lm
+    from repro_torch.rl import trainer
+
+    state = trainer.init_state(lm.init(cfg, torch.Generator(), device="meta"))
+    return sum(x.numel() * x.element_size() for x in tree.leaves(state))
+
+
+@contextlib.contextmanager
+def rss_sampled(interval_s: float = 0.05):
+    """While open, a thread reads this process's resident set size every
+    ``interval_s``; yields {"start_gib", "peak_gib"} (the first reading and
+    the largest so far)."""
+    import os
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss_gib():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page / 2**30
+
+    seen = {"start_gib": rss_gib()}
+    seen["peak_gib"] = seen["start_gib"]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(interval_s):
+            seen["peak_gib"] = max(seen["peak_gib"], rss_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join()
+
+
+@contextlib.contextmanager
+def observed_checkpoints(torch):
+    """While open, every ``checkpoint.save`` and ``checkpoint.restore`` is
+    bracketed by ``torch.cuda.synchronize`` and timed; a restore also keeps
+    the bit checksums of what it restored (``bit_checksum``, params and
+    optimizer apart) and whether every leaf kept its template's storage.
+    Yields {"save": [...], "restore": [...]}."""
+    from repro_torch import tree
+    from repro_torch.ft import checkpoint
+
+    seen = {"save": [], "restore": []}
+    save, restore = checkpoint.save, checkpoint.restore
+
+    def timed_save(ckpt_dir, state, **kw):
+        nbytes = sum(x.numel() * x.element_size() for x in tree.leaves(state))
+        _, ms = sync_ms(torch, lambda: save(ckpt_dir, state, **kw))
+        seen["save"].append({"s": ms / 1e3, "state_bytes": nbytes, "file_bytes":
+                             (Path(ckpt_dir) / checkpoint.FILE).stat().st_size})
+        return None
+
+    def timed_restore(ckpt_dir, template, **kw):
+        ptrs = [x.data_ptr() for x in tree.leaves(template)]
+        (state, step), ms = sync_ms(torch, lambda: restore(ckpt_dir, template, **kw))
+        seen["restore"].append({
+            "s": ms / 1e3, "step": step,
+            "file_bytes": (Path(ckpt_dir) / checkpoint.FILE).stat().st_size,
+            "same_storage": [x.data_ptr() for x in tree.leaves(state)] == ptrs,
+            "checksum": {"params": bit_checksum(torch, state.params),
+                         "opt": bit_checksum(torch, state.opt)}})
+        return state, step
+
+    checkpoint.save, checkpoint.restore = timed_save, timed_restore
+    try:
+        yield seen
+    finally:
+        checkpoint.save, checkpoint.restore = save, restore
+
+
+@contextlib.contextmanager
+def observed_first_generation(torch):
+    """While open, the bit checksums of the params that the async worker
+    publishes first (its version 0) and that the first ``generate`` runs.
+    Yields {"published", "generated"}."""
+    from repro_torch.distributed.weight_sync import WeightVersionStore
+    from repro_torch.rl import rollout as rollout_mod
+
+    seen = {"published": None, "generated": None}
+    publish, generate = WeightVersionStore.publish, rollout_mod.generate
+
+    def publish_kept(self, params, **kw):
+        out = publish(self, params, **kw)
+        if seen["published"] is None:
+            seen["published"] = bit_checksum(torch, out.params)
+        return out
+
+    def generate_kept(model, params, *args, **kw):
+        if seen["generated"] is None:
+            seen["generated"] = bit_checksum(torch, params)
+        return generate(model, params, *args, **kw)
+
+    WeightVersionStore.publish, rollout_mod.generate = publish_kept, generate_kept
+    try:
+        yield seen
+    finally:
+        WeightVersionStore.publish, rollout_mod.generate = publish, generate
+
+
+def ckpt_phase(torch, ops, ref, _build, label="ckpt", pipeline_ms=None):
+    """Phase 15: checkpoints and telemetry through ``launch.train.main`` at
+    gemma-2b's full width and depth on phase 8's experiment file (sync GRPO,
+    the distributed arm), the launch counters set to 0 just before each run
+    and read just after it, each pipeline freed before the next is built:
+
+    - run A: ``--iters 2 --ckpt-dir build/ckpt15 --ckpt-every 2 --obs-trace
+      --obs-metrics``: the warm-up iteration held to plain (calls equal to
+      its launches), every iteration's launches as phase 8's, phase 8's
+      per-iteration checks (finite metrics, ratio_mean within 1 +- RATIO_TOL,
+      a nonzero gradient, a nonzero KL after iteration 0); the save after
+      iteration 1 synchronised and timed (seconds, GB, GB/s); the JSONL holds 2 records whose metrics are the
+      returned history, the Chrome trace parses and holds a ``node/<id>``
+      span for every node of each iteration, the registry's ``train/step_s``
+      counts 2; a bit checksum of the final state (params, m, v, step);
+    - run B: ``--resume build/ckpt15 --iters 3``: the restore (timed) gives
+      A's checksums leaf for leaf in the template's own tensors, iteration 2
+      runs with phase 8's checks, and the AdamW step reads 3 after it;
+    - run C: B with ``--max-staleness 1``: the weights that the async worker
+      publishes first and that its first generation runs carry A's params
+      checksums; the tick only generates.
+
+    Before A, the free space under ``build/`` must hold twice the state (it
+    raises with the figures, never skips). Prints run A's timed iteration ms
+    beside phase 8's distributed arm (``pipeline_ms``, when phase 8 ran), the
+    peak host RSS over the phase and ``phase_s``; the checkpoint is deleted
+    at the end. The global tracer that run A installs is restored after it.
+    Returns {path: the run's launch counts}."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.launch import train
+    from repro_torch.obs import get_tracer, set_tracer
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    exp_path = experiment_file("pipeline", ARCH_FLAGS, PIPE_RL)
+    exp = ExperimentSpec.from_json(exp_path.read_text())
+    cfg, grpo = exp.model, algorithms.get_algorithm(exp.rl.algorithm)
+    per_iter, step = iteration_launches(cfg, _build.LAUNCHES, exp.rl.max_new_tokens,
+                                        grpo.dag_factory())
+    names = path_kernels(cfg)
+    build = ROOT / "build"
+    ckpt, trace, jsonl = build / "ckpt15", build / "trace15.json", build / "metrics15.jsonl"
+    for p in (trace, jsonl):
+        p.unlink(missing_ok=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    nbytes = state_bytes(torch, cfg)
+    free = shutil.disk_usage(build).free
+    require(free >= 2 * nbytes, f"{label}: {free / 1e9:.2f} GB free under build/, the "
+                                f"checkpoint needs {nbytes / 1e9:.2f} GB and twice that is "
+                                f"asked for")
+
+    def checked(run, row, it, trains=True):
+        m = row["metrics"]
+        want = per_iter if trains else {n: per_iter[n] - step.get(n, 0) for n in per_iter}
+        require(row["launches"] == want, f"{label} {run} iteration {it}: launches "
+                                         f"{row['launches']}, expected {want}")
+        require(all(np.isfinite(v) for v in m.values()),
+                f"{label} {run} iteration {it}: non-finite metric {m}")
+        require(("actor/loss" in m) == trains, f"{label} {run} iteration {it}: trains "
+                                               f"{'actor/loss' in m}")
+        if trains:
+            require(abs(m["actor/ratio_mean"] - 1.0) <= RATIO_TOL,
+                    f"{label} {run} iteration {it}: ratio_mean {m['actor/ratio_mean']}")
+            require(m["actor/grad_norm"] > 0, f"{label} {run} iteration {it}: zero gradient")
+            require(it == 0 or m["actor/kl"] > 0, f"{label} {run} iteration {it}: KL "
+                                                   f"{m['actor/kl']}, the weights did not move")
+
+    base = ["--experiment", str(exp_path), "--device", DEV]
+    runs = {"A": base + ["--iters", str(CKPT_ITERS), "--ckpt-dir", str(ckpt), "--ckpt-every",
+                         str(CKPT_ITERS), "--obs-trace", str(trace), "--obs-metrics",
+                         str(jsonl)],
+            "B": base + ["--iters", str(CKPT_RESUMED_ITERS), "--resume", str(ckpt)],
+            "C": base + ["--iters", str(CKPT_RESUMED_ITERS), "--resume", str(ckpt),
+                         "--max-staleness", "1"]}
+    counts, out = {}, {"state_gb": nbytes / 1e9, "free_gb": free / 1e9}
+    saved = None
+    try:
+        with rss_sampled() as rss:
+            for run, argv in runs.items():
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                _build.reset_launches()
+                hold = (lambda: held_to_plain(torch, ops, ref, names)) if run == "A" else None
+                prev = get_tracer()
+                with contextlib.ExitStack() as stack:
+                    seen = stack.enter_context(observed_iterations(torch, _build, hold))
+                    ckpt_io = stack.enter_context(observed_checkpoints(torch))
+                    # run C's first dispatch (the bit checksums are not timed
+                    # iterations' work anywhere else)
+                    first = (stack.enter_context(observed_first_generation(torch))
+                             if run == "C" else None)
+                    try:
+                        res = train.main(argv)
+                    finally:
+                        set_tracer(prev)  # run A installed its tracer
+                counts[run] = dict(_build.LAUNCHES)
+                pipe, rows = res["pipeline"], seen["iterations"]
+                state = pipe.ctx.actor_state
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                if run == "A":
+                    require(len(rows) == CKPT_ITERS, f"{label} A: {len(rows)} iterations")
+                    held = seen["held"]
+                    require(all(held[n]["calls"] == per_iter[n] for n in names),
+                            f"{label} A held to plain: calls {held}, expected {per_iter}")
+                    print(json.dumps({"check": f"{label}_iteration_held_to_plain",
+                                      "kernels": held}), flush=True)
+                    for it, row in enumerate(rows):
+                        checked(run, row, it)
+                    (sv,) = ckpt_io["save"]
+                    saved = {"params": bit_checksum(torch, state.params),
+                             "opt": bit_checksum(torch, state.opt)}
+                    records = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+                    require([r["metrics"] for r in records]
+                            == [{k: float(v) for k, v in m.items()} for m in res["history"]]
+                            and [r["iteration"] for r in records] == list(range(CKPT_ITERS)),
+                            f"{label} A: the JSONL records {records}")
+                    events = json.loads(trace.read_text())["traceEvents"]
+                    spans = [e["name"] for e in events if e["ph"] == "X"]
+                    missing = {n: spans.count(f"node/{n}") for n in pipe.plan.order
+                               if spans.count(f"node/{n}") != CKPT_ITERS}
+                    require(not missing, f"{label} A: node spans {missing} in the trace, "
+                                         f"{CKPT_ITERS} of each expected")
+                    step_hist = pipe.ctx.obs.registry.histograms["train/step_s"]
+                    require(step_hist.count == CKPT_ITERS,
+                            f"{label} A: train/step_s counted {step_hist.count}")
+                    out["A"] = {
+                        "iteration_ms": [r["ms"] for r in rows],
+                        "timed_iteration_ms": rows[-1]["ms"],
+                        "phase8_distributed_iteration_ms": pipeline_ms,
+                        "save_s": sv["s"], "save_gb": sv["file_bytes"] / 1e9,
+                        "save_gb_per_s": sv["file_bytes"] / 1e9 / sv["s"],
+                        "state_gb": sv["state_bytes"] / 1e9, "trace_events": len(events),
+                        "jsonl_records": len(records), "peak_gib": peak}
+                else:
+                    (rs,) = ckpt_io["restore"]
+                    require(len(rows) == CKPT_RESUMED_ITERS - CKPT_ITERS,
+                            f"{label} {run}: {len(rows)} iterations")
+                    require(rs["step"] == CKPT_ITERS and rs["checksum"] == saved
+                            and rs["same_storage"],
+                            f"{label} {run}: restored step {rs['step']}, checksums equal "
+                            f"{rs['checksum'] == saved}, same storage {rs['same_storage']}")
+                    checked(run, rows[0], CKPT_ITERS, trains=run == "B")
+                    if run == "B":
+                        require(int(state.opt.step) == CKPT_RESUMED_ITERS,
+                                f"{label} B: AdamW step {int(state.opt.step)}")
+                    else:
+                        require(first["published"] == saved["params"]
+                                and first["generated"] == saved["params"],
+                                f"{label} C: the first dispatch did not run the restored "
+                                f"weights")
+                        print(json.dumps({"check": f"{label}_C_first_dispatch_restored",
+                                          "leaves": len(saved["params"])}), flush=True)
+                    out[run] = {"restore_s": rs["s"], "restore_gb": rs["file_bytes"] / 1e9,
+                                "restore_gb_per_s": rs["file_bytes"] / 1e9 / rs["s"],
+                                "iteration_ms": rows[0]["ms"],
+                                "adamw_step": int(state.opt.step), "peak_gib": peak}
+                print(json.dumps({f"{label}_run": {"run": run, **out[run],
+                                                   "launches": counts[run]}}), flush=True)
+                del res, pipe, state, seen, ckpt_io, first
+        out["host_rss_gib"] = {"phase_start": rss["start_gib"], "peak": rss["peak_gib"]}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return {"ckpt_train": counts["A"], "ckpt_resume": counts["B"],
+            "ckpt_resume_async": counts["C"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14], default=None,
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15], default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
                          "phase; the full run takes no argument)")
@@ -4076,7 +4379,8 @@ def main(argv=None) -> int:
     if opts.only_phase is not None:
         phase = {12: lambda: async_phase(torch, ops, ref, _build),
                  13: lambda: moe_phase(torch, ops, ref, F, _build, serve, generate, {}),
-                 14: lambda: families_phase(torch, ops, ref, F, _build, serve, generate, {})}
+                 14: lambda: families_phase(torch, ops, ref, F, _build, serve, generate, {}),
+                 15: lambda: ckpt_phase(torch, ops, ref, _build)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -4121,8 +4425,8 @@ def main(argv=None) -> int:
     paths["grpo_training"] = train_counts
     # ---- phase 8: the GRPO pipeline through launch.train, phase 7's model
     # freed (the counts set to 0 just before its first run, read just after) ----
-    paths["grpo_pipeline"], _ = pipeline_phase(torch, ops, ref, _build,
-                                               hand_rows=train_summary["iterations"])
+    paths["grpo_pipeline"], pipeline_summary = pipeline_phase(
+        torch, ops, ref, _build, hand_rows=train_summary["iterations"])
     # and its continuous-engine arm (the counts set to 0 just before it, read
     # just after)
     paths["grpo_engine_pipeline"] = engine_pipeline_arm(torch, ops, ref, _build)
@@ -4164,6 +4468,12 @@ def main(argv=None) -> int:
     # parallel blocks, seamless-m4t's encoder-decoder and llava-next's prefix
     # (the counts set to 0 just before each path, read just after) ----
     paths.update(families_phase(torch, ops, ref, F, _build, serve, generate, records))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 15: checkpoints and telemetry through launch.train at gemma-2b's
+    # full width (the counts set to 0 just before each run, read just after) ----
+    paths.update(ckpt_phase(torch, ops, ref, _build,
+                            pipeline_ms=pipeline_summary["iteration_ms"]["distributed"]))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -4195,6 +4505,8 @@ def main(argv=None) -> int:
                # layernorm models launch no norm kernel, enc-dec no sampler
                **{path: ("flash_attention", "decode_attention", "fused_sample")
                   for path in ("nemotron_lockstep", "command_r_lockstep")},
+               **{path: ("rmsnorm", "flash_attention", "decode_attention", "fused_sample")
+                  for path in ("ckpt_train", "ckpt_resume", "ckpt_resume_async")},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():

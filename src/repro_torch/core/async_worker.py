@@ -248,6 +248,8 @@ class AsyncDAGWorker(DAGWorker):
         # the one-step-off-policy worker's metric name
         metrics["pipeline/staleness"] = metrics.get("async/staleness", 0.0)
         self.buffer.clear()  # intermediate data is transient (paper §6)
+        if self.ctx.obs is not None:
+            self.ctx.obs.registry.record_dict(metrics)
         return metrics
 
 

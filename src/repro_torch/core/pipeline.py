@@ -15,8 +15,10 @@ place, and with ``max_turns > 1`` the continuous engine runs the episodes.
 
 The engines are plain callables where the JAX package jits. The pipeline
 runs on the card unless ``device="cpu"`` is asked for; without CUDA it
-raises. Every option whose subsystem is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+raises. An enabled ``obs`` installs a process-global tracer and hangs an
+:class:`~repro_torch.obs.ObsState` on the worker context, as in the JAX
+package. Every option whose subsystem is not ported yet (the multi-host
+fleet) raises ``NotImplementedError`` naming its ROADMAP item.
 
 The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 ``compile()`` lands here.
@@ -29,6 +31,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch import tree
 from repro_torch.configs.base import (
     AsyncPipelineConfig,
@@ -147,14 +150,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
-def _check_ported(*, distributed: Optional[DistributedConfig] = None,
-                  obs: Optional[ObsConfig] = None) -> None:
+def _check_ported(*, distributed: Optional[DistributedConfig] = None) -> None:
     """Raise ``NotImplementedError`` for any option whose subsystem the port
     does not have yet."""
     if distributed is not None and distributed.enabled:
         raise _not_ported("the multi-host fleet (DistributedConfig)", "8: distributed")
-    if obs is not None and obs.enabled:
-        raise _not_ported("telemetry (ObsConfig)", "7: fault tolerance and telemetry")
 
 
 def _seeds(seed: int):
@@ -182,7 +182,7 @@ def build_pipeline(
     algorithm=None,
     seed: int = 0,
 ) -> Pipeline:
-    _check_ported(distributed=distributed, obs=obs)
+    _check_ported(distributed=distributed)
     spec = algorithm or algorithms.get_algorithm(rl.algorithm)
     coordinator = coordinator or DataCoordinatorConfig()
     device = resolve_device(device)
@@ -225,6 +225,15 @@ def build_pipeline(
     if spec.uses_critic:
         critic_gen = torch.Generator(device=device).manual_seed(s_critic)
         ctx.critic_state = trainer.init_state(critic_mod.init(cfg, critic_gen, device=device))
+
+    if obs is not None and obs.enabled:
+        # Telemetry runtime: a process-global tracer (instrumented call
+        # sites reach it via obs.get_tracer) plus a registry that absorbs
+        # each iteration's metrics dict. Disabled obs leaves the global
+        # tracer untouched. One device is host 0 (a fleet raised above).
+        tracer = obs_mod.Tracer(enabled=obs.trace, host=0, capacity=obs.ring_capacity)
+        obs_mod.set_tracer(tracer)
+        ctx.obs = obs_mod.ObsState(cfg=obs, tracer=tracer, registry=obs_mod.MetricsRegistry())
 
     dag = dag or spec.dag_factory()
     if env_runtime is not None:

@@ -9,8 +9,7 @@ no coordinator process anywhere. The port runs one worker on one device.
 
 JAX's ``key``/``next_key()`` becomes an explicit ``torch.Generator`` on the
 run's device (``WorkerContext.gen``), which the generate engine draws its
-per-step sampling seeds from. Telemetry (``ObsConfig``) is not ported yet
-(ROADMAP queue 1, item 7), so the context has no ``obs``.
+per-step sampling seeds from.
 """
 from __future__ import annotations
 
@@ -55,6 +54,9 @@ class WorkerContext:
     # EnvConfig names one; the (ENV, COMPUTE) stage reads it
     env: Any = None
     counters: Dict[str, float] = field(default_factory=dict)
+    # the ObsState (repro_torch.obs) when an ObsConfig is enabled; None = no
+    # telemetry
+    obs: Any = None
 
 
 class PromptSource:
@@ -116,6 +118,8 @@ class DAGWorker:
         for node, fn in self.queue:
             self.execute_node(node, fn, metrics)
         self.buffer.clear()  # intermediate data is transient (paper §6)
+        if self.ctx.obs is not None:
+            self.ctx.obs.registry.record_dict(metrics)
         return metrics
 
     def execute_node(self, node: Node, fn, metrics: Dict[str, float]) -> None:

@@ -1,3 +1,2 @@
-"""Fault tolerance of the PyTorch port: the length-aware balancer of
-``repro.ft.straggler`` (the rest of that module and checkpoints are ROADMAP
-queue 1, item 7)."""
+"""Fault tolerance of the PyTorch port: checkpoints (``checkpoint``, the
+format of ``repro.ft.checkpoint``) and a copy of ``repro.ft.straggler``."""

@@ -1,19 +1,60 @@
-"""Length-aware load balancing of a rollout batch (the port's copy of the
-balancer of ``repro.ft.straggler``, which imports no JAX).
+"""Straggler mitigation (the port's copy of ``repro.ft.straggler``, which
+imports no JAX).
 
-The paper (§6.2) repacks a variable-length batch so that the contiguous
+The paper (§2.2) identifies rollout long-tails as the dominant utilization
+loss, and (§6.2) repacks a variable-length batch so that the contiguous
 data-parallel shards of the reordered batch carry near-equal token work.
 The worker's ``load_balance`` option calls :func:`balance_by_length` and
-reports :func:`bucket_token_ratio` before and after. The JAX module's
-multi-host half (``rebalance``, ``HeartbeatMonitor``, ``cross_host_rows``,
-``inverse_permutation``) comes with the port's fleet (ROADMAP queue 1,
-items 7 and 8).
+reports :func:`bucket_token_ratio` before and after.
+
+The multi-host half comes with the JAX module's semantics: between
+iterations, per-host step times are compared; hosts slower than
+``threshold`` x median (or dead hosts, detected by missed heartbeats,
+:class:`HeartbeatMonitor`) hand their upcoming dataset partitions to the
+fastest hosts. :func:`rebalance` is a pure function host_times ->
+partition map, so every worker computes the identical new assignment with
+no coordinator. :func:`cross_host_rows` counts the rows a hierarchical
+repack moves across hosts and :func:`inverse_permutation` undoes a repack.
+The port's fleet (ROADMAP queue 1, item 8) is their caller; until then
+they are held against the JAX module's.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+
+def rebalance(
+    host_times: Sequence[float],
+    *,
+    threshold: float = 1.5,
+    dead: Sequence[int] = (),
+) -> Dict[int, List[int]]:
+    """Deterministic partition map: host -> list of dp-shard ids it loads.
+
+    Healthy hosts keep their own shard; shards of slow/dead hosts are
+    re-assigned round-robin to the fastest healthy hosts.
+    """
+    n = len(host_times)
+    times = np.asarray(host_times, dtype=np.float64)
+    healthy = [i for i in range(n) if i not in set(dead)]
+    if not healthy:
+        raise RuntimeError("no healthy hosts")
+    med = float(np.median(times[healthy]))
+    slow = {i for i in healthy if times[i] > threshold * med}
+    donors = sorted(set(dead) | slow)
+    receivers = sorted(
+        (i for i in healthy if i not in slow), key=lambda i: times[i]
+    ) or healthy
+
+    out: Dict[int, List[int]] = {i: [] for i in range(n)}
+    for i in healthy:
+        if i not in slow:
+            out[i].append(i)
+    for j, shard in enumerate(donors):
+        out[receivers[j % len(receivers)]].append(shard)
+    return out
 
 
 def balance_by_length(
@@ -35,11 +76,13 @@ def balance_by_length(
     intact — their member rows move together — sorted by token weight
     descending, each assigned to the non-full bucket with the smallest token
     total. Deterministic (ties break on group index), so every DAG Worker
-    derives the identical permutation with no coordinator.
+    derives the identical permutation with no coordinator, exactly like
+    :func:`rebalance`.
 
     ``capacities`` (rows-per-bucket in units of groups) defaults to an even
-    split; the JAX package passes the shard counts of its ``rebalance``
-    partition map to skew capacity toward fast hosts.
+    split; pass the shard counts from a :func:`rebalance` partition map to
+    skew capacity toward fast hosts (the two mitigations compose: rebalance
+    decides WHO loads how much, balance_by_length decides WHICH sequences).
 
     ``hosts > 1`` enables the **hierarchical mode** for multi-host fleet
     meshes (docs/multihost.md): rows start resident on the host that
@@ -51,10 +94,12 @@ def balance_by_length(
     equal-row-count group *swaps* made across the pod axis (heaviest host
     with lightest, the swap that best halves their gap), and the swap loop
     stops the moment the totals are back under tolerance — the repack
-    permutation never crosses the slow axis unnecessarily.
+    permutation never crosses the slow axis unnecessarily. Count the
+    crossings with :func:`cross_host_rows`.
 
     Returns a permutation ``perm`` of ``len(lengths)`` row indices: bucket b
-    owns rows ``perm[start_b : start_b + rows_b]``.
+    owns rows ``perm[start_b : start_b + rows_b]``. Invert with
+    :func:`inverse_permutation`.
     """
     w = np.asarray(lengths, dtype=np.float64)
     n = len(w)
@@ -162,6 +207,24 @@ def _hierarchical_assign(
     return assign
 
 
+def cross_host_rows(perm: np.ndarray, hosts: int) -> int:
+    """Rows whose resident host (contiguous block of the ORIGINAL order)
+    differs from the host slot of their position in ``perm`` — the count of
+    rows the repack moves across the slow inter-pod axis."""
+    n = len(perm)
+    per = n // hosts
+    dest = np.arange(n) // per  # host slot of each perm position
+    src = np.asarray(perm) // per  # resident host of the row placed there
+    return int(np.sum(dest != src))
+
+
+def inverse_permutation(perm: np.ndarray) -> np.ndarray:
+    """inv such that ``x[perm][inv] == x`` (restore original row order)."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return inv
+
+
 def bucket_token_ratio(
     lengths: Sequence[float], num_buckets: int, perm: Optional[np.ndarray] = None
 ) -> float:
@@ -174,3 +237,55 @@ def bucket_token_ratio(
     sums = np.array([c.sum() for c in np.array_split(w, num_buckets)])
     mean = sums.mean()
     return float(sums.max() / mean) if mean > 0 else 1.0
+
+
+class HeartbeatMonitor:
+    """Tracks last-seen iteration per host; hosts silent for ``patience``
+    iterations are declared dead (drives ``rebalance(dead=...)``).
+
+    A host that has NEVER beaten is dead at any query — ``last_seen`` starts
+    at -inf, not 0, so silence from the start is not mistaken for a beat at
+    iteration 0. Beats are monotone (``beat`` keeps the max, so a delayed
+    out-of-order heartbeat cannot roll a host backwards), and queries at an
+    iteration older than a host's last beat never report it dead. Each beat
+    may also carry a wall-clock ``now``; ``dead(..., now=, stale_s=)`` then
+    ORs in wall-clock staleness, which is what lets a survivor *blocked* at
+    a collective (its own iteration frozen) still detect a killed peer.
+    """
+
+    def __init__(self, num_hosts: int, patience: int = 2):
+        if num_hosts < 1:
+            raise ValueError(f"num_hosts must be >= 1, got {num_hosts}")
+        if patience < 1:
+            raise ValueError(
+                f"patience must be >= 1, got {patience} (patience=0 would "
+                "declare every host dead the instant it beats)")
+        self.last_seen = np.full(num_hosts, -np.inf)
+        self.last_wall = np.full(num_hosts, -np.inf)
+        self.patience = patience
+
+    def beat(self, host: int, iteration: int, *, now: Optional[float] = None) -> None:
+        if not 0 <= host < len(self.last_seen):
+            raise ValueError(f"host {host} out of range [0, {len(self.last_seen)})")
+        self.last_seen[host] = max(self.last_seen[host], iteration)
+        if now is not None:
+            self.last_wall[host] = max(self.last_wall[host], now)
+
+    def dead(
+        self,
+        iteration: int,
+        *,
+        now: Optional[float] = None,
+        stale_s: Optional[float] = None,
+    ) -> List[int]:
+        out = []
+        for i, seen in enumerate(self.last_seen):
+            lagged = iteration - seen >= self.patience
+            stale = (
+                now is not None
+                and stale_s is not None
+                and now - self.last_wall[i] >= stale_s
+            )
+            if lagged or stale:
+                out.append(i)
+        return out

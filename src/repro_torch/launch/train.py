@@ -23,10 +23,18 @@ turn selects the continuous engine's episode loop. As in the JAX package,
 ``--experiment`` takes the file's env, and these three flags shape only a
 spec built from the flags.
 
-The default arch is gemma-2b, the port's main model. The flags of
-subsystems the port does not have yet (``--ckpt-dir``, ``--resume``,
-``--num-hosts`` > 1, ``--obs-trace``, ``--obs-metrics``) raise
-``NotImplementedError``.
+``--ckpt-dir DIR`` writes the actor's ``TrainState`` every ``--ckpt-every``
+iterations (``repro_torch.ft.checkpoint``, the JAX package's format), and
+``--resume DIR`` restores it into the freshly built state and runs the
+iterations from the saved one on. As in the JAX package, a resume restores
+the actor state alone: the dataloader, the sampling generator, the
+reference params and a PPO critic start again from the seed.
+``--obs-trace PATH`` and ``--obs-metrics PATH`` switch telemetry on over
+the spec's ``ObsConfig``: a Chrome trace of the run's spans is written at
+the end, and one JSONL record an iteration as it ends.
+
+The default arch is gemma-2b, the port's main model. ``--num-hosts`` > 1
+(the fleet) is not ported yet and raises ``NotImplementedError``.
 
 Usage:
   python -m repro_torch.launch.train --arch gemma-2b --iters 3 \
@@ -37,12 +45,14 @@ Usage:
   python -m repro_torch.launch.train --smoke --device cpu --iters 2 --env dialog \
       --max-turns 3 --turn-budget 4 --rollout-slots 4
   python -m repro_torch.launch.train --experiment exp.json --iters 100
+  python -m repro_torch.launch.train --smoke --device cpu --iters 4 --ckpt-dir ckpts \
+      --ckpt-every 2 --obs-trace trace.json --obs-metrics metrics.jsonl
+  python -m repro_torch.launch.train --smoke --device cpu --iters 6 --resume ckpts
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import time
 from typing import Any, Dict
 
@@ -54,15 +64,10 @@ from repro_torch.configs import (
     get_config,
     reduced,
 )
+from repro_torch.ft import checkpoint
+from repro_torch.obs import JSONLSink, StdoutSink, iteration_record
 from repro_torch.rl import RLConfig, list_algorithms
 
-# flag -> the ROADMAP queue 1 item that ports its subsystem
-NOT_PORTED = {
-    "ckpt_dir": "7: fault tolerance (checkpoints)",
-    "resume": "7: fault tolerance (checkpoints)",
-    "obs_trace": "7: telemetry",
-    "obs_metrics": "7: telemetry",
-}
 COORDINATOR_FLAGS = ("double_buffer", "load_balance", "prefetch", "num_buckets",
                      "balance_tolerance")
 
@@ -76,6 +81,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--group-size", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="write the actor's TrainState here every --ckpt-every iterations")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", default=None,
+                    help="restore the actor's TrainState from this checkpoint directory "
+                         "and run the iterations from its step on")
     ap.add_argument("--centralized-baseline", action="store_true",
                     help="run the single-controller arm (comparisons)")
     ap.add_argument("--smoke", action="store_true",
@@ -117,22 +128,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--turn-budget", type=int, default=0,
                     help="per-turn response-token cap for --env "
                          "(0 = --max-new-tokens)")
-    # subsystems not ported yet: each raises NotImplementedError
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--resume", default=None)
+    ap.add_argument("--obs-trace", default=None, metavar="PATH",
+                    help="enable telemetry and export a Chrome-trace JSON "
+                         "here at the end of the run (docs/observability.md)")
+    ap.add_argument("--obs-metrics", default=None, metavar="PATH",
+                    help="enable telemetry and append per-iteration metrics "
+                         "as JSONL here")
+    # the fleet is not ported yet: more than one host raises NotImplementedError
     ap.add_argument("--num-hosts", type=int, default=1)
-    ap.add_argument("--obs-trace", default=None, metavar="PATH")
-    ap.add_argument("--obs-metrics", default=None, metavar="PATH")
     return ap.parse_args(argv)
 
 
 def check_flags(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a flag whose subsystem is not ported."""
-    for name, item in NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1, item {item})")
     if args.num_hosts > 1:
         raise NotImplementedError(
             "--num-hosts > 1 is not ported yet (ROADMAP queue 1, item 8: distributed)")
@@ -191,13 +199,23 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
     if args.rollout_slots is not None:
         exp = dataclasses.replace(exp, rollout=RolloutEngineConfig(
             engine="continuous", num_slots=args.rollout_slots))
+    if args.obs_trace or args.obs_metrics:
+        # the flags layer on top of whatever the spec (file or flags)
+        # carries, as --max-staleness does
+        exp = dataclasses.replace(exp, obs=dataclasses.replace(
+            exp.obs,
+            enabled=True,
+            trace_path=args.obs_trace or exp.obs.trace_path,
+            metrics_path=args.obs_metrics or exp.obs.metrics_path,
+        ))
     return exp
 
 
 def main(argv=None) -> Dict[str, Any]:
     """Run the flags' experiment. Returns ``{"experiment"}`` after
     ``--dump-experiment``, else also the ``"pipeline"``, each iteration's
-    metrics (``"history"``) and host wall seconds (``"seconds"``)."""
+    metrics (``"history"``, from the resumed iteration on) and host wall
+    seconds (``"seconds"``)."""
     args = parse_args(argv)
     check_flags(args)
     exp = build_experiment(args)
@@ -208,19 +226,41 @@ def main(argv=None) -> Dict[str, Any]:
         return {"experiment": exp}
 
     pipe = exp.compile(device=args.device)
+    start = 0
+    if args.resume:
+        # into the built state's own tensors (the async worker publishes its
+        # version 0 at the first dispatch, so generation follows)
+        _, start = checkpoint.restore(args.resume, pipe.ctx.actor_state)
+        print(f"[train] resumed from {args.resume} at iteration {start}")
+
+    obs_rt = pipe.ctx.obs
+    stdout_sink = StdoutSink()
+    jsonl_sink = (JSONLSink(obs_rt.cfg.metrics_path)
+                  if obs_rt is not None and obs_rt.cfg.metrics_path else None)
     history, seconds = [], []
-    for it in range(args.iters):
+    for it in range(start, args.iters):
         t0 = time.perf_counter()
         metrics = pipe.worker.run_iteration()
         dt = time.perf_counter() - t0
         history.append(metrics)
         seconds.append(dt)
         if it % 5 == 0 or it == args.iters - 1:
-            keep = {k: round(v, 4) for k, v in metrics.items() if not k.startswith("time/")}
-            print(f"[train] it={it} {dt:.2f}s {json.dumps(keep)}", flush=True)
+            stdout_sink.emit_iteration(it, metrics, dt)
+        if obs_rt is not None:
+            obs_rt.registry.histogram("train/step_s").record(dt)
+            if jsonl_sink is not None:
+                jsonl_sink.write(iteration_record(it, metrics, dt))
+        if args.ckpt_dir and (it + 1) % args.ckpt_every == 0:
+            checkpoint.save(args.ckpt_dir, pipe.ctx.actor_state, step=it + 1)
+            print(f"[train] checkpoint @ {it + 1} -> {args.ckpt_dir}")
+    if jsonl_sink is not None:
+        jsonl_sink.close()
+    if obs_rt is not None and obs_rt.cfg.trace_path:
+        obs_rt.tracer.export_chrome(obs_rt.cfg.trace_path)
+        print(f"[train] wrote trace {obs_rt.cfg.trace_path} "
+              f"({obs_rt.tracer.num_events} events)")
     print(f"[train] done; buffer stats: {pipe.buffer.stats}")
     return {"experiment": exp, "pipeline": pipe, "history": history, "seconds": seconds}
-
 
 if __name__ == "__main__":
     main()

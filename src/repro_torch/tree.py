@@ -12,19 +12,29 @@ from typing import Any, Callable, List, Tuple
 
 def leaves(tree) -> List[Any]:
     """The leaves of ``tree`` in walk order."""
-    out: List[Any] = []
+    return [leaf for _, leaf in leaves_with_keys(tree)]
 
-    def walk(t):
+
+def leaves_with_keys(tree) -> List[Tuple[str, Any]]:
+    """(key, leaf) for the leaves of ``tree`` in walk order. A leaf's key is
+    the string ``jax.tree_util.keystr`` gives for the same path: ``['name']``
+    for a dict key, ``[i]`` for a list or tuple item, ``.field`` for a
+    NamedTuple field; so a tree of the same structure has the same keys in
+    both packages."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(t, key):
         if isinstance(t, dict):
-            for v in t.values():
-                walk(v)
+            for k, v in t.items():
+                walk(v, f"{key}[{k!r}]")
         elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
+            fields = getattr(t, "_fields", None)
+            for i, v in enumerate(t):
+                walk(v, f"{key}.{fields[i]}" if fields else f"{key}[{i}]")
         else:
-            out.append(t)
+            out.append((key, t))
 
-    walk(tree)
+    walk(tree, "")
     return out
 
 

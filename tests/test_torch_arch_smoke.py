@@ -24,6 +24,10 @@ from repro_torch.configs import ARCHS, reduced
 from repro_torch.models import get_model
 from repro_torch.rl import trainer
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 B, S = 2, 16
 
 

@@ -50,6 +50,10 @@ from test_torch_pipeline import (
     record_rollouts,
 )
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 # the scheduler's counts: equal to JAX's; the other async/* keys are clock
 # readings
 ASYNC_COUNTS = ("async/staleness", "async/weight_version", "async/is_corrected",

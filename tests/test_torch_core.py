@@ -49,6 +49,10 @@ from repro_torch.ft import straggler
 from repro_torch.rl import algorithms
 from repro_torch.rl.trainer import RLConfig
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 # the stages' specs: model-bound stages over the data axes, compute stages
 # over all axes
 MODEL = (("data",),)

@@ -26,6 +26,10 @@ from repro.kernels.decode_attention import paged_decode_attention as pda_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_decode_attention import split_pages
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 jax.config.update("jax_default_matmul_precision", "highest")
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

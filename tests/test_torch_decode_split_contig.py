@@ -42,6 +42,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.split_rule import MIN_SPLIT_KEYS, split_keys
 from repro_torch.models import lm
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 jax.config.update("jax_default_matmul_precision", "highest")
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

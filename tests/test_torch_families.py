@@ -37,6 +37,10 @@ from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
 from torch_arena import fp32_arena
 from torch_grads import assert_grads_match
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 SMOKE = dict(vocab_size=260, num_layers=2)
 FAMILIES = {

@@ -20,6 +20,10 @@ from repro.kernels.sampling import _hash_u32, _uniform_01
 from repro.kernels.sampling import fused_sample as fs_pallas
 from repro_torch.kernels import _build, ops, ref
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 jax.config.update("jax_default_matmul_precision", "highest")
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -37,6 +37,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import get_model, lm
 from repro_torch.rl.rollout import generate
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 jax.config.update("jax_default_matmul_precision", "highest")
 
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8, kv_quant=True)

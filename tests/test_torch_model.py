@@ -27,6 +27,10 @@ from repro_torch.kernels import ref, sampling
 from repro_torch.models import get_model, layers, lm
 from repro_torch.rl.rollout import generate
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
 

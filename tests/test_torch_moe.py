@@ -52,6 +52,10 @@ from repro_torch.models import get_model, lm, moe
 from repro_torch.rl.rollout import generate
 from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 WINDOW = 16

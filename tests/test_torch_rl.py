@@ -46,6 +46,10 @@ from repro_torch.models import get_model
 from repro_torch.rl import advantage, algorithms, critic, loss, reward, trainer
 from repro_torch.rl.rollout import generate
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
 LR = 1e-3  # large enough that two steps move the params well past fp32 noise
 

@@ -45,6 +45,10 @@ from repro_torch.rl.rollout_engine import (
 )
 from torch_arena import fp32_arena, jax_fp32_arena
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 ARCH = "qwen2.5-7b"
 SMOKE = dict(vocab_size=260, num_layers=2)
 EOS_ID, EOS_SCALE = 3, 4.0

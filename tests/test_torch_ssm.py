@@ -30,6 +30,10 @@ from repro_torch.launch import serve
 from repro_torch.models import get_model, lm, ssm
 from repro_torch.rl.rollout import generate
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 jax.config.update("jax_default_matmul_precision", "highest")
 
 TOL = dict(atol=2e-5, rtol=2e-5)

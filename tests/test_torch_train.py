@@ -41,6 +41,10 @@ from repro_torch.models import get_model, lm
 from repro_torch.optim import adamw
 from repro_torch.rl import trainer
 
+# tiny CPU shapes run best on one intra-op thread: torch's default pool
+# spins against the other test processes and slows every test severalfold
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 SMOKE = dict(vocab_size=260, num_layers=2, pad_heads_to=8)
 SSM_FAMILIES = {
