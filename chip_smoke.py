@@ -167,6 +167,18 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      the resumed iteration held to phase 8's checks, the async worker's
      first dispatch on the restored weights, the JSONL and the Chrome trace
      complete; save and restore timed, the peak host RSS.
+ 16. The data-parallel fleet (``fleet_phase``, gemma freed): ``launch.train``
+     on phase 8's experiment file at gemma-2b's full width on 2 of its 18
+     layers (two full-depth hosts do not fit one card), each host a process
+     of its own on the card (``chip_smoke.py --fleet-host``), 3 iterations:
+     a solo run, 2 hosts exchanging exact fp32 gradients over a coordinator
+     directory under ``build/`` (params bit for bit the solo run's, metrics
+     equal but the fleet's and the wall times, the trace's fleet spans and
+     the straggler report over both hosts), and 2 hosts on int8 with error
+     feedback (bit for bit each other, the last loss within 5e-3 of the
+     exact arm's, under 0.3 of its wire bytes, the encode on the card bit
+     for bit the CPU's); every host launches the solo run's kernels. Prints
+     the iteration and exchange ms, wire GB/s and peaks of each host.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -4335,13 +4347,369 @@ def ckpt_phase(torch, ops, ref, _build, label="ckpt", pipeline_ms=None):
             "ckpt_resume_async": counts["C"]}
 
 
+# phase 16: the data-parallel fleet, each host its own process on the card,
+# at gemma-2b's full width on FLEET_LAYERS of its 18 layers (two full-depth
+# hosts, 49.42 GiB each, do not fit one card)
+FLEET_LAYERS = 2
+FLEET_ITERS = 3  # one warm-up iteration, then two timed
+FLEET_ARMS = {"solo": (1, None), "exact": (2, "none"), "int8_ef": (2, "int8_ef")}
+FLEET_HOST_TIMEOUT_S = 600
+LOSS_TOL_INT8 = 5e-3  # tests/test_fleet.py's bound on the last loss against the exact arm
+
+
+def fleet_host(torch, args_path: str) -> int:
+    """The body of ``chip_smoke.py --fleet-host ARGS``: one host of a fleet
+    arm (or the solo run) through ``launch.train.main`` on the card. ARGS is
+    a json file: {"argv", "artifact", "check_int8"}. The launch counters
+    start at 0 in the fresh process and are read after the run; each
+    iteration is synchronised and timed (``observed_iterations``), and so is
+    each gradient exchange as a whole. With ``check_int8``, in the warm-up
+    iteration (not timed): the first encode of an owned gradient slice on
+    the card, and an encode of the same slice with its residual as the
+    error-feedback term, are held bit for bit to the same encodes on the CPU
+    (``encode_check``); and the first exchange's rebuilt gradient is held to
+    the exact gradient it was rebuilt from, block by block of each slice,
+    within ``max |g_block| / 126``, or within ``max |g_block|`` where the
+    block's scale is under the quantizer's floor (``decode_check``: the
+    card's decode and where each slice lands). That host's peak device
+    memory is read from its second exchange on (the third iteration whole),
+    since the check holds the exact and the rebuilt gradient at once.
+    Writes the artifact: a bit checksum of the final params,
+    every iteration's metrics, ms and launches, the exchange's ms and stats,
+    both checks, the membership view, the buffer's controller bytes, the
+    peak device memory and the peak host RSS (sampled by ``rss_sampled``:
+    ``ru_maxrss`` would carry the parent's across the fork and exec)."""
+    from repro_torch import tree
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import fleet as fleet_mod
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+
+    spec = json.loads(Path(args_path).read_text())
+    exchange_ms, encodes, decodes = [], [], []
+    GX = fleet_mod.GradExchange
+    saved = (GX.__call__, compression.encode)
+    call, encode = saved
+
+    def jax_leaves(t):
+        """The leaves of ``t`` in the exchange's order (JAX's: dict keys
+        sorted), without the empty ``None`` subtrees."""
+        leaves = tree.leaves(t)
+        return [leaves[i] for i in tree.jax_order(t) if leaves[i] is not None]
+
+    def block_max(x):
+        """max |x| over each quantization block of a slice (the last block
+        may be short, as in ``compression.encode``)."""
+        full = x.numel() // compression.BLOCK * compression.BLOCK
+        parts = [x[:full].view(-1, compression.BLOCK).abs().amax(dim=1)]
+        if full < x.numel():
+            parts.append(x[full:].abs().amax().reshape(1))
+        return torch.cat(parts)
+
+    def check_decode(grads, out, num_hosts):
+        """Every block of every slice of the rebuilt gradient within
+        max |g_block| / 126 of the exact gradient, and a block whose scale
+        falls under ``compression.SCALE_FLOOR`` within its max; the largest
+        |rebuilt - exact| / max |g_block| over the blocks above the floor."""
+        err = torch.cat([g.detach().reshape(-1).to(torch.float32) for g in jax_leaves(grads)])
+        base, extra = divmod(err.numel(), num_hosts)
+        bounds, lo = [], 0
+        for i in range(num_hosts):
+            bounds.append((lo, lo + base + (1 if i < extra else 0)))
+            lo = bounds[-1][1]
+        gmax = torch.cat([block_max(err[lo:hi]) for lo, hi in bounds])
+        pos = 0
+        for leaf in jax_leaves(out):
+            err[pos:pos + leaf.numel()] -= leaf.reshape(-1).to(torch.float32)
+            pos += leaf.numel()
+        dmax = torch.cat([block_max(err[lo:hi]) for lo, hi in bounds])
+        floored = gmax / torch.tensor(127.0, device=gmax.device) < compression.SCALE_FLOOR
+        within = torch.where(floored, dmax <= gmax, dmax <= gmax / 126)
+        ratio = torch.where(floored, 0.0, dmax / gmax.clamp(min=torch.finfo(torch.float32).tiny))
+        return {"blocks": gmax.numel(), "blocks_under_floor": int(floored.sum()),
+                "within": bool(within.all()), "max_err_over_block_max": float(ratio.max())}
+
+    def timed_exchange(self, grads):
+        if decodes and len(exchange_ms) == 1:
+            # the check held the exact and the rebuilt gradient at once
+            torch.cuda.reset_peak_memory_stats()
+        (out, metrics), ms = sync_ms(torch, lambda: call(self, grads))
+        exchange_ms.append(ms)
+        if spec["check_int8"] and not decodes:
+            decodes.append(check_decode(grads, out, self.fleet.num_hosts))
+        return out, metrics
+
+    def checked_encode(x, error=None):
+        out = encode(x, error)
+        if spec["check_int8"] and x.is_cuda and not encodes:
+            for err in (None, out[2]):
+                got = [t.cpu() for t in (out if err is None else encode(x, err))]
+                want = encode(x.cpu(), None if err is None else err.cpu())
+                encodes.append({
+                    "elements": x.numel(), "with_error": err is not None,
+                    "equal": all(torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                                             w.view(torch.int32) if w.is_floating_point() else w)
+                                 for g, w in zip(got, want))})
+        return out
+
+    GX.__call__, compression.encode = timed_exchange, checked_encode
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with rss_sampled() as rss, observed_iterations(torch, _build) as seen:
+            res = train.main(spec["argv"])
+    finally:
+        GX.__call__, compression.encode = saved
+    pipe = res["pipeline"]
+    fleet_ctx, exchange = pipe.ctx.fleet, pipe.ctx.grad_exchange
+    art = {
+        "params": sum(x.numel() for x in tree.leaves(pipe.ctx.actor_state.params)),
+        "checksum": bit_checksum(torch, pipe.ctx.actor_state.params),
+        "history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+        "seconds": res["seconds"],
+        "iterations": [{"ms": r["ms"], "launches": r["launches"]} for r in seen["iterations"]],
+        "exchange_ms": exchange_ms,
+        "encode_check": encodes,
+        "decode_check": decodes,
+        "stats": dict(exchange.stats) if exchange is not None else None,
+        "members": fleet_ctx.members if fleet_ctx is not None else [0],
+        "epoch": fleet_ctx.epoch if fleet_ctx is not None else 0,
+        "bytes_through_controller": pipe.buffer.stats.bytes_through_controller,
+        "launches": dict(_build.LAUNCHES),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_rss_gib": rss["peak_gib"],
+    }
+    Path(spec["artifact"]).write_text(json.dumps(art))
+    return 0
+
+
+def run_hosts(label: str, arm: str, host_args) -> list:
+    """Start one ``chip_smoke.py --fleet-host`` process a host, all at once,
+    and join them. A host that exits non-zero (or outlives
+    FLEET_HOST_TIMEOUT_S) fails the arm with the tail of its log; the others
+    are killed. Returns the hosts' artifacts."""
+    procs = []
+    try:
+        for args_path, log in host_args:
+            with open(log, "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-host",
+                     str(args_path)], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+        deadline = time.monotonic() + FLEET_HOST_TIMEOUT_S
+        for h, (proc, (_, log)) in enumerate(zip(procs, host_args)):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                tail = "".join(Path(log).read_text(errors="replace").splitlines(True)[-40:])
+                raise AssertionError(f"{label} {arm}: host {h} exited {rc}\n{tail}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [json.loads(Path(json.loads(Path(a).read_text())["artifact"]).read_text())
+            for a, _ in host_args]
+
+
+def fleet_phase(torch, _build, label="fleet"):
+    """Phase 16: the data-parallel fleet through ``launch.train`` on phase
+    8's experiment file at FLEET_LAYERS layers (gemma-2b's full width), in
+    three arms one after another, each host a process of its own on the
+    card (``fleet_host``), FLEET_ITERS iterations each:
+
+    - solo: ``--num-hosts 1``;
+    - exact: 2 hosts, ``--grad-compression none``, with ``--obs-trace`` and
+      ``--obs-metrics``: both hosts' params bit for bit the solo run's,
+      every metric equal to the solo run's but the ``fleet/`` and ``time/``
+      keys, a nonzero gradient at every iteration, 3 exchanges of exactly
+      4 P bytes on the wire, no byte through a controller, members [0, 1]
+      at epoch 0, ``dag`` and ``fleet`` spans in each host's trace, and the
+      straggler report over the published snapshots listing both hosts;
+    - int8_ef: 2 hosts: bit for bit each other, not the exact arm's params,
+      the last loss within LOSS_TOL_INT8 of the exact arm's, the wire equal
+      to ``compression.wire_bytes`` of the two slices and under 0.3 of the
+      exact bytes, host 0's encode on the card bit for bit the CPU's, and
+      host 0's first rebuilt gradient within max |g_block| / 126 of the
+      exact one in every block of every slice (within max |g_block| under
+      the quantizer's scale floor).
+
+    Every host's launches equal the solo run's, and each of the solo run's
+    iterations launches ``iteration_launches``. The free space under
+    ``build/`` must hold twice the exact arm's payloads (3 exchanges of 4 P
+    bytes are kept until the arm ends); each coordinator directory is
+    removed after its arm. Prints per arm and host the iteration and
+    exchange ms, the wire GB and GB/s of an exchange, the peak device GiB
+    and the peak host RSS, then ``phase_s``. Returns {path: launch
+    counts}."""
+    import shutil
+    import statistics as stats
+
+    from repro_torch import tree
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.distributed import compression
+    from repro_torch.models import lm
+    from repro_torch.obs.aggregate import collect_snapshots, straggler_report
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    src = experiment_file("pipeline", ARCH_FLAGS, PIPE_RL)
+    spec = json.loads(src.read_text())
+    spec["model"]["num_layers"] = FLEET_LAYERS
+    # one host in the file (the flags layer the fleet over it); a peer's
+    # first iteration on a shared card is slow, not dead
+    spec["distributed"] = {"num_hosts": 1, "exchange_timeout_s": 600.0, "dead_after_s": 120.0}
+    exp_path = ROOT / "build" / "fleet_experiment.json"
+    exp_path.write_text(json.dumps(spec))
+    exp = ExperimentSpec.from_json(exp_path.read_text())
+    cfg = exp.model
+    per_iter, _ = iteration_launches(cfg, _build.LAUNCHES, exp.rl.max_new_tokens,
+                                     algorithms.get_algorithm(exp.rl.algorithm).dag_factory())
+    P = sum(x.numel() for x in tree.leaves(lm.init(cfg, torch.Generator(), device="meta")))
+    work = ROOT / "build" / "fleet16"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    kept = FLEET_ITERS * 4 * P
+    free = shutil.disk_usage(work).free
+    require(free >= 2 * kept, f"{label}: {free / 1e9:.2f} GB free under build/, the exact "
+                              f"arm keeps {kept / 1e9:.2f} GB of payloads and twice that is "
+                              f"asked for")
+    base = ["--experiment", str(exp_path), "--device", DEV, "--iters", str(FLEET_ITERS)]
+    arts, counts, out = {}, {}, {"params": P, "layers": FLEET_LAYERS, "free_gb": free / 1e9}
+    for arm, (hosts, mode) in FLEET_ARMS.items():
+        d = work / arm
+        coord = d / "coord"
+        d.mkdir()
+        host_args = []
+        for h in range(hosts):
+            argv = base + ["--num-hosts", str(hosts)]
+            if hosts > 1:
+                argv += ["--process-id", str(h), "--coordinator", str(coord),
+                         "--grad-compression", mode]
+            if arm == "exact":
+                argv += ["--obs-trace", str(d / f"trace.host{h}.json"),
+                         "--obs-metrics", str(d / f"metrics.host{h}.jsonl")]
+            args_path = d / f"host{h}.args.json"
+            args_path.write_text(json.dumps({
+                "argv": argv, "artifact": str(d / f"host{h}.artifact.json"),
+                "check_int8": arm == "int8_ef" and h == 0}))
+            host_args.append((args_path, d / f"host{h}.log"))
+        t_arm = time.perf_counter()
+        try:
+            arts[arm] = run_hosts(label, arm, host_args)
+            if arm == "exact":
+                report = straggler_report(collect_snapshots(str(coord)))
+                require(report["hosts"] == [0, 1], f"{label} exact: the straggler report "
+                                                   f"lists hosts {report['hosts']}")
+                spans = []
+                for h in range(hosts):
+                    events = json.loads((d / f"trace.host{h}.json").read_text())["traceEvents"]
+                    cats = {e["cat"] for e in events if e["ph"] == "X"}
+                    require({"dag", "fleet"} <= cats, f"{label} exact host {h}: span "
+                                                      f"categories {cats}")
+                    spans.append([e["dur"] / 1e3 for e in events
+                                  if e["name"] == "fleet/grad_exchange"])
+                out["exact_exchange_span_ms"] = spans
+        finally:
+            shutil.rmtree(coord, ignore_errors=True)
+        for h, a in enumerate(arts[arm]):
+            timed = [r["ms"] for r in a["iterations"][1:]]
+            row = {"arm": arm, "host": h, "params": a["params"],
+                   "iteration_ms": [r["ms"] for r in a["iterations"]],
+                   "timed_iteration_ms": stats.median(timed),
+                   "peak_gib": a["peak_gib"], "peak_rss_gib": a["peak_rss_gib"]}
+            if a["stats"] is not None:
+                xms = stats.median(a["exchange_ms"][1:])
+                wire = a["stats"]["wire_bytes"] / a["stats"]["exchanges"]
+                row.update({"exchange_ms": a["exchange_ms"], "timed_exchange_ms": xms,
+                            "exchange_share": xms / row["timed_iteration_ms"],
+                            "wire_gb_per_exchange": wire / 1e9,
+                            "wire_gb_per_s": wire / 1e9 / (xms / 1e3)})
+            if a["encode_check"]:
+                row["encode_check"] = a["encode_check"]
+                row["decode_check"] = a["decode_check"]
+            counts[f"fleet_{arm}" if hosts == 1 else f"fleet_{arm}_host{h}"] = a["launches"]
+            print(json.dumps({f"{label}_arm": row}), flush=True)
+        out[arm] = {"arm_s": time.perf_counter() - t_arm,
+                    "peak_gib_hosts": sum(a["peak_gib"] for a in arts[arm]),
+                    "peak_rss_gib_hosts": [a["peak_rss_gib"] for a in arts[arm]]}
+
+    def clean(history):
+        return [{k: v for k, v in m.items() if "fleet/" not in k and not k.startswith("time/")}
+                for m in history]
+
+    (solo,) = arts["solo"]
+    require(solo["params"] == P, f"{label}: {solo['params']} params, {P} expected")
+    require(all(r["launches"] == per_iter for r in solo["iterations"]),
+            f"{label} solo: launches {[r['launches'] for r in solo['iterations']]}, "
+            f"expected {per_iter} an iteration")
+    for arm in ("exact", "int8_ef"):
+        for h, a in enumerate(arts[arm]):
+            require(a["launches"] == solo["launches"],
+                    f"{label} {arm} host {h}: launches {a['launches']}, the solo run's "
+                    f"{solo['launches']}")
+            require(a["members"] == [0, 1] and a["epoch"] == 0,
+                    f"{label} {arm} host {h}: members {a['members']} at epoch {a['epoch']}")
+            require(a["bytes_through_controller"] == 0,
+                    f"{label} {arm} host {h}: {a['bytes_through_controller']} bytes through "
+                    f"a controller")
+            require(a["stats"]["exchanges"] == FLEET_ITERS,
+                    f"{label} {arm} host {h}: {a['stats']['exchanges']} exchanges")
+    for h, a in enumerate(arts["exact"]):
+        require(a["checksum"] == solo["checksum"],
+                f"{label} exact host {h}: params differ from the solo run's")
+        require(clean(a["history"]) == clean(solo["history"]),
+                f"{label} exact host {h}: metrics differ from the solo run's")
+        require(all(m["actor/grad_norm"] > 0 for m in a["history"]),
+                f"{label} exact host {h}: a zero gradient")
+        st = a["stats"]
+        require(st["wire_bytes"] == st["exact_bytes"] == FLEET_ITERS * 4 * P,
+                f"{label} exact host {h}: wire {st['wire_bytes']}, exact {st['exact_bytes']}, "
+                f"{FLEET_ITERS} x 4 x {P} expected")
+    c0, c1 = arts["int8_ef"]
+    require(c0["checksum"] == c1["checksum"] and clean(c0["history"]) == clean(c1["history"]),
+            f"{label} int8_ef: the hosts differ from each other")
+    require(c0["checksum"] != arts["exact"][0]["checksum"],
+            f"{label} int8_ef: params equal the exact arm's")
+    loss_gap = abs(c0["history"][-1]["actor/loss"] - arts["exact"][0]["history"][-1]["actor/loss"])
+    require(loss_gap < LOSS_TOL_INT8, f"{label} int8_ef: last loss {loss_gap} from the exact "
+                                      f"arm's")
+    sizes = [P // 2 + P % 2, P // 2]
+    want_wire = FLEET_ITERS * sum(compression.wire_bytes(torch.empty(n, device="meta"))[1]
+                                  for n in sizes)
+    for h, a in enumerate(arts["int8_ef"]):
+        st = a["stats"]
+        require(st["wire_bytes"] == want_wire and st["wire_bytes"] < 0.3 * st["exact_bytes"],
+                f"{label} int8_ef host {h}: wire {st['wire_bytes']}, {want_wire} expected, "
+                f"exact {st['exact_bytes']}")
+    enc = c0["encode_check"]
+    require([e["with_error"] for e in enc] == [False, True] and all(e["equal"] for e in enc),
+            f"{label} int8_ef: the encode on the card differs from the CPU's: {enc}")
+    print(json.dumps({"check": f"{label}_encode_on_card_equals_cpu", "encodes": enc}),
+          flush=True)
+    dec = c0["decode_check"]
+    require(len(dec) == 1 and dec[0]["within"],
+            f"{label} int8_ef: host 0's rebuilt gradient is not within its block bound of "
+            f"the exact gradient in every block: {dec}")
+    print(json.dumps({"check": f"{label}_int8_rebuilt_gradient_within_block_bound",
+                      "decode": dec[0]}), flush=True)
+    out["int8_ef_last_loss_gap"] = loss_gap
+    out["int8_ef_wire_ratio"] = c0["stats"]["wire_bytes"] / c0["stats"]["exact_bytes"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15], default=None,
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16], default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
                          "phase; the full run takes no argument)")
+    # one host of phase 16's fleet, started by fleet_phase
+    ap.add_argument("--fleet-host", default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
 
     import torch
@@ -4358,6 +4726,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if opts.fleet_host is not None:
+        return fleet_host(torch, opts.fleet_host)
 
     t_start = time.perf_counter()
     # ---- phase 1: device and build ----
@@ -4380,7 +4750,8 @@ def main(argv=None) -> int:
         phase = {12: lambda: async_phase(torch, ops, ref, _build),
                  13: lambda: moe_phase(torch, ops, ref, F, _build, serve, generate, {}),
                  14: lambda: families_phase(torch, ops, ref, F, _build, serve, generate, {}),
-                 15: lambda: ckpt_phase(torch, ops, ref, _build)}
+                 15: lambda: ckpt_phase(torch, ops, ref, _build),
+                 16: lambda: fleet_phase(torch, _build)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -4474,6 +4845,12 @@ def main(argv=None) -> int:
     # full width (the counts set to 0 just before each run, read just after) ----
     paths.update(ckpt_phase(torch, ops, ref, _build,
                             pipeline_ms=pipeline_summary["iteration_ms"]["distributed"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 16: the data-parallel fleet, each host a process of its own on
+    # the card (each host's counts start at 0 in its process and are read
+    # after its run) ----
+    paths.update(fleet_phase(torch, _build))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -4507,6 +4884,9 @@ def main(argv=None) -> int:
                   for path in ("nemotron_lockstep", "command_r_lockstep")},
                **{path: ("rmsnorm", "flash_attention", "decode_attention", "fused_sample")
                   for path in ("ckpt_train", "ckpt_resume", "ckpt_resume_async")},
+               **{f"fleet_{arm}_host{h}": ("rmsnorm", "flash_attention", "decode_attention",
+                                             "fused_sample")
+                  for arm in ("exact", "int8_ef") for h in (0, 1)},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():

@@ -35,17 +35,24 @@ Spec = Tuple[Any, ...]
 
 
 class DeviceMesh:
-    """The one-device placement that stands in for a JAX ``Mesh``: the
-    ``("data", "model")`` axes of size 1 on an explicit ``torch.device``."""
+    """The placement that stands in for a JAX ``Mesh`` on an explicit
+    ``torch.device``: named axes with sizes, ``("data", "model") = (1, 1)``
+    by default. A fleet host's mesh is ``launch.mesh.make_fleet_mesh``'s
+    ``("pod", "data", "model") = (num_hosts, 1, 1)``: the global fleet as
+    JAX's fleet mesh reads, of which this process holds its host's one
+    device."""
 
-    axis_names: Tuple[str, ...] = ("data", "model")
-
-    def __init__(self, device):
+    def __init__(self, device, shape: Optional[Dict[str, int]] = None):
         self.device = torch.device(device)
+        self._shape = dict(shape) if shape is not None else {"data": 1, "model": 1}
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self._shape)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {name: 1 for name in self.axis_names}
+        return dict(self._shape)
 
     def __repr__(self) -> str:
         return f"DeviceMesh({self.device}, shape={self.shape})"

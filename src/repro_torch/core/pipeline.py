@@ -17,8 +17,10 @@ The engines are plain callables where the JAX package jits. The pipeline
 runs on the card unless ``device="cpu"`` is asked for; without CUDA it
 raises. An enabled ``obs`` installs a process-global tracer and hangs an
 :class:`~repro_torch.obs.ObsState` on the worker context, as in the JAX
-package. Every option whose subsystem is not ported yet (the multi-host
-fleet) raises ``NotImplementedError`` naming its ROADMAP item.
+package. An enabled ``distributed`` makes the process one host of a
+data-parallel fleet (``repro_torch.distributed.fleet``): the fleet mesh's
+``pod`` axis, and an actor step split into grad, the file-plane
+``GradExchange`` and apply; the tracer then writes the host's process id.
 
 The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 ``compile()`` lands here.
@@ -146,17 +148,6 @@ class Pipeline:
         return history
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-
-
-def _check_ported(*, distributed: Optional[DistributedConfig] = None) -> None:
-    """Raise ``NotImplementedError`` for any option whose subsystem the port
-    does not have yet."""
-    if distributed is not None and distributed.enabled:
-        raise _not_ported("the multi-host fleet (DistributedConfig)", "8: distributed")
-
-
 def _seeds(seed: int):
     """Three independent 32-bit seeds (actor init, critic init, the run's
     sampling generator) from ``seed``."""
@@ -182,11 +173,26 @@ def build_pipeline(
     algorithm=None,
     seed: int = 0,
 ) -> Pipeline:
-    _check_ported(distributed=distributed)
     spec = algorithm or algorithms.get_algorithm(rl.algorithm)
     coordinator = coordinator or DataCoordinatorConfig()
     device = resolve_device(device)
-    mesh = DeviceMesh(device)
+    fleet = distributed is not None and distributed.enabled
+    if fleet:
+        if centralized:
+            raise ValueError(
+                "a multi-host fleet has no single controller to centralize "
+                "through; distributed cannot be combined with centralized=True")
+        if async_pipeline is not None and async_pipeline.enabled:
+            raise ValueError(
+                "the fleet gradient exchange is a per-iteration collective; "
+                "combine it with the async pipeline once the exchange is "
+                "staleness-aware (not yet supported)")
+        from repro_torch.launch.mesh import make_fleet_mesh
+
+        mesh = make_fleet_mesh(distributed.num_hosts, distributed.devices_per_host,
+                               device=device)
+    else:
+        mesh = DeviceMesh(device)
     tok = ByteTokenizer()
     assert cfg.vocab_size >= tok.vocab_size, "model vocab must cover the tokenizer"
     model = get_model(cfg, device=device)
@@ -226,12 +232,31 @@ def build_pipeline(
         critic_gen = torch.Generator(device=device).manual_seed(s_critic)
         ctx.critic_state = trainer.init_state(critic_mod.init(cfg, critic_gen, device=device))
 
+    if fleet:
+        # Fleet DP gradient exchange: split the fused actor step so the
+        # gradient crosses the host data plane between grad and apply, bit
+        # for bit the fused step when grad_compression="none", int8 on the
+        # wire otherwise.
+        from repro_torch.distributed import fleet as fleet_mod
+
+        fleet_ctx = fleet_mod.ensure_context(distributed)
+        exchange = fleet_mod.GradExchange(fleet_ctx, distributed.grad_compression)
+        ctx.engines["actor_step"] = fleet_mod.fleet_actor_step(
+            trainer.make_actor_grad_fn(model, rl, algorithm=spec),
+            trainer.make_actor_apply_fn(rl),
+            exchange,
+        )
+        ctx.fleet = fleet_ctx
+        ctx.grad_exchange = exchange
+
     if obs is not None and obs.enabled:
         # Telemetry runtime: a process-global tracer (instrumented call
         # sites reach it via obs.get_tracer) plus a registry that absorbs
         # each iteration's metrics dict. Disabled obs leaves the global
-        # tracer untouched. One device is host 0 (a fleet raised above).
-        tracer = obs_mod.Tracer(enabled=obs.trace, host=0, capacity=obs.ring_capacity)
+        # tracer untouched. A fleet host traces as its process id.
+        tracer = obs_mod.Tracer(enabled=obs.trace,
+                                host=distributed.process_id if distributed is not None else 0,
+                                capacity=obs.ring_capacity)
         obs_mod.set_tracer(tracer)
         ctx.obs = obs_mod.ObsState(cfg=obs, tracer=tracer, registry=obs_mod.MetricsRegistry())
 

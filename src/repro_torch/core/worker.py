@@ -5,7 +5,9 @@ Lifecycle: Initialization (bind functions to nodes via the registry,
 materialize the execution queue) + iterative Execution (walk the chain, the
 databuffer brokering every stage boundary). Every process runs an identical
 DAGWorker over its own data shard, the multi-controller paradigm; there is
-no coordinator process anywhere. The port runs one worker on one device.
+no coordinator process anywhere. The port runs one worker on one device; a
+fleet host runs it over the fleet mesh's ``pod`` axis, which the length
+balancer bins hierarchically, as the JAX worker does.
 
 JAX's ``key``/``next_key()`` becomes an explicit ``torch.Generator`` on the
 run's device (``WorkerContext.gen``), which the generate engine draws its
@@ -57,6 +59,10 @@ class WorkerContext:
     # the ObsState (repro_torch.obs) when an ObsConfig is enabled; None = no
     # telemetry
     obs: Any = None
+    # on a fleet host (an enabled DistributedConfig): its FleetContext and
+    # the GradExchange inside its actor step (repro_torch.distributed.fleet)
+    fleet: Any = None
+    grad_exchange: Any = None
 
 
 class PromptSource:
@@ -185,10 +191,13 @@ class DAGWorker:
         # keeps a misconfigured num_buckets from disabling balancing invisibly.
         if B % g or (B // g) % nb:
             return skipped
-        # one device has no pod axis, so the JAX worker's hierarchical
-        # (cross-host) binning never applies
+        # fleet meshes balance hierarchically: bin within a host first, swap
+        # across the slow pod axis only when host totals exceed tolerance
+        H = self.ctx.mesh.shape.get("pod", 1)
+        hier = H > 1 and nb % H == 0 and (B // g) % H == 0
         before = straggler.bucket_token_ratio(lengths, nb)
-        perm = straggler.balance_by_length(lengths, nb, group_size=g)
+        perm = straggler.balance_by_length(lengths, nb, group_size=g,
+                                           hosts=H if hier else 1)
         after = straggler.bucket_token_ratio(lengths, nb, perm)
         if after < before:  # only repack when it helps
             dperm = torch.as_tensor(perm, device=self.ctx.mesh.device)
@@ -206,4 +215,7 @@ class DAGWorker:
             # single sequence/group dominates and only max-len bounding helps
             "balance/over_tolerance": float(achieved > self.coordinator.balance_tolerance),
         }
+        if hier:
+            out["balance/cross_host_row_moves"] = float(
+                straggler.cross_host_rows(perm, H) if after < before else 0)
         return out

@@ -1,6 +1,9 @@
-"""Weight publication of the PyTorch port: the version store of the async
-pipeline (``weight_sync``). The multi-host fleet and the train -> serve
-reshard are ROADMAP queue 1, item 8."""
+"""The distributed layer of the PyTorch port: the version store of the async
+pipeline (``weight_sync``), and the data-parallel fleet: its file-plane
+runtime and gradient exchange (``fleet``) and the exchange's int8 wire form
+(``compression``). The sharding layer and the train -> serve reshard are
+ROADMAP queue 1, item 8."""
+from repro_torch.distributed import compression, fleet
 from repro_torch.distributed.weight_sync import VersionedWeights, WeightVersionStore
 
-__all__ = ["VersionedWeights", "WeightVersionStore"]
+__all__ = ["VersionedWeights", "WeightVersionStore", "compression", "fleet"]

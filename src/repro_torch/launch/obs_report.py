@@ -2,10 +2,10 @@
 (the port of ``repro.launch.obs_report``).
 
 Reads the per-iteration metrics snapshots a fleet's hosts published under
-``<coordinator>/obs/host*/it*.json`` (the JAX package's ``FleetContext``
-writes them with ``ObsConfig(enabled=True)``; the port's fleet is ROADMAP
-queue 1, item 8) and prints a straggler report: a per-iteration step-time timeline, a per-host
-summary table with slowest-node attribution, and the fleet-wide step-time
+``<coordinator>/obs/host*/it*.json`` (the ``FleetContext`` of either
+package writes them with ``ObsConfig(enabled=True)``: the port's
+``launch.train --num-hosts``) and prints a straggler report: a
+per-iteration step-time timeline, a per-host summary table with slowest-node attribution, and the fleet-wide step-time
 percentiles from the exact cross-host histogram merge. Optionally merges the
 hosts' per-host Chrome traces into one Perfetto-loadable timeline.
 

@@ -33,8 +33,19 @@ reference params and a PPO critic start again from the seed.
 the spec's ``ObsConfig``: a Chrome trace of the run's spans is written at
 the end, and one JSONL record an iteration as it ends.
 
-The default arch is gemma-2b, the port's main model. ``--num-hosts`` > 1
-(the fleet) is not ported yet and raises ``NotImplementedError``.
+``--num-hosts H --process-id h --coordinator DIR`` makes the process host
+h of a data-parallel fleet of H (``repro_torch.distributed.fleet``): start
+one copy a host on one experiment file, each on its own device (or all on
+the CPU). Every host computes the whole batch and the hosts exchange the
+actor's gradient over the shared directory, raw fp32 (``--grad-compression
+none``: bit for bit a ``--num-hosts 1`` run) or as int8 blocks with error
+feedback (``int8_ef``). With telemetry on, each host also publishes its
+metrics under DIR for ``repro_torch.launch.obs_report``. The four fleet
+flags layer over an experiment file's ``distributed``, as the coordinator
+flags do, so one file serves every host and the solo run. A ``host:port``
+coordinator (``torch.distributed``) is ROADMAP queue 1, item 8.
+
+The default arch is gemma-2b, the port's main model.
 
 Usage:
   python -m repro_torch.launch.train --arch gemma-2b --iters 3 \
@@ -48,28 +59,33 @@ Usage:
   python -m repro_torch.launch.train --smoke --device cpu --iters 4 --ckpt-dir ckpts \
       --ckpt-every 2 --obs-trace trace.json --obs-metrics metrics.jsonl
   python -m repro_torch.launch.train --smoke --device cpu --iters 6 --resume ckpts
+  for h in 0 1; do python -m repro_torch.launch.train --smoke --device cpu --iters 2 \
+      --num-hosts 2 --process-id $h --coordinator /tmp/coord --grad-compression int8_ef & done
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from repro_torch.api import ExperimentSpec
 from repro_torch.configs import (
     AsyncPipelineConfig,
+    DistributedConfig,
     EnvConfig,
     RolloutEngineConfig,
     get_config,
     reduced,
 )
 from repro_torch.ft import checkpoint
+from repro_torch.launch.mesh import init_distributed
 from repro_torch.obs import JSONLSink, StdoutSink, iteration_record
 from repro_torch.rl import RLConfig, list_algorithms
 
 COORDINATOR_FLAGS = ("double_buffer", "load_balance", "prefetch", "num_buckets",
                      "balance_tolerance")
+FLEET_FLAGS = ("num_hosts", "process_id", "coordinator", "grad_compression")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -134,22 +150,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--obs-metrics", default=None, metavar="PATH",
                     help="enable telemetry and append per-iteration metrics "
                          "as JSONL here")
-    # the fleet is not ported yet: more than one host raises NotImplementedError
-    ap.add_argument("--num-hosts", type=int, default=1)
+    # the fleet (DistributedConfig); unset = the spec's value
+    ap.add_argument("--num-hosts", type=int, default=None,
+                    help="host processes in the fleet; >1 enables the "
+                         "multi-host runtime: launch one copy of this driver "
+                         "per host")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this host's rank in [0, --num-hosts)")
+    ap.add_argument("--coordinator", default=None,
+                    help="shared coordinator directory (the fleet's file plane)")
+    ap.add_argument("--grad-compression", choices=["none", "int8_ef"], default=None,
+                    help="DP gradient exchange encoding: none = exact fp32 "
+                         "(bit for bit a single host), int8_ef = block-int8 + "
+                         "error feedback (~1/4 wire bytes)")
     return ap.parse_args(argv)
-
-
-def check_flags(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag whose subsystem is not ported."""
-    if args.num_hosts > 1:
-        raise NotImplementedError(
-            "--num-hosts > 1 is not ported yet (ROADMAP queue 1, item 8: distributed)")
 
 
 def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
     """CLI flags -> ExperimentSpec (or load one wholesale from JSON), with the
-    coordinator flags, ``--centralized-baseline``, ``--max-staleness`` and
-    ``--rollout-slots`` on top."""
+    coordinator flags, ``--centralized-baseline``, ``--max-staleness``,
+    ``--rollout-slots`` and the fleet flags on top."""
     if args.experiment:
         with open(args.experiment) as f:
             exp = ExperimentSpec.from_json(f.read())
@@ -199,6 +219,10 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
     if args.rollout_slots is not None:
         exp = dataclasses.replace(exp, rollout=RolloutEngineConfig(
             engine="continuous", num_slots=args.rollout_slots))
+    fleet = {k: getattr(args, k) for k in FLEET_FLAGS if getattr(args, k) is not None}
+    if fleet:
+        exp = dataclasses.replace(exp, distributed=dataclasses.replace(
+            exp.distributed or DistributedConfig(), **fleet))
     if args.obs_trace or args.obs_metrics:
         # the flags layer on top of whatever the spec (file or flags)
         # carries, as --max-staleness does
@@ -211,13 +235,27 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
     return exp
 
 
+def start_fleet(dist: Optional[DistributedConfig]):
+    """This process's ``FleetContext`` for an enabled ``dist`` (None
+    otherwise): registered with every field of ``dist``, beating from a
+    daemon thread, and past the fleet's startup barrier."""
+    if dist is None or not dist.enabled:
+        return None
+    fleet_ctx = init_distributed(
+        dist.coordinator, dist.num_hosts, dist.process_id,
+        **{f.name: getattr(dist, f.name) for f in dataclasses.fields(dist)
+           if f.name not in ("num_hosts", "process_id", "coordinator")})
+    fleet_ctx.start_heartbeats()
+    fleet_ctx.barrier("startup")
+    return fleet_ctx
+
+
 def main(argv=None) -> Dict[str, Any]:
     """Run the flags' experiment. Returns ``{"experiment"}`` after
     ``--dump-experiment``, else also the ``"pipeline"``, each iteration's
     metrics (``"history"``, from the resumed iteration on) and host wall
     seconds (``"seconds"``)."""
     args = parse_args(argv)
-    check_flags(args)
     exp = build_experiment(args)
     if args.dump_experiment:
         with open(args.dump_experiment, "w") as f:
@@ -225,6 +263,7 @@ def main(argv=None) -> Dict[str, Any]:
         print(f"[train] wrote {args.dump_experiment}")
         return {"experiment": exp}
 
+    fleet_ctx = start_fleet(exp.distributed)
     pipe = exp.compile(device=args.device)
     start = 0
     if args.resume:
@@ -239,6 +278,8 @@ def main(argv=None) -> Dict[str, Any]:
                   if obs_rt is not None and obs_rt.cfg.metrics_path else None)
     history, seconds = [], []
     for it in range(start, args.iters):
+        if fleet_ctx is not None:
+            fleet_ctx.heartbeat(it)
         t0 = time.perf_counter()
         metrics = pipe.worker.run_iteration()
         dt = time.perf_counter() - t0
@@ -250,6 +291,8 @@ def main(argv=None) -> Dict[str, Any]:
             obs_rt.registry.histogram("train/step_s").record(dt)
             if jsonl_sink is not None:
                 jsonl_sink.write(iteration_record(it, metrics, dt))
+            if fleet_ctx is not None and obs_rt.cfg.fleet_snapshots:
+                fleet_ctx.publish_metrics(it, metrics)
         if args.ckpt_dir and (it + 1) % args.ckpt_every == 0:
             checkpoint.save(args.ckpt_dir, pipe.ctx.actor_state, step=it + 1)
             print(f"[train] checkpoint @ {it + 1} -> {args.ckpt_dir}")
@@ -259,6 +302,8 @@ def main(argv=None) -> Dict[str, Any]:
         obs_rt.tracer.export_chrome(obs_rt.cfg.trace_path)
         print(f"[train] wrote trace {obs_rt.cfg.trace_path} "
               f"({obs_rt.tracer.num_events} events)")
+    if fleet_ctx is not None:
+        fleet_ctx.stop_heartbeats()
     print(f"[train] done; buffer stats: {pipe.buffer.stats}")
     return {"experiment": exp, "pipeline": pipe, "history": history, "seconds": seconds}
 

@@ -3,7 +3,8 @@
 Params, gradients and optimizer moments are nested dicts, lists and tuples
 with tensors at the leaves, walked in one fixed order: dict keys as inserted,
 sequences (NamedTuples such as ``TrainState`` included) by index. ``None``
-is a leaf like any other.
+is a leaf like any other. :func:`jax_order` gives the permutation into
+``jax.tree_util``'s order, which walks dict keys sorted.
 """
 from __future__ import annotations
 
@@ -15,18 +16,18 @@ def leaves(tree) -> List[Any]:
     return [leaf for _, leaf in leaves_with_keys(tree)]
 
 
-def leaves_with_keys(tree) -> List[Tuple[str, Any]]:
-    """(key, leaf) for the leaves of ``tree`` in walk order. A leaf's key is
-    the string ``jax.tree_util.keystr`` gives for the same path: ``['name']``
-    for a dict key, ``[i]`` for a list or tuple item, ``.field`` for a
-    NamedTuple field; so a tree of the same structure has the same keys in
-    both packages."""
+def leaves_with_keys(tree, sort_keys: bool = False) -> List[Tuple[str, Any]]:
+    """(key, leaf) for the leaves of ``tree`` in walk order (dict keys sorted
+    with ``sort_keys``). A leaf's key is the string ``jax.tree_util.keystr``
+    gives for the same path: ``['name']`` for a dict key, ``[i]`` for a list
+    or tuple item, ``.field`` for a NamedTuple field; so a tree of the same
+    structure has the same keys in both packages."""
     out: List[Tuple[str, Any]] = []
 
     def walk(t, key):
         if isinstance(t, dict):
-            for k, v in t.items():
-                walk(v, f"{key}[{k!r}]")
+            for k in (sorted(t) if sort_keys else t):
+                walk(t[k], f"{key}[{k!r}]")
         elif isinstance(t, (list, tuple)):
             fields = getattr(t, "_fields", None)
             for i, v in enumerate(t):
@@ -36,6 +37,15 @@ def leaves_with_keys(tree) -> List[Tuple[str, Any]]:
 
     walk(tree, "")
     return out
+
+
+def jax_order(tree) -> List[int]:
+    """The walk-order positions of the leaves of ``tree`` in
+    ``jax.tree_util``'s leaf order (dict keys sorted at every level):
+    ``[leaves(tree)[i] for i in jax_order(tree)]``. A wire format shared
+    with the JAX package lays its leaves out in this order."""
+    pos = {k: i for i, (k, _) in enumerate(leaves_with_keys(tree))}
+    return [pos[k] for k, _ in leaves_with_keys(tree, sort_keys=True)]
 
 
 def flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:

@@ -400,7 +400,8 @@ def test_coordinator_flags_layer_on_an_experiment_file(tmp_path, flag, field, va
         {f.replace("-", "_") for f in train.COORDINATOR_FLAGS}
 
 
-@pytest.mark.parametrize("flag", [["--num-hosts", "2"]])
+# the fleet is ported; its host:port coordinator (torch.distributed) is not
+@pytest.mark.parametrize("flag", [["--num-hosts", "2", "--coordinator", "localhost:1234"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
         train.main(["--smoke", "--device", "cpu", "--iters", "1", *flag])
@@ -408,7 +409,9 @@ def test_unported_flags_raise(flag):
 
 @pytest.mark.parametrize("option", ["distributed", "mesh_shape"])
 def test_unported_options_raise(option):
-    value = {"distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c"),
+    # a fleet host of several devices waits for the sharding layer
+    value = {"distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c",
+                                              devices_per_host=2),
              "mesh_shape": (2, 1)}[option]
     exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value})
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
@@ -483,10 +486,11 @@ def _layer_cfg(**kw):
 # every NotImplementedError of the port, and the ROADMAP queue 1 item that
 # ports its subsystem
 NOT_PORTED_CASES = {
-    "flag_num_hosts": (8, lambda: train.main(SMALL + ["--num-hosts", "2"])),
-    "option_distributed": (8, lambda: ExperimentSpec(
+    "coordinator_address": (8, lambda: train.main(
+        SMALL + ["--num-hosts", "2", "--coordinator", "localhost:1234"])),
+    "devices_per_host": (8, lambda: ExperimentSpec(
         model=_layer_cfg(), distributed=DistributedConfig(
-            num_hosts=2, coordinator="/tmp/c")).compile(device="cpu")),
+            num_hosts=2, coordinator="/unused", devices_per_host=2)).compile(device="cpu")),
     "option_mesh": (8, lambda: ExperimentSpec(model=_layer_cfg(), mesh_shape=(2, 1)).compile(
         device="cpu")),
     "publish_reshard": (8, lambda: WeightVersionStore().publish({}, mesh=object())),
@@ -509,3 +513,27 @@ def test_not_implemented_messages_cite_their_item(case):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP queue 1, item {item}: {ITEM_NAMES[item]}"):
         call()
+
+
+@pytest.mark.parametrize("option", ["centralized", "async_pipeline"])
+def test_fleet_refuses_centralized_and_async_as_jax(tmp_path, option):
+    """A fleet has no controller to centralize through, and its exchange is
+    a per-iteration collective: both options raise the JAX package's
+    ValueError, before any fleet file is written."""
+    from repro.api import ExperimentSpec as JaxSpec
+    from repro.configs import AsyncPipelineConfig as JaxAsync
+    from repro.configs import DistributedConfig as JaxDistributed
+    from repro_torch.configs import AsyncPipelineConfig
+
+    kw, jkw = ({"centralized": True}, {"centralized": True}) if option == "centralized" else (
+        {"async_pipeline": AsyncPipelineConfig(enabled=True)},
+        {"async_pipeline": JaxAsync(enabled=True)})
+    dist = dict(num_hosts=2, coordinator=str(tmp_path / "coord"))
+    with pytest.raises(ValueError) as jexc:
+        JaxSpec(model=jax_reduced(jax_get_config("gemma-2b"), **SMOKE),
+                distributed=JaxDistributed(**dist), **jkw).compile()
+    with pytest.raises(ValueError) as exc:
+        ExperimentSpec(model=_layer_cfg(), distributed=DistributedConfig(**dist),
+                       **kw).compile(device="cpu")
+    assert str(exc.value) == str(jexc.value)
+    assert not (tmp_path / "coord").exists()

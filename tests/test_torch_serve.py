@@ -166,7 +166,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     "repro_torch.core.async_worker", "repro_torch.distributed.weight_sync",
                     "repro_torch.rl.envs.base", "repro_torch.rl.envs.builtin",
                     "repro_torch.ft.checkpoint", "repro_torch.obs.sinks",
-                    "repro_torch.obs.aggregate", "repro_torch.launch.obs_report"]) <= set(names)
+                    "repro_torch.obs.aggregate", "repro_torch.launch.obs_report",
+                    "repro_torch.distributed.fleet", "repro_torch.distributed.compression",
+                    "repro_torch.launch.mesh"]) <= set(names)
         import chip_smoke
         assert not [m for m in sys.modules if m.startswith(("jax.", "repro.", "jaxlib"))]
         print(len(names))
