@@ -160,7 +160,8 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      (serving and one training step) and llava-next-34b at B = 1 behind
      2,880 prefix embeddings (``families_phase`` says what each is held to).
  15. Checkpoints and telemetry (``ckpt_phase``): ``launch.train`` at full
-     gemma-2b width and depth on phase 8's experiment file saves its
+     gemma-2b width on 2 of its 18 layers (phase 8's experiment file cut to
+     that depth, to keep the script inside its time limit) saves its
      ``TrainState`` after 2 iterations with the trace and the metrics file
      on (run A), resumes from it (run B, and run C at ``--max-staleness
      1``): the restored state bit for bit A's in the template's own tensors,
@@ -179,6 +180,19 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      exact arm's, under 0.3 of its wire bytes, the encode on the card bit
      for bit the CPU's); every host launches the solo run's kernels. Prints
      the iteration and exchange ms, wire GB/s and peaks of each host.
+ 17. The sharding layer over ``torch.distributed`` (``sharding_phase``):
+     two ranks on the card in one gloo group, each a process of its own
+     (``chip_smoke.py --shard-rank``). A: ``launch.train --coordinator
+     127.0.0.1:PORT --num-hosts 2 --process-id r`` on phase 16's file,
+     data-parallel GRPO with FSDP state for 3 iterations (launches of every
+     iteration, no byte through a controller, the final params against
+     phase 16's solo run); C: ``publish(mesh=, target_specs=)`` of the final
+     shards (bit for bit, the bytes ``switch_bytes`` counts); B: the
+     sequence-sharded ``decode_attention`` at deepseek-67b's decode widths
+     (64 heads on 8 of 128, 32,768 slots over the ranks, B = 8, bf16)
+     against the one-rank kernel and the plain version. Prints the
+     iteration, all-gather and reduce-scatter ms and bytes, the peaks, and
+     the decode's kernel, gather and merge ms.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -4060,6 +4074,9 @@ def families_phase(torch, ops, ref, F, _build, serve, generate, records, label="
 # phase 15: checkpoints and telemetry through launch.train at gemma-2b's full
 # width and depth, on phase 8's experiment file
 CKPT_ITERS = 2  # run A: a warm-up held to plain, a timed iteration, then the save
+# the state's depth: 2 of gemma-2b's 18 layers (7.6 GB of state), cut from the
+# full 26.6 GB to keep the whole script inside its time limit
+CKPT_LAYERS = 2
 CKPT_RESUMED_ITERS = 3  # runs B and C: iteration 2 after the restore
 
 
@@ -4174,8 +4191,9 @@ def observed_first_generation(torch):
 
 def ckpt_phase(torch, ops, ref, _build, label="ckpt", pipeline_ms=None):
     """Phase 15: checkpoints and telemetry through ``launch.train.main`` at
-    gemma-2b's full width and depth on phase 8's experiment file (sync GRPO,
-    the distributed arm), the launch counters set to 0 just before each run
+    gemma-2b's full width on CKPT_LAYERS of its layers, on phase 8's
+    experiment file cut to that depth (``build/ckpt_experiment.json``; sync
+    GRPO, the distributed arm), the launch counters set to 0 just before each run
     and read just after it, each pipeline freed before the next is built:
 
     - run A: ``--iters 2 --ckpt-dir build/ckpt15 --ckpt-every 2 --obs-trace
@@ -4210,7 +4228,10 @@ def ckpt_phase(torch, ops, ref, _build, label="ckpt", pipeline_ms=None):
     from repro_torch.rl import algorithms
 
     t_phase = time.perf_counter()
-    exp_path = experiment_file("pipeline", ARCH_FLAGS, PIPE_RL)
+    spec = json.loads(experiment_file("pipeline", ARCH_FLAGS, PIPE_RL).read_text())
+    spec["model"]["num_layers"] = CKPT_LAYERS
+    exp_path = ROOT / "build" / "ckpt_experiment.json"
+    exp_path.write_text(json.dumps(spec))
     exp = ExperimentSpec.from_json(exp_path.read_text())
     cfg, grpo = exp.model, algorithms.get_algorithm(exp.rl.algorithm)
     per_iter, step = iteration_launches(cfg, _build.LAUNCHES, exp.rl.max_new_tokens,
@@ -4355,6 +4376,7 @@ FLEET_ITERS = 3  # one warm-up iteration, then two timed
 FLEET_ARMS = {"solo": (1, None), "exact": (2, "none"), "int8_ef": (2, "int8_ef")}
 FLEET_HOST_TIMEOUT_S = 600
 LOSS_TOL_INT8 = 5e-3  # tests/test_fleet.py's bound on the last loss against the exact arm
+SOLO_PARAMS = ROOT / "build" / "fleet16" / "solo" / "final_params.pt"
 
 
 def fleet_host(torch, args_path: str) -> int:
@@ -4479,13 +4501,18 @@ def fleet_host(torch, args_path: str) -> int:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "peak_rss_gib": rss["peak_gib"],
     }
+    if spec.get("save_params"):
+        # the solo run's final params, which phase 17's data-parallel run is
+        # held against
+        torch.save([t.cpu() for t in tree.leaves(pipe.ctx.actor_state.params)],
+                   spec["save_params"])
     Path(spec["artifact"]).write_text(json.dumps(art))
     return 0
 
 
-def run_hosts(label: str, arm: str, host_args) -> list:
-    """Start one ``chip_smoke.py --fleet-host`` process a host, all at once,
-    and join them. A host that exits non-zero (or outlives
+def run_hosts(label: str, arm: str, host_args, mode: str = "--fleet-host") -> list:
+    """Start one ``chip_smoke.py --fleet-host`` (or ``mode``) process a host,
+    all at once, and join them. A host that exits non-zero (or outlives
     FLEET_HOST_TIMEOUT_S) fails the arm with the tail of its log; the others
     are killed. Returns the hosts' artifacts."""
     procs = []
@@ -4493,7 +4520,7 @@ def run_hosts(label: str, arm: str, host_args) -> list:
         for args_path, log in host_args:
             with open(log, "wb") as f:
                 procs.append(subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-host",
+                    [sys.executable, str(ROOT / "chip_smoke.py"), mode,
                      str(args_path)], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
         deadline = time.monotonic() + FLEET_HOST_TIMEOUT_S
         for h, (proc, (_, log)) in enumerate(zip(procs, host_args)):
@@ -4593,7 +4620,8 @@ def fleet_phase(torch, _build, label="fleet"):
             args_path = d / f"host{h}.args.json"
             args_path.write_text(json.dumps({
                 "argv": argv, "artifact": str(d / f"host{h}.artifact.json"),
-                "check_int8": arm == "int8_ef" and h == 0}))
+                "check_int8": arm == "int8_ef" and h == 0,
+                "save_params": str(SOLO_PARAMS) if arm == "solo" else None}))
             host_args.append((args_path, d / f"host{h}.log"))
         t_arm = time.perf_counter()
         try:
@@ -4701,16 +4729,416 @@ def fleet_phase(torch, _build, label="fleet"):
     return counts
 
 
+# phase 17: the sharding layer over torch.distributed, two ranks on the card
+# in one gloo group (NCCL refuses two ranks on one device): data-parallel
+# GRPO through launch.train on phase 16's experiment file, the train -> serve
+# switch of its final params, and deepseek-67b's sequence-sharded decode
+SHARD_RANKS = 2
+SHARD_ITERS = FLEET_ITERS  # one warm-up iteration, then two timed
+# deepseek-67b's decode widths (configs/deepseek_67b.py): 64 query heads on 8
+# KV heads of 128; a 32,768-slot cache split over the ranks, 8 rows, bf16
+DS_HEADS, DS_KV_HEADS, DS_HEAD_DIM, DS_SLOTS, DS_B = 64, 8, 128, 32_768, 8
+DECODE_REPS = 5
+# the sharded decode's o against the one-rank kernel's and the plain
+# version's, absolute: a few times the plain version's own readings (4.88e-4
+# from the sharded decode, PR 27's final run), far under the scale of o
+# itself (max |o| is printed beside it, and so is the error of two planted
+# faults the hold must reject: an all-zero o, and a merge that averages the
+# shards' o without their lse weights); lse absolute LSE_TOL
+DS_O_TOL = 2e-3
+# the data-parallel run against the solo run of phase 16 from the same init:
+# the update directions agree (cosine of the two displacements), the runs lie
+# close (their distance over the solo run's displacement), and each
+# iteration's actor/grad_norm and actor/loss agree to a relative
+# SHARD_METRIC_RTOL. Set between the sound run's readings and those of two
+# faults planted in the grads' reduce-scatter (--shard-faults; PERF.md)
+SHARD_MIN_COSINE = 0.99
+SHARD_MAX_REL_DISTANCE = 0.15
+SHARD_METRIC_RTOL = 0.02
+SHARD_METRICS = ("actor/grad_norm", "actor/loss")
+# faults planted in the grads' reduce-scatter, for --shard-faults: each
+# rank's own rows' grads, not summed over the ranks; the sum counted twice
+# (what weight 1 for every rank's loss, not its token share, gives where the
+# ranks hold equal token counts)
+SHARD_FAULTS = ("unsummed", "scaled")
+
+
+def shard_rank(torch, args_path: str) -> int:
+    """The body of ``chip_smoke.py --shard-rank ARGS``: rank r of phase 17's
+    two-rank world on the card. ARGS is a json file {"argv", "artifact",
+    "rank", "solo_params", "fault"}.
+
+    A: ``launch.train.main(argv)`` (``--coordinator 127.0.0.1:PORT``) inside
+    ``observed_iterations``; the generation's train -> serve switch
+    (``weight_sync.switch``, whose params the step reads too) and the step's
+    reduce-scatter of the grads (``collectives.reduce_scatter``) are each
+    synchronised, timed and their bytes counted, and any call of
+    ``trainer.gather_params`` (a second all-gather) is recorded. The init
+    params are kept as ``shard_state`` receives them, and rank 0 holds the
+    final params (gathered) against ``solo_params``. With ``"fault"`` in
+    ARGS (one of SHARD_FAULTS) the reduce-scatter is replaced by the planted
+    fault and the rank stops after A. C: ``publish(mesh=, target_specs=)``
+    of the final shards, timed, its received bytes beside ``switch_bytes``,
+    its values bit for bit the gathered params. B: the sequence-sharded
+    decode at deepseek-67b's decode widths, held against the one-rank kernel
+    and the plain version on the whole cache, each part timed, with the
+    plain version's drift from its fp32 self and two planted merge faults
+    measured beside. Writes the artifact."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.distributed import weight_sync
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.rl import trainer
+
+    spec = json.loads(Path(args_path).read_text())
+    rank = spec["rank"]
+    coll = {"gather": [], "reduce": [], "switch": []}
+    saved = (trainer.gather_params, collectives.reduce_scatter, weight_sync.switch,
+             trainer.shard_state, collectives.all_gather)
+    init = {}
+    received = [0]
+
+    def counted_gather(mesh, local, spec_):
+        # bytes this rank receives: (n - 1) shards of each axis it gathers over
+        out = saved[4](mesh, local, spec_)
+        if mesh.torch_mesh is not None:
+            received[0] += (out.numel() - local.numel()) * local.element_size()
+        return out
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            before = received[0]
+            out, ms = sync_ms(torch, lambda: fn(*args, **kw))
+            coll[kind].append({"ms": ms, "received_bytes": received[0] - before})
+            return out
+        return run
+
+    def reduce(mesh, tensors, specs):
+        fault = spec.get("fault")
+        if fault == "unsummed":
+            return [collectives.shard(mesh, t.float(), s).clone() for t, s in zip(tensors, specs)]
+        out = saved[1](mesh, tensors, specs)
+        return [g * mesh.num_ranks for g in out] if fault == "scaled" else out
+
+    def timed_reduce(mesh, tensors, specs):
+        out, ms = sync_ms(torch, lambda: reduce(mesh, tensors, specs))
+        coll["reduce"].append({"ms": ms, "buffer_bytes": 4 * sum(t.numel() for t in tensors)})
+        return out
+
+    def kept_init(mesh, params, specs):
+        init["params"] = [t.detach().cpu() for t in tree.leaves(params)]
+        return saved[3](mesh, params, specs)
+
+    trainer.gather_params = timed("gather", saved[0])
+    collectives.reduce_scatter = timed_reduce
+    weight_sync.switch = timed("switch", saved[2])
+    trainer.shard_state = kept_init
+    collectives.all_gather = counted_gather
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with rss_sampled() as rss, observed_iterations(torch, _build) as seen:
+            res = train.main(spec["argv"])
+    finally:
+        (trainer.gather_params, collectives.reduce_scatter, weight_sync.switch,
+         trainer.shard_state) = saved[:4]
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    pipe = res["pipeline"]
+    ctx, mesh = pipe.ctx, pipe.ctx.mesh
+    final = trainer.gather_params(mesh, ctx.actor_state.params, ctx.param_specs)
+    art = {"rank": rank, "mesh": mesh.shape, "coords": mesh.coords,
+           "backend": dist.get_backend(),
+           "params": sum(t.numel() for t in tree.leaves(final)),
+           "history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+           "iterations": [{"ms": r["ms"], "launches": r["launches"]} for r in seen["iterations"]],
+           "collectives": coll, "launches": launches, "peak_gib": peak_gib,
+           "peak_rss_gib": rss["peak_gib"], "stats": dataclasses.asdict(pipe.buffer.stats),
+           "rows_loaded": int(ctx.dataloader.rows_loaded)}
+    if rank == 0:
+        solo = torch.load(spec["solo_params"])
+        d_run = dot = n_solo = n_run = 0.0
+        for p0, ps, pr in zip(init["params"], solo, tree.leaves(final)):
+            p0, ps, pr = (t.to(DEV).float() for t in (p0, ps, pr.detach()))
+            a, b = ps - p0, pr - p0
+            d_run += float(torch.sum(torch.square(pr - ps)))
+            n_solo += float(torch.sum(a * a))
+            n_run += float(torch.sum(b * b))
+            dot += float(torch.sum(a * b))
+        art["vs_solo"] = {
+            "cosine": dot / max((n_solo * n_run) ** 0.5, 1e-30),
+            "rel_distance": (d_run / max(n_solo, 1e-30)) ** 0.5,
+            "solo_displacement": n_solo ** 0.5, "run_displacement": n_run ** 0.5,
+            "max_abs_diff": max(float((pr.detach().float() - ps.to(DEV).float()).abs().max())
+                                for ps, pr in zip(solo, tree.leaves(final)))}
+        del solo
+    del init["params"]
+    if spec.get("fault"):
+        Path(spec["artifact"]).write_text(json.dumps(art))
+        return 0
+    # ---- C: the train -> serve switch of the final params, published ----
+    from repro_torch.distributed.weight_sync import WeightVersionStore
+
+    store = WeightVersionStore()
+    received[0] = 0
+    dist.barrier()  # rank 0's comparison above is not the publish's time
+    pub, ms = sync_ms(torch, lambda: store.publish(
+        ctx.actor_state.params, mesh=mesh, target_specs=ctx.serve_specs, specs=ctx.param_specs))
+    shapes = tree.map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), final)
+    art["switch"] = {"ms": ms, "received_bytes": received[0], "version": pub.version,
+                     "switch_bytes": weight_sync.switch_bytes(res["experiment"].model, mesh,
+                                                              shapes)["recv_bytes_per_device"],
+                     "bit_equal": bit_checksum(torch, pub.params) == bit_checksum(torch, final)}
+    collectives.all_gather = saved[4]
+    del pub, store, final, res, pipe, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- B: the sequence-sharded decode at deepseek-67b's decode widths ----
+    m12 = make_local_mesh((1, SHARD_RANKS), ("data", "model"), device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(1717)
+    q = torch.randn((DS_B, DS_HEADS, DS_HEAD_DIM), generator=g, device=DEV).to(torch.bfloat16)
+    k, v = (torch.randn((DS_B, DS_SLOTS, DS_KV_HEADS, DS_HEAD_DIM), generator=g,
+                        device=DEV).to(torch.bfloat16) for _ in range(2))
+    shard_s = DS_SLOTS // SHARD_RANKS
+    cl = torch.randint(1, DS_SLOTS + 1, (DS_B,), generator=g, device=DEV).to(torch.int32)
+    cl[0] = shard_s // 3  # rank 1's slots hold no live key of row 0
+    cl[1] = DS_SLOTS  # row 1 fills the cache
+    ks, vs = (collectives.shard(m12, t, (None, "model")).contiguous() for t in (k, v))
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    o, lse = collectives.seq_sharded_decode_attention(m12, q, ks, vs, cl, return_lse=True)
+    torch.cuda.synchronize()
+    dec_launches = {n: _build.LAUNCHES[n] - before[n] for n in _build.LAUNCHES}
+    o1, lse1 = ops.decode_attention(q, k, v, cl)
+    o_ref, lse_ref = ref.decode_attention(q, k, v, cl)
+    checks = {}
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    for name, (oo, ll) in {"one_rank_kernel": (o1, lse1), "plain": (o_ref, lse_ref)}.items():
+        err_o, err_l = max_err(o, oo), max_err(lse, ll)
+        checks[name] = {"o_ok": err_o <= DS_O_TOL, "o_max_abs_err": err_o,
+                        "lse_ok": err_l <= LSE_TOL, "lse_max_abs_err": err_l}
+    o_fp32, _ = ref.decode_attention(q.float(), k.float(), v.float(), cl)
+    scale = {"o_max_abs": float(o_ref.float().abs().max()),
+             "plain_drift_from_fp32": max_err(o_ref, o_fp32)}
+    del o_fp32
+    eff = torch.clamp(cl - m12.coords["model"] * shard_s, 0, shard_s).to(torch.int32)
+    kernel_ms = device_ms(lambda: ops.decode_attention(q, ks, vs, eff))
+    o_p, lse_p = ops.decode_attention(q, ks, vs, eff)
+    gather_ms = []
+    for _ in range(DECODE_REPS):
+        (o_all, lse_all), t = sync_ms(torch, lambda: (
+            collectives.all_gather(m12, o_p[None], ("model",)),
+            collectives.all_gather(m12, lse_p[None], ("model",))))
+        gather_ms.append(t)
+    merge_ms = device_ms(lambda: ops.combine_decode_shards(o_all, lse_all, return_lse=True))
+    whole_ms = device_ms(lambda: ops.decode_attention(q, k, v, cl))
+    # what the o hold must reject: no output at all, and the shards' o
+    # averaged without their lse weights
+    faults = {"zero_o": max_err(torch.zeros_like(o_ref), o_ref),
+              "unweighted_merge": max_err(o_all.float().mean(0), o_ref)}
+    art["decode"] = {"launches": dec_launches, "checks": checks, "o_tol": DS_O_TOL,
+                     "lse_tol": LSE_TOL, **scale, "fault_errs": faults,
+                     "rows_cache_len": cl.tolist(), "shard_slots": shard_s,
+                     "rank1_empty_rows": int((cl <= shard_s).sum()),
+                     "kernel_ms": kernel_ms, "gather_ms": statistics.median(gather_ms),
+                     "merge_ms": merge_ms, "one_rank_whole_cache_ms": whole_ms}
+    Path(spec["artifact"]).write_text(json.dumps(art))
+    return 0
+
+
+def sharding_phase(torch, _build, label="shard", faults=()):
+    """Phase 17: the sharding layer over ``torch.distributed`` with two
+    ranks on the card in a gloo group, each rank a ``chip_smoke.py
+    --shard-rank`` process (``shard_rank``) of ``launch.train --coordinator
+    127.0.0.1:PORT --num-hosts 2 --process-id r`` on phase 16's experiment
+    file (gemma-2b at full width on FLEET_LAYERS layers, SHARD_ITERS
+    iterations). Held:
+
+    - A: every iteration of each rank launches ``iteration_launches`` (the
+      solo run's count: launches do not depend on the rows a rank holds);
+      both ranks print the same metrics; no byte through a controller and
+      some redistributions; each rank read half of each step's rows; the
+      step made no all-gather of its own (it reads the serve switch's
+      params); against phase 16's solo run from the same init, each
+      iteration's SHARD_METRICS within SHARD_METRIC_RTOL, and the final
+      params' displacement: cosine at least SHARD_MIN_COSINE, distance at
+      most SHARD_MAX_REL_DISTANCE of the solo displacement;
+    - B: the sequence-sharded decode's o within DS_O_TOL and lse within
+      LSE_TOL (both absolute) of the one-rank kernel on the whole cache and
+      of the plain version, with a row that rank 1's slots do not reach and
+      a row that fills the cache; one ``decode_attention`` launch a rank;
+      both planted merge faults over DS_O_TOL;
+    - C: the published serve-layout params bit for bit the gathered ones,
+      the bytes each rank received equal to ``switch_bytes``' count.
+
+    ``faults`` (names of SHARD_FAULTS) runs A again with each fault planted
+    in the reduce-scatter, prints its readings and fails unless A's hold
+    rejects it. Phase 16's solo params and history are read beside
+    SOLO_PARAMS (its solo arm runs first when they are missing, as with
+    ``--only-phase 17``) and removed after. Prints per rank the iteration
+    ms, the collectives' ms and bytes per step, the peak device GiB, the
+    buffer stats, the decode and switch numbers, then ``phase_s``. Returns
+    {path: launch counts}."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    exp_path = ROOT / "build" / "fleet_experiment.json"
+    work = ROOT / "build" / "shard17"
+    work.mkdir(parents=True, exist_ok=True)
+    solo_artifact = SOLO_PARAMS.parent / "host0.artifact.json"
+    if not SOLO_PARAMS.exists():
+        src = experiment_file("pipeline", ARCH_FLAGS, PIPE_RL)
+        spec = json.loads(src.read_text())
+        spec["model"]["num_layers"] = FLEET_LAYERS
+        spec["distributed"] = {"num_hosts": 1, "exchange_timeout_s": 600.0, "dead_after_s": 120.0}
+        exp_path.write_text(json.dumps(spec))
+        SOLO_PARAMS.parent.mkdir(parents=True, exist_ok=True)
+        args = work / "solo.args.json"
+        args.write_text(json.dumps({
+            "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters", str(FLEET_ITERS),
+                     "--num-hosts", "1"],
+            "artifact": str(solo_artifact), "check_int8": False,
+            "save_params": str(SOLO_PARAMS)}))
+        run_hosts(label, "solo", [(args, work / "solo.log")])
+    solo_history = json.loads(solo_artifact.read_text())["history"]
+    exp = ExperimentSpec.from_json(exp_path.read_text())
+    per_iter, _ = iteration_launches(exp.model, _build.LAUNCHES, exp.rl.max_new_tokens,
+                                     algorithms.get_algorithm(exp.rl.algorithm).dag_factory())
+    import socket
+
+    def world(name, fault=None):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        host_args = []
+        for r in range(SHARD_RANKS):
+            args = work / f"{name}{r}.args.json"
+            args.write_text(json.dumps({
+                "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters",
+                         str(SHARD_ITERS), "--num-hosts", str(SHARD_RANKS), "--process-id",
+                         str(r), "--coordinator", f"127.0.0.1:{port}"],
+                "artifact": str(work / f"{name}{r}.artifact.json"), "rank": r,
+                "solo_params": str(SOLO_PARAMS), "fault": fault}))
+            host_args.append((args, work / f"{name}{r}.log"))
+        return run_hosts(label, name, host_args, mode="--shard-rank")
+
+    def against_solo(arts):
+        """A's hold on rank 0's readings: (held, readings)."""
+        vs = dict(arts[0]["vs_solo"])
+        vs["metric_rel_errs"] = {
+            k: [abs(m[k] - s[k]) / max(abs(s[k]), 1e-30)
+                for m, s in zip(arts[0]["history"], solo_history)] for k in SHARD_METRICS}
+        held = (vs["cosine"] >= SHARD_MIN_COSINE and vs["rel_distance"] <= SHARD_MAX_REL_DISTANCE
+                and all(e <= SHARD_METRIC_RTOL for es in vs["metric_rel_errs"].values()
+                        for e in es))
+        return held, vs
+
+    try:
+        arts = world("rank")
+        fault_arts = {f: world(f"fault_{f}", f) for f in faults}
+    finally:
+        SOLO_PARAMS.unlink(missing_ok=True)
+    counts, out = {}, {"layers": FLEET_LAYERS, "ranks": SHARD_RANKS}
+
+    def clean(history):
+        return [{k: v for k, v in m.items() if not k.startswith("time/")} for m in history]
+
+    for r, a in enumerate(arts):
+        require(a["backend"] == "gloo" and a["mesh"] == {"pod": 2, "data": 1, "model": 1}
+                and a["coords"]["pod"] == r,
+                f"{label} rank {r}: backend {a['backend']}, mesh {a['mesh']}, {a['coords']}")
+        require(all(it["launches"] == per_iter for it in a["iterations"]),
+                f"{label} rank {r}: launches {[it['launches'] for it in a['iterations']]}, "
+                f"expected {per_iter} an iteration")
+        st = a["stats"]
+        require(st["bytes_through_controller"] == 0 and st["redistributions"] > 0,
+                f"{label} rank {r}: buffer stats {st}")
+        require(not a["collectives"]["gather"],
+                f"{label} rank {r}: the step all-gathered the params itself "
+                f"({len(a['collectives']['gather'])} times) beside the serve switch")
+        require(a["switch"]["bit_equal"] and a["switch"]["version"] == 0,
+                f"{label} rank {r}: the published params differ from the gathered ones")
+        require(a["switch"]["received_bytes"] == a["switch"]["switch_bytes"],
+                f"{label} rank {r}: the switch received {a['switch']['received_bytes']} bytes, "
+                f"switch_bytes counts {a['switch']['switch_bytes']}")
+        dec = a["decode"]
+        require(dec["launches"]["decode_attention"] == 1,
+                f"{label} rank {r}: the sharded decode launched {dec['launches']}")
+        for name, c in dec["checks"].items():
+            require(c["o_ok"] and c["lse_ok"], f"{label} rank {r}: the sharded decode against "
+                                               f"the {name}: {c}")
+        require(all(e > DS_O_TOL for e in dec["fault_errs"].values()),
+                f"{label} rank {r}: the o hold ({DS_O_TOL}) cannot see a planted merge fault: "
+                f"{dec['fault_errs']}")
+        # prompts and answers: this rank's half of the rows of every step
+        require(a["rows_loaded"] == SHARD_ITERS * exp.prompts_per_iter,
+                f"{label} rank {r}: {a['rows_loaded']} rows loaded")
+        timed = [it["ms"] for it in a["iterations"][1:]]
+        reduces = a["collectives"]["reduce"]
+        switches = a["collectives"]["switch"]
+        row = {"rank": r, "params": a["params"],
+               "iteration_ms": [it["ms"] for it in a["iterations"]],
+               "timed_iteration_ms": statistics.median(timed),
+               "reduce_scatter_ms": [c["ms"] for c in reduces],
+               "reduce_scatter_buffer_bytes_per_step": reduces[-1]["buffer_bytes"],
+               "serve_switch_ms": [c["ms"] for c in switches],
+               "serve_switch_bytes_per_step": switches[-1]["received_bytes"],
+               "peak_gib": a["peak_gib"], "peak_rss_gib": a["peak_rss_gib"],
+               "buffer_stats": st, "launches": a["launches"],
+               "launches_implied": {n: SHARD_ITERS * c for n, c in per_iter.items()}}
+        print(json.dumps({f"{label}_rank": row}), flush=True)
+        print(json.dumps({f"{label}_decode": {"rank": r, **dec}}), flush=True)
+        print(json.dumps({f"{label}_switch": {"rank": r, **a["switch"]}}), flush=True)
+        counts[f"shard_grpo_rank{r}"] = a["launches"]
+        counts[f"shard_decode_rank{r}"] = {n: dec["launches"].get(n, 0) for n in _build.LAUNCHES}
+    require(clean(arts[0]["history"]) == clean(arts[1]["history"]),
+            f"{label}: the ranks' metrics differ")
+    require(all(m["actor/grad_norm"] > 0 for m in arts[0]["history"]), f"{label}: a zero gradient")
+    limits = {"min_cosine": SHARD_MIN_COSINE, "max_rel_distance": SHARD_MAX_REL_DISTANCE,
+              "metric_rtol": SHARD_METRIC_RTOL}
+    held, vs = against_solo(arts)
+    print(json.dumps({"check": f"{label}_against_the_solo_run", **vs, **limits}), flush=True)
+    require(held, f"{label}: the data-parallel run against the solo run's: {vs}")
+    for fault, fa in fault_arts.items():
+        held, vs = against_solo(fa)
+        print(json.dumps({"check": f"{label}_fault_{fault}_against_the_solo_run", "held": held,
+                          **vs, **limits}), flush=True)
+        require(not held, f"{label}: the hold does not reject the planted fault {fault}")
+    out["solo_history"] = solo_history
+    out["history"] = arts[0]["history"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16], default=None,
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17], default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
                          "phase; the full run takes no argument)")
     # one host of phase 16's fleet, started by fleet_phase
     ap.add_argument("--fleet-host", default=None, help=argparse.SUPPRESS)
+    # one rank of phase 17's world, started by sharding_phase
+    ap.add_argument("--shard-rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shard-faults", default="",
+                    help="with --only-phase 17: comma-separated faults of SHARD_FAULTS to "
+                         "plant in the grads' reduce-scatter after the sound run, each of "
+                         "which phase 17's hold must reject (how its limits were set)")
     opts = ap.parse_args(argv)
+    faults = [f for f in opts.shard_faults.split(",") if f]
+    if faults and (opts.only_phase != 17 or not set(faults) <= set(SHARD_FAULTS)):
+        ap.error(f"--shard-faults takes {', '.join(SHARD_FAULTS)}, with --only-phase 17")
 
     import torch
 
@@ -4728,6 +5156,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if opts.fleet_host is not None:
         return fleet_host(torch, opts.fleet_host)
+    if opts.shard_rank is not None:
+        return shard_rank(torch, opts.shard_rank)
 
     t_start = time.perf_counter()
     # ---- phase 1: device and build ----
@@ -4751,7 +5181,8 @@ def main(argv=None) -> int:
                  13: lambda: moe_phase(torch, ops, ref, F, _build, serve, generate, {}),
                  14: lambda: families_phase(torch, ops, ref, F, _build, serve, generate, {}),
                  15: lambda: ckpt_phase(torch, ops, ref, _build),
-                 16: lambda: fleet_phase(torch, _build)}
+                 16: lambda: fleet_phase(torch, _build),
+                 17: lambda: sharding_phase(torch, _build, faults=faults)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -4851,6 +5282,12 @@ def main(argv=None) -> int:
     # the card (each host's counts start at 0 in its process and are read
     # after its run) ----
     paths.update(fleet_phase(torch, _build))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 17: the sharding layer over torch.distributed, two ranks on
+    # the card (each rank's counts start at 0 in its process and are read
+    # after its run; the sharded decode's just before and after it) ----
+    paths.update(sharding_phase(torch, _build))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -4887,6 +5324,9 @@ def main(argv=None) -> int:
                **{f"fleet_{arm}_host{h}": ("rmsnorm", "flash_attention", "decode_attention",
                                              "fused_sample")
                   for arm in ("exact", "int8_ef") for h in (0, 1)},
+               **{f"shard_grpo_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
+                                          "fused_sample") for r in range(SHARD_RANKS)},
+               **{f"shard_decode_rank{r}": ("decode_attention",) for r in range(SHARD_RANKS)},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.configs.base import (
@@ -47,7 +46,9 @@ class ExperimentSpec:
     ``dag`` is the DAG's dict form (``DAG.to_spec()`` / the JSON config
     schema), not a live DAG object, so the spec stays JSON-serializable;
     ``None`` means "use the algorithm's built-in template".
-    ``mesh_shape=None`` (or a shape of one device) compiles onto one device.
+    ``mesh_shape=None`` (or a shape of one device) compiles onto one device;
+    a larger shape onto a rank mesh of the running ``torch.distributed``
+    world.
     """
 
     model: ModelConfig
@@ -138,25 +139,30 @@ class ExperimentSpec:
     # ------------------------------------------------------------------ #
     # compilation
     # ------------------------------------------------------------------ #
-    def compile(self, *, device="cuda", dataset=None, registry=None):
+    def compile(self, *, device="cuda", mesh=None, dataset=None, registry=None):
         """Compile the spec into a runnable Pipeline on ``device`` (``cuda``
         unless the CPU is asked for; without CUDA it raises).
 
+        ``mesh`` overrides ``mesh_shape`` (useful when the caller already
+        holds a rank mesh). A ``mesh_shape`` of more than one device is a
+        rank mesh over the running ``torch.distributed`` world
+        (``launch.mesh.init_distributed``), one process a device;
         ``dataset``/``registry`` are the non-serializable escape hatches for
         custom data sources and stage functions.
         """
         from repro_torch.core.dag import DAG
         from repro_torch.core.pipeline import build_pipeline
 
-        if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
-            raise NotImplementedError(
-                f"a mesh of {math.prod(self.mesh_shape)} devices is not ported yet "
-                "(ROADMAP queue 1, item 8: distributed); the port runs on one device")
+        mesh_shape = None
+        if mesh is None and self.mesh_shape is not None:
+            mesh_shape = dict(zip(self.mesh_axes, self.mesh_shape))
         dag = DAG.from_spec(self.dag) if self.dag is not None else None
         return build_pipeline(
             self.model,
             self.rl,
             device=device,
+            mesh=mesh,
+            mesh_shape=mesh_shape,
             dag=dag,
             dataset=dataset,
             prompts_per_iter=self.prompts_per_iter,

@@ -8,6 +8,8 @@ from repro_torch.configs.base import (
     ObsConfig,
     RolloutEngineConfig,
     ServingConfig,
+    ShapeConfig,
+    SHAPES_BY_NAME,
     pad_to,
     reduced,
 )
@@ -15,5 +17,5 @@ from repro_torch.configs.registry import ARCHS, ASSIGNED, get_config
 
 __all__ = ["ARCHS", "ASSIGNED", "AsyncPipelineConfig", "DataCoordinatorConfig",
            "DistributedConfig", "EnvConfig", "ModelConfig", "ObsConfig",
-           "RolloutEngineConfig", "ServingConfig", "VOCAB_ALIGN", "get_config", "pad_to",
-           "reduced"]
+           "RolloutEngineConfig", "SHAPES_BY_NAME", "ServingConfig", "ShapeConfig",
+           "VOCAB_ALIGN", "get_config", "pad_to", "reduced"]

@@ -537,3 +537,23 @@ class ObsConfig:
         if self.ring_capacity < 1:
             raise ValueError(
                 f"ring_capacity must be >= 1, got {self.ring_capacity}")
+
+
+# --------------------------------------------------------------------------- #
+# The assigned shape cells of the production workloads (``launch.workloads``).
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}

@@ -18,9 +18,25 @@ runs on the card unless ``device="cpu"`` is asked for; without CUDA it
 raises. An enabled ``obs`` installs a process-global tracer and hangs an
 :class:`~repro_torch.obs.ObsState` on the worker context, as in the JAX
 package. An enabled ``distributed`` makes the process one host of a
-data-parallel fleet (``repro_torch.distributed.fleet``): the fleet mesh's
-``pod`` axis, and an actor step split into grad, the file-plane
-``GradExchange`` and apply; the tracer then writes the host's process id.
+data-parallel fleet: over a directory coordinator
+(``repro_torch.distributed.fleet``), the fleet mesh's ``pod`` axis and an
+actor step split into grad, the file-plane ``GradExchange`` and apply;
+over a ``host:port`` coordinator, the rank mesh of
+``launch.mesh.make_fleet_mesh``. The tracer then writes the host's process
+id.
+
+On a rank mesh (one process a device over ``torch.distributed``, ``model``
+of 1: pure data parallelism; given as ``mesh``, made from ``mesh_shape``
+over the running world, or made for a ``host:port`` coordinator) every rank
+builds the same weights from the seed and keeps its shard of the actor's
+``TrainState`` (and a critic's) under ``sharding.param_specs(...,
+"train")``; the steps are ``trainer.make_dp_actor_step`` /
+``make_dp_critic_step``, generation reads the params switched to the serve
+layout (which, at ``model`` = 1, are the full params the actor step reads
+too: one all-gather serves both), the reference params stay whole, and the
+dataloader, generator and stages work on the rank's rows. A mesh
+with ``model`` > 1 (tensor-parallel model stages) is ROADMAP queue 1,
+item 8.
 
 The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 ``compile()`` lands here.
@@ -28,6 +44,7 @@ The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -154,11 +171,29 @@ def _seeds(seed: int):
     return [int(s) for s in np.random.SeedSequence(seed).generate_state(3)]
 
 
+def _refuse_unported_mesh(shape: Dict[str, int],
+                          async_pipeline: Optional[AsyncPipelineConfig]) -> None:
+    """Raise for what a rank mesh cannot run yet: tensor-parallel model
+    stages (``model`` > 1) and the async pipeline."""
+    if math.prod(shape.values()) <= 1:
+        return
+    if shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"tensor-parallel model stages (a mesh {shape} with model > 1) are not "
+            "ported yet (ROADMAP queue 1, item 8: distributed)")
+    if async_pipeline is not None and async_pipeline.enabled:
+        raise NotImplementedError(
+            "the async pipeline on a rank mesh is not ported yet "
+            "(ROADMAP queue 1, item 8: distributed)")
+
+
 def build_pipeline(
     cfg: ModelConfig,
     rl: RLConfig,
     *,
     device="cuda",
+    mesh: Optional[DeviceMesh] = None,
+    mesh_shape: Optional[Dict[str, int]] = None,
     dag: Optional[DAG] = None,
     dataset=None,
     prompts_per_iter: int = 8,
@@ -187,12 +222,23 @@ def build_pipeline(
                 "the fleet gradient exchange is a per-iteration collective; "
                 "combine it with the async pipeline once the exchange is "
                 "staleness-aware (not yet supported)")
+    # the rank mesh asked for (a given one, or ``mesh_shape`` over the
+    # running world), refused before any world is touched
+    asked = mesh_shape if mesh is None else (mesh.shape if mesh.torch_mesh is not None else None)
+    _refuse_unported_mesh(asked or {}, async_pipeline)
+    if mesh is None and mesh_shape is not None:
+        from repro_torch.launch.mesh import mesh_of
+
+        mesh = mesh_of(tuple(mesh_shape.values()), tuple(mesh_shape), device=device)
+    if fleet:
         from repro_torch.launch.mesh import make_fleet_mesh
 
-        mesh = make_fleet_mesh(distributed.num_hosts, distributed.devices_per_host,
-                               device=device)
-    else:
+        if mesh is None:
+            mesh = make_fleet_mesh(distributed.num_hosts, distributed.devices_per_host,
+                                   device=device)
+    elif mesh is None:
         mesh = DeviceMesh(device)
+    ranked = mesh.torch_mesh is not None
     tok = ByteTokenizer()
     assert cfg.vocab_size >= tok.vocab_size, "model vocab must cover the tokenizer"
     model = get_model(cfg, device=device)
@@ -209,6 +255,22 @@ def build_pipeline(
     s_actor, s_critic, s_run = _seeds(seed)
     actor_params = model.init(torch.Generator(device=device).manual_seed(s_actor))
     ref_params = tree.map(torch.clone, actor_params)  # frozen reference
+    gen = torch.Generator(device=device).manual_seed(s_run)
+    if ranked:
+        from repro_torch.distributed import collectives
+        from repro_torch.distributed import sharding as shr
+
+        # this rank's shard of the actor state; the rows it samples
+        pspecs = shr.param_specs(cfg, mesh, actor_params, "train")
+        serve_specs = shr.param_specs(cfg, mesh, actor_params, "serve")
+        actor_state = trainer.shard_state(mesh, actor_params, pspecs)
+        del actor_params
+        data_axes = shr.fsdp_axes(mesh)
+        gen = rollout_mod.RankRows(
+            gen, collectives.region(mesh, (mesh.num_ranks,), (data_axes,))[0].start,
+            math.prod(mesh.shape[a] for a in data_axes))
+    else:
+        actor_state = trainer.init_state(actor_params)
 
     ctx = WorkerContext(
         mesh=mesh,
@@ -221,18 +283,32 @@ def build_pipeline(
             seed=seed,
             prefetch=coordinator.prefetch,
         ),
-        actor_state=trainer.init_state(actor_params),
+        actor_state=actor_state,
         ref_params=ref_params,
         tokenizer=tok,
-        gen=torch.Generator(device=device).manual_seed(s_run),
+        gen=gen,
         algorithm=spec,
         env=env_runtime,
     )
     if spec.uses_critic:
         critic_gen = torch.Generator(device=device).manual_seed(s_critic)
-        ctx.critic_state = trainer.init_state(critic_mod.init(cfg, critic_gen, device=device))
+        critic_params = critic_mod.init(cfg, critic_gen, device=device)
+        if ranked:
+            cspecs = shr.param_specs(cfg, mesh, critic_params, "train")
+            ctx.critic_state = trainer.shard_state(mesh, critic_params, cspecs)
+            ctx.critic_specs = cspecs
+            ctx.engines["critic_step"] = trainer.make_dp_critic_step(cfg, rl, mesh, cspecs)
+        else:
+            ctx.critic_state = trainer.init_state(critic_params)
+        del critic_params
 
-    if fleet:
+    if ranked:
+        ctx.param_specs, ctx.serve_specs = pspecs, serve_specs
+        # at model = 1 the serve layout is the full params: the step reads
+        # the copy generation switched to, so one all-gather serves both
+        ctx.engines["actor_step"] = trainer.make_dp_actor_step(
+            model, rl, mesh, pspecs, algorithm=spec, full_params=ctx.serve_params)
+    elif fleet:
         # Fleet DP gradient exchange: split the fused actor step so the
         # gradient crosses the host data plane between grad and apply, bit
         # for bit the fused step when grad_compression="none", int8 on the

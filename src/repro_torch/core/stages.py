@@ -8,6 +8,15 @@ databuffer's redistribution path is taken at every model<->compute boundary
 exactly as in the JAX package (on one device it moves nothing, but it is
 counted the same).
 
+On a rank mesh (``torch.distributed``, one process a device) each rank runs
+every stage on the rows it holds, under the JAX package's specs.
+Generation reads the actor's params in the serve layout
+(``WorkerContext.serve_params``). The advantage engine gets ``total``, a sum
+over the ranks, so that an advantage normalised over the batch (PPO's
+whitening, REINFORCE++) is normalised by the global batch's moments, as
+GSPMD computes it in the JAX package. The stages' metrics are reduced over
+the ranks to their global values.
+
 ``actor_generate`` drives lockstep ``generate`` or the continuous engine and
 reports the engine's ``last_stats`` as ``rollout/*``; episodes the engine
 stepped put their ``role_mask``, ``env_rewards`` and ``env_turns`` for
@@ -15,6 +24,7 @@ stepped put their ``role_mask``, ``env_rewards`` and ``env_turns`` for
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -38,6 +48,29 @@ def _specs(ctx):
     return (data_axes,), (tuple(axes),)
 
 
+def _ranked(ctx) -> bool:
+    return getattr(ctx.mesh, "torch_mesh", None) is not None
+
+
+def _total(ctx, x: torch.Tensor) -> float:
+    """The sum of ``x`` over the global batch (this rank's rows, reduced
+    over the ranks on a rank mesh)."""
+    t = x.float().sum()
+    if _ranked(ctx):
+        from repro_torch.distributed import collectives
+
+        t = collectives.all_reduce(ctx.mesh, t)
+    return float(t)
+
+
+def _mean(ctx, x: torch.Tensor) -> float:
+    """The mean of ``x`` over the global batch (the ranks hold equal row
+    counts)."""
+    if not _ranked(ctx):
+        return float(x.float().mean())
+    return _total(ctx, x) / (x.numel() * ctx.mesh.num_ranks)
+
+
 # --------------------------------------------------------------------------- #
 def actor_generate(ctx, buffer, node: Node) -> Dict:
     """(ACTOR, GENERATE): pull the iteration's prompts from the worker-bound
@@ -58,7 +91,7 @@ def actor_generate(ctx, buffer, node: Node) -> Dict:
         ctx.prompt_source = PromptSource(ctx.dataloader, _algo(ctx).group_size(ctx.rl))
     prompts, answers = ctx.prompt_source.next_prompts()
     engine = ctx.engines["generate"]
-    res = engine(ctx.actor_state.params, prompts, ctx.gen)
+    res = engine(ctx.serve_params(), prompts, ctx.gen)
     buffer.put("tokens", res.tokens.clone(), model_spec)
     buffer.put("response_mask", res.response_mask.clone(), model_spec)
     buffer.put("old_logprob", res.old_logprob.clone(), model_spec)
@@ -75,10 +108,10 @@ def actor_generate(ctx, buffer, node: Node) -> Dict:
         dev = res.tokens.device
         buffer.put("env_rewards", torch.from_numpy(env_out["rewards"]).to(dev), model_spec)
         buffer.put("env_turns", torch.from_numpy(env_out["turns"]).to(dev), model_spec)
-    gen_tokens = float(res.lengths.sum())
+    gen_tokens = _total(ctx, res.lengths)
     ctx.counters["gen_tokens"] = ctx.counters.get("gen_tokens", 0.0) + gen_tokens
     out = {
-        "rollout/mean_len": float(res.lengths.float().mean()),
+        "rollout/mean_len": _mean(ctx, res.lengths),
         "rollout/tokens": gen_tokens,
     }
     stats = getattr(engine, "last_stats", None)
@@ -94,7 +127,7 @@ def actor_logprobs(ctx, buffer, node: Node) -> Dict:
     model_spec, _ = _specs(ctx)
     tokens = buffer.get("tokens", model_spec)
     with torch.no_grad():
-        lp, _ = ctx.engines["logprobs"](ctx.actor_state.params, tokens)
+        lp, _ = ctx.engines["logprobs"](ctx.serve_params(), tokens)
     buffer.put("old_logprob", lp * buffer.get("response_mask", model_spec), model_spec)
     return {}
 
@@ -112,7 +145,12 @@ def critic_values(ctx, buffer, node: Node) -> Dict:
     model_spec, _ = _specs(ctx)
     tokens = buffer.get("tokens", model_spec)
     with torch.no_grad():
-        v = ctx.engines["values"](ctx.critic_state.params, tokens)
+        params = ctx.critic_state.params
+        if ctx.critic_specs is not None:  # a rank mesh: the critic's shards, gathered
+            from repro_torch.rl import trainer
+
+            params = trainer.gather_params(ctx.mesh, params, ctx.critic_specs)
+        v = ctx.engines["values"](params, tokens)
     buffer.put("old_values", v, model_spec)
     return {}
 
@@ -127,7 +165,7 @@ def reward_compute(ctx, buffer, node: Node) -> Dict:
     answers = buffer.get("answers", seq_spec)
     rewards = ctx.engines["reward"](tokens, mask, answers)
     buffer.put("rewards", rewards, seq_spec)
-    return {"reward/mean": float(rewards.mean())}
+    return {"reward/mean": _mean(ctx, rewards)}
 
 
 def env_compute(ctx, buffer, node: Node) -> Dict:
@@ -143,7 +181,7 @@ def env_compute(ctx, buffer, node: Node) -> Dict:
     if "env_rewards" in buffer.keys():
         rewards = buffer.get("env_rewards", seq_spec)
         turns = buffer.get("env_turns", seq_spec)
-        out["env/turns_mean"] = float(turns.float().mean())
+        out["env/turns_mean"] = _mean(ctx, turns)
     else:
         if ctx.env is None:
             raise RuntimeError(
@@ -154,7 +192,7 @@ def env_compute(ctx, buffer, node: Node) -> Dict:
         scored = ctx.env.score_single_turn(tokens.cpu().numpy(), mask.cpu().numpy())
         rewards = torch.from_numpy(np.asarray(scored, np.float32)).to(tokens.device)
     buffer.put("rewards", rewards, seq_spec)
-    out["reward/mean"] = float(rewards.mean())
+    out["reward/mean"] = _mean(ctx, rewards)
     return out
 
 
@@ -166,10 +204,16 @@ def advantage_compute(ctx, buffer, node: Node) -> Dict:
     algorithms)."""
     spec = _algo(ctx)
     _, compute_spec = _specs(ctx)
+    seq_spec = (compute_spec[0],)
     mask = buffer.get("response_mask", compute_spec)
-    rewards = buffer.get("rewards", (compute_spec[0],))
+    rewards = buffer.get("rewards", seq_spec)
     extra = [buffer.get(k, compute_spec) for k in spec.advantage_inputs]
-    out = ctx.engines["advantage"](rewards, mask, *extra)
+    kw = {}
+    if _ranked(ctx):  # a normalisation over the batch sums its moments over the ranks
+        from repro_torch.distributed import collectives
+
+        kw["total"] = functools.partial(collectives.all_reduce, ctx.mesh)
+    out = ctx.engines["advantage"](rewards, mask, *extra, **kw)
     if len(spec.advantage_outputs) == 1:
         out = (out,)
     for key, val in zip(spec.advantage_outputs, out):

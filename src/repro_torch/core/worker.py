@@ -11,7 +11,9 @@ balancer bins hierarchically, as the JAX worker does.
 
 JAX's ``key``/``next_key()`` becomes an explicit ``torch.Generator`` on the
 run's device (``WorkerContext.gen``), which the generate engine draws its
-per-step sampling seeds from.
+per-step sampling seeds from. On a rank mesh the generator stands behind a
+``rollout.RankRows`` view that draws the global batch's seeds and hands
+this rank its rows', so the ranks sample as one device would.
 """
 from __future__ import annotations
 
@@ -63,6 +65,31 @@ class WorkerContext:
     # the GradExchange inside its actor step (repro_torch.distributed.fleet)
     fleet: Any = None
     grad_exchange: Any = None
+    # on a rank mesh (torch.distributed): the specs the actor state's shards
+    # lie under (distributed.sharding.param_specs, "train"), and those of
+    # the serve layout generation reads (mode "serve"); None on one device
+    param_specs: Any = None
+    serve_specs: Any = None
+    critic_specs: Any = None
+    _serve_cache: Any = None
+
+    def serve_params(self, state=None):
+        """The params of ``state`` (the actor's by default) that generation
+        reads: the state's own on one device; on a rank mesh, its shards
+        switched to the serve layout (``weight_sync.switch``), once for each
+        new state."""
+        state = self.actor_state if state is None else state
+        if self.param_specs is None:
+            return state.params
+        cached = self._serve_cache
+        if cached is None or cached[0] is not state:
+            from repro_torch.distributed import weight_sync
+
+            self._serve_cache = None  # the previous copy goes before the new one
+            params = weight_sync.switch(self.mesh, state.params, self.serve_specs,
+                                        specs=self.param_specs)
+            self._serve_cache = (state, params)
+        return self._serve_cache[1]
 
 
 class PromptSource:
@@ -181,7 +208,7 @@ class DAGWorker:
         skipped = {"balance/skipped": 1.0}
         from repro_torch.rl import algorithms
 
-        mask = self.buffer.get("response_mask")
+        mask = self.buffer.global_value("response_mask")
         lengths = mask.sum(dim=1).cpu().numpy()
         g = algorithms.resolve(self.ctx).group_size(self.ctx.rl)
         B = len(lengths)
@@ -200,12 +227,19 @@ class DAGWorker:
                                            hosts=H if hier else 1)
         after = straggler.bucket_token_ratio(lengths, nb, perm)
         if after < before:  # only repack when it helps
+            from repro_torch.distributed import collectives
+
             dperm = torch.as_tensor(perm, device=self.ctx.mesh.device)
             for key in self.buffer.keys():
-                value = self.buffer.get(key)
+                value = self.buffer.global_value(key)
                 if value.ndim >= 1 and value.shape[0] == B:
-                    # re-put under the producer's spec
-                    self.buffer.put(key, value.index_select(0, dperm), self.buffer.spec_of(key))
+                    # re-put under the producer's spec (on a rank mesh, this
+                    # rank's rows of the permuted global batch)
+                    spec = self.buffer.spec_of(key)
+                    value = value.index_select(0, dperm)
+                    if self.ctx.mesh.torch_mesh is not None:
+                        value = collectives.shard(self.ctx.mesh, value, spec)
+                    self.buffer.put(key, value, spec)
         achieved = min(after, before)
         out = {
             "balance/token_ratio_before": before,

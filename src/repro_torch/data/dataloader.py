@@ -1,8 +1,10 @@
-"""Distributed Dataloader (paper §6.1, Fig. 6) on one device: the port of
+"""Distributed Dataloader (paper §6.1, Fig. 6): the port of
 ``repro.data.dataloader``.
 
-Each worker materializes only its own partition of the dataset; on one
-device that partition is the whole batch. A deterministic epoch-seeded
+Each worker materializes only its own partition of the dataset: on a rank
+mesh each rank reads only its rows of the global batch, split over the
+mesh's data axes (``dp_spec``); on one device that partition is the whole
+batch. A deterministic epoch-seeded
 permutation gives the global shuffle without any coordination: every worker
 derives the identical permutation from (seed, epoch), the same numpy draw as
 the JAX loader's, so both packages serve the same rows at every step.
@@ -33,6 +35,8 @@ class DistributedDataloader:
     ):
         self.dataset = dataset
         self.mesh = mesh
+        # the rows split over the mesh's data axes, as the model stages read them
+        self.dp_spec = (tuple(a for a in mesh.axis_names if a != "model"),)
         self.global_batch = global_batch
         self.seed = seed
         self.step = 0
@@ -85,6 +89,10 @@ class DistributedDataloader:
 
     def _build_batch(self, step: int) -> Dict[str, torch.Tensor]:
         idx = self.batch_indices(step)
+        if getattr(self.mesh, "torch_mesh", None) is not None:
+            from repro_torch.distributed import collectives
+
+            idx = idx[collectives.region(self.mesh, idx.shape, self.dp_spec)[0]]
         rows = self.dataset.get_rows(idx)
         if isinstance(rows, tuple):
             prompts, answers = rows

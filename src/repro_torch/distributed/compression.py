@@ -16,8 +16,9 @@ product to decode) is the same on the CPU and the card, so the bits equal
 the JAX package's. ``wire_bytes`` is the byte accounting: the padded int8 block
 payload plus one fp32 scale a block.
 
-The JAX package's ``compressed_psum`` (an all-gather over a mesh axis) comes
-with the sharding layer, ROADMAP queue 1, item 8.
+``compressed_psum`` is the in-mesh form over a rank mesh's axis: each rank
+quantizes its value, the int8 blocks and scales are all-gathered over the
+axis, and every rank decodes and sums them.
 """
 from __future__ import annotations
 
@@ -53,6 +54,20 @@ def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape, size: int) -> torch.Tensor:
     out = (q.to(torch.float32) * scale).reshape(-1)[:size]
     return out.reshape(shape)
+
+
+def compressed_psum(mesh, x: torch.Tensor, axis) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis`` (a name or a tuple of names)
+    of a rank mesh, with an int8 all-gather of the blocks and scales and a
+    local decode and sum, in ``x``'s dtype."""
+    from repro_torch.distributed import collectives
+
+    spec = (axis,)
+    q, scale = _quantize(x)
+    q_all = collectives.all_gather(mesh, q[None], spec)  # (n, blocks, BLOCK) int8
+    s_all = collectives.all_gather(mesh, scale[None], spec)
+    total = torch.sum(q_all.to(torch.float32) * s_all, dim=0)
+    return total.reshape(-1)[:x.numel()].reshape(x.shape).to(x.dtype)
 
 
 def ef_update(grad: torch.Tensor, error: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -107,10 +107,11 @@ def paged_decode_attention(
     return _paged_decode_attention(q, pool_k, pool_v, tables, kv_len, scale=scale)
 
 
-def combine_decode_shards(o_parts, lse_parts):
+def combine_decode_shards(o_parts, lse_parts, *, return_lse: bool = False):
     """Merge per-shard (o, lse) of disjoint key ranges: plain torch on every
-    device, as in the JAX package (it has no Pallas kernel)."""
-    return _ref.combine_decode_shards(o_parts, lse_parts)
+    device, as in the JAX package (it has no Pallas kernel). With
+    ``return_lse`` also the merged lse."""
+    return _ref.combine_decode_shards(o_parts, lse_parts, return_lse=return_lse)
 
 
 def fused_sample(

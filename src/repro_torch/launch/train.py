@@ -42,8 +42,17 @@ none``: bit for bit a ``--num-hosts 1`` run) or as int8 blocks with error
 feedback (``int8_ef``). With telemetry on, each host also publishes its
 metrics under DIR for ``repro_torch.launch.obs_report``. The four fleet
 flags layer over an experiment file's ``distributed``, as the coordinator
-flags do, so one file serves every host and the solo run. A ``host:port``
-coordinator (``torch.distributed``) is ROADMAP queue 1, item 8.
+flags do, so one file serves every host and the solo run.
+
+``--coordinator HOST:PORT`` instead makes the process rank h of a
+``torch.distributed`` world of H (gloo on the CPU and where the ranks share
+a card, NCCL where each has its own): the JAX package's
+``jax.distributed`` flow. The ranks build the ``(pod, data, model) = (H, 1,
+1)`` rank mesh (``launch.mesh.make_fleet_mesh``) and train data-parallel
+with FSDP state: each rank computes its rows of the batch, and the grads
+are reduce-scattered into the param shards (``trainer.make_dp_step``).
+``--resume`` restores each rank's shard from any checkpoint (elastic), and
+``--ckpt-dir`` writes each rank's shards.
 
 The default arch is gemma-2b, the port's main model.
 
@@ -61,6 +70,8 @@ Usage:
   python -m repro_torch.launch.train --smoke --device cpu --iters 6 --resume ckpts
   for h in 0 1; do python -m repro_torch.launch.train --smoke --device cpu --iters 2 \
       --num-hosts 2 --process-id $h --coordinator /tmp/coord --grad-compression int8_ef & done
+  for r in 0 1; do python -m repro_torch.launch.train --smoke --device cpu --iters 2 \
+      --num-hosts 2 --process-id $r --coordinator 127.0.0.1:29500 & done
 """
 from __future__ import annotations
 
@@ -158,7 +169,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--process-id", type=int, default=None,
                     help="this host's rank in [0, --num-hosts)")
     ap.add_argument("--coordinator", default=None,
-                    help="shared coordinator directory (the fleet's file plane)")
+                    help="shared coordinator directory (the fleet's file plane) or "
+                         "host:port (a torch.distributed world, one rank a process)")
     ap.add_argument("--grad-compression", choices=["none", "int8_ef"], default=None,
                     help="DP gradient exchange encoding: none = exact fp32 "
                          "(bit for bit a single host), int8_ef = block-int8 + "
@@ -235,16 +247,20 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
     return exp
 
 
-def start_fleet(dist: Optional[DistributedConfig]):
-    """This process's ``FleetContext`` for an enabled ``dist`` (None
-    otherwise): registered with every field of ``dist``, beating from a
-    daemon thread, and past the fleet's startup barrier."""
+def start_fleet(dist: Optional[DistributedConfig], device="cuda"):
+    """This process's ``FleetContext`` for an enabled ``dist`` over a
+    directory (None otherwise): registered with every field of ``dist``,
+    beating from a daemon thread, and past the fleet's startup barrier. A
+    ``host:port`` coordinator starts the ``torch.distributed`` world
+    instead, and returns None."""
     if dist is None or not dist.enabled:
         return None
     fleet_ctx = init_distributed(
-        dist.coordinator, dist.num_hosts, dist.process_id,
+        dist.coordinator, dist.num_hosts, dist.process_id, device=device,
         **{f.name: getattr(dist, f.name) for f in dataclasses.fields(dist)
            if f.name not in ("num_hosts", "process_id", "coordinator")})
+    if fleet_ctx is None:  # a torch.distributed world
+        return None
     fleet_ctx.start_heartbeats()
     fleet_ctx.barrier("startup")
     return fleet_ctx
@@ -263,13 +279,22 @@ def main(argv=None) -> Dict[str, Any]:
         print(f"[train] wrote {args.dump_experiment}")
         return {"experiment": exp}
 
-    fleet_ctx = start_fleet(exp.distributed)
+    fleet_ctx = start_fleet(exp.distributed, args.device)
     pipe = exp.compile(device=args.device)
+    mesh = pipe.ctx.mesh
+    specs = None
+    if pipe.ctx.param_specs is not None:  # a rank mesh: each rank's shards
+        from repro_torch.distributed import sharding as shr
+        from repro_torch.rl.trainer import TrainState
+
+        specs = TrainState(params=pipe.ctx.param_specs,
+                           opt=shr.opt_state_specs(pipe.ctx.param_specs))
     start = 0
     if args.resume:
         # into the built state's own tensors (the async worker publishes its
         # version 0 at the first dispatch, so generation follows)
-        _, start = checkpoint.restore(args.resume, pipe.ctx.actor_state)
+        _, start = checkpoint.restore(args.resume, pipe.ctx.actor_state,
+                                      **({"mesh": mesh, "specs": specs} if specs else {}))
         print(f"[train] resumed from {args.resume} at iteration {start}")
 
     obs_rt = pipe.ctx.obs
@@ -294,7 +319,8 @@ def main(argv=None) -> Dict[str, Any]:
             if fleet_ctx is not None and obs_rt.cfg.fleet_snapshots:
                 fleet_ctx.publish_metrics(it, metrics)
         if args.ckpt_dir and (it + 1) % args.ckpt_every == 0:
-            checkpoint.save(args.ckpt_dir, pipe.ctx.actor_state, step=it + 1)
+            checkpoint.save(args.ckpt_dir, pipe.ctx.actor_state, step=it + 1,
+                            **({"mesh": mesh, "specs": specs} if specs else {}))
             print(f"[train] checkpoint @ {it + 1} -> {args.ckpt_dir}")
     if jsonl_sink is not None:
         jsonl_sink.close()

@@ -67,12 +67,18 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.leaves(grads)))
 
 
+def clip_by_norm(grads, norm: torch.Tensor, max_norm: float):
+    """``grads`` scaled by min(1, max_norm / norm), cast back to each grad's
+    dtype (``norm`` given: a sharded step's norm is global over the ranks)."""
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree.map(lambda g: (g.float() * scale).to(g.dtype), grads)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by min(1, max_norm / norm), cast back to each grad's
     dtype; the global norm before clipping)."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree.map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return clip_by_norm(grads, norm, max_norm), norm
 
 
 def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,

@@ -1,7 +1,16 @@
 """Advantage estimators (port of ``repro.rl.advantage``): GAE (PPO),
 group-relative (GRPO), leave-one-out (RLOO) and global-batch-normalised
-(REINFORCE++), plus masked whitening."""
+(REINFORCE++), plus masked whitening.
+
+On a rank mesh each rank holds its rows of the batch. A normalisation over
+the whole batch (``reinforce_pp``, ``whiten``) takes ``total``, a function
+that sums a tensor over the ranks, and sums its moments through it, so the
+ranks normalise by the global batch's statistics as GSPMD's one program
+does in the JAX package. Group statistics need no ``total``: a rank holds
+whole prompt groups."""
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
@@ -51,16 +60,27 @@ def rloo(rewards: torch.Tensor, mask: torch.Tensor, *, group_size: int):
     return adv[:, None] * mask.float()
 
 
-def reinforce_pp(rewards: torch.Tensor, mask: torch.Tensor, *, eps: float = 1e-6):
-    """REINFORCE++: sequence rewards normalised over the whole batch."""
-    adv = (rewards - torch.mean(rewards)) / (torch.std(rewards, correction=0) + eps)
+def reinforce_pp(rewards: torch.Tensor, mask: torch.Tensor, *, eps: float = 1e-6,
+                 total: Optional[Callable] = None):
+    """REINFORCE++: sequence rewards normalised over the whole batch (over
+    every rank's rows, summed through ``total``, where it is given)."""
+    if total is None:
+        mean, std = torch.mean(rewards), torch.std(rewards, correction=0)
+    else:
+        n = total(torch.tensor(float(rewards.numel()), device=rewards.device))
+        mean = total(torch.sum(rewards)) / n
+        std = torch.sqrt(total(torch.sum(torch.square(rewards - mean))) / n)
+    adv = (rewards - mean) / (std + eps)
     return adv[:, None] * mask.float()
 
 
-def whiten(adv: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Batch-whiten advantages over the masked positions."""
+def whiten(adv: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8,
+           total: Optional[Callable] = None) -> torch.Tensor:
+    """Batch-whiten advantages over the masked positions (of every rank's
+    rows, summed through ``total``, where it is given)."""
+    total = total or (lambda t: t)
     m = mask.float()
-    n = torch.clamp(torch.sum(m), min=1.0)
-    mean = torch.sum(adv * m) / n
-    var = torch.sum(torch.square(adv - mean) * m) / n
+    n = torch.clamp(total(torch.sum(m)), min=1.0)
+    mean = total(torch.sum(adv * m)) / n
+    var = total(torch.sum(torch.square(adv - mean) * m)) / n
     return (adv - mean) * torch.rsqrt(var + eps) * m

@@ -94,7 +94,9 @@ class AlgorithmSpec:
     positional signature is ``(rewards, mask, *advantage_inputs)`` where
     ``advantage_inputs`` names the extra databuffer keys it consumes, and it
     returns one array per ``advantage_outputs`` entry (a single array when
-    there is exactly one output).
+    there is exactly one output). On a rank mesh it gets this rank's rows
+    and a keyword ``total``, a function that sums a tensor over the ranks,
+    through which a normalisation over the batch sums its moments.
 
     ``actor_loss(rl, logprob, batch)`` returns a metrics dict containing
     ``"loss"`` — the pre-entropy policy objective (the trainer adds the
@@ -230,14 +232,16 @@ clip_actor_loss = _clip_actor_loss
 # --------------------------------------------------------------------------- #
 # built-in advantage engines
 # --------------------------------------------------------------------------- #
+# A rank holds whole prompt groups, so the group estimators need no
+# ``total``; the batch normalisations sum their moments through it.
 def _make_grpo_advantage(rl):
-    return lambda rewards, mask: adv_mod.grpo(
+    return lambda rewards, mask, total=None: adv_mod.grpo(
         rewards, mask, group_size=rl.group_size
     )
 
 
 def _make_ppo_advantage(rl):
-    def _ppo_adv(rewards, mask, old_lp, ref_lp, values):
+    def _ppo_adv(rewards, mask, old_lp, ref_lp, values, total=None):
         B, T = mask.shape
         kl = old_lp - ref_lp  # per-token KL estimate (k1)
         m = mask.float()
@@ -251,19 +255,19 @@ def _make_ppo_advantage(rl):
         adv, ret = adv_mod.gae(
             tok_rewards, values * m, m, gamma=rl.gamma, lam=rl.gae_lambda
         )
-        return adv_mod.whiten(adv, m), ret
+        return adv_mod.whiten(adv, m, total=total), ret
 
     return _ppo_adv
 
 
 def _make_rloo_advantage(rl):
-    return lambda rewards, mask: adv_mod.rloo(
+    return lambda rewards, mask, total=None: adv_mod.rloo(
         rewards, mask, group_size=rl.group_size
     )
 
 
 def _make_reinforce_pp_advantage(rl):
-    return lambda rewards, mask: adv_mod.reinforce_pp(rewards, mask)
+    return lambda rewards, mask, total=None: adv_mod.reinforce_pp(rewards, mask, total=total)
 
 
 # --------------------------------------------------------------------------- #

@@ -31,9 +31,28 @@ class RolloutResult(NamedTuple):
     role_mask: Optional[torch.Tensor] = None
 
 
-def row_seeds(gen: torch.Generator, batch: int) -> torch.Tensor:
+class RankRows:
+    """The run's generator as one data-parallel rank sees it: a rank of
+    ``count`` holding rows ``[index * B, (index + 1) * B)`` of a global batch
+    of ``count * B``. :func:`row_seeds` draws the global batch's seeds from
+    ``gen`` and hands back the rank's rows', so every rank advances ``gen``
+    as one device would and samples its rows with that device's seeds."""
+
+    def __init__(self, gen: torch.Generator, index: int, count: int):
+        self.gen, self.index, self.count = gen, index, count
+
+    @property
+    def device(self) -> torch.device:
+        return self.gen.device
+
+
+def row_seeds(gen, batch: int) -> torch.Tensor:
     """``batch`` int32 hash seeds (every 32-bit pattern) from ``gen``, on
-    ``gen``'s device."""
+    ``gen``'s device (a :class:`RankRows` view: this rank's rows of the
+    global batch's seeds)."""
+    if isinstance(gen, RankRows):
+        seeds = row_seeds(gen.gen, batch * gen.count)
+        return seeds[gen.index * batch:(gen.index + 1) * batch]
     return torch.randint(-2**31, 2**31, (batch,), generator=gen,
                          dtype=torch.int64, device=gen.device).to(torch.int32)
 

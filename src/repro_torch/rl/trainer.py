@@ -7,6 +7,15 @@ becomes :func:`value_and_grad`, which runs the loss on detached leaves that
 require grad and takes ``torch.autograd.grad`` over them. The AdamW update
 is made in place (``optim.adamw``): a step uses up the state it is given.
 
+On a rank mesh (``torch.distributed``, one process a device) the steps are
+data-parallel with FSDP state (:func:`make_dp_step`): at rest each rank
+holds its shard of the params and of both AdamW moments under
+``distributed.sharding.param_specs(..., "train")``; a step all-gathers the
+full params, computes the loss on the rank's rows of the batch weighted so
+that the ranks' losses sum to the global-batch loss, reduce-scatters the
+grads into the param shards, clips on the global norm and runs AdamW on the
+shards.
+
 The batch must hold ordinary tensors: rollouts come out of
 ``rl.rollout.generate`` as inference tensors, which autograd refuses to save
 for the backward, so the stage that hands them on clones them first.
@@ -212,3 +221,115 @@ def make_lm_train_step(model: Model, *, lr: float = 3e-4, max_grad_norm: float =
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return step
+
+
+# --------------------------------------------------------------------------- #
+# data parallelism over a rank mesh, FSDP state
+# --------------------------------------------------------------------------- #
+def shard_state(mesh, params, specs) -> TrainState:
+    """A ``TrainState`` of this rank's shards: ``params`` (whole, the same on
+    every rank) cut under ``specs``, and AdamW moments of the shards."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shr
+
+    return init_state(shr.map_with_specs(
+        lambda p, s: collectives.shard(mesh, p, s).clone(), params, specs))
+
+
+def gather_params(mesh, params, specs):
+    """The full params from every rank's shards (all-gathered leaf by leaf;
+    plain local tensors)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shr
+
+    return shr.map_with_specs(lambda p, s: collectives.all_gather(mesh, p, s), params, specs)
+
+
+def _replicas(mesh, spec) -> int:
+    """Ranks that hold the same region of a leaf under ``spec``."""
+    from repro_torch.distributed import sharding as shr
+
+    split = 1
+    for axes in shr.dim_axes(spec, len(spec)):
+        for a in axes:
+            split *= mesh.shape[a]
+    return mesh.num_ranks // split
+
+
+def make_dp_step(mesh, specs, loss_fn: Callable, *, lr: float, max_grad_norm: float,
+                 weight_decay: float = 0.0,
+                 full_params: Optional[Callable[[TrainState], Any]] = None) -> Callable:
+    """A data-parallel ``(state, batch) -> (state, metrics)`` step over a
+    rank mesh. ``state`` holds this rank's shards under ``specs``; ``batch``
+    this rank's rows. ``loss_fn(params, batch) -> (loss, aux)`` is a
+    token-level mean over ``batch["response_mask"]`` (as every RL loss here
+    is), with aux metrics of the same kind. ``full_params(state)`` gives the
+    full params the forward reads (default: all-gathered from the shards).
+
+    Rank r's loss is weighted by ``M_r / max(M, 1)`` (its mask's token count
+    over the global count), so the ranks' losses and grads sum to the
+    global-batch loss's and every metric sums to its global value. The
+    grads cross as fp32 and come back in each leaf's dtype; the global norm
+    is an all-reduce of the shards' squared norms, each counted once over
+    the ranks that hold it."""
+    from repro_torch.distributed import collectives
+
+    spec_list = None
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        nonlocal spec_list
+        full = (full_params(state) if full_params is not None
+                else gather_params(mesh, state.params, specs))
+        count = batch["response_mask"].float().sum()
+        weight = count / torch.clamp(collectives.all_reduce(mesh, count), min=1.0)
+
+        def weighted(p):
+            loss, aux = loss_fn(p, batch)
+            return loss * weight, aux
+
+        (loss, aux), grads = value_and_grad(weighted, full)
+        del full
+        names = sorted(aux)
+        local = torch.stack([loss.float()] + [aux[k].float() * weight for k in names])
+        summed = collectives.all_reduce(mesh, local)
+        flat, unflatten = tree.flatten(grads)
+        if spec_list is None:
+            from repro_torch.distributed import sharding as shr
+
+            spec_list = shr.spec_leaves(specs)
+        shards = collectives.reduce_scatter(mesh, flat, spec_list)
+        del grads, flat
+        sq = sum(torch.sum(torch.square(g)) / _replicas(mesh, sp)
+                 for g, sp in zip(shards, spec_list))
+        gnorm = torch.sqrt(collectives.all_reduce(mesh, sq))
+        shards = unflatten([g.to(p.dtype) for g, p in zip(shards, tree.leaves(state.params))])
+        shards = adamw.clip_by_norm(shards, gnorm, max_grad_norm)
+        params, opt = adamw.update(shards, state.opt, state.params, lr=lr,
+                                   weight_decay=weight_decay)
+        metrics = {k: summed[i + 1] for i, k in enumerate(names)}
+        return TrainState(params, opt), dict(metrics, loss=summed[0], grad_norm=gnorm)
+
+    return step
+
+
+def make_dp_actor_step(model: Model, rl: RLConfig, mesh, specs, *, algorithm=None,
+                       full_params: Optional[Callable[[TrainState], Any]] = None) -> Callable:
+    """:func:`make_actor_step` over a rank mesh (:func:`make_dp_step`)."""
+    spec = _resolve_algorithm(rl, algorithm)
+    return make_dp_step(
+        mesh, specs, lambda p, b: actor_loss_fn(model, rl, p, b, algorithm=spec),
+        lr=rl.lr, max_grad_norm=rl.max_grad_norm, weight_decay=rl.weight_decay,
+        full_params=full_params)
+
+
+def make_dp_critic_step(cfg: ModelConfig, rl: RLConfig, mesh, specs) -> Callable:
+    """:func:`make_critic_step` over a rank mesh (:func:`make_dp_step`)."""
+
+    def loss_fn(p, batch):
+        v = critic_mod.values_fn(cfg, p, batch["tokens"], remat=True)
+        out = losses.value_loss(v, batch["old_values"], batch["returns"],
+                                batch["response_mask"], clip_eps=rl.clip_eps)
+        return out.pop("loss"), out
+
+    return make_dp_step(mesh, specs, loss_fn, lr=rl.critic_lr,
+                        max_grad_norm=rl.max_grad_norm)

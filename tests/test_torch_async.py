@@ -237,8 +237,15 @@ def test_version_store_publishes_monotone_copies():
     store.publish(params, version=5)  # gaps are fine (skipped publishes)
     assert store.version == 5 and store.current.params["w"][0, 0] == 1.0
     assert store.publish(None).params is None and store.version == 6
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 8: distributed"):
+    # the train -> serve reshard rides along when a mesh is given, as in JAX
+    with pytest.raises(ValueError, match="target_specs requires a mesh"):
         store.publish(params, target_specs={})
+    from repro_torch.core.databuffer import DeviceMesh
+
+    v7 = store.publish(params, mesh=DeviceMesh("cpu"), target_specs={"w": ("data", None),
+                                                                     "b": (None,)})
+    assert v7.version == 7 and torch.equal(v7.params["w"], params["w"])
+    assert v7.params["w"].data_ptr() != params["w"].data_ptr()
 
 
 def test_pipeline_weight_versions_track_updates_as_copies():

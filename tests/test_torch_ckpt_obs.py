@@ -186,8 +186,12 @@ def test_restore_writes_into_the_template_and_refuses_a_mismatch(tmp_path):
                  step=template.step)
     with pytest.raises(ValueError, match=r"\.params\['scale'\] is float32"):
         checkpoint.restore(str(tmp_path), wrong)
-    with pytest.raises(NotImplementedError, match="item 8: distributed"):
-        checkpoint.restore(str(tmp_path), template, mesh=object())
+    # onto a mesh of one device (no world): every leaf whole, bit for bit
+    from repro_torch.core.databuffer import DeviceMesh
+
+    onto = tree.map(torch.zeros_like, tt)
+    checkpoint.restore(str(tmp_path), onto, mesh=DeviceMesh("cpu"))
+    assert port_bits(onto) == port_bits(tt)
 
 
 # --------------------------------------------------------------------------- #

@@ -37,6 +37,7 @@ from repro.rl import trainer as jtrainer
 from repro_torch import bridge
 from repro_torch.api import ExperimentSpec
 from repro_torch.configs import (
+    AsyncPipelineConfig,
     DataCoordinatorConfig,
     DistributedConfig,
     RolloutEngineConfig,
@@ -44,9 +45,8 @@ from repro_torch.configs import (
     reduced,
 )
 from repro_torch.core import DAG, Node, NodeType, Role, build_pipeline, default_registry, stages
-from repro_torch.distributed.weight_sync import WeightVersionStore
-from repro_torch.ft import checkpoint
 from repro_torch.launch import train
+from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.rl import trainer
 from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
 from torch_arena import fp32_arena, jax_fp32_arena
@@ -400,19 +400,26 @@ def test_coordinator_flags_layer_on_an_experiment_file(tmp_path, flag, field, va
         {f.replace("-", "_") for f in train.COORDINATOR_FLAGS}
 
 
-# the fleet is ported; its host:port coordinator (torch.distributed) is not
-@pytest.mark.parametrize("flag", [["--num-hosts", "2", "--coordinator", "localhost:1234"]])
-def test_unported_flags_raise(flag):
+# the fleet and its host:port coordinator (torch.distributed) are ported; a
+# file-plane host of several devices is not
+@pytest.mark.parametrize("flag", [["--num-hosts", "2", "--coordinator", "coord"]])
+def test_unported_flags_raise(flag, tmp_path):
+    exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE),
+                         distributed=DistributedConfig(devices_per_host=2))
+    path = tmp_path / "exp.json"
+    path.write_text(exp.to_json())
+    flag = [str(tmp_path / f) if f == "coord" else f for f in flag]
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
-        train.main(["--smoke", "--device", "cpu", "--iters", "1", *flag])
+        train.main(["--experiment", str(path), "--device", "cpu", "--iters", "1", *flag])
 
 
 @pytest.mark.parametrize("option", ["distributed", "mesh_shape"])
 def test_unported_options_raise(option):
-    # a fleet host of several devices waits for the sharding layer
+    # a fleet host of several devices and tensor-parallel model stages wait
+    # for the rest of the sharding layer
     value = {"distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c",
                                               devices_per_host=2),
-             "mesh_shape": (2, 1)}[option]
+             "mesh_shape": (2, 2)}[option]
     exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value})
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
         exp.compile(device="cpu")
@@ -485,16 +492,30 @@ def _layer_cfg(**kw):
 
 # every NotImplementedError of the port, and the ROADMAP queue 1 item that
 # ports its subsystem
+def _launch_experiment(**kw):
+    """``launch.train`` on an experiment file of the smoke gemma-2b with the
+    spec fields ``kw``."""
+    import tempfile
+
+    exp = dataclasses.replace(ExperimentSpec(model=_layer_cfg()), **kw)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/exp.json"
+        with open(path, "w") as f:
+            f.write(exp.to_json())
+        return train.main(["--experiment", path, "--device", "cpu", "--iters", "1"])
+
+
 NOT_PORTED_CASES = {
-    "coordinator_address": (8, lambda: train.main(
-        SMALL + ["--num-hosts", "2", "--coordinator", "localhost:1234"])),
     "devices_per_host": (8, lambda: ExperimentSpec(
         model=_layer_cfg(), distributed=DistributedConfig(
             num_hosts=2, coordinator="/unused", devices_per_host=2)).compile(device="cpu")),
-    "option_mesh": (8, lambda: ExperimentSpec(model=_layer_cfg(), mesh_shape=(2, 1)).compile(
+    "fleet_model_parallel": (8, lambda: make_fleet_mesh(2, model_parallel=2, device="cpu")),
+    "model_parallel_spec": (8, lambda: ExperimentSpec(model=_layer_cfg(), mesh_shape=(2, 2)).compile(
         device="cpu")),
-    "publish_reshard": (8, lambda: WeightVersionStore().publish({}, mesh=object())),
-    "restore_mesh": (8, lambda: checkpoint.restore("ckpts", {}, mesh=object())),
+    "model_parallel_launch": (8, lambda: _launch_experiment(mesh_shape=(1, 2))),
+    "async_rank_mesh": (8, lambda: ExperimentSpec(
+        model=_layer_cfg(), mesh_shape=(2, 1),
+        async_pipeline=AsyncPipelineConfig(enabled=True)).compile(device="cpu")),
 }
 ITEM_NAMES = {8: "distributed"}
 
