@@ -111,7 +111,8 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      128; budgets 8-128; 128 new at most; buckets of 32) through lockstep,
      the engine with one slot a prompt (early exit only) and with 16 slots
      (refill): response tokens/s, decode steps, ``lockstep_waste``, slot
-     occupancy and wall ms, medians of 3 after a warm-up; the kernel path
+     occupancy and wall ms, medians of 2 after a warm-up (3 until phase 18
+     came, to keep the script inside its time); the kernel path
      against the plain path; the refill arm's launches equal to its
      prefills and decode steps.
  12. The async off-policy pipeline and multi-turn episodes (qwen freed):
@@ -192,7 +193,21 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      (64 heads on 8 of 128, 32,768 slots over the ranks, B = 8, bf16)
      against the one-rank kernel and the plain version. Prints the
      iteration, all-gather and reduce-scatter ms and bytes, the peaks, and
-     the decode's kernel, gather and merge ms.
+     the decode's kernel, gather and merge ms, beside the plain version's
+     and one SDPA call's ms at a rank's slots and at the whole cache.
+ 18. Tensor-parallel model stages (``tp_phase``). A: the vocab-sharded
+     ``fused_sample`` on 2 shards of gemma-2b's tied head (B = 8 and 64)
+     and qwen2.5-7b's untied head (B = 8), each shard's state (``col_offset``,
+     ``state=True``) merged in rank order, against the one-device kernel:
+     tokens bit for bit, with a tie across the shard boundary. B: two ranks
+     of one gloo group on the card (``chip_smoke.py --tp-rank``) on a
+     (data 1, model 2) mesh: ``launch.train --coordinator 127.0.0.1:PORT``
+     on phase 16's file with ``"mesh_shape": [1, 2]``, 3 GRPO iterations
+     (launches of every iteration; against phase 16's solo run; the
+     replicated leaves bit for bit across the ranks; a fixed batch's
+     logprobs and every leaf's gradient on the shards against one device).
+     Prints each rank's iteration ms, collectives' calls, ms and bytes, the
+     peaks, and the sampler's kernel, gather and merge ms.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -2766,7 +2781,7 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
 # a prompt (early exit only) and with Q_SLOTS slots (refill), each arm one
 # warm-up then Q_TIMED timed runs
 Q_PROMPTS, Q_MIN_PROMPT, Q_PROMPT, Q_NEW, Q_BUCKET = 32, 32, 128, 128, 32
-Q_MIN_BUDGET, Q_SLOTS, Q_TIMED, Q_SEED = 8, 16, 3, 11
+Q_MIN_BUDGET, Q_SLOTS, Q_TIMED, Q_SEED = 8, 16, 2, 11
 Q_TEMPERATURE = 1.0  # RLConfig's default: rollouts are sampled
 
 
@@ -4803,9 +4818,9 @@ def shard_rank(torch, args_path: str) -> int:
     init = {}
     received = [0]
 
-    def counted_gather(mesh, local, spec_):
+    def counted_gather(mesh, local, spec_, **kw):
         # bytes this rank receives: (n - 1) shards of each axis it gathers over
-        out = saved[4](mesh, local, spec_)
+        out = saved[4](mesh, local, spec_, **kw)
         if mesh.torch_mesh is not None:
             received[0] += (out.numel() - local.numel()) * local.element_size()
         return out
@@ -4818,15 +4833,15 @@ def shard_rank(torch, args_path: str) -> int:
             return out
         return run
 
-    def reduce(mesh, tensors, specs):
+    def reduce(mesh, tensors, specs, axes=None):
         fault = spec.get("fault")
         if fault == "unsummed":
             return [collectives.shard(mesh, t.float(), s).clone() for t, s in zip(tensors, specs)]
-        out = saved[1](mesh, tensors, specs)
+        out = saved[1](mesh, tensors, specs, axes=axes)
         return [g * mesh.num_ranks for g in out] if fault == "scaled" else out
 
-    def timed_reduce(mesh, tensors, specs):
-        out, ms = sync_ms(torch, lambda: reduce(mesh, tensors, specs))
+    def timed_reduce(mesh, tensors, specs, axes=None):
+        out, ms = sync_ms(torch, lambda: reduce(mesh, tensors, specs, axes))
         coll["reduce"].append({"ms": ms, "buffer_bytes": 4 * sum(t.numel() for t in tensors)})
         return out
 
@@ -4940,6 +4955,21 @@ def shard_rank(torch, args_path: str) -> int:
         gather_ms.append(t)
     merge_ms = device_ms(lambda: ops.combine_decode_shards(o_all, lse_all, return_lse=True))
     whole_ms = device_ms(lambda: ops.decode_attention(q, k, v, cl))
+    # the yardsticks of the same (o, lse) work: the plain version, and one
+    # SDPA call (o only) with the lengths as a mask, at a rank's slots and at
+    # the whole cache
+    import torch.nn.functional as F
+
+    def sdpa_call(kk, vv, lens):
+        mask = (torch.arange(kk.shape[1], device=DEV)[None, :] < lens[:, None])[:, None, None]
+        qt, kt, vt = q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+    yardsticks = {"shard_plain_ms": device_ms(lambda: ref.decode_attention(q, ks, vs, eff)),
+                  "shard_sdpa_ms": device_ms(sdpa_call(ks, vs, eff)),
+                  "whole_plain_ms": device_ms(lambda: ref.decode_attention(q, k, v, cl)),
+                  "whole_sdpa_ms": device_ms(sdpa_call(k, v, cl))}
     # what the o hold must reject: no output at all, and the shards' o
     # averaged without their lse weights
     faults = {"zero_o": max_err(torch.zeros_like(o_ref), o_ref),
@@ -4949,12 +4979,12 @@ def shard_rank(torch, args_path: str) -> int:
                      "rows_cache_len": cl.tolist(), "shard_slots": shard_s,
                      "rank1_empty_rows": int((cl <= shard_s).sum()),
                      "kernel_ms": kernel_ms, "gather_ms": statistics.median(gather_ms),
-                     "merge_ms": merge_ms, "one_rank_whole_cache_ms": whole_ms}
+                     "merge_ms": merge_ms, "one_rank_whole_cache_ms": whole_ms, **yardsticks}
     Path(spec["artifact"]).write_text(json.dumps(art))
     return 0
 
 
-def sharding_phase(torch, _build, label="shard", faults=()):
+def sharding_phase(torch, _build, label="shard", faults=(), keep_solo=False):
     """Phase 17: the sharding layer over ``torch.distributed`` with two
     ranks on the card in a gloo group, each rank a ``chip_smoke.py
     --shard-rank`` process (``shard_rank``) of ``launch.train --coordinator
@@ -4983,7 +5013,8 @@ def sharding_phase(torch, _build, label="shard", faults=()):
     in the reduce-scatter, prints its readings and fails unless A's hold
     rejects it. Phase 16's solo params and history are read beside
     SOLO_PARAMS (its solo arm runs first when they are missing, as with
-    ``--only-phase 17``) and removed after. Prints per rank the iteration
+    ``--only-phase 17``) and removed after, unless ``keep_solo`` (phase 18
+    reads them next). Prints per rank the iteration
     ms, the collectives' ms and bytes per step, the peak device GiB, the
     buffer stats, the decode and switch numbers, then ``phase_s``. Returns
     {path: launch counts}."""
@@ -4991,25 +5022,9 @@ def sharding_phase(torch, _build, label="shard", faults=()):
     from repro_torch.rl import algorithms
 
     t_phase = time.perf_counter()
-    exp_path = ROOT / "build" / "fleet_experiment.json"
     work = ROOT / "build" / "shard17"
     work.mkdir(parents=True, exist_ok=True)
-    solo_artifact = SOLO_PARAMS.parent / "host0.artifact.json"
-    if not SOLO_PARAMS.exists():
-        src = experiment_file("pipeline", ARCH_FLAGS, PIPE_RL)
-        spec = json.loads(src.read_text())
-        spec["model"]["num_layers"] = FLEET_LAYERS
-        spec["distributed"] = {"num_hosts": 1, "exchange_timeout_s": 600.0, "dead_after_s": 120.0}
-        exp_path.write_text(json.dumps(spec))
-        SOLO_PARAMS.parent.mkdir(parents=True, exist_ok=True)
-        args = work / "solo.args.json"
-        args.write_text(json.dumps({
-            "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters", str(FLEET_ITERS),
-                     "--num-hosts", "1"],
-            "artifact": str(solo_artifact), "check_int8": False,
-            "save_params": str(SOLO_PARAMS)}))
-        run_hosts(label, "solo", [(args, work / "solo.log")])
-    solo_history = json.loads(solo_artifact.read_text())["history"]
+    exp_path, solo_history = ensure_solo(label, work)
     exp = ExperimentSpec.from_json(exp_path.read_text())
     per_iter, _ = iteration_launches(exp.model, _build.LAUNCHES, exp.rl.max_new_tokens,
                                      algorithms.get_algorithm(exp.rl.algorithm).dag_factory())
@@ -5046,7 +5061,8 @@ def sharding_phase(torch, _build, label="shard", faults=()):
         arts = world("rank")
         fault_arts = {f: world(f"fault_{f}", f) for f in faults}
     finally:
-        SOLO_PARAMS.unlink(missing_ok=True)
+        if not keep_solo:
+            SOLO_PARAMS.unlink(missing_ok=True)
     counts, out = {}, {"layers": FLEET_LAYERS, "ranks": SHARD_RANKS}
 
     def clean(history):
@@ -5120,10 +5136,528 @@ def sharding_phase(torch, _build, label="shard", faults=()):
     return counts
 
 
+# ---- phase 18: tensor-parallel model stages ----
+TP_RANKS = 2
+TP_ITERS = FLEET_ITERS  # one warm-up iteration, then two timed
+# holds of the (1, 2) run against phase 16's solo run (set between the sound
+# run and the planted faults of --tp-faults; PERF.md). They are looser than
+# phase 17's: the ranks sum the bf16 forward in another order, and Adam
+# turns noise-level differences of the entropy bonus's gradient into
+# whole-lr steps, so the trajectories part (on an H100 80GB HBM3 at 700 W:
+# cosine 0.974, distance 0.232); the fixed batch's gradient is the tight hold
+TP_MIN_COSINE = 0.95
+TP_MAX_REL_DISTANCE = 0.35
+TP_METRIC_RTOL = 0.3
+# the leaves replicated over `model` (norms, gemma's K/V projections) end
+# with the same bits on both ranks
+TP_MAX_REPLICA_DIFF = 0.0
+# the last rollout as an actor batch: every leaf's gradient on the ranks'
+# shards, gathered, against one device's (relative L2, the worst leaf)
+TP_MAX_GRAD_REL_ERR = 0.05
+# faults planted for --tp-faults: the K/V projection's copy_to_model dropped
+# (each rank's replicated w_k / w_v takes only its own query heads' share of
+# the gradient), and the MLP's reduce_from_model dropped (each rank keeps its
+# own d_ff columns' partial output)
+TP_FAULTS = ("kv_copy", "mlp_reduce")
+TP_SAMPLER_B = (8, 64)
+
+
+def tp_sampler_phase(torch, ops, ref):
+    """Phase 18 A: the vocab-sharded ``fused_sample`` kernel on TP_RANKS
+    shards of gemma-2b's tied (256,000, 2,048) head at B = 8 and 64, and of
+    qwen2.5-7b's untied (3,584, 152,064) head at B = 8: each shard's launch
+    (``col_offset``, ``state=True``) merged in shard order
+    (``ref.merge_sample_states``) against the one-device kernel on the same
+    h and head, greedy and sampled rows, with two equal logits placed across
+    the shard boundary in greedy row 0: the tokens bit for bit (row 0 the
+    lower index), the logprobs within LOGPROB_TOL, and the shards' tokens
+    against the plain version by ``check_sample``'s rule. The shard's kernel
+    and the merge are timed (the gather is timed in B's ranks). Returns
+    {case: record}."""
+    from repro_torch.kernels import sampling
+
+    gen = torch.Generator(device=DEV).manual_seed(1818)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(torch.bfloat16)
+
+    out = {}
+    for case, (d, V, tied) in {"gemma_tied": (D_MODEL, VOCAB, True),
+                               "qwen_untied": (Q_D_MODEL, Q_VOCAB, False)}.items():
+        w = randn(V, d, scale=0.02) if tied else randn(d, V, scale=d ** -0.5)
+        n = V // TP_RANKS
+        if tied:
+            w[n] = w[n - 1]
+            col = w[n - 1].float()
+        else:
+            w[:, n] = w[:, n - 1]
+            col = w[:, n - 1].float()
+        head = w.t() if tied else w
+        shards = [(w[r * n:(r + 1) * n].t() if tied else w[:, r * n:(r + 1) * n].contiguous())
+                  for r in range(TP_RANKS)]
+        for Bs in TP_SAMPLER_B if tied else TP_SAMPLER_B[:1]:
+            h = randn(Bs, d)
+            h[0] = (col * (8.0 / col.norm())).to(torch.bfloat16)  # row 0's best: the tie
+            seeds = torch.randint(-2**31, 2**31, (Bs,), generator=gen, device=DEV,
+                                  dtype=torch.int64).to(torch.int32)
+            it = torch.where(torch.arange(Bs, device=DEV) % 3 == 0, 0.0, 1.0 / 0.8)
+
+            def sharded():
+                states = []
+                for r, sh in enumerate(shards):
+                    f, i = sampling.fused_sample(h, sh, seeds, it, vocab_size=V,
+                                                 col_offset=r * n, state=True)
+                    states.append((f[:, 0], f[:, 1], f[:, 2], f[:, 3], i.long()))
+                return ref.merge_sample_states(states)
+
+            tok_s, lp_s = sharded()
+            tok_1, lp_1 = ops.fused_sample(h, head, seeds, it, vocab_size=V)
+            require(torch.equal(tok_s, tok_1),
+                    f"tp sampler {case} B={Bs}: {tok_s.tolist()} vs one device {tok_1.tolist()}")
+            require(int(tok_s[0]) == n - 1,
+                    f"tp sampler {case} B={Bs}: the boundary tie took {int(tok_s[0])}, not {n - 1}")
+            ok, err = close(lp_s, lp_1, LOGPROB_TOL)
+            require(ok, f"tp sampler {case} B={Bs}: logprob max abs err {err}")
+            plain_err = check_sample(torch, ref, (tok_s, lp_s), h, head, seeds, it, V,
+                                     f"tp {case} B={Bs}")
+            f0, i0 = sampling.fused_sample(h, shards[0], seeds, it, vocab_size=V, state=True)
+            st = [(f0[:, 0], f0[:, 1], f0[:, 2], f0[:, 3], i0.long())] * TP_RANKS
+            bms, by = bound_ms(n * d * 2 + Bs * d * 2 + Bs * 20, 2 * Bs * n * d,
+                               BF16_TENSOR_FLOP_PER_S)
+            rec = {"shape": {"h": [Bs, d], "head": list(head.shape), "shards": TP_RANKS,
+                             "tied": tied},
+                   "tokens_equal_one_device": True, "tie_token": int(tok_s[0]),
+                   "max_abs_err": err, "plain_logprob_err": plain_err,
+                   "shard_ms": device_ms(lambda: sampling.fused_sample(
+                       h, shards[0], seeds, it, vocab_size=V, col_offset=0, state=True)),
+                   "shard_bound_ms": bms, "shard_bound_by": by,
+                   "merge_ms": device_ms(lambda: ref.merge_sample_states(st)),
+                   "one_device_ms": device_ms(lambda: ops.fused_sample(h, head, seeds, it,
+                                                                       vocab_size=V)),
+                   "shard_library_ms": device_ms(lambda: torch.matmul(h, shards[0]))}
+            out[f"{case}_b{Bs}"] = rec
+            print(json.dumps({"check": f"tp_sampler/{case}/B{Bs}", **rec}), flush=True)
+        del w, head, shards
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(torch, args_path: str) -> int:
+    """The body of ``chip_smoke.py --tp-rank ARGS``: rank r of phase 18's
+    (data 1, model 2) world on the card. ARGS is a json file {"argv",
+    "artifact", "rank", "solo_params", "fault"}.
+
+    ``launch.train.main(argv)`` (``--coordinator 127.0.0.1:PORT``, the
+    experiment file's ``mesh_shape`` [1, 2]) inside ``observed_iterations``;
+    every collective (``collectives.all_reduce`` and ``all_gather``, which
+    the region operators, the head's sums, the sampler's states and the
+    sharded decode call) synchronised, timed and its bytes counted. The init
+    params are kept as ``shard_state`` receives them. After the run: each
+    rank's final params gathered (a leaf replicated over ``model`` from its
+    own copy) against ``solo_params`` (cosine and distance of the
+    displacements), the largest difference between the two ranks' copies of
+    each replicated leaf, the last rollout's logprobs on the ranks' shards
+    against the one-device model on the gathered params, and the
+    vocab-sharded sampler's kernel, gather and merge on the rank's own
+    shard of the head. With ``"fault"`` (one of TP_FAULTS) the fault is
+    planted for the run and the readings after it. Writes the artifact."""
+    from repro_torch import tree
+    from repro_torch.core import worker as worker_mod
+    from repro_torch.distributed import collectives
+    from repro_torch.models import layers
+    from repro_torch.rl import trainer
+
+    spec = json.loads(Path(args_path).read_text())
+    rank = spec["rank"]
+    # one record an iteration: calls, ms and bytes of each collective that
+    # moves data (a reduce over axes of size 1 moves none and is not counted)
+    coll_iters = []
+    saved = {"all_reduce": collectives.all_reduce, "all_gather": collectives.all_gather}
+    init = {}
+
+    def counted(kind):
+        def run(mesh, x, *args, **kw):
+            out, ms = sync_ms(torch, lambda: saved[kind](mesh, x, *args, **kw))
+            if kind == "all_reduce":
+                axes = kw.get("axes", args[0] if args else None)
+                names = [a for a in mesh.axis_names if axes is None or a in axes]
+                moved = any(mesh.shape[a] > 1 for a in names) * x.numel() * x.element_size()
+            else:
+                moved = (out.numel() - x.numel()) * x.element_size()
+            if moved and coll_iters:
+                c = coll_iters[-1][kind]
+                c["calls"] += 1
+                c["ms"] += ms
+                c["bytes"] += moved
+            return out
+        return run
+
+    run_iteration = worker_mod.DAGWorker.run_iteration
+
+    def run_counted(self):
+        coll_iters.append({k: {"calls": 0, "ms": 0.0, "bytes": 0} for k in saved})
+        return run_iteration(self)
+
+    kept_shard_state = trainer.shard_state
+
+    def kept_init(mesh, params, specs):
+        init["params"] = [t.detach().cpu() for t in tree.leaves(params)]
+        return kept_shard_state(mesh, params, specs)
+
+    fault = spec.get("fault")
+    observers = [(collectives, "all_reduce", counted("all_reduce")),
+                 (collectives, "all_gather", counted("all_gather")),
+                 (trainer, "shard_state", kept_init),
+                 (worker_mod.DAGWorker, "run_iteration", run_counted)]
+    patches = []  # the fault, planted for the run and every reading after it
+    if fault == "kv_copy":
+        def local_kv(cfg, p, k, v):
+            sl = layers.kv_heads_of(cfg, layers.local_heads(cfg, p))
+            return k[..., sl, :], v[..., sl, :]
+        patches.append((layers, "local_kv", local_kv))
+    elif fault == "mlp_reduce":
+        apply_mlp = layers.apply_mlp
+
+        def unreduced_mlp(cfg, p, x):
+            with patched(layers.tpc, "reduce_from_model", lambda y: y):
+                return apply_mlp(cfg, p, x)
+        patches.append((layers, "apply_mlp", unreduced_mlp))
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches + observers]
+    for obj, name, value in patches + observers:
+        setattr(obj, name, value)
+    try:
+        return tp_rank_body(torch, spec, originals[len(patches):], coll_iters, init)
+    finally:
+        for obj, name, value in originals:
+            setattr(obj, name, value)
+
+
+def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
+    """``tp_rank`` with its patches in place: the run, then every reading,
+    the observers (``observed``: their original attributes) taken out and a
+    planted fault left in."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.distributed import collectives, constraint
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.kernels import _build, ops, ref, sampling
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.rl import trainer
+
+    rank, fault = spec["rank"], spec.get("fault")
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with rss_sampled() as rss, observed_iterations(torch, _build) as seen:
+            res = train.main(spec["argv"])
+    finally:
+        for obj, name, value in observed:
+            setattr(obj, name, value)
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    pipe = res["pipeline"]
+    ctx, mesh = pipe.ctx, pipe.ctx.mesh
+    model = get_model(res["experiment"].model, device=DEV)
+    final = trainer.gather_params(mesh, ctx.actor_state.params, ctx.param_specs)
+    art = {"rank": rank, "mesh": mesh.shape, "coords": mesh.coords, "fault": fault,
+           "backend": dist.get_backend(),
+           "params": sum(t.numel() for t in tree.leaves(final)),
+           "local_params": sum(t.numel() for t in tree.leaves(ctx.actor_state.params)),
+           "history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+           "iterations": [{"ms": r["ms"], "launches": r["launches"], "collectives": c}
+                          for r, c in zip(seen["iterations"], coll_iters)],
+           "launches": launches, "peak_gib": peak_gib, "peak_rss_gib": rss["peak_gib"],
+           "stats": dataclasses.asdict(pipe.buffer.stats),
+           "rows_loaded": int(ctx.dataloader.rows_loaded)}
+    # ---- against the solo run, from this rank's own copies ----
+    solo = torch.load(spec["solo_params"])
+    d_run = dot = n_solo = n_run = 0.0
+    for p0, ps, pr in zip(init["params"], solo, tree.leaves(final)):
+        p0, ps, pr = (t.to(DEV).float() for t in (p0, ps, pr.detach()))
+        a, b = ps - p0, pr - p0
+        d_run += float(torch.sum(torch.square(pr - ps)))
+        n_solo += float(torch.sum(a * a))
+        n_run += float(torch.sum(b * b))
+        dot += float(torch.sum(a * b))
+    art["vs_solo"] = {"cosine": dot / max((n_solo * n_run) ** 0.5, 1e-30),
+                      "rel_distance": (d_run / max(n_solo, 1e-30)) ** 0.5,
+                      "solo_displacement": n_solo ** 0.5, "run_displacement": n_run ** 0.5}
+    del solo, init["params"]
+    # ---- the replicated leaves: the same bits on both model ranks ----
+    diffs = {}
+    for key, leaf, sp in zip([k for k, _ in tree.leaves_with_keys(ctx.actor_state.params)],
+                             tree.leaves(ctx.actor_state.params),
+                             shr.spec_leaves(ctx.param_specs, ctx.actor_state.params)):
+        if "model" in [a for axes in shr.dim_axes(sp, leaf.dim()) for a in axes]:
+            continue
+        both = collectives.all_gather(mesh, leaf.detach()[None], ("model",), axes=("model",))
+        diffs[key] = float((both[0].float() - both[1].float()).abs().max())
+    art["replicas"] = {"leaves": len(diffs), "max_abs_diff": max(diffs.values()),
+                       "worst": max(diffs, key=diffs.get)}
+    # ---- the last rollout's logprobs: the ranks' shards against one device ----
+    tokens = seen["tokens"][-1].clone()
+    with torch.no_grad():
+        with constraint.use_mesh(mesh):
+            lp_tp, _ = model.logprobs(ctx.model_params(), tokens)
+        lp_one, _ = model.logprobs(final, tokens)
+    ok, err = close(lp_tp[:, 1:], lp_one[:, 1:], BF16_TOL)
+    art["logprobs"] = {"held": ok, "max_abs_err": err, "shape": list(tokens.shape)}
+    # ---- the same rollout as an actor batch: the loss and every leaf's
+    # gradient on the ranks' shards (gathered) against one device ----
+    rl = res["experiment"].rl
+    g = torch.Generator(device=DEV).manual_seed(1820)
+    mask = torch.zeros(tokens.shape, dtype=torch.bool, device=DEV)
+    mask[:, tokens.shape[1] - rl.max_new_tokens:] = True
+    batch = {"tokens": tokens, "response_mask": mask,
+             "old_logprob": (lp_one * mask).detach(), "ref_logprob": (lp_one * mask).detach(),
+             "advantages": torch.randn((tokens.shape[0], 1), generator=g, device=DEV) * mask}
+    with constraint.use_mesh(mesh):
+        (loss_tp, _), g_tp = trainer.value_and_grad(
+            lambda p: trainer.actor_loss_fn(model, rl, p, batch), ctx.model_params())
+    g_tp = trainer.gather_params(mesh, g_tp, ctx.param_specs)
+    (loss_one, _), g_one = trainer.value_and_grad(
+        lambda p: trainer.actor_loss_fn(model, rl, p, batch), final)
+    num = den = 0.0
+    leaf_errs = {}
+    for (key, a), b in zip(tree.leaves_with_keys(g_tp), tree.leaves(g_one)):
+        d2 = float(torch.sum(torch.square(a.float() - b.float())))
+        n2 = float(torch.sum(torch.square(b.float())))
+        num, den = num + d2, den + n2
+        leaf_errs[key] = (d2 / max(n2, 1e-30)) ** 0.5
+    worst = max(leaf_errs, key=leaf_errs.get)
+    art["gradient"] = {"loss_rel_err": abs(float(loss_tp) - float(loss_one))
+                       / max(abs(float(loss_one)), 1e-30),
+                       "rel_err": (num / max(den, 1e-30)) ** 0.5,
+                       "leaf_max_rel_err": leaf_errs[worst], "worst_leaf": worst,
+                       "leaf_median_rel_err": statistics.median(leaf_errs.values())}
+    del final, g_tp, g_one
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fault:
+        Path(spec["artifact"]).write_text(json.dumps(art))
+        return 0
+    # ---- the vocab-sharded sampler on this rank's shard of the head ----
+    head = ctx.serve_params()["embed"].t()
+    cfg = res["experiment"].model
+    n = head.shape[1]
+    g = torch.Generator(device=DEV).manual_seed(1819)
+    samp = {}
+    for Bs in TP_SAMPLER_B:
+        h = torch.randn((Bs, head.shape[0]), generator=g, device=DEV).to(torch.bfloat16)
+        seeds = torch.randint(-2**31, 2**31, (Bs,), generator=g, device=DEV,
+                              dtype=torch.int64).to(torch.int32)
+        it = torch.full((Bs,), 1.0 / 0.8, device=DEV)
+        f, i = sampling.fused_sample(h, head, seeds, it, vocab_size=cfg.vocab_size,
+                                     col_offset=mesh.coords["model"] * n, state=True)
+        wire = torch.cat([f.double(), i.double()[:, None]], dim=1)[None]
+        gather = []
+        for _ in range(DECODE_REPS):
+            every, t = sync_ms(torch, lambda: collectives.all_gather(
+                mesh, wire, ("model",), axes=("model",)))
+            gather.append(t)
+        states = [tuple(part[:, k].float() for k in range(4)) + (part[:, 4].long(),)
+                  for part in every]
+        tok, _ = ref.merge_sample_states(states)
+        tok2, _ = ops.fused_sample_shard(mesh, h, head, seeds, it, vocab_size=cfg.vocab_size,
+                                         col_offset=mesh.coords["model"] * n)
+        require(torch.equal(tok, tok2), f"tp rank {rank}: the shard sampler's two merges differ")
+        samp[f"b{Bs}"] = {
+            "kernel_ms": device_ms(lambda: sampling.fused_sample(
+                h, head, seeds, it, vocab_size=cfg.vocab_size,
+                col_offset=mesh.coords["model"] * n, state=True)),
+            "gather_ms": statistics.median(gather),
+            "merge_ms": device_ms(lambda: ref.merge_sample_states(states))}
+    art["sampler"] = samp
+    Path(spec["artifact"]).write_text(json.dumps(art))
+    return 0
+
+
+def ensure_solo(label: str, work: Path):
+    """Phase 16's solo run on its experiment file (FLEET_LAYERS layers):
+    its final params beside SOLO_PARAMS (run again when missing, as with
+    ``--only-phase 17`` or 18) and its history. Returns (the experiment
+    file, the history)."""
+    exp_path = ROOT / "build" / "fleet_experiment.json"
+    solo_artifact = SOLO_PARAMS.parent / "host0.artifact.json"
+    if not SOLO_PARAMS.exists():
+        src = experiment_file("pipeline", ARCH_FLAGS, PIPE_RL)
+        spec = json.loads(src.read_text())
+        spec["model"]["num_layers"] = FLEET_LAYERS
+        spec["distributed"] = {"num_hosts": 1, "exchange_timeout_s": 600.0, "dead_after_s": 120.0}
+        exp_path.write_text(json.dumps(spec))
+        SOLO_PARAMS.parent.mkdir(parents=True, exist_ok=True)
+        args = work / "solo.args.json"
+        args.write_text(json.dumps({
+            "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters", str(FLEET_ITERS),
+                     "--num-hosts", "1"],
+            "artifact": str(solo_artifact), "check_int8": False,
+            "save_params": str(SOLO_PARAMS)}))
+        run_hosts(label, "solo", [(args, work / "solo.log")])
+    return exp_path, json.loads(solo_artifact.read_text())["history"]
+
+
+def tp_phase(torch, ops, ref, _build, records, label="tp", faults=()):
+    """Phase 18: tensor-parallel model stages on the card. A: the
+    vocab-sharded sampler (``tp_sampler_phase``). B: two ranks of one gloo
+    group on ``cuda:0``, each a ``chip_smoke.py --tp-rank`` process
+    (``tp_rank``) of ``launch.train --coordinator 127.0.0.1:PORT
+    --num-hosts 2 --process-id r`` on phase 16's experiment file with
+    ``"mesh_shape": [1, 2]`` (gemma-2b at full width on FLEET_LAYERS layers,
+    TP_ITERS GRPO iterations, the (data 1, model 2) rank mesh). Held:
+
+    - every iteration of each rank launches ``iteration_launches`` (the
+      solo run's count: the tensor-parallel step launches each kernel as
+      often as one device), both ranks print the same metrics, no byte
+      through a controller and some redistributions;
+    - each rank's final params against phase 16's solo run: each
+      iteration's SHARD_METRICS within TP_METRIC_RTOL, the displacement's
+      cosine at least TP_MIN_COSINE and distance at most
+      TP_MAX_REL_DISTANCE; every leaf replicated over ``model`` differs
+      between the ranks by at most TP_MAX_REPLICA_DIFF;
+    - the last rollout's logprobs on the ranks' shards within BF16_TOL of
+      the one-device model on the gathered params.
+
+    ``faults`` (names of TP_FAULTS) runs B again with each fault planted,
+    prints its readings and fails unless a hold rejects it. Prints per rank
+    the iteration ms, the collectives' calls, ms and bytes an iteration, the
+    peak device GiB and the launches, then ``phase_s``; the sampler's
+    records go into ``records["fused_sample"]["vocab_shard"]``. Removes
+    SOLO_PARAMS. Returns {path: launch counts}."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "tp18"
+    work.mkdir(parents=True, exist_ok=True)
+    sampler = tp_sampler_phase(torch, ops, ref)
+    try:
+        fleet_path, solo_history = ensure_solo(label, work)
+        spec = json.loads(fleet_path.read_text())
+        spec["mesh_shape"] = [1, TP_RANKS]
+        exp_path = ROOT / "build" / "tp_experiment.json"
+        exp_path.write_text(json.dumps(spec))
+        exp = ExperimentSpec.from_json(exp_path.read_text())
+        per_iter, _ = iteration_launches(exp.model, _build.LAUNCHES, exp.rl.max_new_tokens,
+                                         algorithms.get_algorithm(exp.rl.algorithm).dag_factory())
+        import socket
+
+        def world(name, fault=None):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            host_args = []
+            for r in range(TP_RANKS):
+                args = work / f"{name}{r}.args.json"
+                args.write_text(json.dumps({
+                    "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters",
+                             str(TP_ITERS), "--num-hosts", str(TP_RANKS), "--process-id",
+                             str(r), "--coordinator", f"127.0.0.1:{port}"],
+                    "artifact": str(work / f"{name}{r}.artifact.json"), "rank": r,
+                    "solo_params": str(SOLO_PARAMS), "fault": fault}))
+                host_args.append((args, work / f"{name}{r}.log"))
+            return run_hosts(label, name, host_args, mode="--tp-rank")
+
+        arts = world("rank")
+        fault_arts = {f: world(f"fault_{f}", f) for f in faults}
+    finally:
+        SOLO_PARAMS.unlink(missing_ok=True)
+
+    def readings(arts):
+        """The holds over both ranks' readings: (held, readings)."""
+        vs = {"cosine": min(a["vs_solo"]["cosine"] for a in arts),
+              "rel_distance": max(a["vs_solo"]["rel_distance"] for a in arts),
+              "replica_max_abs_diff": max(a["replicas"]["max_abs_diff"] for a in arts),
+              "logprob_max_abs_err": max(a["logprobs"]["max_abs_err"] for a in arts),
+              "logprobs_held": all(a["logprobs"]["held"] for a in arts),
+              "grad_rel_err": max(a["gradient"]["rel_err"] for a in arts),
+              "grad_leaf_max_rel_err": max(a["gradient"]["leaf_max_rel_err"] for a in arts),
+              "grad_worst_leaf": arts[0]["gradient"]["worst_leaf"],
+              "fixed_batch_loss_rel_err": max(a["gradient"]["loss_rel_err"] for a in arts),
+              "metric_rel_errs": {
+                  k: [abs(m[k] - s[k]) / max(abs(s[k]), 1e-30)
+                      for m, s in zip(arts[0]["history"], solo_history)] for k in SHARD_METRICS},
+              # the rollouts: sampled from bf16 logits that the ranks sum in
+              # another order, a token may flip, and the batches part
+              "rollouts_vs_solo": {k: [(m[k], s[k]) for m, s in zip(arts[0]["history"],
+                                                                   solo_history)]
+                                   for k in ("rollout/tokens", "reward/mean")}}
+        held = (vs["cosine"] >= TP_MIN_COSINE and vs["rel_distance"] <= TP_MAX_REL_DISTANCE
+                and vs["replica_max_abs_diff"] <= TP_MAX_REPLICA_DIFF and vs["logprobs_held"]
+                and vs["grad_leaf_max_rel_err"] <= TP_MAX_GRAD_REL_ERR
+                and vs["fixed_batch_loss_rel_err"] <= BF16_TOL
+                and all(e <= TP_METRIC_RTOL for es in vs["metric_rel_errs"].values()
+                        for e in es))
+        return held, vs
+
+    counts, out = {}, {"layers": FLEET_LAYERS, "ranks": TP_RANKS, "mesh": [1, TP_RANKS]}
+
+    def clean(history):
+        return [{k: v for k, v in m.items() if not k.startswith("time/")} for m in history]
+
+    for r, a in enumerate(arts):
+        require(a["backend"] == "gloo" and a["mesh"] == {"data": 1, "model": TP_RANKS}
+                and a["coords"]["model"] == r,
+                f"{label} rank {r}: backend {a['backend']}, mesh {a['mesh']}, {a['coords']}")
+        require(all(it["launches"] == per_iter for it in a["iterations"]),
+                f"{label} rank {r}: launches {[it['launches'] for it in a['iterations']]}, "
+                f"expected {per_iter} an iteration")
+        st = a["stats"]
+        require(st["bytes_through_controller"] == 0 and st["redistributions"] > 0,
+                f"{label} rank {r}: buffer stats {st}")
+        # the ranks of the one data row read every row of every step (its
+        # prompts and its answers)
+        require(a["rows_loaded"] == 2 * TP_ITERS * exp.prompts_per_iter,
+                f"{label} rank {r}: {a['rows_loaded']} rows loaded")
+        timed = a["iterations"][1:]
+        row = {"rank": r, "params": a["params"], "local_params": a["local_params"],
+               "iteration_ms": [it["ms"] for it in a["iterations"]],
+               "timed_iteration_ms": statistics.median(it["ms"] for it in timed),
+               "collectives_per_timed_iteration": {
+                   k: {f: statistics.median(it["collectives"][k][f] for it in timed)
+                       for f in ("calls", "ms", "bytes")} for k in ("all_reduce", "all_gather")},
+               "collectives_warmup": a["iterations"][0]["collectives"],
+               "peak_gib": a["peak_gib"], "peak_rss_gib": a["peak_rss_gib"],
+               "buffer_stats": st, "launches": a["launches"],
+               "launches_implied": {n: TP_ITERS * c for n, c in per_iter.items()},
+               "vs_solo": a["vs_solo"], "replicas": a["replicas"], "logprobs": a["logprobs"],
+               "gradient": a["gradient"], "sampler_on_rank": a["sampler"]}
+        print(json.dumps({f"{label}_rank": row}), flush=True)
+        counts[f"tp_grpo_rank{r}"] = a["launches"]
+    limits = {"min_cosine": TP_MIN_COSINE, "max_rel_distance": TP_MAX_REL_DISTANCE,
+              "metric_rtol": TP_METRIC_RTOL, "max_replica_diff": TP_MAX_REPLICA_DIFF,
+              "max_grad_rel_err": TP_MAX_GRAD_REL_ERR, "logprob_tol": BF16_TOL}
+    # every reading first, the sound run's and the faults', then the holds
+    held, vs = readings(arts)
+    print(json.dumps({"check": f"{label}_against_the_solo_run", **vs, **limits}), flush=True)
+    fault_held = {}
+    for fault, fa in fault_arts.items():
+        fault_held[fault], fvs = readings(fa)
+        print(json.dumps({"check": f"{label}_fault_{fault}_against_the_solo_run",
+                          "held": fault_held[fault], **fvs, **limits}), flush=True)
+    require(clean(arts[0]["history"]) == clean(arts[1]["history"]),
+            f"{label}: the ranks' metrics differ")
+    require(all(m["actor/grad_norm"] > 0 for m in arts[0]["history"]), f"{label}: a zero gradient")
+    require(held, f"{label}: the tensor-parallel run against the solo run's: {vs}")
+    for fault, fheld in fault_held.items():
+        require(not fheld, f"{label}: the holds do not reject the planted fault {fault}")
+    for case, rec in sampler.items():
+        rec["on_ranks"] = {f"rank{a['rank']}": a["sampler"].get(case.split("_")[-1])
+                           for a in arts} if case.startswith("gemma") else None
+    records.setdefault("fused_sample", {})["vocab_shard"] = sampler
+    print(json.dumps({f"{label}_sampler": sampler}), flush=True)
+    out["solo_history"] = solo_history
+    out["history"] = arts[0]["history"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17], default=None,
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18], default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
                          "phase; the full run takes no argument)")
@@ -5135,10 +5669,19 @@ def main(argv=None) -> int:
                     help="with --only-phase 17: comma-separated faults of SHARD_FAULTS to "
                          "plant in the grads' reduce-scatter after the sound run, each of "
                          "which phase 17's hold must reject (how its limits were set)")
+    # one rank of phase 18's world, started by tp_phase
+    ap.add_argument("--tp-rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-faults", default="",
+                    help="with --only-phase 18: comma-separated faults of TP_FAULTS to plant "
+                         "in the tensor-parallel model after the sound run, each of which "
+                         "phase 18's holds must reject (how its limits were set)")
     opts = ap.parse_args(argv)
     faults = [f for f in opts.shard_faults.split(",") if f]
     if faults and (opts.only_phase != 17 or not set(faults) <= set(SHARD_FAULTS)):
         ap.error(f"--shard-faults takes {', '.join(SHARD_FAULTS)}, with --only-phase 17")
+    tp_faults = [f for f in opts.tp_faults.split(",") if f]
+    if tp_faults and (opts.only_phase != 18 or not set(tp_faults) <= set(TP_FAULTS)):
+        ap.error(f"--tp-faults takes {', '.join(TP_FAULTS)}, with --only-phase 18")
 
     import torch
 
@@ -5158,6 +5701,8 @@ def main(argv=None) -> int:
         return fleet_host(torch, opts.fleet_host)
     if opts.shard_rank is not None:
         return shard_rank(torch, opts.shard_rank)
+    if opts.tp_rank is not None:
+        return tp_rank(torch, opts.tp_rank)
 
     t_start = time.perf_counter()
     # ---- phase 1: device and build ----
@@ -5182,7 +5727,8 @@ def main(argv=None) -> int:
                  14: lambda: families_phase(torch, ops, ref, F, _build, serve, generate, {}),
                  15: lambda: ckpt_phase(torch, ops, ref, _build),
                  16: lambda: fleet_phase(torch, _build),
-                 17: lambda: sharding_phase(torch, _build, faults=faults)}
+                 17: lambda: sharding_phase(torch, _build, faults=faults),
+                 18: lambda: tp_phase(torch, ops, ref, _build, {}, faults=tp_faults)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -5287,7 +5833,13 @@ def main(argv=None) -> int:
     # ---- phase 17: the sharding layer over torch.distributed, two ranks on
     # the card (each rank's counts start at 0 in its process and are read
     # after its run; the sharded decode's just before and after it) ----
-    paths.update(sharding_phase(torch, _build))
+    paths.update(sharding_phase(torch, _build, keep_solo=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 18: tensor-parallel model stages, the vocab-sharded sampler
+    # and two ranks of a (data 1, model 2) mesh on the card (each rank's
+    # counts start at 0 in its process and are read after its run) ----
+    paths.update(tp_phase(torch, ops, ref, _build, records))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -5327,6 +5879,8 @@ def main(argv=None) -> int:
                **{f"shard_grpo_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
                                           "fused_sample") for r in range(SHARD_RANKS)},
                **{f"shard_decode_rank{r}": ("decode_attention",) for r in range(SHARD_RANKS)},
+               **{f"tp_grpo_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
+                                       "fused_sample") for r in range(TP_RANKS)},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():

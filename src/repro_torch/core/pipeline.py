@@ -34,9 +34,18 @@ builds the same weights from the seed and keeps its shard of the actor's
 ``make_dp_critic_step``, generation reads the params switched to the serve
 layout (which, at ``model`` = 1, are the full params the actor step reads
 too: one all-gather serves both), the reference params stay whole, and the
-dataloader, generator and stages work on the rank's rows. A mesh
-with ``model`` > 1 (tensor-parallel model stages) is ROADMAP queue 1,
-item 8.
+dataloader, generator and stages work on the rank's rows.
+
+With ``model`` > 1 the model stages of a dense decoder are tensor-parallel
+(``distributed.constraint``, the worker entering the mesh as the model
+code's ambient one): the serve layout is no longer the full params, so the
+logprob stages and the actor step read the train layout gathered over the
+data axes (``WorkerContext.model_params``: this rank's ``model`` shards),
+and the reference params are cut once to the train specs' ``model``
+shards. The ranks of one data row share its rows and seeds. MoE and SSD
+layers, an encoder-decoder, prefix embeddings, ``kv_quant``, a sliding
+window, the continuous engine and the async pipeline on such a mesh are
+ROADMAP queue 1, item 8.
 
 The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 ``compile()`` lands here.
@@ -171,16 +180,30 @@ def _seeds(seed: int):
     return [int(s) for s in np.random.SeedSequence(seed).generate_state(3)]
 
 
-def _refuse_unported_mesh(shape: Dict[str, int],
-                          async_pipeline: Optional[AsyncPipelineConfig]) -> None:
-    """Raise for what a rank mesh cannot run yet: tensor-parallel model
-    stages (``model`` > 1) and the async pipeline."""
+def _refuse_unported_mesh(shape: Dict[str, int], cfg: ModelConfig,
+                          async_pipeline: Optional[AsyncPipelineConfig],
+                          rollout: Optional[RolloutEngineConfig]) -> None:
+    """Raise for what a rank mesh cannot run yet: the async pipeline, and on
+    ``model`` > 1 every model but a dense decoder on the lockstep engine."""
     if math.prod(shape.values()) <= 1:
         return
     if shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"tensor-parallel model stages (a mesh {shape} with model > 1) are not "
-            "ported yet (ROADMAP queue 1, item 8: distributed)")
+        kinds = cfg.layer_kinds()
+        unported = [what for what, hit in (
+            ("MoE layers", any(mlp == "moe" for _, mlp in kinds)),
+            ("SSD layers", any(mixer != "attn" for mixer, _ in kinds)),
+            ("an encoder-decoder", cfg.is_encoder_decoder),
+            ("prefix embeddings", cfg.num_prefix_embeds > 1),
+            ("kv_quant", cfg.kv_quant),
+            ("a sliding window", cfg.sliding_window is not None),
+            ("the continuous rollout engine",
+             rollout is not None and rollout.engine == "continuous"),
+            ("the async pipeline", async_pipeline is not None and async_pipeline.enabled),
+        ) if hit]
+        if unported:
+            raise NotImplementedError(
+                f"tensor-parallel model stages with {unported[0]} (a mesh {shape} with "
+                "model > 1) are not ported yet (ROADMAP queue 1, item 8: distributed)")
     if async_pipeline is not None and async_pipeline.enabled:
         raise NotImplementedError(
             "the async pipeline on a rank mesh is not ported yet "
@@ -225,7 +248,7 @@ def build_pipeline(
     # the rank mesh asked for (a given one, or ``mesh_shape`` over the
     # running world), refused before any world is touched
     asked = mesh_shape if mesh is None else (mesh.shape if mesh.torch_mesh is not None else None)
-    _refuse_unported_mesh(asked or {}, async_pipeline)
+    _refuse_unported_mesh(asked or {}, cfg, async_pipeline, rollout)
     if mesh is None and mesh_shape is not None:
         from repro_torch.launch.mesh import mesh_of
 
@@ -265,10 +288,15 @@ def build_pipeline(
         serve_specs = shr.param_specs(cfg, mesh, actor_params, "serve")
         actor_state = trainer.shard_state(mesh, actor_params, pspecs)
         del actor_params
+        if mesh.shape.get("model", 1) > 1:  # this rank's model shards of the reference
+            ref_params = shr.map_with_specs(
+                lambda p, s: collectives.shard(mesh, p, s, axes=("model",)).clone(),
+                ref_params, pspecs)
+        # the rank's data coordinate: the ranks of one data row share rows and seeds
         data_axes = shr.fsdp_axes(mesh)
+        num_rows = math.prod(mesh.shape[a] for a in data_axes)
         gen = rollout_mod.RankRows(
-            gen, collectives.region(mesh, (mesh.num_ranks,), (data_axes,))[0].start,
-            math.prod(mesh.shape[a] for a in data_axes))
+            gen, collectives.region(mesh, (num_rows,), (data_axes,))[0].start, num_rows)
     else:
         actor_state = trainer.init_state(actor_params)
 
@@ -305,9 +333,10 @@ def build_pipeline(
     if ranked:
         ctx.param_specs, ctx.serve_specs = pspecs, serve_specs
         # at model = 1 the serve layout is the full params: the step reads
-        # the copy generation switched to, so one all-gather serves both
+        # the copy generation switched to, so one all-gather serves both;
+        # at model > 1 it reads the train layout gathered over the data axes
         ctx.engines["actor_step"] = trainer.make_dp_actor_step(
-            model, rl, mesh, pspecs, algorithm=spec, full_params=ctx.serve_params)
+            model, rl, mesh, pspecs, algorithm=spec, full_params=ctx.model_params)
     elif fleet:
         # Fleet DP gradient exchange: split the fused actor step so the
         # gradient crosses the host data plane between grad and apply, bit

@@ -11,7 +11,10 @@ counted the same).
 On a rank mesh (``torch.distributed``, one process a device) each rank runs
 every stage on the rows it holds, under the JAX package's specs.
 Generation reads the actor's params in the serve layout
-(``WorkerContext.serve_params``). The advantage engine gets ``total``, a sum
+(``WorkerContext.serve_params``), the logprob stages in the train layout
+gathered over the data axes (``WorkerContext.model_params``). With
+``model`` > 1 the model stages run tensor-parallel at dp = D, the ranks of
+a data row holding the same rows, and the compute stages at dp = D x M. The advantage engine gets ``total``, a sum
 over the ranks, so that an advantage normalised over the batch (PPO's
 whitening, REINFORCE++) is normalised by the global batch's moments, as
 GSPMD computes it in the JAX package. The stages' metrics are reduced over
@@ -25,6 +28,7 @@ stepped put their ``role_mask``, ``env_rewards`` and ``env_turns`` for
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict
 
 import numpy as np
@@ -52,23 +56,33 @@ def _ranked(ctx) -> bool:
     return getattr(ctx.mesh, "torch_mesh", None) is not None
 
 
-def _total(ctx, x: torch.Tensor) -> float:
+def _total(ctx, x: torch.Tensor, axes=None) -> float:
     """The sum of ``x`` over the global batch (this rank's rows, reduced
-    over the ranks on a rank mesh)."""
+    over the ranks on a rank mesh: over ``axes``, the axes that split the
+    rows, or every axis)."""
     t = x.float().sum()
     if _ranked(ctx):
         from repro_torch.distributed import collectives
 
-        t = collectives.all_reduce(ctx.mesh, t)
+        t = collectives.all_reduce(ctx.mesh, t, axes=axes)
     return float(t)
 
 
-def _mean(ctx, x: torch.Tensor) -> float:
+def _mean(ctx, x: torch.Tensor, axes=None) -> float:
     """The mean of ``x`` over the global batch (the ranks hold equal row
     counts)."""
     if not _ranked(ctx):
         return float(x.float().mean())
-    return _total(ctx, x) / (x.numel() * ctx.mesh.num_ranks)
+    n = ctx.mesh.num_ranks if axes is None else math.prod(ctx.mesh.shape[a] for a in axes)
+    return _total(ctx, x, axes) / (x.numel() * n)
+
+
+def _model_axes(ctx):
+    """The axes that split a model stage's rows (None: every axis, as at
+    ``model`` = 1)."""
+    from repro_torch.rl import trainer
+
+    return trainer.data_axes(ctx.mesh) if _ranked(ctx) else None
 
 
 # --------------------------------------------------------------------------- #
@@ -108,10 +122,10 @@ def actor_generate(ctx, buffer, node: Node) -> Dict:
         dev = res.tokens.device
         buffer.put("env_rewards", torch.from_numpy(env_out["rewards"]).to(dev), model_spec)
         buffer.put("env_turns", torch.from_numpy(env_out["turns"]).to(dev), model_spec)
-    gen_tokens = _total(ctx, res.lengths)
+    gen_tokens = _total(ctx, res.lengths, _model_axes(ctx))
     ctx.counters["gen_tokens"] = ctx.counters.get("gen_tokens", 0.0) + gen_tokens
     out = {
-        "rollout/mean_len": _mean(ctx, res.lengths),
+        "rollout/mean_len": _mean(ctx, res.lengths, _model_axes(ctx)),
         "rollout/tokens": gen_tokens,
     }
     stats = getattr(engine, "last_stats", None)
@@ -127,7 +141,7 @@ def actor_logprobs(ctx, buffer, node: Node) -> Dict:
     model_spec, _ = _specs(ctx)
     tokens = buffer.get("tokens", model_spec)
     with torch.no_grad():
-        lp, _ = ctx.engines["logprobs"](ctx.serve_params(), tokens)
+        lp, _ = ctx.engines["logprobs"](ctx.model_params(), tokens)
     buffer.put("old_logprob", lp * buffer.get("response_mask", model_spec), model_spec)
     return {}
 
@@ -149,7 +163,8 @@ def critic_values(ctx, buffer, node: Node) -> Dict:
         if ctx.critic_specs is not None:  # a rank mesh: the critic's shards, gathered
             from repro_torch.rl import trainer
 
-            params = trainer.gather_params(ctx.mesh, params, ctx.critic_specs)
+            params = trainer.gather_params(ctx.mesh, params, ctx.critic_specs,
+                                           axes=trainer.data_axes(ctx.mesh))
         v = ctx.engines["values"](params, tokens)
     buffer.put("old_values", v, model_spec)
     return {}

@@ -29,6 +29,7 @@ from repro_torch.core.dag import Node, NodeType
 from repro_torch.core.databuffer import DistributedDatabuffer
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.core.registry import Registry
+from repro_torch.distributed import constraint
 from repro_torch.ft import straggler
 from repro_torch.obs.trace import get_tracer
 
@@ -72,6 +73,7 @@ class WorkerContext:
     serve_specs: Any = None
     critic_specs: Any = None
     _serve_cache: Any = None
+    _model_cache: Any = None
 
     def serve_params(self, state=None):
         """The params of ``state`` (the actor's by default) that generation
@@ -90,6 +92,25 @@ class WorkerContext:
                                         specs=self.param_specs)
             self._serve_cache = (state, params)
         return self._serve_cache[1]
+
+
+    def model_params(self, state=None):
+        """The params of ``state`` (the actor's by default) that the logprob
+        stages and the actor step read: with ``model`` > 1 its train-layout
+        shards gathered over the data axes (this rank's ``model`` shards),
+        once for each new state; else :meth:`serve_params`."""
+        state = self.actor_state if state is None else state
+        if self.param_specs is None or self.mesh.shape.get("model", 1) == 1:
+            return self.serve_params(state)
+        cached = self._model_cache
+        if cached is None or cached[0] is not state:
+            from repro_torch.rl import trainer
+
+            self._model_cache = None
+            params = trainer.gather_params(self.mesh, state.params, self.param_specs,
+                                           axes=trainer.data_axes(self.mesh))
+            self._model_cache = (state, params)
+        return self._model_cache[1]
 
 
 class PromptSource:
@@ -148,8 +169,9 @@ class DAGWorker:
         """One RL iteration: execute the serialized chain; the databuffer is
         the intermediary state manager between nodes."""
         metrics: Dict[str, float] = {}
-        for node, fn in self.queue:
-            self.execute_node(node, fn, metrics)
+        with constraint.use_mesh(self.ctx.mesh):  # the model code's ambient mesh
+            for node, fn in self.queue:
+                self.execute_node(node, fn, metrics)
         self.buffer.clear()  # intermediate data is transient (paper §6)
         if self.ctx.obs is not None:
             self.ctx.obs.registry.record_dict(metrics)

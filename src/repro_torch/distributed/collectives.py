@@ -14,7 +14,14 @@ move shards by the spec's ``named`` placements:
   all-gather and a slice;
 - :func:`reduce_scatter` sums a value that every rank holds whole (a
   gradient of its own rows) over the ranks and keeps this rank's shard;
-- :func:`all_reduce` sums over every rank.
+- :func:`all_reduce` sums (or takes the max) over every rank.
+
+Each takes ``axes=``, the mesh axes it works over (None: every axis): a
+tensor-parallel step sums its grads over the data axes only and keeps the
+``model`` shard, and the model code reduces over ``model`` only.
+:class:`CopyToModel`, :class:`ReduceFromModel` and :class:`GatherFromModel`
+are the Megatron region operators over ``model`` as autograd Functions
+(``distributed.constraint`` applies them on the ambient mesh).
 
 **Transport.** ``torch.distributed``'s gloo backend is the one that runs
 where ranks share a card (NCCL refuses two ranks on one device), and gloo
@@ -49,55 +56,68 @@ def transport(mesh) -> torch.device:
     return torch.device("cpu") if dist.get_backend() == "gloo" else mesh.device
 
 
-def region(mesh, shape: Sequence[int], spec, coords=None) -> Tuple[slice, ...]:
+def _splits(spec, ndim: int, axes) -> Tuple[Tuple[str, ...], ...]:
+    """``shr.dim_axes`` restricted to the mesh axes in ``axes`` (None: all)."""
+    per_dim = shr.dim_axes(spec, ndim)
+    if axes is None:
+        return per_dim
+    return tuple(tuple(a for a in d if a in axes) for d in per_dim)
+
+
+def region(mesh, shape: Sequence[int], spec, coords=None, axes=None) -> Tuple[slice, ...]:
     """The region of a global ``shape`` that the rank at ``coords`` (this
     rank's by default) holds under ``spec``: each split dim cut into equal
-    blocks, indexed row-major over its axes (the first the outermost)."""
+    blocks, indexed row-major over its axes (the first the outermost). With
+    ``axes``, only those mesh axes split ``shape``."""
     coords = mesh.coords if coords is None else coords
     out = []
-    for dim, axes in zip(shape, shr.dim_axes(spec, len(shape))):
+    for dim, split in zip(shape, _splits(spec, len(shape), axes)):
         n, idx = 1, 0
-        for a in axes:
+        for a in split:
             n *= mesh.shape[a]
             idx = idx * mesh.shape[a] + coords[a]
         if dim % n:
-            raise ValueError(f"dim {dim} of {tuple(shape)} does not split over {axes} ({n})")
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split over {split} ({n})")
         step = dim // n
         out.append(slice(idx * step, (idx + 1) * step))
     return tuple(out)
 
 
-def global_shape(mesh, local_shape: Sequence[int], spec) -> Tuple[int, ...]:
-    """The global shape whose shard under ``spec`` is ``local_shape``."""
-    return tuple(n * math.prod(mesh.shape[a] for a in axes)
-                 for n, axes in zip(local_shape, shr.dim_axes(spec, len(local_shape))))
+def global_shape(mesh, local_shape: Sequence[int], spec, axes=None) -> Tuple[int, ...]:
+    """The global shape whose shard under ``spec`` (over ``axes``) is
+    ``local_shape``."""
+    return tuple(n * math.prod(mesh.shape[a] for a in split)
+                 for n, split in zip(local_shape, _splits(spec, len(local_shape), axes)))
 
 
-def shard(mesh, full: torch.Tensor, spec) -> torch.Tensor:
-    """This rank's shard of a value every rank holds whole."""
-    return full[region(mesh, full.shape, spec)]
+def shard(mesh, full: torch.Tensor, spec, axes=None) -> torch.Tensor:
+    """This rank's shard of a value every rank holds whole (over ``axes``:
+    whole as far as those axes go)."""
+    return full[region(mesh, full.shape, spec, axes=axes)]
 
 
 def _group(mesh, axis: str):
     return mesh.torch_mesh.get_group(mesh_dim=axis)
 
 
-def all_gather(mesh, local: torch.Tensor, spec) -> torch.Tensor:
+def all_gather(mesh, local: torch.Tensor, spec, axes=None) -> torch.Tensor:
     """The global value from every rank's shard under ``spec``, on this
-    rank's device. A mesh without a world holds values whole."""
+    rank's device; with ``axes``, gathered over those mesh axes only. A mesh
+    without a world holds values whole, and a shard that no axis of
+    ``axes`` splits comes back as it is."""
     if mesh.torch_mesh is None:
+        return local
+    placements = shr.named(mesh, spec, local.dim())
+    # the mesh's last axis first: of two axes splitting one dim, the inner
+    todo = [(axis, pl) for axis, pl in reversed(list(zip(mesh.axis_names, placements)))
+            if mesh.shape[axis] > 1 and pl.is_shard() and (axes is None or axis in axes)]
+    if not todo:
         return local
     import torch.distributed as dist
 
-    wire = transport(mesh)
-    x = local.to(wire).contiguous()
-    placements = shr.named(mesh, spec, local.dim())
-    # the mesh's last axis first: of two axes splitting one dim, the inner
-    for axis, placement in reversed(list(zip(mesh.axis_names, placements))):
-        n = mesh.shape[axis]
-        if n == 1 or not placement.is_shard():
-            continue
-        parts = [torch.empty_like(x) for _ in range(n)]
+    x = local.to(transport(mesh)).contiguous()
+    for axis, placement in todo:
+        parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
         dist.all_gather(parts, x, group=_group(mesh, axis))
         x = torch.cat(parts, dim=placement.dim)
     return x.to(local.device)
@@ -125,31 +145,89 @@ def repartition(mesh, x: torch.Tensor, spec, src_spec=None) -> torch.Tensor:
     return all_gather(mesh, x, src_spec)[want]
 
 
-def all_reduce(mesh, x: torch.Tensor) -> torch.Tensor:
-    """Sum of ``x`` over every rank (a new tensor on ``x``'s device)."""
+def all_reduce(mesh, x: torch.Tensor, axes=None, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the max) of ``x`` over every rank, or over the
+    mesh axes in ``axes`` one after another (a new tensor on ``x``'s
+    device)."""
     if mesh.torch_mesh is None:
         return x
     import torch.distributed as dist
 
+    names = [a for a in mesh.axis_names if mesh.shape[a] > 1 and (axes is None or a in axes)]
+    if not names:
+        return x.clone()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     wire = x.to(transport(mesh), copy=True).contiguous()
-    dist.all_reduce(wire)
+    if axes is None or len(names) == sum(mesh.shape[a] > 1 for a in mesh.axis_names):
+        dist.all_reduce(wire, op=red)
+    else:
+        for a in names:
+            dist.all_reduce(wire, op=red, group=_group(mesh, a))
     return wire.to(x.device)
 
 
-def reduce_scatter(mesh, tensors: List[torch.Tensor], specs: List) -> List[torch.Tensor]:
-    """Sum ``tensors`` (each held whole by every rank) over the ranks and
-    keep this rank's shard of each under its spec, in fp32. All leaves
-    cross in one flat buffer. gloo has no reduce-scatter of its own on every
-    torch version the port runs, so the sum is an all-reduce and the
-    scatter a local slice."""
+def reduce_scatter(mesh, tensors: List[torch.Tensor], specs: List,
+                   axes=None) -> List[torch.Tensor]:
+    """Sum ``tensors`` (each held whole by every rank, as far as ``axes``
+    go) over the ranks of ``axes`` (None: every rank) and keep this rank's
+    shard of each under its spec over those axes, in fp32. All leaves cross
+    in one flat buffer. gloo has no reduce-scatter of its own on every torch
+    version the port runs, so the sum is an all-reduce and the scatter a
+    local slice."""
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    flat = all_reduce(mesh, flat)
+    flat = all_reduce(mesh, flat, axes=axes)
     out, pos = [], 0
     for t, spec in zip(tensors, specs):
         full = flat[pos:pos + t.numel()].view(t.shape)
         pos += t.numel()
-        out.append(shard(mesh, full, spec).clone())
+        out.append(shard(mesh, full, spec, axes=axes).clone())
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the Megatron region operators over `model`, as autograd Functions
+# --------------------------------------------------------------------------- #
+MODEL = ("model",)
+
+
+class CopyToModel(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(ctx.mesh, g, axes=MODEL), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """The sum over ``model`` forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(mesh, x, axes=MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherFromModel(torch.autograd.Function):
+    """The ranks' pieces of ``dim`` concatenated in rank order forward;
+    backward, this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return all_gather(mesh, x, (None,) * dim + ("model",), axes=MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.coords["model"]
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
 
 
 def seq_sharded_decode_attention(

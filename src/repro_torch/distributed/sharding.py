@@ -232,15 +232,21 @@ def is_spec(x) -> bool:
         for e in x)
 
 
-def spec_leaves(specs) -> list:
+def spec_leaves(specs, like=None) -> list:
     """The specs of a tree of specs, in walk order (the tree's own walk:
-    dicts as inserted, sequences by index)."""
+    dicts as inserted, sequences by index); with ``like``, a tree of the
+    same structure (the params the specs describe), in ``like``'s walk
+    order, each spec found by its key: two trees of one structure may hold
+    their dict keys in different orders (params bridged from JAX)."""
     if is_spec(specs):
         return [specs]
     if isinstance(specs, dict):
-        return [s for v in specs.values() for s in spec_leaves(v)]
+        keys = specs if like is None else like
+        return [s for k in keys
+                for s in spec_leaves(specs[k], None if like is None else like[k])]
     if isinstance(specs, (list, tuple)):
-        return [s for v in specs for s in spec_leaves(v)]
+        likes = [None] * len(specs) if like is None else like
+        return [s for v, lk in zip(specs, likes) for s in spec_leaves(v, lk)]
     return [specs]
 
 
@@ -251,7 +257,7 @@ def map_with_specs(fn, params, specs):
     from repro_torch import tree
 
     flat, unflatten = tree.flatten(params)
-    sl = spec_leaves(specs)
+    sl = spec_leaves(specs, params)
     if len(sl) != len(flat):
         raise ValueError(f"{len(sl)} specs for {len(flat)} leaves")
     return unflatten([fn(p, s) for p, s in zip(flat, sl)])

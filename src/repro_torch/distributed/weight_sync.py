@@ -45,8 +45,8 @@ def switch(mesh, params, target_specs, *, specs=None) -> Any:
     from repro_torch.distributed import collectives
 
     flat, unflatten = tree.flatten(params)
-    src = [None] * len(flat) if specs is None else shr.spec_leaves(specs)
-    dst = shr.spec_leaves(target_specs)
+    src = [None] * len(flat) if specs is None else shr.spec_leaves(specs, params)
+    dst = shr.spec_leaves(target_specs, params)
     return unflatten([collectives.repartition(mesh, p, d, s)
                       for p, s, d in zip(flat, src, dst)])
 

@@ -87,7 +87,7 @@ def save(ckpt_dir: str, tree, *, step: int = 0, extra: Optional[Dict] = None,
     if ranked:
         from repro_torch.distributed import sharding as shr
 
-        spec_list = shr.spec_leaves(specs)
+        spec_list = shr.spec_leaves(specs, tree)
     manifest: Dict[str, Any] = {"step": int(step), "leaves": {}, "extra": extra or {}}
     path = os.path.join(ckpt_dir, fname)
     with zipfile.ZipFile(path + ".tmp", "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
@@ -164,7 +164,7 @@ def restore(ckpt_dir: str, template, *, mesh=None, specs=None) -> Tuple[Any, int
     if mesh is not None:
         from repro_torch.distributed import sharding as shr
 
-        spec_list = (shr.spec_leaves(specs) if specs is not None
+        spec_list = (shr.spec_leaves(specs, template) if specs is not None
                      else [None] * len(tree_mod.leaves(template)))
         spec_of = dict(zip((k for k, _ in tree_mod.leaves_with_keys(template)), spec_list))
     with open(os.path.join(ckpt_dir, "manifest.json")) as f:

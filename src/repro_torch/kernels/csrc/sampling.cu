@@ -311,7 +311,8 @@ __global__ void __launch_bounds__(32 * CW + 32, MIN_BLOCKS)
                   const float* __restrict__ inv_temp, float4* __restrict__ part,
                   int* __restrict__ part_idx, unsigned int* __restrict__ ticket,
                   int* __restrict__ tok, float* __restrict__ lp, int B, int d, int Vp, int vocab,
-                  int tiles_per_block) {
+                  int tiles_per_block, float4* __restrict__ state, int* __restrict__ state_idx,
+                  int col_offset) {
   using S = Shape<CW, NT, KC, STAGES>;
   constexpr int kStages = S::kStages;
   extern __shared__ float4 smem4[];
@@ -398,14 +399,14 @@ __global__ void __launch_bounds__(32 * CW + 32, MIN_BLOCKS)
           float y = z;
           const float it = s_it[col];
           if (it != 0.f) {
-            const float u = uniform_01(s_seed[col], static_cast<uint32_t>(pos));
+            const float u = uniform_01(s_seed[col], static_cast<uint32_t>(pos + col_offset));
             const float gumbel = -logf(-logf(u));
             y = __fadd_rn(__fmul_rn(z, it), gumbel);
           }
-          if (better(y, pos, ls.y, ls.i)) {
+          if (better(y, pos + col_offset, ls.y, ls.i)) {
             ls.y = y;
             ls.z = z;
-            ls.i = pos;
+            ls.i = pos + col_offset;
           }
         }
         if (rr == S::kRowsPerLane - 1) {  // the column's tile is done
@@ -501,14 +502,20 @@ __global__ void __launch_bounds__(32 * CW + 32, MIN_BLOCKS)
 #pragma unroll
     for (int o = 16; o >= 1; o >>= 1) m.merge_lane(o);
     if (lane == 0) {
-      tok[b] = m.i;
-      lp[b] = m.z - (m.m + logf(fmaxf(m.l, 1e-20f)));
+      if (state != nullptr) {  // a vocab shard's merged state, for the ranks' merge
+        state[b] = make_float4(m.m, m.l, m.y, m.z);
+        state_idx[b] = m.i;
+      } else {
+        tok[b] = m.i;
+        lp[b] = m.z - (m.m + logf(fmaxf(m.l, 1e-20f)));
+      }
     }
   }
 }
 
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const int*, const float*, float4*,
-                        int*, unsigned int*, int*, float*, int, int, int, int, int);
+                        int*, unsigned int*, int*, float*, int, int, int, int, int, float4*, int*,
+                        int);
 
 struct Variant {
   Kernel kernel;
@@ -608,11 +615,16 @@ REPRO_EXPORT int fused_sample_grid(int B, int Vp, int cols, int device, int* blo
 // untied lm_head as it lies). part (blocks, B) float4 and part_idx (blocks, B)
 // int32 are the wrapper's scratch for the blocks' partials; ticket is one
 // uint32, zero between launches (the last block of a launch leaves it at
-// zero).
+// zero). A vocab shard of a larger head: col_offset is the global index of
+// its first column (the hash positions and the indices are global; vocab
+// counts the shard's own sampled columns), and a non-null state (B) float4
+// with state_idx (B) int32 takes the merged state (max, sum of exp, best
+// score, its logit; best index) in place of tok and lp.
 REPRO_EXPORT int fused_sample_fwd(const void* h, const void* head, const void* seeds,
                                   const void* inv_temp, void* part, void* part_idx, void* ticket,
                                   void* tok, void* lp, int B, int d, int Vp, int vocab, int cols,
-                                  int blocks, int tiles, int device, void* stream) {
+                                  int blocks, int tiles, void* state, void* state_idx,
+                                  int col_offset, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Variant v = pick(B, cols != 0);
@@ -628,6 +640,6 @@ REPRO_EXPORT int fused_sample_fwd(const void* h, const void* head, const void* s
       tm_head, tm_h, static_cast<const int*>(seeds), static_cast<const float*>(inv_temp),
       static_cast<float4*>(part), static_cast<int*>(part_idx),
       static_cast<unsigned int*>(ticket), static_cast<int*>(tok), static_cast<float*>(lp), B, d,
-      Vp, vocab, tiles);
+      Vp, vocab, tiles, static_cast<float4*>(state), static_cast<int*>(state_idx), col_offset);
   return cudaGetLastError();
 }

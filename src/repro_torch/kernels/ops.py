@@ -130,6 +130,33 @@ def fused_sample(
     return _fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
 
 
+def fused_sample_shard(mesh, h, w_head, seeds, inv_temp, *, vocab_size=None,
+                       col_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sampler over a head whose vocab columns are split over ``model``
+    (tensor parallelism): ``w_head`` (d, Vp / M) is this rank's shard, which
+    starts at global column ``col_offset``. The kernel (on ``ref`` mode or a
+    CPU tensor, ``ref.sample_state``) gives this shard's merged online state;
+    the ranks all-gather the states over ``model`` and merge them in rank
+    order (``ref.merge_sample_states``). The tokens equal the one-device
+    sampler's bit for bit; the logprob differs only by the order of the
+    sums. No rank holds the whole head."""
+    from repro_torch.distributed import collectives
+
+    if _MODE == "ref":
+        m, l, y, z, i = _ref.sample_state(h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                                          col_offset=col_offset)
+        floats, idx = torch.stack([m, l, y, z], dim=1), i
+    else:
+        floats, idx = _fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                                    col_offset=col_offset, state=True)
+    # one gather: fp32 values and int32 indices are exact in float64
+    wire = torch.cat([floats.double(), idx.double()[:, None]], dim=1)[None]
+    every = collectives.all_gather(mesh, wire, ("model",), axes=("model",))
+    states = [tuple(part[:, k].float() for k in range(4)) + (part[:, 4].long(),)
+              for part in every]
+    return _ref.merge_sample_states(states)
+
+
 def fused_sample_rows(h, w_head, seeds, temps, *, vocab_size=None) -> torch.Tensor:
     """Per-row-temperature sampler of the serving engine: rows with
     ``temps <= 0`` take the argmax, the others the hash Gumbel-max draw at

@@ -280,17 +280,20 @@ def sample_scores(
     *,
     vocab_size: Optional[int] = None,
     top_p: float = 1.0,
+    col_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused sampler's fp32 logits ``z`` (padded vocab at NEG_INF) and
     Gumbel-max scores ``y = where(inv_temp == 0, z, z * inv_temp + g)`` with
     ``g = -log(-log(u))``, both (B, Vp); with ``top_p < 1`` the sampled
     rows' scores outside the nucleus of their tempered logits are NEG_INF
     (:func:`gumbel_max_scores`; the filter runs after the temperature, as
-    JAX's sampler runs it)."""
+    JAX's sampler runs it). ``w_head`` may be the columns of a larger head
+    that start at its column ``col_offset``: the hash and the padded-vocab
+    mask then read the global column index."""
     z = h.float() @ w_head.float()
     Vp = z.shape[1]
-    vocab = Vp if vocab_size is None else vocab_size
-    pos = torch.arange(Vp, device=z.device)
+    vocab = col_offset + Vp if vocab_size is None else vocab_size
+    pos = torch.arange(col_offset, col_offset + Vp, device=z.device)
     valid = pos < vocab
     z = torch.where(valid, z, NEG_INF)
     u = uniform_01(seeds[:, None], pos[None, :])
@@ -308,6 +311,7 @@ def fused_sample(
     *,
     vocab_size: Optional[int] = None,
     top_p: float = 1.0,
+    col_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The hash Gumbel-max sampler the kernel computes, on materialised fp32
     logits (:func:`sample_scores`): the first-max argmax of the scores, padded
@@ -315,13 +319,56 @@ def fused_sample(
     untempered, unfiltered masked logits (as JAX's). With ``top_p < 1`` the
     sampled rows draw from the nucleus of their tempered logits; the kernel
     has no such filter. Returns (token (B,) int32, logprob (B,) f32)."""
-    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size, top_p=top_p)
+    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size, top_p=top_p,
+                         col_offset=col_offset)
     tok = torch.argmax(y, dim=-1)
     lp = z.gather(1, tok[:, None])[:, 0] - torch.logsumexp(z, dim=-1)
     return tok.to(torch.int32), lp
 
 
 _NO_INDEX = 2**31 - 1  # a state that holds no position yet (the kernel's INT_MAX)
+
+
+def sample_state(
+    h: torch.Tensor,  # (B, d)
+    w_head: torch.Tensor,  # (d, V) the head's columns from col_offset on
+    seeds: torch.Tensor,  # (B,) int32 per-row hash seeds
+    inv_temp: torch.Tensor,  # (B,) f32; 0.0 = greedy
+    *,
+    vocab_size: Optional[int] = None,
+    col_offset: int = 0,
+):
+    """The sampler's online state over one vocab shard of the head (columns
+    ``[col_offset, col_offset + V)``): (max, sum of exp(z - max), best
+    score, its z, its global index), each (B,), over the shard's unpadded
+    columns; a shard with none gives the empty state (NEG_INF, 0, NEG_INF,
+    NEG_INF, the kernel's INT_MAX). The shards' states merged in order
+    (:func:`merge_sample_states`) sample as :func:`fused_sample` on the
+    whole head: the same tokens bit for bit."""
+    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                         col_offset=col_offset)
+    V = z.shape[1]
+    vocab = col_offset + V if vocab_size is None else vocab_size
+    valid = torch.arange(col_offset, col_offset + V, device=z.device) < vocab
+    m = z.amax(dim=-1)
+    l = torch.where(valid, torch.exp(z - m[:, None]), 0.0).sum(dim=-1)
+    best = torch.argmax(y, dim=-1)  # the first max
+    found = valid.any()
+    i = torch.where(found, best + col_offset, _NO_INDEX)
+    return (m, l, torch.where(found, y.gather(1, best[:, None])[:, 0], NEG_INF),
+            torch.where(found, z.gather(1, best[:, None])[:, 0], NEG_INF), i)
+
+
+def merge_sample_states(states) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The vocab shards' sampler states (:func:`sample_state`) merged in
+    shard order with the kernel's merge: (token (B,) int32, logprob (B,)
+    f32), the logprob as the kernel's last block forms it."""
+    st = states[0]
+    for other in states[1:]:
+        st = _sample_state_merge(st, other)
+    m, l, _, zt, tok = st
+    lp = zt - (m + torch.log(torch.clamp(l, min=1e-20)))
+    return tok.to(torch.int32), lp
 
 
 def _sample_state_merge(a, b):
@@ -355,7 +402,9 @@ def fused_sample_partials(
     vocab_size: Optional[int] = None,
     tile: int = 128,
     tiles_per_block: int = 1,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    col_offset: int = 0,
+    return_state: bool = False,
+):
     """:func:`fused_sample` computed as ``csrc/sampling.cu`` decomposes it:
     block ``k`` takes the whole tiles ``[k T, (k + 1) T)`` of ``tile`` vocab
     rows (T = ``tiles_per_block``); in a tile, lane ``l`` of 32 takes the
@@ -365,13 +414,20 @@ def fused_sample_partials(
     block does: lane ``l`` takes blocks ``l, l + 32, ...`` in order, then a
     butterfly. The tokens equal :func:`fused_sample`'s bit for bit (the
     winner is a total order); the logprob differs only by the order of the
-    sums. Returns (token (B,) int32, logprob (B,) f32)."""
+    sums. Returns (token (B,) int32, logprob (B,) f32).
+
+    ``col_offset``: ``w_head`` is the vocab shard of a larger head that
+    starts at that column (hash positions, the padded-vocab mask and the
+    indices are global); ``return_state``: the last block's merged state
+    (:func:`sample_state`'s 5-tuple) instead of (token, logprob), as the
+    kernel writes it for ``ops.fused_sample_shard``."""
     if tile % 32:
         raise ValueError(f"a tile of {tile} rows does not split over 32 lanes")
-    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
+    z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                         col_offset=col_offset)
     z, y = z.cpu(), y.cpu()
     B, Vp = z.shape
-    vocab = Vp if vocab_size is None else min(vocab_size, Vp)
+    vocab = Vp if vocab_size is None else min(max(vocab_size - col_offset, 0), Vp)
 
     def empty(*shape):
         return (torch.full(shape, NEG_INF), torch.zeros(shape), torch.full(shape, NEG_INF),
@@ -401,7 +457,10 @@ def fused_sample_partials(
     for k in range(0, len(blocks), 32):
         lanes = _sample_state_merge(lanes, tuple(
             torch.stack([blk[f] for blk in blocks[k:k + 32]], 1) for f in range(5)))
-    m, l, _, zt, tok = _lane_butterfly(lanes)
+    m, l, yt, zt, tok = _lane_butterfly(lanes)
+    tok = torch.where(tok < _NO_INDEX, tok + col_offset, tok)
+    if return_state:
+        return tuple(t.to(h.device) for t in (m, l, yt, zt, tok))
     lp = zt - (m + torch.log(torch.clamp(l, min=1e-20)))
     return tok.to(torch.int32).to(h.device), lp.to(h.device)
 

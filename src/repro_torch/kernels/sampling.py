@@ -14,6 +14,15 @@ head is never made contiguous, which would copy the whole head on every
 step. One launch: a persistent grid of tensor-core blocks over fixed vocab ranges
 (:func:`grid`), whose last block merges the blocks' partials in a fixed
 order; ``ref.fused_sample_partials`` is that decomposition in plain PyTorch.
+
+On a tensor-parallel mesh each rank holds a vocab shard of the head: with
+``col_offset`` (the shard's first column in the whole head) the hash
+positions, the padded-vocab mask and the first-max tie-break read global
+indices, and with ``state=True`` the last block writes its merged online
+state instead of (token, logprob): (max, sum of exp, best score, its logit)
+as (B, 4) fp32 and the best index as (B,) int32, which
+``ops.fused_sample_shard`` gathers over the ranks and merges in rank order
+(``ref.sample_state`` is the plain version).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_sample as plain
+from repro_torch.kernels.ref import sample_state
 
 _c = ctypes
 
@@ -34,8 +44,8 @@ def _fwd():
     return _build.entry("sampling", "fused_sample_fwd", [
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-        _c.c_void_p])
+        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+        _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,9 +89,19 @@ def fused_sample(
     inv_temp: torch.Tensor,  # (B,) f32; 0.0 = greedy
     *,
     vocab_size: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    col_offset: int = 0,
+    state: bool = False,
+):
+    """(token (B,) int32, logprob (B,) fp32); with ``state``, the merged
+    online state of this vocab shard: ((B, 4) fp32 (max, sum of exp, best
+    score, its logit), (B,) int32 best global index)."""
     if h.device.type == "cpu":
-        return plain(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
+        if state:
+            m, l, y, z, i = sample_state(h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                                         col_offset=col_offset)
+            return torch.stack([m, l, y, z], dim=1), i.to(torch.int32)
+        return plain(h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                     col_offset=col_offset)
     _build.require(h.device.type == "cuda", f"no fused_sample kernel for {h.device}")
     _build.require_no_grad("fused_sample", h, w_head, inv_temp)
     cols = head_layout(w_head)
@@ -100,17 +120,20 @@ def fused_sample(
                    and (not cols or Vp % 8 == 0)
                    and seeds.shape == (B,) and inv_temp.shape == (B,),
                    f"h {tuple(h.shape)}, head {tuple(w_head.shape)}")
-    vocab = Vp if vocab_size is None else min(vocab_size, Vp)
+    # the columns of this shard that are sampled: [0, vocab)
+    vocab = Vp if vocab_size is None else min(max(vocab_size - col_offset, 0), Vp)
     device, stream = _build.launch_site(h)
     blocks, tiles, _ = grid(B, Vp, device, cols)
     part = torch.empty((blocks, B, 4), dtype=torch.float32, device=h.device)
     part_idx = torch.empty((blocks, B), dtype=torch.int32, device=h.device)
     tok = torch.empty((B,), dtype=torch.int32, device=h.device)
     lp = torch.empty((B,), dtype=torch.float32, device=h.device)
+    st = torch.empty((B, 4), dtype=torch.float32, device=h.device) if state else None
     err = _fwd()(h.data_ptr(), w_head.data_ptr(), seeds.data_ptr(), inv_temp.data_ptr(),
                  part.data_ptr(), part_idx.data_ptr(), _ticket(device, stream).data_ptr(),
                  tok.data_ptr(), lp.data_ptr(), B, d, Vp, vocab, int(cols), blocks, tiles,
-                 device, stream)
+                 st.data_ptr() if state else None, tok.data_ptr() if state else None,
+                 col_offset, device, stream)
     _build.check(_build.library("sampling"), err, "fused_sample")
     _build.LAUNCHES["fused_sample"] += 1
-    return tok, lp
+    return (st, tok) if state else (tok, lp)

@@ -7,6 +7,17 @@ JAX's ``(d_in, d_out)`` layout, so a layer is ``x @ W``; a product of two
 dtypes promotes both, as ``jnp.matmul`` does (an encoder's bf16 frames
 against fp32 weights). Biases are fp32 and are added after a cast to the
 activation's dtype, as in JAX.
+
+On an ambient mesh with ``model`` > 1 (``distributed.constraint``) each rank
+holds its ``model`` shards of the weights (``distributed.sharding``) and the
+call sites of JAX's ``constrain`` become explicit collectives: ``w_q``,
+``w_in`` and ``w_gate`` are column-parallel behind ``copy_to_model``,
+``w_o`` and ``w_out`` row-parallel before ``reduce_from_model``, and a
+row-parallel output bias is added once, after the sum. K/V come whole heads
+a rank (``num_kv_heads`` divides ``model``), replicated (every rank computes
+them all, and ``copy_to_model`` on K and V where they meet the local query
+heads sums their gradient over the ranks), or, in the serve layout, as
+columns split within a head, which are all-gathered before RoPE.
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import constraint as tpc
 from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
@@ -103,6 +115,7 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Params:
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    x = tpc.copy_to_model(x)  # column-parallel w_in / w_gate (JAX: constrain(h, dp, -, tp))
     h = _biased(cfg, matmul(x, p["w_in"]), p, "b_in")
     if cfg.mlp_type == "swiglu":
         h = F.silu(matmul(x, p["w_gate"])) * h
@@ -115,7 +128,7 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.mlp_type)
-    return _biased(cfg, matmul(h, p["w_out"]), p, "b_out")
+    return _biased(cfg, tpc.reduce_from_model(matmul(h, p["w_out"])), p, "b_out")
 
 
 # --------------------------------------------------------------------------- #
@@ -143,17 +156,58 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, *, device=None) -> Pa
 
 
 def q_proj(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x (..., d) -> q (..., Hp * hd), no RoPE."""
-    return _biased(cfg, matmul(x, p["w_q"]), p, "b_q")
+    """x (..., d) -> q (..., Hp * hd) (this rank's heads on a tensor-parallel
+    mesh), no RoPE."""
+    return _biased(cfg, matmul(tpc.copy_to_model(x), p["w_q"]), p, "b_q")
+
+
+def local_heads(cfg: ModelConfig, p: Params) -> int:
+    """Query heads of this rank: ``Hp / model`` on a tensor-parallel mesh."""
+    return p["w_q"].shape[-1] // cfg.head_dim
+
+
+def kv_heads_of(cfg: ModelConfig, hq: int) -> slice:
+    """The KV heads that this rank's ``hq`` query heads attend to, among all
+    ``num_kv_heads`` (GQA groups of ``Hp / num_kv_heads``). Its query heads
+    must cover whole groups, or lie in one."""
+    hp, kvh = cfg.padded_heads, cfg.num_kv_heads
+    if hq == hp:
+        return slice(0, kvh)
+    g, r = hp // kvh, tpc.tp_rank()
+    if hq % g and g % hq:
+        raise NotImplementedError(
+            f"{hq} query heads a rank over GQA groups of {g} on a mesh with model > 1 "
+            "(ROADMAP queue 1, item 8: distributed)")
+    lo = r * hq // g
+    return slice(lo, lo + max(hq // g, 1))
+
+
+def memory_kv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """K/V projections of x (B, S, d), no RoPE: an encoder memory's
+    cross-attention K/V, computed once a prefill, and a decoder's own. Each
+    is (B, S, heads, hd) with this rank's KV heads where the heads are
+    split over ``model``, else all ``num_kv_heads``: a serve layout's
+    columns within a head are all-gathered."""
+    B, S, _ = x.shape
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    if p["w_k"].shape[-1] < kvh * hd:  # split over model: column-parallel
+        x = tpc.copy_to_model(x)
+    k = _biased(cfg, matmul(x, p["w_k"]), p, "b_k")
+    v = _biased(cfg, matmul(x, p["w_v"]), p, "b_v")
+    if k.shape[-1] % hd:  # the serve layout splits a head's columns
+        k, v = tpc.gather_from_model(k, -1), tpc.gather_from_model(v, -1)
+    return k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
 
 
 def qkv_proj(
     cfg: ModelConfig, p: Params, x: torch.Tensor, positions: Optional[torch.Tensor]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> q (B,S,Hp,hd), k/v (B,S,KVH,hd); RoPE applied if positions."""
+    """x (B,S,d) -> q (B,S,Hp,hd), k/v (B,S,KVH,hd); RoPE applied if
+    positions. On a tensor-parallel mesh q holds this rank's heads and k/v
+    its KV heads or all of them (:func:`memory_kv`)."""
     B, S, _ = x.shape
-    hp, kvh, hd = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
-    q = q_proj(cfg, p, x).reshape(B, S, hp, hd)
+    hd = cfg.head_dim
+    q = q_proj(cfg, p, x).reshape(B, S, -1, hd)
     k, v = memory_kv(cfg, p, x)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
@@ -161,9 +215,31 @@ def qkv_proj(
     return q, k, v
 
 
+def local_kv(cfg: ModelConfig, p: Params, k: torch.Tensor, v: torch.Tensor):
+    """K/V of all ``num_kv_heads`` cut to the heads this rank's query heads
+    attend, behind ``copy_to_model`` (every rank computed them: their
+    gradient is the sum of the ranks'). K/V of this rank's heads already
+    pass as they are."""
+    if tpc.tp() is None or k.shape[-2] != cfg.num_kv_heads or cfg.num_kv_heads % tpc.tp_size() == 0:
+        return k, v
+    sl = kv_heads_of(cfg, local_heads(cfg, p))
+    return tpc.copy_to_model(k[..., sl, :]), tpc.copy_to_model(v[..., sl, :])
+
+
+def all_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """K/V of all ``num_kv_heads`` (what a decode cache holds on every rank):
+    this rank's heads all-gathered over ``model``, or all of them as they
+    are."""
+    if k.shape[-2] == cfg.num_kv_heads:
+        return k, v
+    return tpc.gather_from_model(k, -2), tpc.gather_from_model(v, -2)
+
+
 def out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
-    """o (B,S,Hp,hd) or (B,Hp,hd) -> (..., d)."""
-    return _biased(cfg, matmul(o.reshape(*o.shape[:-2], -1), p["w_o"]), p, "b_o")
+    """o (B,S,Hp,hd) or (B,Hp,hd) -> (..., d); row-parallel over ``model``
+    on a tensor-parallel mesh, the bias added once after the sum."""
+    y = tpc.reduce_from_model(matmul(o.reshape(*o.shape[:-2], -1), p["w_o"]))
+    return _biased(cfg, y, p, "b_o")
 
 
 def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -171,6 +247,7 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torc
     """Full-sequence attention, no cache (``mode="full"``: the training and
     logprob forward), as ``layers.self_attention``."""
     q, k, v = qkv_proj(cfg, p, x, positions)
+    k, v = local_kv(cfg, p, k, v)
     o = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return out_proj(cfg, p, o)
 
@@ -183,13 +260,3 @@ def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = q_proj(cfg, p, x).reshape(B, S, cfg.padded_heads, cfg.head_dim)
     k, v = memory
     return out_proj(cfg, p, ops.flash_attention(q, k, v, causal=False))
-
-
-def memory_kv(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    """K/V projections of x (B, S, d), each (B, S, KVH, hd), no RoPE: an
-    encoder memory's cross-attention K/V, computed once a prefill."""
-    B, S, _ = x.shape
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim
-    k = _biased(cfg, matmul(x, p["w_k"]), p, "b_k")
-    v = _biased(cfg, matmul(x, p["w_v"]), p, "b_v")
-    return k.reshape(B, S, kvh, hd), v.reshape(B, S, kvh, hd)

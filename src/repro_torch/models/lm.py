@@ -33,6 +33,24 @@ each leaf (P, page_size, KVH, hd).
 ``full`` mode through an SSD layer needs a sequence of at most 128
 positions or a multiple of 128 (the scan's chunk), as in the JAX package:
 any other length raises ``ValueError``.
+
+**Tensor parallelism.** On an ambient mesh with ``model`` = M > 1
+(``distributed.constraint``) a dense decoder runs on this rank's ``model``
+shards (``distributed.sharding``: "train" for the logprob forward and the
+actor step, "serve" for generation), at the call sites of JAX's
+``constrain``: the attention heads and the MLP's ``d_ff`` split over the
+ranks (``models/layers.py``), the embedding is looked up vocab-parallel and
+summed, and the head's logits stay vocab-sharded: the log-sum-exp, the
+label's logit and the entropy come from sums over ``model``, the sampler
+merges the ranks' online states (``ops.fused_sample_shard``), and prefill's
+logits are all-gathered. The residual stream is replicated. The decode
+cache is sharded by slot as ``sharding.cache_specs`` says: rank r holds the
+slots ``[r W/M, (r + 1) W/M)`` of all KV heads, its width W rounded up to a
+multiple of M (the slots past W are never attended); a decode step writes
+its token on the rank that owns its slot and attends all query heads,
+gathered, over each rank's slots (``collectives.seq_sharded_decode_attention``),
+keeping its own heads of the output. MoE and SSD layers, sliding windows,
+``kv_quant``, chunked prefill, paged decode and ``top_p < 1`` raise there.
 """
 from __future__ import annotations
 
@@ -42,6 +60,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import constraint as tpc
 from repro_torch.kernels import ops
 from repro_torch.models import layers, moe, ssm
 
@@ -155,6 +174,10 @@ def _attn_mixer(
     if mode == "full":
         return layers.self_attention(cfg, p, h, positions), None
 
+    if tpc.tp() is not None:
+        return _attn_mixer_tp(cfg, p, h, positions, mode, cache, cache_len, smax,
+                              page_tables)
+
     if mode == "prefill_chunk":
         # one chunk of a chunked prefill: write this chunk's K/V into the
         # existing cache at [offset, offset+C) in place and attend the
@@ -229,6 +252,57 @@ def _attn_mixer(
     kc[rows, slot] = _keep_outside(inside, k_new[:, 0].to(kc.dtype), kc[rows, slot])
     vc[rows, slot] = _keep_outside(inside, v_new[:, 0].to(vc.dtype), vc[rows, slot])
     o, _ = ops.decode_attention(q[:, 0], kc, vc, kv_len, window=window)
+    return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
+
+
+def tp_cache_width(cfg: ModelConfig, smax: int) -> int:
+    """Slots of this rank's share of a decode cache on a tensor-parallel
+    mesh: ``ring_width`` rounded up to a multiple of ``model``, split."""
+    M = tpc.tp_size()
+    return -(-ring_width(cfg, smax) // M)
+
+
+def _attn_mixer_tp(cfg, p, h, positions, mode, cache, cache_len, smax, page_tables):
+    """The attention mixer on a tensor-parallel mesh: prefill and full mode
+    attend this rank's query heads to their KV heads; prefill writes this
+    rank's slots of all KV heads; decode as the module docstring says."""
+    if mode == "prefill_chunk" or page_tables is not None:
+        tpc.require_dense("chunked prefill and paged decode")
+    if cfg.kv_quant or cfg.sliding_window is not None:
+        tpc.require_dense("the int8 KV cache and sliding-window rings")
+    if mode == "prefill":
+        q, k, v = layers.qkv_proj(cfg, p, h, positions)
+        kl, vl = layers.local_kv(cfg, p, k, v)
+        o = ops.flash_attention(q, kl, vl, causal=True)
+        B, S = h.shape[0], h.shape[1]
+        if S > smax:
+            raise ValueError(f"prompt of {S} tokens does not fit a cache of {smax}")
+        k, v = layers.all_kv(cfg, k, v)
+        W = tp_cache_width(cfg, smax)
+        lo = tpc.tp_rank() * W
+        kc = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
+        vc = torch.zeros_like(kc)
+        n = max(min(S - lo, W), 0)
+        kc[:, :n] = k[:, lo:lo + n]
+        vc[:, :n] = v[:, lo:lo + n]
+        return layers.out_proj(cfg, p, o), {"k": kc, "v": vc}
+    if mode != "decode":
+        raise ValueError(f"unknown mode {mode!r}")
+    q, k_new, v_new = layers.qkv_proj(cfg, p, h, cache_len[:, None])
+    k_new, v_new = layers.all_kv(cfg, k_new, v_new)
+    kc, vc = cache["k"], cache["v"]
+    W = kc.shape[1]
+    local = cache_len - tpc.tp_rank() * W
+    inside = (local >= 0) & (local < W)  # the rank that owns slot cache_len writes it
+    rows, slot = torch.arange(kc.shape[0], device=kc.device), local.clamp(0, W - 1).long()
+    kc[rows, slot] = _keep_outside(inside, k_new[:, 0].to(kc.dtype), kc[rows, slot])
+    vc[rows, slot] = _keep_outside(inside, v_new[:, 0].to(vc.dtype), vc[rows, slot])
+    from repro_torch.distributed import collectives
+
+    hq = q.shape[2]
+    q_all = tpc.gather_from_model(q[:, 0], -2)  # (B, Hp, hd): every query head
+    o = collectives.seq_sharded_decode_attention(tpc.tp(), q_all, kc, vc, cache_len + 1)
+    o = o[:, tpc.tp_rank() * hq:(tpc.tp_rank() + 1) * hq]
     return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
 
 
@@ -346,6 +420,8 @@ def _apply_block(
     (bf16 sums depend on it). Returns (h, the layer's MoE aux loss or None,
     the layer's cache)."""
     mixer_kind, mlp_kind = kind
+    if mixer_kind != "attn" or mlp_kind == "moe":
+        tpc.require_dense("SSD and MoE layers")
     hn = layers.apply_norm(cfg, p["norm1"], h)
     if mixer_kind == "attn":
         mix_out, new_cache = _attn_mixer(cfg, p["attn"], hn, positions, mode, cache,
@@ -410,7 +486,18 @@ def backbone(
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    h = params["embed"][tokens.long()]
+    """The rows of ``tokens``, scaled; on a tensor-parallel mesh looked up
+    vocab-parallel (ids outside this rank's rows give 0) and summed over
+    ``model``, then scaled."""
+    embed = params["embed"]
+    if tpc.tp() is None:
+        h = embed[tokens.long()]
+    else:
+        rows = embed.shape[0]
+        local = tokens.long() - tpc.tp_rank() * rows
+        own = (local >= 0) & (local < rows)
+        h = embed[local.clamp(0, rows - 1)]
+        h = tpc.reduce_from_model(torch.where(own[..., None], h, torch.zeros_like(h)))
     if cfg.embed_scale:
         # a scalar in h's dtype, as lm.py:433: sqrt(2048) becomes 45.25 in bf16
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype, device=h.device)
@@ -428,7 +515,8 @@ def assemble_input(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def _head_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
-    """(d, Vp): the tied head is a transposed view of the embedding."""
+    """(d, Vp): the tied head is a transposed view of the embedding. On a
+    tensor-parallel mesh this rank's (d, Vp / M) vocab columns."""
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
@@ -437,6 +525,13 @@ def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
         return logits
     v = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     return torch.where(v, logits, -1e30)
+
+
+def head_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of h (..., d) over the whole padded vocab, the padded
+    tail at -1e30 (all-gathered over ``model`` on a tensor-parallel mesh)."""
+    logits = tpc.gather_from_model((h @ _head_matrix(cfg, params)).float(), -1)
+    return mask_padded_vocab(cfg, logits)
 
 
 # --------------------------------------------------------------------------- #
@@ -456,6 +551,30 @@ def _head_chunk(hx, w_head, lx, vocab_size: Optional[int]):
     return tok - logz, entropy
 
 
+def _head_chunk_tp(hx, w_head, lx, vocab_size: Optional[int]):
+    """:func:`_head_chunk` over this rank's vocab columns on a
+    tensor-parallel mesh: the padded tail masked by global index, ``logz``
+    the max over ``model`` plus the log of the summed exp, the label's logit
+    from the rank that owns it, and the entropy ``logz - sum(e z) / sum(e)``
+    (all sums over ``model``). The max is held constant, as it cancels."""
+    logits = (hx @ w_head).float()  # (B, C, Vp / M)
+    V = w_head.shape[1]
+    off = tpc.tp_rank() * V
+    if vocab_size is not None:
+        live = torch.arange(off, off + V, device=logits.device) < vocab_size
+        logits = torch.where(live, logits, -1e30)
+    m = tpc.max_over_model(logits.detach().amax(dim=-1))
+    e = torch.exp(logits - m[..., None])
+    total = tpc.reduce_from_model(e.sum(dim=-1))
+    moment = tpc.reduce_from_model(torch.sum(e * logits, dim=-1))
+    logz = m + torch.log(total)
+    local = lx.clamp(min=0).long() - off
+    own = (local >= 0) & (local < V)
+    tok = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0]
+    tok = tpc.reduce_from_model(torch.where(own, tok, torch.zeros_like(tok)))
+    return tok - logz, logz - moment / total
+
+
 def _chunked_head_scan(h, w_head, labels, chunk: int, vocab_size: Optional[int] = None):
     """Per-position (logprob, entropy, mask) over sequence chunks of ``chunk``
     positions (``lm._chunked_head_scan``). When a gradient is being taken each
@@ -467,14 +586,17 @@ def _chunked_head_scan(h, w_head, labels, chunk: int, vocab_size: Optional[int] 
     if pad:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad), value=IGNORE)
+    body = _head_chunk
+    if tpc.tp() is not None:  # vocab-parallel head behind copy_to_model
+        body, h = _head_chunk_tp, tpc.copy_to_model(h)
     lps, ents = [], []
     for i in range(0, h.shape[1], chunk):
         hx, lx = h[:, i:i + chunk], labels[:, i:i + chunk]
         if torch.is_grad_enabled() and (hx.requires_grad or w_head.requires_grad):
-            lp, ent = checkpoint(_head_chunk, hx, w_head, lx, vocab_size,
+            lp, ent = checkpoint(body, hx, w_head, lx, vocab_size,
                                  use_reentrant=False, preserve_rng_state=False)
         else:
-            lp, ent = _head_chunk(hx, w_head, lx, vocab_size)
+            lp, ent = body(hx, w_head, lx, vocab_size)
         lps.append(lp)
         ents.append(ent)
     return (torch.cat(lps, dim=1)[:, :S], torch.cat(ents, dim=1)[:, :S],
@@ -539,7 +661,8 @@ def init_caches(cfg: ModelConfig, batch: int, smax: int, *, device=None) -> Cach
     layer's ``{"k", "v"}`` (B, W, KVH, hd) bf16 with W = ``ring_width``, or
     int8 with f32 ``{"k_scale", "v_scale"}`` (B, W, KVH) under ``kv_quant``;
     an SSD layer's ``{"ssm", "conv_x", "conv_bc"}`` state."""
-    shape = (batch, ring_width(cfg, smax), cfg.num_kv_heads, cfg.head_dim)
+    width = ring_width(cfg, smax) if tpc.tp() is None else tp_cache_width(cfg, smax)
+    shape = (batch, width, cfg.num_kv_heads, cfg.head_dim)
 
     def zeros(shape_, dtype):
         return torch.zeros(shape_, dtype=dtype, device=device)
@@ -565,8 +688,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *, smax: int
     h = assemble_input(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, _, caches = backbone(cfg, params, h, positions, mode="prefill", smax=smax)
-    logits = (h[:, -1] @ _head_matrix(cfg, params)).float()
-    logits = mask_padded_vocab(cfg, logits)
+    logits = head_logits(cfg, params, h[:, -1])
     cache_len = torch.full((tokens.shape[0],), h.shape[1], dtype=torch.int32,
                            device=h.device)
     return logits, caches, cache_len
@@ -588,8 +710,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, caches, cache_len):
     """One decode step. Returns (logits (B, Vp) fp32, caches, cache_len + 1).
     The caches are updated in place."""
     h, new_caches = _decode_hidden(cfg, params, token, caches, cache_len)
-    logits = (h @ _head_matrix(cfg, params)).float()
-    return mask_padded_vocab(cfg, logits), new_caches, cache_len + 1
+    return head_logits(cfg, params, h), new_caches, cache_len + 1
 
 
 def decode_step_sample(
@@ -611,8 +732,16 @@ def decode_step_sample(
     B = h.shape[0]
     inv_temp = torch.full((B,), 0.0 if temperature == 0.0 else 1.0 / temperature,
                           dtype=torch.float32, device=h.device)
-    tok, lp = ops.fused_sample(h, _head_matrix(cfg, params), seeds, inv_temp,
-                               vocab_size=cfg.vocab_size, top_p=top_p)
+    head = _head_matrix(cfg, params)
+    if tpc.tp() is not None:  # the ranks' online states over their vocab columns
+        if top_p < 1.0:
+            tpc.require_dense("top_p sampling")
+        tok, lp = ops.fused_sample_shard(tpc.tp(), h, head, seeds, inv_temp,
+                                         vocab_size=cfg.vocab_size,
+                                         col_offset=tpc.tp_rank() * head.shape[1])
+        return tok, lp, new_caches, cache_len + 1
+    tok, lp = ops.fused_sample(h, head, seeds, inv_temp, vocab_size=cfg.vocab_size,
+                               top_p=top_p)
     return tok, lp, new_caches, cache_len + 1
 
 
@@ -622,8 +751,7 @@ def decode_step_paged(cfg: ModelConfig, params: Params, token, pool, cache_len,
     Returns (logits (B, Vp) fp32, pool, cache_len + 1)."""
     h, new_pool = _decode_hidden(cfg, params, token, pool, cache_len, page_tables,
                                  write_enable)
-    logits = (h @ _head_matrix(cfg, params)).float()
-    return mask_padded_vocab(cfg, logits), new_pool, cache_len + 1
+    return head_logits(cfg, params, h), new_pool, cache_len + 1
 
 
 def decode_step_paged_sample(
@@ -660,8 +788,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches
     h = embed_tokens(cfg, params, tokens)
     h, _, new_caches = backbone(cfg, params, h, None, mode="prefill_chunk", caches=caches,
                              chunk_offset=offset)
-    logits = (h[:, -1] @ _head_matrix(cfg, params)).float()
-    return mask_padded_vocab(cfg, logits), new_caches
+    return head_logits(cfg, params, h[:, -1]), new_caches
 
 
 # --------------------------------------------------------------------------- #

@@ -11,10 +11,14 @@ On a rank mesh (``torch.distributed``, one process a device) the steps are
 data-parallel with FSDP state (:func:`make_dp_step`): at rest each rank
 holds its shard of the params and of both AdamW moments under
 ``distributed.sharding.param_specs(..., "train")``; a step all-gathers the
-full params, computes the loss on the rank's rows of the batch weighted so
-that the ranks' losses sum to the global-batch loss, reduce-scatters the
-grads into the param shards, clips on the global norm and runs AdamW on the
-shards.
+params over the data axes, computes the loss on the rank's rows of the
+batch weighted so that the data ranks' losses sum to the global-batch loss,
+reduce-scatters the grads over the data axes into the param shards, clips
+on the global norm and runs AdamW on the shards. With ``model`` > 1 the
+gathered params are this rank's ``model`` shards and the forward is
+tensor-parallel (``distributed.constraint``): the ranks of one data row hold
+the same rows, and a leaf replicated over ``model`` ends with the same
+gradient on each of them.
 
 The batch must hold ordinary tensors: rollouts come out of
 ``rl.rollout.generate`` as inference tensors, which autograd refuses to save
@@ -236,13 +240,23 @@ def shard_state(mesh, params, specs) -> TrainState:
         lambda p, s: collectives.shard(mesh, p, s).clone(), params, specs))
 
 
-def gather_params(mesh, params, specs):
+def gather_params(mesh, params, specs, axes=None):
     """The full params from every rank's shards (all-gathered leaf by leaf;
-    plain local tensors)."""
+    plain local tensors); with ``axes``, gathered over those mesh axes
+    only."""
     from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding as shr
 
-    return shr.map_with_specs(lambda p, s: collectives.all_gather(mesh, p, s), params, specs)
+    return shr.map_with_specs(lambda p, s: collectives.all_gather(mesh, p, s, axes=axes),
+                              params, specs)
+
+
+def data_axes(mesh):
+    """The axes a step sums its rows over: the data axes when ``model`` > 1
+    (its ranks hold the same rows), else None (every axis)."""
+    from repro_torch.distributed import sharding as shr
+
+    return shr.fsdp_axes(mesh) if mesh.shape.get("model", 1) > 1 else None
 
 
 def _replicas(mesh, spec) -> int:
@@ -264,40 +278,46 @@ def make_dp_step(mesh, specs, loss_fn: Callable, *, lr: float, max_grad_norm: fl
     this rank's rows. ``loss_fn(params, batch) -> (loss, aux)`` is a
     token-level mean over ``batch["response_mask"]`` (as every RL loss here
     is), with aux metrics of the same kind. ``full_params(state)`` gives the
-    full params the forward reads (default: all-gathered from the shards).
+    params the forward reads (default: all-gathered from the shards over the
+    data axes, :func:`data_axes`; at ``model`` > 1 this rank's ``model``
+    shards, and the forward runs on the mesh as the ambient one).
 
     Rank r's loss is weighted by ``M_r / max(M, 1)`` (its mask's token count
-    over the global count), so the ranks' losses and grads sum to the
-    global-batch loss's and every metric sums to its global value. The
-    grads cross as fp32 and come back in each leaf's dtype; the global norm
-    is an all-reduce of the shards' squared norms, each counted once over
-    the ranks that hold it."""
+    over the global count, both over the data axes), so the data ranks'
+    losses and grads sum to the global-batch loss's and every metric sums
+    to its global value. The grads cross as fp32 over the data axes and
+    come back in each leaf's dtype; the global norm is an all-reduce over
+    every rank of the shards' squared norms, each counted once over the
+    ranks that hold it."""
     from repro_torch.distributed import collectives
+    from repro_torch.distributed import constraint
 
     spec_list = None
+    axes = data_axes(mesh)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         nonlocal spec_list
         full = (full_params(state) if full_params is not None
-                else gather_params(mesh, state.params, specs))
+                else gather_params(mesh, state.params, specs, axes=axes))
         count = batch["response_mask"].float().sum()
-        weight = count / torch.clamp(collectives.all_reduce(mesh, count), min=1.0)
+        weight = count / torch.clamp(collectives.all_reduce(mesh, count, axes=axes), min=1.0)
 
         def weighted(p):
             loss, aux = loss_fn(p, batch)
             return loss * weight, aux
 
-        (loss, aux), grads = value_and_grad(weighted, full)
+        with constraint.use_mesh(mesh):
+            (loss, aux), grads = value_and_grad(weighted, full)
         del full
         names = sorted(aux)
         local = torch.stack([loss.float()] + [aux[k].float() * weight for k in names])
-        summed = collectives.all_reduce(mesh, local)
+        summed = collectives.all_reduce(mesh, local, axes=axes)
         flat, unflatten = tree.flatten(grads)
         if spec_list is None:
             from repro_torch.distributed import sharding as shr
 
-            spec_list = shr.spec_leaves(specs)
-        shards = collectives.reduce_scatter(mesh, flat, spec_list)
+            spec_list = shr.spec_leaves(specs, state.params)
+        shards = collectives.reduce_scatter(mesh, flat, spec_list, axes=axes)
         del grads, flat
         sq = sum(torch.sum(torch.square(g)) / _replicas(mesh, sp)
                  for g, sp in zip(shards, spec_list))

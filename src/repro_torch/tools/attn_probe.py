@@ -161,7 +161,7 @@ def sample_call(torch, _build, lib, h, head, seeds, it, V):
         _build.check(lib, fwd(h.data_ptr(), head.data_ptr(), seeds.data_ptr(), it.data_ptr(),
                               part.data_ptr(), part_idx.data_ptr(), ticket.data_ptr(),
                               tok.data_ptr(), lp.data_ptr(), B, d, Vp, V, cols, blocks, tiles,
-                              dev, stream), "fused_sample (probe build)")
+                              None, None, 0, dev, stream), "fused_sample (probe build)")
         return tok, lp
     return call
 
