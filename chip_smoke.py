@@ -208,6 +208,14 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      logprobs and every leaf's gradient on the shards against one device).
      Prints each rank's iteration ms, collectives' calls, ms and bytes, the
      peaks, and the sampler's kernel, gather and merge ms.
+ 19. Tensor-parallel MoE and SSD layers (``tp_moe_ssd_phase``). A: the
+     sharded gated norm's two entries (``rmsnorm_sumsq``, ``rmsnorm_scaled``)
+     at mamba2's and jamba's shard widths, and the scan on 40 and 64 heads,
+     each against its plain version and timed. B: granite-moe-3b and then
+     mamba2-2.7b at full width on 2 layers, each a solo run and two ranks of
+     one gloo group on the card on a (data 1, model 2) mesh, 3 GRPO
+     iterations, held as phase 18 holds its run (granite's tokens whose
+     route flips left out of the logprob hold, and counted).
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -1630,8 +1638,12 @@ def held_to_plain(torch, ops, ref, names):
         seen[name]["calls"] += 1
         seen[name]["max_abs_err"] = max(seen[name]["max_abs_err"], err)
 
-    def rmsnorm(x, w, *, eps=1e-6):
-        out = kernel["rmsnorm"](x, w, eps=eps)
+    def rmsnorm(x, w, *, eps=1e-6, **whole):
+        # the norms of one device's path: a row whole on its rank (the
+        # gated norm passes its whole width, which is then the row's)
+        width = whole.get("width", x.shape[-1])
+        require(width == x.shape[-1], f"rmsnorm of {x.shape[-1]} of {width} columns")
+        out = kernel["rmsnorm"](x, w, eps=eps, **whole)
         with torch.no_grad():
             ok, err = close(out, ref.rmsnorm(x, w, eps=eps), BF16_TOL)
         require(ok, f"rmsnorm {tuple(x.shape)} on the path: max abs err {err}")
@@ -5243,9 +5255,10 @@ def tp_sampler_phase(torch, ops, ref):
 
 
 def tp_rank(torch, args_path: str) -> int:
-    """The body of ``chip_smoke.py --tp-rank ARGS``: rank r of phase 18's
-    (data 1, model 2) world on the card. ARGS is a json file {"argv",
-    "artifact", "rank", "solo_params", "fault"}.
+    """The body of ``chip_smoke.py --tp-rank ARGS``: rank r of phase 18's or
+    phase 19's (data 1, model 2) world on the card (``tp_world``). ARGS is a
+    json file {"argv", "artifact", "rank", "solo_params", "fault",
+    "sampler"}.
 
     ``launch.train.main(argv)`` (``--coordinator 127.0.0.1:PORT``, the
     experiment file's ``mesh_shape`` [1, 2]) inside ``observed_iterations``;
@@ -5257,10 +5270,12 @@ def tp_rank(torch, args_path: str) -> int:
     own copy) against ``solo_params`` (cosine and distance of the
     displacements), the largest difference between the two ranks' copies of
     each replicated leaf, the last rollout's logprobs on the ranks' shards
-    against the one-device model on the gathered params, and the
-    vocab-sharded sampler's kernel, gather and merge on the rank's own
-    shard of the head. With ``"fault"`` (one of TP_FAULTS) the fault is
-    planted for the run and the readings after it. Writes the artifact."""
+    against the one-device model on the gathered params (with MoE layers,
+    without the tokens whose route flips between the two), and with
+    ``"sampler"`` the vocab-sharded sampler's kernel, gather and merge on
+    the rank's own shard of the head. With ``"fault"`` (one of TP_FAULTS or
+    TP19_FAULTS) the fault is planted for the run and the readings after
+    it. Writes the artifact."""
     from repro_torch import tree
     from repro_torch.core import worker as worker_mod
     from repro_torch.distributed import collectives
@@ -5322,6 +5337,21 @@ def tp_rank(torch, args_path: str) -> int:
             with patched(layers.tpc, "reduce_from_model", lambda y: y):
                 return apply_mlp(cfg, p, x)
         patches.append((layers, "apply_mlp", unreduced_mlp))
+    elif fault == "moe_gate_copy":
+        from repro_torch.models import moe
+
+        patches.append((moe, "combine_to_model", lambda combine: combine))
+    elif fault == "ssd_norm_local":
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import ops
+        from repro_torch.models import ssm
+
+        def local_gated_out(cfg, p, y, z):
+            yz = y * F.silu(z)
+            yn = ops.rmsnorm(yz.reshape(-1, yz.shape[-1]), p["norm_w"]).reshape(yz.shape)
+            return ssm.tpc.reduce_from_model(yn @ p["w_out"])
+        patches.append((ssm, "_gated_out", local_gated_out))
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches + observers]
     for obj, name, value in patches + observers:
         setattr(obj, name, value)
@@ -5396,20 +5426,30 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
         diffs[key] = float((both[0].float() - both[1].float()).abs().max())
     art["replicas"] = {"leaves": len(diffs), "max_abs_diff": max(diffs.values()),
                        "worst": max(diffs, key=diffs.get)}
-    # ---- the last rollout's logprobs: the ranks' shards against one device ----
+    # ---- the last rollout's logprobs: the ranks' shards against one device;
+    # with MoE layers, a token whose predicting position routes to other
+    # experts in the two (bf16 sums in another order) is left out and
+    # counted ----
     tokens = seen["tokens"][-1].clone()
     with torch.no_grad():
-        with constraint.use_mesh(mesh):
+        with constraint.use_mesh(mesh), routes_recorded(torch) as routes_tp:
             lp_tp, _ = model.logprobs(ctx.model_params(), tokens)
-        lp_one, _ = model.logprobs(final, tokens)
-    ok, err = close(lp_tp[:, 1:], lp_one[:, 1:], BF16_TOL)
-    art["logprobs"] = {"held": ok, "max_abs_err": err, "shape": list(tokens.shape)}
+        with routes_recorded(torch) as routes_one:
+            lp_one, _ = model.logprobs(final, tokens)
+    keep = torch.ones_like(lp_one[:, 1:], dtype=torch.bool)
+    if routes_one:
+        keep = ~flipped(torch, routes_tp, routes_one, tokens.shape[0])[:, :-1]
+    ok, err = close(lp_tp[:, 1:][keep], lp_one[:, 1:][keep], BF16_TOL)
+    art["logprobs"] = {"held": ok, "max_abs_err": err, "shape": list(tokens.shape),
+                       "route_flipped_tokens": int((~keep).sum())}
     # ---- the same rollout as an actor batch: the loss and every leaf's
-    # gradient on the ranks' shards (gathered) against one device ----
+    # gradient on the ranks' shards (gathered) against one device, without
+    # the tokens whose route flips ----
     rl = res["experiment"].rl
     g = torch.Generator(device=DEV).manual_seed(1820)
     mask = torch.zeros(tokens.shape, dtype=torch.bool, device=DEV)
     mask[:, tokens.shape[1] - rl.max_new_tokens:] = True
+    mask[:, 1:] &= keep
     batch = {"tokens": tokens, "response_mask": mask,
              "old_logprob": (lp_one * mask).detach(), "ref_logprob": (lp_one * mask).detach(),
              "advantages": torch.randn((tokens.shape[0], 1), generator=g, device=DEV) * mask}
@@ -5435,7 +5475,7 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
     del final, g_tp, g_one
     gc.collect()
     torch.cuda.empty_cache()
-    if fault:
+    if fault or not spec.get("sampler", True):
         Path(spec["artifact"]).write_text(json.dumps(art))
         return 0
     # ---- the vocab-sharded sampler on this rank's shard of the head ----
@@ -5498,6 +5538,67 @@ def ensure_solo(label: str, work: Path):
     return exp_path, json.loads(solo_artifact.read_text())["history"]
 
 
+def tp_world_args(work: Path, arm: str, exp_path: Path, solo_params: Path, iters: int,
+                  fault=None, sampler: bool = True) -> list:
+    """The ``run_hosts`` arguments of TP_RANKS ``chip_smoke.py --tp-rank``
+    processes of ``launch.train --experiment exp_path --coordinator
+    127.0.0.1:PORT`` (a free port), each held against ``solo_params``
+    (``tp_rank``), with ``fault`` planted and the sampler read unless
+    ``sampler`` is False."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    host_args = []
+    for r in range(TP_RANKS):
+        args = work / f"{arm}{r}.args.json"
+        args.write_text(json.dumps({
+            "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters", str(iters),
+                     "--num-hosts", str(TP_RANKS), "--process-id", str(r),
+                     "--coordinator", f"127.0.0.1:{port}"],
+            "artifact": str(work / f"{arm}{r}.artifact.json"), "rank": r,
+            "solo_params": str(solo_params), "fault": fault, "sampler": sampler}))
+        host_args.append((args, work / f"{arm}{r}.log"))
+    return host_args
+
+
+def tp_readings(arts, solo_history, limits):
+    """The holds of a tensor-parallel run (both ranks' ``tp_rank``
+    artifacts) against its solo run's history, under ``limits``
+    ({"min_cosine", "max_rel_distance", "metric_rtol", "max_replica_diff",
+    "max_grad_rel_err", "logprob_tol"}; logprobs are held in ``tp_rank`` at
+    BF16_TOL): (held, readings)."""
+    vs = {"cosine": min(a["vs_solo"]["cosine"] for a in arts),
+          "rel_distance": max(a["vs_solo"]["rel_distance"] for a in arts),
+          "replica_max_abs_diff": max(a["replicas"]["max_abs_diff"] for a in arts),
+          "replica_worst": arts[0]["replicas"]["worst"],
+          "logprob_max_abs_err": max(a["logprobs"]["max_abs_err"] for a in arts),
+          "logprobs_held": all(a["logprobs"]["held"] for a in arts),
+          "route_flipped_tokens": max(a["logprobs"]["route_flipped_tokens"] for a in arts),
+          "grad_rel_err": max(a["gradient"]["rel_err"] for a in arts),
+          "grad_leaf_max_rel_err": max(a["gradient"]["leaf_max_rel_err"] for a in arts),
+          "grad_worst_leaf": arts[0]["gradient"]["worst_leaf"],
+          "grad_leaf_median_rel_err": max(a["gradient"]["leaf_median_rel_err"] for a in arts),
+          "fixed_batch_loss_rel_err": max(a["gradient"]["loss_rel_err"] for a in arts),
+          "metric_rel_errs": {
+              k: [abs(m[k] - s[k]) / max(abs(s[k]), 1e-30)
+                  for m, s in zip(arts[0]["history"], solo_history)] for k in SHARD_METRICS},
+          # the rollouts: sampled from bf16 logits that the ranks sum in
+          # another order, a token may flip, and the batches part
+          "rollouts_vs_solo": {k: [(m[k], s[k]) for m, s in zip(arts[0]["history"],
+                                                               solo_history)]
+                               for k in ("rollout/tokens", "reward/mean")}}
+    held = (vs["cosine"] >= limits["min_cosine"]
+            and vs["rel_distance"] <= limits["max_rel_distance"]
+            and vs["replica_max_abs_diff"] <= limits["max_replica_diff"] and vs["logprobs_held"]
+            and vs["grad_leaf_max_rel_err"] <= limits["max_grad_rel_err"]
+            and vs["fixed_batch_loss_rel_err"] <= limits["logprob_tol"]
+            and all(e <= limits["metric_rtol"] for es in vs["metric_rel_errs"].values()
+                    for e in es))
+    return held, vs
+
+
 def tp_phase(torch, ops, ref, _build, records, label="tp", faults=()):
     """Phase 18: tensor-parallel model stages on the card. A: the
     vocab-sharded sampler (``tp_sampler_phase``). B: two ranks of one gloo
@@ -5541,55 +5642,14 @@ def tp_phase(torch, ops, ref, _build, records, label="tp", faults=()):
         exp = ExperimentSpec.from_json(exp_path.read_text())
         per_iter, _ = iteration_launches(exp.model, _build.LAUNCHES, exp.rl.max_new_tokens,
                                          algorithms.get_algorithm(exp.rl.algorithm).dag_factory())
-        import socket
-
-        def world(name, fault=None):
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", 0))
-                port = s.getsockname()[1]
-            host_args = []
-            for r in range(TP_RANKS):
-                args = work / f"{name}{r}.args.json"
-                args.write_text(json.dumps({
-                    "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters",
-                             str(TP_ITERS), "--num-hosts", str(TP_RANKS), "--process-id",
-                             str(r), "--coordinator", f"127.0.0.1:{port}"],
-                    "artifact": str(work / f"{name}{r}.artifact.json"), "rank": r,
-                    "solo_params": str(SOLO_PARAMS), "fault": fault}))
-                host_args.append((args, work / f"{name}{r}.log"))
-            return run_hosts(label, name, host_args, mode="--tp-rank")
+        def world(arm, fault=None):
+            return run_hosts(label, arm, tp_world_args(work, arm, exp_path, SOLO_PARAMS,
+                                                       TP_ITERS, fault=fault), mode="--tp-rank")
 
         arts = world("rank")
         fault_arts = {f: world(f"fault_{f}", f) for f in faults}
     finally:
         SOLO_PARAMS.unlink(missing_ok=True)
-
-    def readings(arts):
-        """The holds over both ranks' readings: (held, readings)."""
-        vs = {"cosine": min(a["vs_solo"]["cosine"] for a in arts),
-              "rel_distance": max(a["vs_solo"]["rel_distance"] for a in arts),
-              "replica_max_abs_diff": max(a["replicas"]["max_abs_diff"] for a in arts),
-              "logprob_max_abs_err": max(a["logprobs"]["max_abs_err"] for a in arts),
-              "logprobs_held": all(a["logprobs"]["held"] for a in arts),
-              "grad_rel_err": max(a["gradient"]["rel_err"] for a in arts),
-              "grad_leaf_max_rel_err": max(a["gradient"]["leaf_max_rel_err"] for a in arts),
-              "grad_worst_leaf": arts[0]["gradient"]["worst_leaf"],
-              "fixed_batch_loss_rel_err": max(a["gradient"]["loss_rel_err"] for a in arts),
-              "metric_rel_errs": {
-                  k: [abs(m[k] - s[k]) / max(abs(s[k]), 1e-30)
-                      for m, s in zip(arts[0]["history"], solo_history)] for k in SHARD_METRICS},
-              # the rollouts: sampled from bf16 logits that the ranks sum in
-              # another order, a token may flip, and the batches part
-              "rollouts_vs_solo": {k: [(m[k], s[k]) for m, s in zip(arts[0]["history"],
-                                                                   solo_history)]
-                                   for k in ("rollout/tokens", "reward/mean")}}
-        held = (vs["cosine"] >= TP_MIN_COSINE and vs["rel_distance"] <= TP_MAX_REL_DISTANCE
-                and vs["replica_max_abs_diff"] <= TP_MAX_REPLICA_DIFF and vs["logprobs_held"]
-                and vs["grad_leaf_max_rel_err"] <= TP_MAX_GRAD_REL_ERR
-                and vs["fixed_batch_loss_rel_err"] <= BF16_TOL
-                and all(e <= TP_METRIC_RTOL for es in vs["metric_rel_errs"].values()
-                        for e in es))
-        return held, vs
 
     counts, out = {}, {"layers": FLEET_LAYERS, "ranks": TP_RANKS, "mesh": [1, TP_RANKS]}
 
@@ -5629,11 +5689,11 @@ def tp_phase(torch, ops, ref, _build, records, label="tp", faults=()):
               "metric_rtol": TP_METRIC_RTOL, "max_replica_diff": TP_MAX_REPLICA_DIFF,
               "max_grad_rel_err": TP_MAX_GRAD_REL_ERR, "logprob_tol": BF16_TOL}
     # every reading first, the sound run's and the faults', then the holds
-    held, vs = readings(arts)
+    held, vs = tp_readings(arts, solo_history, limits)
     print(json.dumps({"check": f"{label}_against_the_solo_run", **vs, **limits}), flush=True)
     fault_held = {}
     for fault, fa in fault_arts.items():
-        fault_held[fault], fvs = readings(fa)
+        fault_held[fault], fvs = tp_readings(fa, solo_history, limits)
         print(json.dumps({"check": f"{label}_fault_{fault}_against_the_solo_run",
                           "held": fault_held[fault], **fvs, **limits}), flush=True)
     require(clean(arts[0]["history"]) == clean(arts[1]["history"]),
@@ -5654,10 +5714,305 @@ def tp_phase(torch, ops, ref, _build, records, label="tp", faults=()):
     return counts
 
 
+# ---- phase 19: tensor-parallel MoE and SSD layers ----
+TP19_MODELS = {"granite": GRANITE_FLAGS, "mamba2": MAMBA2_FLAGS}
+TP19_LAYERS = 2
+TP19_ITERS = 3  # one warm-up iteration, then two timed
+# holds of each (1, 2) run against its own solo run, set between the sound
+# runs and the planted faults of --tp-faults (on an H100 80GB HBM3 at 700 W,
+# sound granite / mamba2 against the worse fault: cosine 0.985 / 0.986
+# against 0.952, distance 0.174 / 0.166 against 0.308, grad_norm and loss
+# 0.0070 / 0.0064 against 0.055, the fixed batch's worst leaf 0.030 / 0.015
+# against 0.318; PERF.md)
+TP19_MIN_COSINE = 0.97
+TP19_MAX_REL_DISTANCE = 0.25
+TP19_METRIC_RTOL = 0.03
+TP19_MAX_GRAD_REL_ERR = 0.05
+# faults planted for --tp-faults with --only-phase 19: the MoE combine
+# weights' copy_to_model dropped (granite's router then takes each rank's
+# partial gradient through the gates), and mamba2's gated norm over the
+# rank's own width instead of the whole d_inner
+TP19_FAULTS = {"moe_gate_copy": "granite", "ssd_norm_local": "mamba2"}
+# the sharded gated norm: (rows, a rank's columns, the whole width) at a
+# training step's 1,280 rows and a decode step's 8, mamba2's d_inner of 5,120
+# and jamba's of 8,192 over two ranks
+TP19_NORMS = {"mamba2_training": (1280, 2560, 5120), "mamba2_decode": (8, 2560, 5120),
+              "jamba_training": (1280, 4096, 8192), "jamba_decode": (8, 4096, 8192)}
+SUMSQ_TOL = 1e-5  # fp32 sums of 2,560 or 4,096 squares in another order
+# the scan on a rank's heads: (heads, state) of mamba2 and jamba over two
+# ranks, at 8 rows of one 128-position chunk
+TP19_SSD = {"mamba2": (M_HEADS // 2, M_STATE), "jamba": (64, 16)}
+TP19_SSD_B, TP19_SSD_S = 8, 128
+
+
+def tp19_kernel_records(torch, ref, F):
+    """Phase 19 A, each kernel alone on the card against its plain version
+    on the same inputs, by CUDA events (median of 25). The sharded norm at
+    TP19_NORMS: each rank's ``rmsnorm_sumsq`` (within SUMSQ_TOL) and
+    ``rmsnorm_scaled`` on the ranks' summed sums (within BF16_TOL), the
+    ranks' outputs side by side against the plain norm of the whole row, each
+    entry's bound, and ``F.rms_norm`` of the whole row on one device as the
+    library yardstick. The scan at TP19_SSD's heads a rank (y within
+    SSD_Y_TOL, the state within SSD_STATE_TOL), with its bound. Returns
+    ({case: norm record}, {model: scan record})."""
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssd_mod
+
+    gen = torch.Generator(device=DEV).manual_seed(1919)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+    norms = {}
+    for case, (R, D, width) in TP19_NORMS.items():
+        ranks = width // D
+        xs = [randn(R, D, scale=1.0 + r) for r in range(ranks)]  # the halves differ
+        ws = [randn(D, scale=0.1, dtype=torch.float32) for _ in range(ranks)]
+        x, w = xs[0], ws[0]
+        ok, err_ss = close(rn.rmsnorm_sumsq(x), ref.rmsnorm_sumsq(x), SUMSQ_TOL)
+        require(ok, f"rmsnorm_sumsq {case}: max abs err {err_ss}")
+        ss = sum(rn.rmsnorm_sumsq(t) for t in xs)
+        ok, err_y = close(rn.rmsnorm_scaled(x, ss, w, width=width),
+                          ref.rmsnorm_scaled(x, ss, w, width=width), BF16_TOL)
+        require(ok, f"rmsnorm_scaled {case}: max abs err {err_y}")
+        whole = torch.cat([rn.rmsnorm_scaled(t, ss, wt, width=width)
+                           for t, wt in zip(xs, ws)], dim=-1)
+        xw, ww = torch.cat(xs, dim=-1), torch.cat(ws)
+        ok, err_whole = close(whole, ref.rmsnorm(xw, ww), BF16_TOL)
+        require(ok, f"sharded rmsnorm {case}: the ranks' rows against the whole row, {err_whole}")
+        ss_bound, ss_by = bound_ms(R * D * 2 + R * 4, 2 * R * D, FP32_FLOP_PER_S)
+        sc_bound, sc_by = bound_ms(2 * R * D * 2 + R * 4 + D * 4, 4 * R * D, FP32_FLOP_PER_S)
+        wl = (1.0 + ww).to(torch.bfloat16)
+        rec = {"shape": {"rows": R, "columns": D, "width": width},
+               "sumsq": {"max_abs_err": err_ss, "ms": device_ms(lambda: rn.rmsnorm_sumsq(x)),
+                         "plain_ms": device_ms(lambda: ref.rmsnorm_sumsq(x)),
+                         "bound_ms": ss_bound, "bound_by": ss_by},
+               "scaled": {"max_abs_err": err_y,
+                          "ms": device_ms(lambda: rn.rmsnorm_scaled(x, ss, w, width=width)),
+                          "plain_ms": device_ms(lambda: ref.rmsnorm_scaled(x, ss, w,
+                                                                           width=width)),
+                          "bound_ms": sc_bound, "bound_by": sc_by},
+               "ranks_against_whole_row_max_abs_err": err_whole,
+               "library_ms": device_ms(lambda: F.rms_norm(xw, (width,), weight=wl, eps=1e-6)),
+               "library": "F.rms_norm of the whole row on one device"}
+        norms[case] = rec
+        print(json.dumps({"check": f"tp19/rmsnorm_split/{case}", **rec}), flush=True)
+        del xs, ws, x, w, ss, whole, xw, ww
+    scans = {}
+    Bs, S = TP19_SSD_B, TP19_SSD_S
+    for model, (H, N) in TP19_SSD.items():
+        args = (randn(Bs, S, H, M_HEADDIM), F.softplus(randn(Bs, S, H, dtype=torch.float32)),
+                -torch.exp(randn(H, dtype=torch.float32)), randn(Bs, S, 1, N),
+                randn(Bs, S, 1, N), randn(H, dtype=torch.float32))
+        y, h = ssd_mod.ssd(*args)
+        y_p, h_p = ssd_mod.plain(*args)
+        ok_y, err_y = close(y, y_p, SSD_Y_TOL)
+        ok_h, err_h = close(h, h_p, SSD_STATE_TOL)
+        require(ok_y and ok_h, f"ssd {model} {H} heads: y err {err_y}, state err {err_h}")
+        flops = Bs * H * (S * (S + 1) // 2 * (2 * N + 2 * M_HEADDIM) + 4 * S * N * M_HEADDIM)
+        nbytes = (2 * Bs * S * H * M_HEADDIM * 2 + Bs * H * M_HEADDIM * N * 4 + Bs * S * H * 4
+                  + 2 * Bs * S * N * 2 + 2 * H * 4)
+        bms, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOP_PER_S)
+        rec = {"shape": {"x": [Bs, S, H, M_HEADDIM], "state": N}, "max_abs_err": err_y,
+               "state_max_abs_err": err_h, "ms": device_ms(lambda: ssd_mod.ssd(*args)),
+               "plain_ms": device_ms(lambda: ssd_mod.plain(*args)),
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        scans[model] = rec
+        print(json.dumps({"check": f"tp19/ssd/{model}_{H}_heads", **rec}), flush=True)
+        del args, y, h, y_p, h_p
+    torch.cuda.empty_cache()
+    return norms, scans
+
+
+def gated_norm_launches(cfg, max_new_tokens: int, dag) -> int:
+    """The gated norms of one RL iteration: one for each SSD layer in every
+    forward, which is each GENERATE node's prefill and its
+    ``max_new_tokens - 1`` decode steps, each MODEL_INFERENCE node's forward,
+    and each MODEL_TRAIN node's forward and its remat in the backward. On a
+    tensor-parallel mesh each launches ``rmsnorm_sumsq`` and
+    ``rmsnorm_scaled`` once, where one device launches ``rmsnorm``."""
+    from repro_torch.core.dag import NodeType
+
+    types = [node.type for node in dag.nodes.values()]
+    forwards = (types.count(NodeType.GENERATE) * max_new_tokens
+                + types.count(NodeType.MODEL_INFERENCE) + 2 * types.count(NodeType.MODEL_TRAIN))
+    return sum(k[0] == "ssm" for k in cfg.layer_kinds()) * forwards
+
+
+def tp_moe_ssd_phase(torch, ref, F, _build, records, label="tp19", faults=()):
+    """Phase 19: tensor-parallel MoE and SSD layers on the card. A: the
+    sharded gated norm's two entries and the scan on a rank's heads, alone
+    (``tp19_kernel_records``). B: for granite-moe-3b and then mamba2-2.7b,
+    each at full width on TP19_LAYERS layers (phase 8's experiment file of
+    its arch, cut), a solo run (``launch.train.main`` in this process) and
+    two ranks of one gloo group on ``cuda:0``
+    (``chip_smoke.py --tp-rank``, ``launch.train --coordinator
+    127.0.0.1:PORT --num-hosts 2 --process-id r`` on the file with
+    ``"mesh_shape": [1, 2]``; one model's world after the other's),
+    TP19_ITERS GRPO iterations each. Held, as in phase 18:
+
+    - every iteration of each rank launches each kernel as often as the solo
+      run's iteration, but for the gated norms (``gated_norm_launches``):
+      each launches ``rmsnorm_sumsq`` and ``rmsnorm_scaled`` once in place of
+      one ``rmsnorm``; both ranks print the same metrics; no byte through a
+      controller and some redistributions;
+    - against the solo run: the metrics within TP19_METRIC_RTOL, the
+      displacement's cosine and distance (TP19_MIN_COSINE,
+      TP19_MAX_REL_DISTANCE), every leaf replicated over ``model`` (router,
+      ``w_B``, ``w_C``, ``conv_bc``, the block norms) bit for bit equal on
+      both ranks, a fixed batch's gradient of every leaf, gathered, within
+      TP19_MAX_GRAD_REL_ERR of one device's, and the last rollout's
+      logprobs within BF16_TOL (granite's tokens whose route flips left out,
+      and counted).
+
+    ``faults`` (names of TP19_FAULTS) runs its model's world again with the
+    fault planted (one fault's world after the other's), prints its
+    readings and fails unless the holds reject it. Prints per rank the
+    iteration ms, the collectives' calls, ms and bytes an iteration and the
+    peak device GiB, then ``phase_s``. The norm entries' records go into
+    ``records["rmsnorm_sumsq"]`` and ``records["rmsnorm_scaled"]`` (rows of
+    the kernels line, each at mamba2's training shape with every case under
+    ``by_case``), the scan's into ``records["ssd"]["head_shards"]``.
+    Returns {path: launch counts}."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "tp19"
+    work.mkdir(parents=True, exist_ok=True)
+    norms, scans = tp19_kernel_records(torch, ref, F)
+    train_norm = norms["mamba2_training"]
+    for entry in ("sumsq", "scaled"):
+        records[f"rmsnorm_{entry}"] = {**train_norm[entry], **train_norm["shape"],
+                                       "library_ms": train_norm["library_ms"],
+                                       "library": train_norm["library"],
+                                       "by_case": {case: {**rec["shape"], **rec[entry]}
+                                                   for case, rec in norms.items()}}
+    records.setdefault("ssd", {})["head_shards"] = scans
+    from repro_torch import tree
+    from repro_torch.launch import train
+
+    files, solos = {}, {}
+    for name, flags in TP19_MODELS.items():
+        spec = json.loads(experiment_file(f"{label}_{name}", flags, PIPE_RL).read_text())
+        spec["model"]["num_layers"] = TP19_LAYERS
+        spec["distributed"] = {"num_hosts": 1, "exchange_timeout_s": 600.0, "dead_after_s": 120.0}
+        solo_path = work / f"{name}_solo_experiment.json"
+        solo_path.write_text(json.dumps(spec))
+        spec["mesh_shape"] = [1, TP_RANKS]
+        tp_path = work / f"{name}_tp_experiment.json"
+        tp_path.write_text(json.dumps(spec))
+        files[name] = (tp_path, work / f"{name}_solo_params.pt")
+        # the solo run in this process (its kernels and context are up), each
+        # iteration synchronised with its launches; its final params saved
+        # for the ranks to be held against
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with observed_iterations(torch, _build) as seen:
+            res = train.main(["--experiment", str(solo_path), "--device", DEV, "--iters",
+                              str(TP19_ITERS), "--num-hosts", "1"])
+        torch.save([t.cpu() for t in tree.leaves(res["pipeline"].ctx.actor_state.params)],
+                   files[name][1])
+        solos[name] = {"history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+                       "iterations": [{"ms": r["ms"], "launches": r["launches"]}
+                                      for r in seen["iterations"]],
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del res, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def worlds(runs):
+        """The worlds of ``runs`` ({key: (model, fault)}) at once, each
+        its own gloo group on the card: {key: its ranks' artifacts}."""
+        host_args = [a for key, (name, fault) in runs.items()
+                     for a in tp_world_args(work, key, files[name][0], files[name][1],
+                                            TP19_ITERS, fault=fault, sampler=False)]
+        arts = run_hosts(label, "+".join(runs), host_args, mode="--tp-rank")
+        return {key: arts[i * TP_RANKS:(i + 1) * TP_RANKS] for i, key in enumerate(runs)}
+
+    try:
+        # one world after the other, so that each rank's ms and peak are its own
+        arts, fault_arts = {}, {}
+        for name in TP19_MODELS:
+            arts.update(worlds({name: (name, None)}))
+        for f in faults:
+            fault_arts.update(worlds({f: (TP19_FAULTS[f], f)}))
+    finally:
+        for _, params_path in files.values():
+            params_path.unlink(missing_ok=True)
+
+    def clean(history):
+        return [{k: v for k, v in m.items() if not k.startswith("time/")} for m in history]
+
+    counts = {}
+    limits = {"min_cosine": TP19_MIN_COSINE, "max_rel_distance": TP19_MAX_REL_DISTANCE,
+              "metric_rtol": TP19_METRIC_RTOL, "max_replica_diff": TP_MAX_REPLICA_DIFF,
+              "max_grad_rel_err": TP19_MAX_GRAD_REL_ERR, "logprob_tol": BF16_TOL}
+    out = {"layers": TP19_LAYERS, "ranks": TP_RANKS, "mesh": [1, TP_RANKS], "models": {}}
+    held_by = {}
+    for name, ranks in arts.items():
+        exp = ExperimentSpec.from_json(files[name][0].read_text())
+        solo = solos[name]
+        sumsq = gated_norm_launches(exp.model, exp.rl.max_new_tokens,
+                                    algorithms.get_algorithm(exp.rl.algorithm).dag_factory())
+        for r, a in enumerate(ranks):
+            require(a["backend"] == "gloo" and a["mesh"] == {"data": 1, "model": TP_RANKS}
+                    and a["coords"]["model"] == r,
+                    f"{label} {name} rank {r}: backend {a['backend']}, mesh {a['mesh']}, "
+                    f"{a['coords']}")
+            for i, (it, sit) in enumerate(zip(a["iterations"], solo["iterations"])):
+                want = dict(sit["launches"], rmsnorm=sit["launches"]["rmsnorm"] - sumsq,
+                            rmsnorm_sumsq=sumsq, rmsnorm_scaled=sumsq)
+                require(it["launches"] == want,
+                        f"{label} {name} rank {r} iteration {i}: launches {it['launches']}, "
+                        f"expected {want}")
+            st = a["stats"]
+            require(st["bytes_through_controller"] == 0 and st["redistributions"] > 0,
+                    f"{label} {name} rank {r}: buffer stats {st}")
+            timed = a["iterations"][1:]
+            row = {"model": name, "rank": r, "params": a["params"],
+                   "local_params": a["local_params"],
+                   "iteration_ms": [it["ms"] for it in a["iterations"]],
+                   "timed_iteration_ms": statistics.median(it["ms"] for it in timed),
+                   "solo_iteration_ms": [it["ms"] for it in solo["iterations"]],
+                   "collectives_per_timed_iteration": {
+                       k: {f: statistics.median(it["collectives"][k][f] for it in timed)
+                           for f in ("calls", "ms", "bytes")}
+                       for k in ("all_reduce", "all_gather")},
+                   "peak_gib": a["peak_gib"], "solo_peak_gib": solo["peak_gib"],
+                   "peak_rss_gib": a["peak_rss_gib"], "buffer_stats": st,
+                   "launches": a["launches"], "vs_solo": a["vs_solo"],
+                   "replicas": a["replicas"], "logprobs": a["logprobs"],
+                   "gradient": a["gradient"]}
+            print(json.dumps({f"{label}_rank": row}), flush=True)
+            counts[f"tp_{name}_grpo_rank{r}"] = a["launches"]
+        require(clean(ranks[0]["history"]) == clean(ranks[1]["history"]),
+                f"{label} {name}: the ranks' metrics differ")
+        require(all(m["actor/grad_norm"] > 0 for m in ranks[0]["history"]),
+                f"{label} {name}: a zero gradient")
+        held_by[name], vs = tp_readings(ranks, solo["history"], limits)
+        print(json.dumps({"check": f"{label}_{name}_against_the_solo_run", "held": held_by[name],
+                          **vs, **limits}), flush=True)
+        out["models"][name] = {"history": ranks[0]["history"], "solo_history": solo["history"]}
+    fault_held = {}
+    for fault, fa in fault_arts.items():
+        fault_held[fault], fvs = tp_readings(fa, solos[TP19_FAULTS[fault]]["history"], limits)
+        print(json.dumps({"check": f"{label}_fault_{fault}_against_the_solo_run",
+                          "held": fault_held[fault], **fvs, **limits}), flush=True)
+    for name, held in held_by.items():
+        require(held, f"{label} {name}: the tensor-parallel run against the solo run's")
+    for fault, fheld in fault_held.items():
+        require(not fheld, f"{label}: the holds do not reject the planted fault {fault}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18], default=None,
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18, 19],
+                    default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
                          "phase; the full run takes no argument)")
@@ -5672,16 +6027,19 @@ def main(argv=None) -> int:
     # one rank of phase 18's world, started by tp_phase
     ap.add_argument("--tp-rank", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-faults", default="",
-                    help="with --only-phase 18: comma-separated faults of TP_FAULTS to plant "
-                         "in the tensor-parallel model after the sound run, each of which "
-                         "phase 18's holds must reject (how its limits were set)")
+                    help="with --only-phase 18 (19): comma-separated faults of TP_FAULTS "
+                         "(TP19_FAULTS) to plant in the tensor-parallel model after the sound "
+                         "run, each of which the phase's holds must reject (how its limits "
+                         "were set)")
     opts = ap.parse_args(argv)
     faults = [f for f in opts.shard_faults.split(",") if f]
     if faults and (opts.only_phase != 17 or not set(faults) <= set(SHARD_FAULTS)):
         ap.error(f"--shard-faults takes {', '.join(SHARD_FAULTS)}, with --only-phase 17")
     tp_faults = [f for f in opts.tp_faults.split(",") if f]
-    if tp_faults and (opts.only_phase != 18 or not set(tp_faults) <= set(TP_FAULTS)):
-        ap.error(f"--tp-faults takes {', '.join(TP_FAULTS)}, with --only-phase 18")
+    known = {18: TP_FAULTS, 19: tuple(TP19_FAULTS)}.get(opts.only_phase, ())
+    if tp_faults and not set(tp_faults) <= set(known):
+        ap.error(f"--tp-faults takes {', '.join(TP_FAULTS)} with --only-phase 18, or "
+                 f"{', '.join(TP19_FAULTS)} with --only-phase 19")
 
     import torch
 
@@ -5728,7 +6086,8 @@ def main(argv=None) -> int:
                  15: lambda: ckpt_phase(torch, ops, ref, _build),
                  16: lambda: fleet_phase(torch, _build),
                  17: lambda: sharding_phase(torch, _build, faults=faults),
-                 18: lambda: tp_phase(torch, ops, ref, _build, {}, faults=tp_faults)}
+                 18: lambda: tp_phase(torch, ops, ref, _build, {}, faults=tp_faults),
+                 19: lambda: tp_moe_ssd_phase(torch, ref, F, _build, {}, faults=tp_faults)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -5840,6 +6199,13 @@ def main(argv=None) -> int:
     # and two ranks of a (data 1, model 2) mesh on the card (each rank's
     # counts start at 0 in its process and are read after its run) ----
     paths.update(tp_phase(torch, ops, ref, _build, records))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 19: tensor-parallel MoE and SSD layers, the sharded norm's
+    # entries alone, then granite-moe-3b and mamba2-2.7b on two ranks of a
+    # (data 1, model 2) mesh on the card (each rank's counts start at 0 in its
+    # process and are read after its run) ----
+    paths.update(tp_moe_ssd_phase(torch, ref, F, _build, records))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -5881,6 +6247,10 @@ def main(argv=None) -> int:
                **{f"shard_decode_rank{r}": ("decode_attention",) for r in range(SHARD_RANKS)},
                **{f"tp_grpo_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
                                        "fused_sample") for r in range(TP_RANKS)},
+               **{f"tp_granite_grpo_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
+                                               "fused_sample") for r in range(TP_RANKS)},
+               **{f"tp_mamba2_grpo_rank{r}": ("rmsnorm", "ssd", "fused_sample", "rmsnorm_sumsq",
+                                              "rmsnorm_scaled") for r in range(TP_RANKS)},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():
@@ -5895,7 +6265,12 @@ def main(argv=None) -> int:
                "fused_sample": ("sampling.cu", "src/repro/kernels/sampling.py:181"),
                "decode_attention_quant": ("decode_attention_quant.cu",
                                           "src/repro/kernels/decode_attention.py:282"),
-               "ssd": ("ssd.cu", "src/repro/kernels/ssd.py:121")}
+               "ssd": ("ssd.cu", "src/repro/kernels/ssd.py:121"),
+               # the sharded norm's sum of squares and its forward from the
+               # summed sums: the same TPU kernel's work where its row is
+               # split over ranks
+               "rmsnorm_sumsq": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:42"),
+               "rmsnorm_scaled": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:42")}
     kernels = []
     for name, rec in records.items():
         src, replaces = sources[name]

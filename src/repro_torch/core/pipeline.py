@@ -36,16 +36,17 @@ layout (which, at ``model`` = 1, are the full params the actor step reads
 too: one all-gather serves both), the reference params stay whole, and the
 dataloader, generator and stages work on the rank's rows.
 
-With ``model`` > 1 the model stages of a dense decoder are tensor-parallel
+With ``model`` > 1 the model stages of a decoder are tensor-parallel
 (``distributed.constraint``, the worker entering the mesh as the model
 code's ambient one): the serve layout is no longer the full params, so the
 logprob stages and the actor step read the train layout gathered over the
 data axes (``WorkerContext.model_params``: this rank's ``model`` shards),
 and the reference params are cut once to the train specs' ``model``
 shards. The ranks of one data row share its rows and seeds. MoE and SSD
-layers, an encoder-decoder, prefix embeddings, ``kv_quant``, a sliding
-window, the continuous engine and the async pipeline on such a mesh are
-ROADMAP queue 1, item 8.
+layers run there too (expert and head tensor parallelism). An
+encoder-decoder, prefix embeddings, ``kv_quant``, a sliding window, the
+continuous engine and the async pipeline on such a mesh are ROADMAP queue
+1, item 8.
 
 The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 ``compile()`` lands here.
@@ -184,14 +185,12 @@ def _refuse_unported_mesh(shape: Dict[str, int], cfg: ModelConfig,
                           async_pipeline: Optional[AsyncPipelineConfig],
                           rollout: Optional[RolloutEngineConfig]) -> None:
     """Raise for what a rank mesh cannot run yet: the async pipeline, and on
-    ``model`` > 1 every model but a dense decoder on the lockstep engine."""
+    ``model`` > 1 an encoder-decoder, prefix embeddings, ``kv_quant``, a
+    sliding window and the continuous engine."""
     if math.prod(shape.values()) <= 1:
         return
     if shape.get("model", 1) > 1:
-        kinds = cfg.layer_kinds()
         unported = [what for what, hit in (
-            ("MoE layers", any(mlp == "moe" for _, mlp in kinds)),
-            ("SSD layers", any(mixer != "attn" for mixer, _ in kinds)),
             ("an encoder-decoder", cfg.is_encoder_decoder),
             ("prefix embeddings", cfg.num_prefix_embeds > 1),
             ("kv_quant", cfg.kv_quant),

@@ -21,7 +21,8 @@ GSPMD computes it in the JAX package. The stages' metrics are reduced over
 the ranks to their global values.
 
 ``actor_generate`` drives lockstep ``generate`` or the continuous engine and
-reports the engine's ``last_stats`` as ``rollout/*``; episodes the engine
+reports the engine's ``last_stats`` as ``rollout/*`` (on a rank mesh the
+rank's own engine's, but for ``rollout/tokens``, the global batch's); episodes the engine
 stepped put their ``role_mask``, ``env_rewards`` and ``env_turns`` for
 ``env_compute``, the (ENV, COMPUTE) stage of ``repro_torch.rl.envs``.
 """
@@ -131,6 +132,9 @@ def actor_generate(ctx, buffer, node: Node) -> Dict:
     stats = getattr(engine, "last_stats", None)
     if stats:  # continuous engine: slot and throughput accounting
         out.update({f"rollout/{k}": float(v) for k, v in stats.items()})
+        # the engine counts this rank's tokens; on a rank mesh the metric
+        # stays the global batch's, as the lockstep path reports it
+        out["rollout/tokens"] = gen_tokens
     return out
 
 

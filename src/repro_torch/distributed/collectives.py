@@ -191,28 +191,30 @@ MODEL = ("model",)
 
 
 class CopyToModel(torch.autograd.Function):
-    """Identity forward; backward, the gradient summed over ``model``."""
+    """Identity forward; backward, the gradient summed over ``model`` (or
+    over the mesh axes ``axes``)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axes=MODEL):
+        ctx.mesh, ctx.axes = mesh, axes
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(ctx.mesh, g, axes=MODEL), None
+        return all_reduce(ctx.mesh, g, axes=ctx.axes), None, None
 
 
 class ReduceFromModel(torch.autograd.Function):
-    """The sum over ``model`` forward; identity backward."""
+    """The sum over ``model`` (or over the mesh axes ``axes``) forward;
+    identity backward."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        return all_reduce(mesh, x, axes=MODEL)
+    def forward(ctx, x, mesh, axes=MODEL):
+        return all_reduce(mesh, x, axes=axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class GatherFromModel(torch.autograd.Function):

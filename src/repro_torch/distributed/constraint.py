@@ -15,7 +15,14 @@ below are what the model code asks of it:
   JAX, and one device takes exactly its old path;
 - :func:`copy_to_model`, :func:`reduce_from_model` and
   :func:`gather_from_model` are the Megatron region operators over the
-  ``model`` group (``distributed.collectives``).
+  ``model`` group (``distributed.collectives``). Where a rank-local partial
+  feeds rank-local work again (the gated norm's sum of squares over a width
+  split over ``model``), the sum over ``model`` must run in both directions:
+  ``copy_to_model(reduce_from_model(s))``. ``reduce_from_model`` alone would
+  keep, backward, only this rank's share of the gradient of ``s``;
+- :func:`batch_sum` sums a value over the data axes that split the global
+  batch (the MoE aux loss's token sums, whose means JAX's GSPMD takes over
+  the global batch).
 
 Sequence parallelism (JAX's ``sequence_parallel()``, ``REPRO_SP``, off by
 default) is not ported: the residual stream stays replicated over
@@ -92,6 +99,26 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     from repro_torch.distributed import collectives
 
     return collectives.GatherFromModel.apply(x, mesh, dim % x.dim())
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of the ambient rank mesh's data axes
+    (every axis but ``model``) that have more than one rank, each of which
+    holds its own rows of the global batch, in both directions: every data
+    rank then holds the global value, and the ranks' weights of the
+    data-parallel step, which sum to one, give each rank's rows their whole
+    gradient. One all-reduce forward and one backward; ``x`` as it is
+    elsewhere. (The MoE aux loss's token sums, once for all layers.)"""
+    mesh = _AMBIENT
+    if mesh is None or getattr(mesh, "torch_mesh", None) is None:
+        return x
+    axes = tuple(a for a in mesh.axis_names if a != "model" and mesh.shape[a] > 1)
+    if not axes:
+        return x
+    from repro_torch.distributed import collectives
+
+    return collectives.CopyToModel.apply(collectives.ReduceFromModel.apply(x, mesh, axes),
+                                         mesh, axes)
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:

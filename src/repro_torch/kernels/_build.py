@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
     "paged_decode_attention": 0, "fused_sample": 0, "decode_attention_quant": 0,
-    "ssd": 0,
+    "ssd": 0, "rmsnorm_sumsq": 0, "rmsnorm_scaled": 0,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -24,6 +24,16 @@
 // lane over its even loads and over its odd loads, the two added, then a
 // butterfly over the lanes; one sum a lane when the row is read twice),
 // inv = rsqrt(sum / D + eps), (x inv)(1 + w).
+//
+// Two more entries serve a row whose width is split over ranks (tensor
+// parallelism: mamba2's gated norm over d_inner = 5,120, 2,560 columns a
+// rank). rmsnorm_sumsq writes each row's fp32 sum of x^2 over the rank's
+// columns; the caller sums those over the ranks; rmsnorm_scaled_fwd then
+// writes (x inv)(1 + w) with inv = rsqrt(ss / width + eps) from the summed
+// ss and the whole width. Both are one warp a row with 16-byte loads as
+// above (4-byte loads of bf16 pairs where D is not a multiple of 8), and
+// neither holds the row in registers: the first has nothing to write back,
+// the second nothing to reduce. Each reads x once; bytes bound both.
 #include "common.cuh"
 
 namespace {
@@ -181,7 +191,84 @@ cudaError_t dispatch(int per, const void* x, const void* w, void* out, int R, in
     return launch<Vec, 0>(x, w, out, R, D, eps, stream);
 }
 
+// One warp, one row: the fp32 sum of x^2 over the row's D columns, two
+// loads a lane in flight, each into its own sum (added before the butterfly).
+template <class Vec>
+__global__ void __launch_bounds__(32)
+    rmsnorm_sumsq_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ ss, int D) {
+  constexpr int W = sizeof(Vec) / 4;
+  const int lane = threadIdx.x;
+  const long row = blockIdx.x;
+  const int nv = D / (2 * W);
+  const Vec* xr = reinterpret_cast<const Vec*>(x + row * D);
+  float s0 = 0.f, s1 = 0.f;
+  int i = lane;
+  for (; i + 32 < nv; i += 64) {
+    const Vec a = xr[i], b = xr[i + 32];
+    s0 = sum_sq(a, s0);
+    s1 = sum_sq(b, s1);
+  }
+  if (i < nv) s0 = sum_sq(xr[i], s0);
+  const float t = repro::warp_sum(s0 + s1);
+  if (lane == 0) ss[row] = t;
+}
+
+// One warp, one row: (x inv)(1 + w) with inv = rsqrt(ss[row] / width + eps).
+template <class Vec>
+__global__ void __launch_bounds__(32)
+    rmsnorm_scaled_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ss,
+                          const float* __restrict__ w, __nv_bfloat16* __restrict__ out, int D,
+                          float width, float eps) {
+  constexpr int W = sizeof(Vec) / 4;
+  const int lane = threadIdx.x;
+  const long row = blockIdx.x;
+  const int nv = D / (2 * W);
+  const Vec* xr = reinterpret_cast<const Vec*>(x + row * D);
+  Vec* orow = reinterpret_cast<Vec*>(out + row * D);
+  const float inv = rsqrtf(ss[row] / width + eps);
+  for (int i = lane; i < nv; i += 32) {
+    float2 wf[W];
+    load_w<Vec>(w, i, wf);
+    orow[i] = scaled(xr[i], wf, inv);
+  }
+}
+
 }  // namespace
+
+REPRO_EXPORT int rmsnorm_sumsq(const void* x, void* ss, int R, int D, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (D <= 0 || D % 2 != 0) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  if (D % 8 == 0)
+    rmsnorm_sumsq_kernel<uint4><<<R, 32, 0, s>>>(xb, static_cast<float*>(ss), D);
+  else
+    rmsnorm_sumsq_kernel<uint32_t><<<R, 32, 0, s>>>(xb, static_cast<float*>(ss), D);
+  return cudaGetLastError();
+}
+
+REPRO_EXPORT int rmsnorm_scaled_fwd(const void* x, const void* ss, const void* w, void* out,
+                                    int R, int D, int width, float eps, int device,
+                                    void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (D <= 0 || D % 2 != 0 || width < D) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* sf = static_cast<const float*>(ss);
+  const auto* wf = static_cast<const float*>(w);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (D % 8 == 0)
+    rmsnorm_scaled_kernel<uint4><<<R, 32, 0, s>>>(xb, sf, wf, ob, D, static_cast<float>(width),
+                                                  eps);
+  else
+    rmsnorm_scaled_kernel<uint32_t><<<R, 32, 0, s>>>(xb, sf, wf, ob, D,
+                                                     static_cast<float>(width), eps);
+  return cudaGetLastError();
+}
 
 REPRO_EXPORT int rmsnorm_fwd(const void* x, const void* w, void* out, int R, int D, float eps,
                              int device, void* stream) {

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
 from repro_torch.kernels.decode_attention_quant import (
@@ -54,12 +55,39 @@ def current_mode() -> Optional[str]:
     return _MODE
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            width: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm over the last dim. ``width``: the whole width of rows whose
+    columns are split over ``model`` (tensor parallelism), x (..., D) and w
+    (D,) this rank's columns. Where it exceeds D the rows are normalised by
+    their mean square over the whole width, in three steps: the sum of
+    squares of this rank's columns (kernel), summed over ``model`` in both
+    directions (``copy_to_model(reduce_from_model(.))``), then the forward
+    from that sum (kernel)."""
+    if width is not None and width != x.shape[-1]:
+        return _rmsnorm_split(x, w, eps, width)
     if _MODE == "ref":
         return _ref.rmsnorm(x, w, eps=eps)
     if _build.wants_grad(x, w):
         return RMSNormFn.apply(x, w, eps)
     return _rmsnorm(x, w, eps=eps)
+
+
+def _rmsnorm_split(x, w, eps: float, width: int) -> torch.Tensor:
+    from repro_torch.distributed import constraint
+
+    if _MODE == "ref":
+        ss = _ref.rmsnorm_sumsq(x)
+    elif _build.wants_grad(x):
+        ss = _rn.RMSNormSumSqFn.apply(x)
+    else:
+        ss = _rn.rmsnorm_sumsq(x)
+    ss = constraint.copy_to_model(constraint.reduce_from_model(ss))
+    if _MODE == "ref":
+        return _ref.rmsnorm_scaled(x, ss, w, width=width, eps=eps)
+    if _build.wants_grad(x, ss, w):
+        return _rn.RMSNormScaledFn.apply(x, ss, w, width, eps)
+    return _rn.rmsnorm_scaled(x, ss, w, width=width, eps=eps)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None, q_offset=0):

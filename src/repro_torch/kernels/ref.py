@@ -64,6 +64,22 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
     return (y * (1.0 + _up(w))).to(x.dtype)
 
 
+def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 sum of ``x^2`` over the last dim (float64 stays float64): a
+    row's share of the mean square of a width split over ranks."""
+    xf = _up(x)
+    return torch.sum(xf * xf, dim=-1)
+
+
+def rmsnorm_scaled(x: torch.Tensor, ss: torch.Tensor, w: torch.Tensor, *, width: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` of the columns ``x`` (..., D) of rows ``width`` wide,
+    from the rows' whole sums of squares ``ss`` (...): ``x * rsqrt(ss / width
+    + eps) * (1 + w)`` in fp32, output in x's dtype."""
+    y = _up(x) * torch.rsqrt(_up(ss)[..., None] / width + eps)
+    return (y * (1.0 + _up(w))).to(x.dtype)
+
+
 # --------------------------------------------------------------------------- #
 # attention (prefill)
 # --------------------------------------------------------------------------- #

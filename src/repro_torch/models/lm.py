@@ -49,8 +49,11 @@ slots ``[r W/M, (r + 1) W/M)`` of all KV heads, its width W rounded up to a
 multiple of M (the slots past W are never attended); a decode step writes
 its token on the rank that owns its slot and attends all query heads,
 gathered, over each rank's slots (``collectives.seq_sharded_decode_attention``),
-keeping its own heads of the output. MoE and SSD layers, sliding windows,
-``kv_quant``, chunked prefill, paged decode and ``top_p < 1`` raise there.
+keeping its own heads of the output. An SSD layer runs on this rank's
+heads and an MoE layer on this rank's ``f`` columns of every expert
+(``models/ssm.py``, ``models/moe.py``); an SSD layer's decode state holds
+this rank's heads (``ssm.ssm_state_shapes``). Sliding windows, ``kv_quant``,
+chunked prefill, paged decode and ``top_p < 1`` raise there.
 """
 from __future__ import annotations
 
@@ -417,11 +420,9 @@ def _apply_block(
     kind is ``none``, pre-norm dense or MoE MLP, each added to the residual.
     A parallel block (``cfg.parallel_block``) feeds norm1's output to both
     and returns ``h + mix_out + mlp_out``, summed in that order as JAX does
-    (bf16 sums depend on it). Returns (h, the layer's MoE aux loss or None,
-    the layer's cache)."""
+    (bf16 sums depend on it). Returns (h, the MoE layer's aux sums
+    (``moe.aux_sums``) or None, the layer's cache)."""
     mixer_kind, mlp_kind = kind
-    if mixer_kind != "attn" or mlp_kind == "moe":
-        tpc.require_dense("SSD and MoE layers")
     hn = layers.apply_norm(cfg, p["norm1"], h)
     if mixer_kind == "attn":
         mix_out, new_cache = _attn_mixer(cfg, p["attn"], hn, positions, mode, cache,
@@ -438,7 +439,7 @@ def _apply_block(
         if mlp_kind == "dense":
             h = h + layers.apply_mlp(cfg, p["mlp"], hn2)
         else:
-            mlp_out, aux = moe.apply_moe(cfg, p["moe"], hn2)
+            mlp_out, aux = moe.apply_moe_local(cfg, p["moe"], hn2)
             h = h + mlp_out
     return h, aux, new_cache
 
@@ -458,16 +459,17 @@ def backbone(
     write_enable: Optional[torch.Tensor] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Caches]:
-    """Returns (final-normed h, the MoE aux loss summed over the layers (a
-    zero fp32 scalar without MoE layers), new caches): a Python loop over
-    the layers.
+    """Returns (final-normed h, the MoE layers' aux sums stacked (L_moe, 2E
+    + 1) or None without MoE layers, new caches): a Python loop over the
+    layers. The sums are this rank's; ``moe.aux_loss`` makes them the aux
+    loss, so that no collective of it runs where nothing reads it.
 
     ``remat`` (when a gradient is being taken) checkpoints each layer, as
     ``jax.checkpoint`` does the JAX backbone's body: only the layer's input
     is kept, and the backward runs the layer's forward again, kernels and
     all. The final norm is not checkpointed."""
     new_caches = []
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = []
     for i, (block, kind) in enumerate(zip(params["blocks"], cfg.layer_kinds())):
         cache = None if caches is None else caches[i]
 
@@ -480,9 +482,10 @@ def backbone(
         else:
             h, a, c = layer(h)
         if a is not None:
-            aux = aux + a
+            aux.append(a)
         new_caches.append(c)
-    return layers.apply_norm(cfg, params["final_norm"], h), aux, new_caches
+    return (layers.apply_norm(cfg, params["final_norm"], h), torch.stack(aux) if aux else None,
+            new_caches)
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -617,8 +620,8 @@ def ce_loss(cfg: ModelConfig, params: Params, h, labels):
 
 def _full_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor, remat: bool,
                  prefix_embeds: Optional[torch.Tensor] = None):
-    """(final-normed h, summed MoE aux loss) of ``full`` mode, over the
-    prefix (if any) and the tokens."""
+    """(final-normed h, the MoE layers' aux sums or None) of ``full``
+    mode, over the prefix (if any) and the tokens."""
     h = assemble_input(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     h, aux, _ = backbone(cfg, params, h, positions, mode="full", remat=remat)
@@ -630,11 +633,14 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor], *,
     """LM training loss (``lm.loss_fn``): batch tokens (B, S), optional
     ``prefix_embeds`` (B, P, d), and labels (B, P + S) with ``IGNORE`` at
     positions not predicted. Returns (loss, {"ce", "entropy"}); with MoE
-    layers the loss adds 0.01 x the summed aux loss, reported as
+    layers the loss adds 0.01 x the aux loss summed over the layers, its
+    token means over the global batch (``moe.aux_loss``), reported as
     ``"moe_aux"``."""
-    h, aux = _full_hidden(cfg, params, batch["tokens"], remat, batch.get("prefix_embeds"))
+    h, sums = _full_hidden(cfg, params, batch["tokens"], remat, batch.get("prefix_embeds"))
     loss, metrics = ce_loss(cfg, params, h, batch["labels"])
     if cfg.num_experts:
+        aux = (moe.aux_loss(cfg, sums) if sums is not None
+               else torch.zeros((), dtype=torch.float32, device=h.device))
         loss = loss + 0.01 * aux
         metrics["moe_aux"] = aux
     return loss, metrics
@@ -660,7 +666,8 @@ def init_caches(cfg: ModelConfig, batch: int, smax: int, *, device=None) -> Cach
     """Zero caches, one dict per layer (``lm.init_caches``): an attention
     layer's ``{"k", "v"}`` (B, W, KVH, hd) bf16 with W = ``ring_width``, or
     int8 with f32 ``{"k_scale", "v_scale"}`` (B, W, KVH) under ``kv_quant``;
-    an SSD layer's ``{"ssm", "conv_x", "conv_bc"}`` state."""
+    an SSD layer's ``{"ssm", "conv_x", "conv_bc"}`` state (this rank's heads
+    on a tensor-parallel mesh)."""
     width = ring_width(cfg, smax) if tpc.tp() is None else tp_cache_width(cfg, smax)
     shape = (batch, width, cfg.num_kv_heads, cfg.head_dim)
 
@@ -728,14 +735,14 @@ def decode_step_sample(
     (``ops.fused_sample``): the (B, Vp) logits never exist as a tensor on the
     kernel path. Returns (token (B,) int32, behaviour logprob (B,) under the
     untempered masked distribution, caches, cache_len + 1)."""
+    if tpc.tp() is not None and top_p < 1.0:
+        tpc.require_dense("top_p sampling")
     h, new_caches = _decode_hidden(cfg, params, token, caches, cache_len)
     B = h.shape[0]
     inv_temp = torch.full((B,), 0.0 if temperature == 0.0 else 1.0 / temperature,
                           dtype=torch.float32, device=h.device)
     head = _head_matrix(cfg, params)
     if tpc.tp() is not None:  # the ranks' online states over their vocab columns
-        if top_p < 1.0:
-            tpc.require_dense("top_p sampling")
         tok, lp = ops.fused_sample_shard(tpc.tp(), h, head, seeds, inv_temp,
                                          vocab_size=cfg.vocab_size,
                                          col_offset=tpc.tp_rank() * head.shape[1])

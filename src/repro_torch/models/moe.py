@@ -6,7 +6,8 @@ fp32 logits, the top-k of them (ties to the lower expert, as
 ``jax.lax.top_k``), and a softmax over the chosen k; a Switch-style
 auxiliary load-balancing loss comes back with the output.
 
-:func:`apply_moe` is the dense dispatch that the backbone calls: every
+:func:`apply_moe_local` is the dense dispatch that the backbone calls
+(:func:`apply_moe`, JAX's contract, makes its sums the aux loss): every
 expert runs on every token and the combine weights mask the output. The
 MoE has no Pallas kernel in the JAX package: its products are einsums, and
 here batched matmuls. The two up-projections are one batched product over
@@ -15,6 +16,24 @@ weights); the output contraction over (expert, hidden) is one GEMM against
 ``w_out`` viewed as ``(E * f, d)``, summed in fp32 and rounded to bf16 once,
 as JAX's ``preferred_element_type=bf16``. :func:`apply_moe_topk_sparse` is
 the gather form, held equal to it and not on the model's path.
+
+Expert tensor parallelism (JAX ``moe.py:41-87``, on an ambient mesh with
+``model`` > 1, ``distributed.constraint``): the experts stay whole in number
+and their ``f`` is split over ``model``, ``w_in`` and ``w_gate`` by columns,
+``w_out`` by rows. Routing (the router, its top-k, the aux loss) is computed
+whole on every rank from the same bits. ``xt`` enters the expert products
+behind ``copy_to_model``, and so do the ``combine`` weights where they meet
+the local ``h`` (each rank's gradient of them covers its own ``f`` columns;
+the router's gradient through the gates is their sum, and through the aux
+loss already whole). Each rank's (T, d) partial is rounded to ``OUT_DTYPE``
+once and then summed over ``model``.
+
+The layer itself makes no collective over the data axes: the backbone calls
+:func:`apply_moe_local`, which returns the rank's sums of the aux loss's
+token means (:func:`aux_sums`), and ``lm.loss_fn``, the one reader of the
+aux loss, takes them over the global batch once for all layers
+(:func:`aux_loss`). Generation, whose data ranks may run different numbers
+of decode steps, thus pairs no collective of the aux loss.
 """
 from __future__ import annotations
 
@@ -24,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import constraint as tpc
 
 Params = Dict[str, Any]
 
@@ -61,14 +81,27 @@ def route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
     return logits, torch.softmax(vals[:, :k], dim=-1), idx[:, :k]
 
 
-def aux_loss(cfg: ModelConfig, logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Switch load-balance loss ``E * sum_e density_e * p_mean_e``: density
-    the share of tokens routed to each expert, p_mean the router's mean
-    probability."""
+def aux_sums(cfg: ModelConfig, logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """This rank's sums of the Switch load-balance loss's token means, (2E +
+    1,) fp32: the tokens routed to each expert, each expert's summed router
+    probability, and the token count."""
     e = cfg.num_experts
-    density = F.one_hot(idx, e).float().sum(dim=1).mean(dim=0)
-    p_mean = torch.softmax(logits, dim=-1).mean(dim=0)
-    return e * torch.sum(density * p_mean)
+    return torch.cat([F.one_hot(idx, e).float().sum(dim=(0, 1)),
+                      torch.softmax(logits, dim=-1).sum(dim=0),
+                      logits.new_full((1,), float(logits.shape[0]))])
+
+
+def aux_loss(cfg: ModelConfig, sums: torch.Tensor) -> torch.Tensor:
+    """Switch load-balance loss ``E * sum_e density_e * p_mean_e`` from
+    :func:`aux_sums` (..., 2E + 1), summed over the leading dims (the
+    layers): density the share of tokens routed to each expert, p_mean the
+    router's mean probability, each over the global batch. Where the
+    ambient mesh's data axes split the batch the sums are summed over them
+    first (``constraint.batch_sum``: one all-reduce for every layer)."""
+    e = cfg.num_experts
+    s = tpc.batch_sum(sums)
+    n = s[..., 2 * e:]
+    return e * torch.sum((s[..., :e] / n) * (s[..., e:2 * e] / n))
 
 
 def _activate(cfg: ModelConfig, p: Params, h: torch.Tensor, g) -> torch.Tensor:
@@ -84,31 +117,50 @@ def _activate(cfg: ModelConfig, p: Params, h: torch.Tensor, g) -> torch.Tensor:
 
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d) in ``OUT_DTYPE``, aux loss fp32
-    scalar): the dense dispatch of ``moe.apply_moe``, with its order of
-    roundings: the gates folded into h in h's dtype before the output
+    scalar): :func:`apply_moe_local` with its sums made the aux loss."""
+    out, sums = apply_moe_local(cfg, p, x)
+    return out, aux_loss(cfg, sums)
+
+
+def combine_to_model(combine: torch.Tensor) -> torch.Tensor:
+    """The combine weights (T, E), replicated over ``model``, where they
+    meet this rank's ``f`` columns: ``copy_to_model``, so that the router's
+    gradient through the gates is the ranks' sum."""
+    return tpc.copy_to_model(combine)
+
+
+def apply_moe_local(cfg: ModelConfig, p: Params,
+                    x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d) in ``OUT_DTYPE``, this rank's aux
+    sums (2E + 1,), :func:`aux_sums`): the dense dispatch of
+    ``moe.apply_moe``, with its order of roundings: the gates folded into h in h's dtype before the output
     contraction, summed in fp32 and rounded once. (JAX's transpose of that
     contraction rounds its gradients to bf16 as well; autograd here keeps
     the products' dtype, which is bf16 on the model's bf16 weights.)"""
     B, S, d = x.shape
-    e, f = cfg.num_experts, cfg.d_ff
+    e, f = cfg.num_experts, p["w_in"].shape[-1]  # f: this rank's columns
+    if f * tpc.tp_size() != cfg.d_ff:
+        raise NotImplementedError(
+            f"d_ff {cfg.d_ff} over {tpc.tp_size()} model ranks holds {f} a rank: experts "
+            "whose f does not split evenly (ROADMAP queue 1, item 8: distributed)")
     xt = x.reshape(B * S, d)
     T = xt.shape[0]
     logits, gates, idx = route(cfg, p["router"], xt)
     combine = torch.zeros((T, e), dtype=torch.float32, device=x.device).scatter_add(1, idx, gates)
-    aux = aux_loss(cfg, logits, idx)
+    sums = aux_sums(cfg, logits, idx)
 
     # (E, T, d) @ (E, d, f): the tokens broadcast over the experts' batch
     dt = torch.promote_types(x.dtype, p["w_in"].dtype)
-    xe = xt.to(dt).expand(e, T, d)
+    xe = tpc.copy_to_model(xt).to(dt).expand(e, T, d)
     h = torch.matmul(xe, p["w_in"].to(dt))
     g = torch.matmul(xe, p["w_gate"].to(dt)) if "w_gate" in p else None
     h = _activate(cfg, p, h, g)
     # gates folded in, the product laid out (T, E, f) (the contiguous
     # operand first sets the layout), so the contraction over (e, f) is one
     # GEMM against w_out's (E * f, d) view
-    h = combine[:, :, None].to(h.dtype) * h.transpose(0, 1)
+    h = combine_to_model(combine)[:, :, None].to(h.dtype) * h.transpose(0, 1)
     out = h.reshape(T, e * f) @ p["w_out"].to(dt).reshape(e * f, d)
-    return out.to(OUT_DTYPE or dt).reshape(B, S, d), aux
+    return tpc.reduce_from_model(out.to(OUT_DTYPE or dt)).reshape(B, S, d), sums
 
 
 def apply_moe_topk_sparse(cfg: ModelConfig, p: Params,
@@ -127,4 +179,4 @@ def apply_moe_topk_sparse(cfg: ModelConfig, p: Params,
     h = _activate(cfg, p, h, g)
     y = torch.einsum("tkf,tkfd->tkd", h, p["w_out"][idx].to(dt))
     out = torch.einsum("tkd,tk->td", y, gates.to(y.dtype))
-    return out.reshape(B, S, d), aux_loss(cfg, logits, idx)
+    return out.reshape(B, S, d), aux_loss(cfg, aux_sums(cfg, logits, idx))

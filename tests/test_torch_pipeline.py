@@ -513,14 +513,30 @@ def _tensor_parallel_spec(arch="gemma-2b", cfg_kw=None, **spec_kw):
 
 
 _TP_UNPORTED = {
-    "moe": dict(arch="granite-moe-3b-a800m"),
-    "ssd": dict(arch="mamba2-2.7b"),
+    "window": dict(arch="mixtral-8x7b"),
     "encdec": dict(arch="seamless-m4t-medium"),
     "prefix": dict(arch="llava-next-34b"),
     "kv_quant": dict(cfg_kw=dict(kv_quant=True)),
     "continuous": dict(rollout=RolloutEngineConfig(engine="continuous", num_slots=4)),
     "async": dict(async_pipeline=AsyncPipelineConfig(enabled=True)),
 }
+
+def _tensor_parallel_top_p():
+    """A ``top_p < 1`` decode step on an ambient (1, 2) rank mesh (a stand-in
+    whose collectives are never reached: the refusal comes first)."""
+    import types
+
+    from repro_torch.distributed import constraint
+    from repro_torch.models import lm
+
+    cfg = _layer_cfg()
+    mesh = types.SimpleNamespace(torch_mesh=object(), shape={"data": 1, "model": 2},
+                                 coords={"data": 0, "model": 0})
+    with constraint.use_mesh(mesh):
+        lm.decode_step_sample(cfg, {}, torch.zeros(1, dtype=torch.int32), [],
+                              torch.zeros(1, dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32), 1.0, top_p=0.5)
+
 
 NOT_PORTED_CASES = {
     "devices_per_host": (8, lambda: ExperimentSpec(
@@ -531,6 +547,7 @@ NOT_PORTED_CASES = {
     # lockstep engine, refused before any world is touched
     **{f"model_parallel_{what}": (8, functools.partial(_tensor_parallel_spec, **kw))
        for what, kw in _TP_UNPORTED.items()},
+    "model_parallel_top_p": (8, _tensor_parallel_top_p),
     "model_parallel_launch": (8, lambda: _launch_experiment(
         mesh_shape=(1, 2), model=_layer_cfg(kv_quant=True))),
     "async_rank_mesh": (8, lambda: ExperimentSpec(
