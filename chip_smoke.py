@@ -103,8 +103,8 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      phase 8's checks and a finite critic loss, a nonzero critic gradient
      and some critic weights changed; reports the critic's stage times and
      the peak memory of actor, reference, critic and two sets of moments.
- 11. The continuous rollout engine on qwen2.5-7b at full width and depth
-     (28 layers, 28 query heads on 4 KV heads of 128, an untied head;
+ 11. The continuous rollout engine on qwen2.5-7b at full width on 10 of its
+     28 layers (28 query heads on 4 KV heads of 128, an untied head;
      PPO's models freed): with one slot a prompt and one bucket, sampled,
      its tokens, masks and lengths bit-equal to lockstep ``generate``'s
      from one seed; then 32 ragged prompts (true lengths 32-128, padded to
@@ -759,8 +759,10 @@ def check_decode(torch, ref, got, want, cache_len, pos_offset: int, what: str):
     over the live rows."""
     empty = cache_len <= pos_offset
     live = ~empty
-    ok, err = close(got[0][live], want[0][live], BF16_TOL)
-    ok_l, err_l = close(got[1][live], want[1][live], LSE_TOL)
+    ok, err, ok_l, err_l = True, 0.0, True, 0.0
+    if bool(live.any()):  # a rank's slot shard may hold no live key of any row
+        ok, err = close(got[0][live], want[0][live], BF16_TOL)
+        ok_l, err_l = close(got[1][live], want[1][live], LSE_TOL)
     floor = torch.tensor(ref.NEG_INF / 2, dtype=torch.float32)
     ok_e = all(bool((o[empty] == 0).all()) and bool((lse[empty].cpu() <= floor).all())
                for o, lse in (got, want))
@@ -1627,8 +1629,8 @@ def leaf_names(t, prefix="params"):
 def held_to_plain(torch, ops, ref, names):
     """While open, every call of a kernel of ``names`` through ``ops`` is
     held against the kernel's plain version on that call's own inputs, at
-    the kernel checks' tolerances (norm and flash BF16_TOL, decode
-    ``check_decode``, the sampler ``check_sample``, the scan SSD_Y_TOL and
+    the kernel checks' tolerances (norm and flash BF16_TOL, both decode
+    kernels ``check_decode``, the sampler ``check_sample``, the scan SSD_Y_TOL and
     SSD_STATE_TOL); the caller gets the kernel's result. Yields {name:
     {"calls", "max_abs_err"}}."""
     seen = {n: {"calls": 0, "max_abs_err": 0.0} for n in names}
@@ -1665,6 +1667,15 @@ def held_to_plain(torch, ops, ref, names):
             kw.get("pos_offset", 0), f"decode_attention q {tuple(q.shape)} on the path"))
         return got
 
+    def decode_attention_quant(q, k, v, k_scale, v_scale, cache_len, **kw):
+        got = kernel["decode_attention_quant"](q, k, v, k_scale, v_scale, cache_len, **kw)
+        note("decode_attention_quant", check_decode(
+            torch, ref, got, ref.decode_attention_quant(q, k, v, k_scale, v_scale, cache_len,
+                                                        **kw),
+            cache_len, kw.get("pos_offset", 0),
+            f"decode_attention_quant q {tuple(q.shape)} on the path"))
+        return got
+
     def fused_sample(h, w_head, seeds, inv_temp, *, vocab_size=None, top_p=1.0):
         got = kernel["fused_sample"](h, w_head, seeds, inv_temp, vocab_size=vocab_size,
                                      top_p=top_p)
@@ -1685,7 +1696,9 @@ def held_to_plain(torch, ops, ref, names):
         return (y, h) if return_state else y
 
     checked = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-               "decode_attention": decode_attention, "fused_sample": fused_sample, "ssd": ssd}
+               "decode_attention": decode_attention,
+               "decode_attention_quant": decode_attention_quant, "fused_sample": fused_sample,
+               "ssd": ssd}
     for n in names:
         setattr(ops, n, checked[n])
     try:
@@ -2785,8 +2798,9 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
     return summary
 
 
-# phase 11: the continuous rollout engine at qwen2.5-7b's full width and
-# depth. The ragged comparison: Q_PROMPTS prompts of true lengths
+# phase 11: the continuous rollout engine at qwen2.5-7b's full width on
+# Q_LAYERS of its 28 layers (full depth until PR 30, cut to keep the whole
+# script inside its time with phase 20). The ragged comparison: Q_PROMPTS prompts of true lengths
 # Q_MIN_PROMPT..Q_PROMPT tokens (padded to Q_PROMPT), Q_NEW new tokens at
 # most, prefill buckets of Q_BUCKET, per-row budgets of Q_MIN_BUDGET..Q_NEW,
 # all drawn from Q_SEED; lockstep generate against the engine with one slot
@@ -2795,6 +2809,7 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
 Q_PROMPTS, Q_MIN_PROMPT, Q_PROMPT, Q_NEW, Q_BUCKET = 32, 32, 128, 128, 32
 Q_MIN_BUDGET, Q_SLOTS, Q_TIMED, Q_SEED = 8, 16, 2, 11
 Q_TEMPERATURE = 1.0  # RLConfig's default: rollouts are sampled
+Q_LAYERS = 10
 
 
 def ragged_inputs(torch, tok):
@@ -2862,8 +2877,8 @@ def done_read_cost(torch, generate, model, params, prompts, budgets, seed, kw):
 
 
 def qwen_engine_phase(torch, ops, ref, _build, serve, generate, label="qwen_engine"):
-    """qwen2.5-7b at full width and depth (random bf16 weights from ``--seed
-    0``, through ``serve``'s setup) with the continuous rollout engine:
+    """qwen2.5-7b at full width on Q_LAYERS layers (random bf16 weights from
+    seed 0) with the continuous rollout engine:
 
     1. parity: lockstep ``generate`` and the engine with one slot a prompt
        and one bucket, sampled at 0.8 from one seed, with per-row budgets,
@@ -2886,10 +2901,15 @@ def qwen_engine_phase(torch, ops, ref, _build, serve, generate, label="qwen_engi
     Prints ``{label: ...}``. Returns the launch counts of the path."""
     from repro_torch.rl.rollout_engine import ContinuousRolloutEngine, lockstep_waste
 
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import get_model
+
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model, params, tok = build_model(torch, serve, QWEN_FLAGS)
-    cfg = model.cfg
+    cfg = dataclasses.replace(get_config(QWEN_FLAGS[1]), num_layers=Q_LAYERS)
+    model, tok = get_model(cfg, device=DEV), ByteTokenizer()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
     kw = dict(eos_id=tok.eos_id, pad_id=tok.pad_id)
 
     # ---- 1. a fixed schedule is lockstep, bit for bit ----
@@ -2970,7 +2990,8 @@ def qwen_engine_phase(torch, ops, ref, _build, serve, generate, label="qwen_engi
                                    int(refill["decode_steps"]))
     require(counts == want_counts, f"{label}: launches {counts}, expected {want_counts} "
                                    f"from the refill arm's prefills and decode steps")
-    summary = {"model": cfg.name, "parity": parity, "agreement": agreement,
+    summary = {"model": cfg.name, "layers": cfg.num_layers, "parity": parity,
+               "agreement": agreement,
                "ragged": {"prompts": Q_PROMPTS, "true_prompt_tokens": int(true_len.sum()),
                           "prompt_width": Q_PROMPT, "max_new": Q_NEW, "bucket": Q_BUCKET,
                           "budget_tokens": int(budgets.sum()), "arms": rows},
@@ -3473,6 +3494,22 @@ def path_records(torch, ops, ref, F, calls, label: str):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
             tag = f"B{Bq}_slots{S}_H{H}_KVH{KVH}_D{HD}"
+        elif name == "decode_attention_quant":
+            q, k, v, ks, vs, n = args
+            Bq, H, HD = q.shape
+            S, KVH = k.shape[1], k.shape[2]
+            live = int(n.sum())
+            # int8 K and V and their f32 scales of the live slots
+            nbytes = 2 * q.numel() * 2 + Bq * H * 4 + live * KVH * (2 * HD + 2 * 4)
+            bms, by = bound_ms(nbytes, 4 * H * HD * live, BF16_TENSOR_FLOP_PER_S)
+            mask = (torch.arange(S, device=q.device)[None, :] < n[:, None])[:, None, None, :]
+            # SDPA on K/V dequantized beforehand (the dequantization not timed)
+            kd = (k.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
+            vd = (v.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
+            qt = q[:, :, None]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kd, vd, attn_mask=mask, enable_gqa=True)
+            tag = f"B{Bq}_slots{S}_H{H}_KVH{KVH}_D{HD}_int8"
         else:  # fused_sample
             h, head = args[0], args[1]
             Bq, D = h.shape
@@ -5320,6 +5357,9 @@ def tp_rank(torch, args_path: str) -> int:
         return kept_shard_state(mesh, params, specs)
 
     fault = spec.get("fault")
+    from repro_torch.models import lm
+
+    spec["quant"] = lm.quant_kv  # the int8 check's reference, whatever fault is planted
     observers = [(collectives, "all_reduce", counted("all_reduce")),
                  (collectives, "all_gather", counted("all_gather")),
                  (trainer, "shard_state", kept_init),
@@ -5352,6 +5392,11 @@ def tp_rank(torch, args_path: str) -> int:
             yn = ops.rmsnorm(yz.reshape(-1, yz.shape[-1]), p["norm_w"]).reshape(yz.shape)
             return ssm.tpc.reduce_from_model(yn @ p["w_out"])
         patches.append((ssm, "_gated_out", local_gated_out))
+    elif fault in TP20_FAULTS:
+        from repro_torch.models import lm
+
+        patches.append({"ring_rank_residue": (lm, "_tp_ring_slot", tp20_rank_residue),
+                        "quant_before_gather": (lm, "quant_kv", tp20_quant_half)}[fault])
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches + observers]
     for obj, name, value in patches + observers:
         setattr(obj, name, value)
@@ -5379,8 +5424,11 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
     rank, fault = spec["rank"], spec.get("fault")
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    # with "held": the first iteration's calls of those kernels held to plain
+    hold = ((lambda: held_to_plain(torch, ops, ref, spec["held"])) if spec.get("held")
+            else None)
     try:
-        with rss_sampled() as rss, observed_iterations(torch, _build) as seen:
+        with rss_sampled() as rss, observed_iterations(torch, _build, hold) as seen:
             res = train.main(spec["argv"])
     finally:
         for obj, name, value in observed:
@@ -5400,7 +5448,7 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
                           for r, c in zip(seen["iterations"], coll_iters)],
            "launches": launches, "peak_gib": peak_gib, "peak_rss_gib": rss["peak_gib"],
            "stats": dataclasses.asdict(pipe.buffer.stats),
-           "rows_loaded": int(ctx.dataloader.rows_loaded)}
+           "rows_loaded": int(ctx.dataloader.rows_loaded), "held": seen["held"]}
     # ---- against the solo run, from this rank's own copies ----
     solo = torch.load(spec["solo_params"])
     d_run = dot = n_solo = n_run = 0.0
@@ -5475,6 +5523,22 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
     del final, g_tp, g_one
     gc.collect()
     torch.cuda.empty_cache()
+    if "tp20" in spec:
+        # phase 20: the int8 cache of this rank's slots, then arm B's models
+        # in this world, the pipeline freed first
+        cfg, serve = res["experiment"].model, ctx.serve_params()
+        art["int8"] = tp20_int8(torch, mesh, cfg, serve, tokens[:, :tokens.shape[1] - rl.max_new_tokens],
+                                rl.max_new_tokens, spec["quant"])
+        del res, pipe, ctx, model, serve, batch, tokens, lp_tp, lp_one, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        art["arms"] = {}
+        for name in spec["tp20"]:
+            art["arms"][name] = tp20_arm(torch, mesh, name)
+            gc.collect()
+            torch.cuda.empty_cache()
+        Path(spec["artifact"]).write_text(json.dumps(art))
+        return 0
     if fault or not spec.get("sampler", True):
         Path(spec["artifact"]).write_text(json.dumps(art))
         return 0
@@ -5539,12 +5603,12 @@ def ensure_solo(label: str, work: Path):
 
 
 def tp_world_args(work: Path, arm: str, exp_path: Path, solo_params: Path, iters: int,
-                  fault=None, sampler: bool = True) -> list:
+                  fault=None, sampler: bool = True, extra=None) -> list:
     """The ``run_hosts`` arguments of TP_RANKS ``chip_smoke.py --tp-rank``
     processes of ``launch.train --experiment exp_path --coordinator
     127.0.0.1:PORT`` (a free port), each held against ``solo_params``
     (``tp_rank``), with ``fault`` planted and the sampler read unless
-    ``sampler`` is False."""
+    ``sampler`` is False; ``extra`` joins each rank's arguments."""
     import socket
 
     with socket.socket() as s:
@@ -5558,7 +5622,8 @@ def tp_world_args(work: Path, arm: str, exp_path: Path, solo_params: Path, iters
                      "--num-hosts", str(TP_RANKS), "--process-id", str(r),
                      "--coordinator", f"127.0.0.1:{port}"],
             "artifact": str(work / f"{arm}{r}.artifact.json"), "rank": r,
-            "solo_params": str(solo_params), "fault": fault, "sampler": sampler}))
+            "solo_params": str(solo_params), "fault": fault, "sampler": sampler,
+            **(extra or {})}))
         host_args.append((args, work / f"{arm}{r}.log"))
     return host_args
 
@@ -6008,10 +6073,623 @@ def tp_moe_ssd_phase(torch, ref, F, _build, records, label="tp19", faults=()):
     return counts
 
 
+# ---- phase 20: tensor-parallel model stages of the remaining families ----
+TP20_LAYERS = 2
+TP20_ITERS = 3  # one warm-up iteration held to plain, then two timed
+# arm A's kernels held to plain in each rank's warm-up iteration (the
+# vocab-sharded sampler is held in phase 18)
+TP20_HELD = ("rmsnorm", "flash_attention", "decode_attention_quant")
+# arm B, model level in arm A's world: (flags, layers or None for the full
+# depth, batch, prompt, new tokens). mixtral's 4,080-token prompt and 272 new
+# tokens wrap its 4,096-slot ring (phase 13's shape) and run 256 past it
+TP20_ARMS = {"mixtral": (["--arch", "mixtral-8x7b"], 2, 2, 4080, 272),
+             "llava": (LLAVA_FLAGS, 2, LLAVA_B, PROMPT, MAX_NEW),
+             "seamless": (SEAMLESS_FLAGS, None, SEAMLESS_B, PROMPT, MAX_NEW),
+             "nemotron": (NEMOTRON_FLAGS, 2, B, PROMPT, MAX_NEW)}
+TP20_GAP = 0.05  # tokens equal where the solo run's top-two gap exceeds this
+TP20_SAMPLED = 8  # new tokens of the greedy generate that runs the sharded sampler
+# faults planted for --tp-faults with --only-phase 20: the ring's residue
+# taken modulo the rank's width (mixtral's arm), and gemma's K/V rows
+# quantized with the scale of each rank's half of the head (arm A)
+TP20_FAULTS = {"ring_rank_residue": "mixtral", "quant_before_gather": None}
+
+
+def tp20_rank_residue(cfg, cache_len, w):
+    """``lm._tp_ring_slot`` with the ring's residue and live count taken
+    modulo this rank's width (the ``ring_rank_residue`` fault)."""
+    import torch
+
+    if cfg.sliding_window is None:
+        return cache_len, cache_len + 1
+    return cache_len % w, torch.clamp(cache_len + 1, max=w)
+
+
+def tp20_quant_half(x):
+    """``lm.quant_kv`` with each row's scale taken over this rank's half of
+    the head only (the ``quant_before_gather`` fault)."""
+    import torch
+
+    from repro_torch.distributed import constraint
+
+    hd, r, m = x.shape[-1], constraint.tp_rank(), constraint.tp_size()
+    part = x[..., r * hd // m:(r + 1) * hd // m].float()
+    scale = torch.clamp(part.abs().amax(dim=-1), min=1e-8) / 127.0
+    return torch.clamp(torch.round(x.float() / scale[..., None]), -127, 127).to(torch.int8), scale
+
+
+def tp20_int8(torch, mesh, cfg, serve, prompt, new: int, quant):
+    """Arm A's int8 cache on this rank: the prefill cache of ``prompt`` on
+    the rank mesh, every rank's slots gathered, against ``quant`` (the
+    port's ``quant_kv``) of the same mesh's prefill cache with kv_quant off:
+    the int8 values and scales must be equal bit for bit, slot for slot,
+    past the prompt and past W too. Then a greedy generate of ``new``
+    tokens with the first ``decode_attention_quant`` call of each shape
+    kept, and on rank 0 that call timed on its own inputs (``path_records``:
+    this rank's slot shard of the int8 cache). Returns the readings."""
+    import torch.nn.functional as F
+
+    from repro_torch.distributed import collectives, constraint
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import get_model
+    from repro_torch.rl import rollout
+
+    smax = prompt.shape[1] + new
+    model = get_model(cfg, device=DEV)
+    plain = get_model(dataclasses.replace(cfg, kv_quant=False), device=DEV)
+
+    def gather(t):
+        return collectives.all_gather(mesh, t, (None, "model"), axes=("model",))
+
+    with torch.inference_mode(), constraint.use_mesh(mesh):
+        got = model.prefill(serve, prompt, smax=smax)[1]
+        kv = plain.prefill(serve, prompt, smax=smax)[1]
+        unequal = []
+        for g, f in zip(got, kv):
+            (kq, ks), (vq, vs) = quant(gather(f["k"])), quant(gather(f["v"]))
+            want = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+            unequal.append({k: int((gather(g[k]) != w).sum()) for k, w in want.items()})
+        slots = gather(got[0]["k"]).shape[1]
+        del got, kv
+        with first_calls(torch, ops, ("decode_attention_quant",)) as calls:
+            rollout.generate(model, serve, prompt, torch.Generator(device=DEV).manual_seed(2),
+                             max_new=new, temperature=0.0)
+    out = {"equal": all(v == 0 for layer in unequal for v in layer.values()),
+           "unequal": unequal, "width": smax, "slots": slots, "prompt": list(prompt.shape)}
+    if mesh.coords["model"] == 0:
+        out["records"] = path_records(torch, ops, ref, F, calls, "tp20/gemma_int8_rank0")
+    return out
+
+
+@contextlib.contextmanager
+def block_io(torch):
+    """While open, the (input, output) hidden states of every decoder layer
+    that runs in prefill mode (``lm._apply_block``) are kept in call order.
+    Yields the list."""
+    from repro_torch.models import lm
+
+    seen, apply = [], lm._apply_block
+
+    def recording(cfg, p, kind, h, positions, mode, *args, **kw):
+        out = apply(cfg, p, kind, h, positions, mode, *args, **kw)
+        if mode == "prefill":
+            seen.append((h, out[0]))
+        return out
+
+    with patched(lm, "_apply_block", recording):
+        yield seen
+
+
+def tp20_drift_rule(names, g_t, g_k, g_r, g_v, zero):
+    """Phase 14's drift rule for the rank mesh's gradient ``g_t`` against
+    the solo kernel path's ``g_k``: a leaf's drift is the solo plain path
+    (``g_r``) against itself with fp32 attention probabilities (``g_v``);
+    each leaf's relative L2 error within GRAD_DRIFT_FACTOR x the largest
+    drift of its kind (one parameter over the blocks), and each kind's
+    median error within GRAD_DRIFT_FACTOR x its median drift (drifts no less
+    than GRAD_FLOOR). The cosine's ratio to its drift is reported, not held:
+    it grows as the square of the L2 error, and the ranks' sums in another
+    order move a bias's gradient by up to 1.6 of its kind's drift on the CPU
+    (2.6 in 1 - cosine). The leaves named with one of ``zero`` have a
+    gradient that is zero in exact arithmetic and are reported only.
+    Returns (the leaves or kinds beyond their limit, summary)."""
+    from repro_torch import tree
+
+    leaves, zero_max = [], {}
+    for name, t, k, r, v in zip(names, tree.leaves(g_t), tree.leaves(g_k), tree.leaves(g_r),
+                                tree.leaves(g_v)):
+        if name.endswith(zero):
+            zero_max[name] = max(float(t.float().abs().max()), float(k.float().abs().max()))
+            continue
+        leaves.append({"leaf": name, "rel_l2": rel_l2(t, k), "cosine": cosine(t, k),
+                       "drift_rel_l2": rel_l2(v, r), "drift_cosine": cosine(v, r)})
+    kinds, bad = {}, []
+    for e in leaves:
+        kinds.setdefault(re.sub(r"\[\d+\]", "", e["leaf"]), []).append(e)
+    worst, worst_c = {"ratio": 0.0}, 0.0
+    for kind, es in kinds.items():
+        drift = max(max(e["drift_rel_l2"] for e in es), GRAD_FLOOR)
+        drift_c = max(max(1.0 - e["drift_cosine"] for e in es), GRAD_FLOOR ** 2 / 2)
+        for e in es:
+            ratio = e["rel_l2"] / drift
+            if ratio > worst["ratio"]:
+                worst = {"ratio": ratio, "leaf": e["leaf"], "rel_l2": e["rel_l2"],
+                         "drift_rel_l2": drift}
+            worst_c = max(worst_c, (1.0 - e["cosine"]) / drift_c)
+            if e["rel_l2"] > GRAD_DRIFT_FACTOR * drift:
+                bad.append({"leaf": e["leaf"], "rel_l2": e["rel_l2"], "drift": drift})
+        med = statistics.median(e["rel_l2"] for e in es)
+        med_drift = max(statistics.median(e["drift_rel_l2"] for e in es), GRAD_FLOOR)
+        if med > GRAD_DRIFT_FACTOR * med_drift:
+            bad.append({"kind": kind, "median_rel_l2": med, "median_drift": med_drift})
+    return bad, {"leaves": len(leaves), "kinds": len(kinds), "beyond_limit": bad[:8],
+                 "worst_ratio": worst, "worst_cosine_ratio": worst_c,
+                 "worst_rel_l2": max(e["rel_l2"] for e in leaves),
+                 "worst_drift_rel_l2": max(e["drift_rel_l2"] for e in leaves),
+                 "zero_in_exact_arithmetic_max_abs_grad": zero_max}
+
+
+def tp20_arm(torch, mesh, name):
+    """One model of arm B on this rank of the (1, 2) world (TP20_ARMS): the
+    weights drawn from seed 0 on both ranks and cut to this rank's shards.
+    Rank 0 runs the solo model first: prefill with every layer's input and
+    output kept, then greedy decode steps (each step's token fed back). The
+    rank mesh then runs, under ``constraint.use_mesh`` with every kernel
+    call held to plain (``held_to_plain``) and its launches counted: the
+    prefill, the same decode steps fed the solo run's tokens, every layer
+    again on the solo run's input of that layer, and a greedy generate of
+    TP20_SAMPLED tokens through the vocab-sharded sampler (nemotron: a
+    generate at TOP_P, TOP_P_TEMPERATURE instead, whose draws must lie in
+    their nucleus and which launches no ``fused_sample``). seamless: the
+    encoder's memory, then one loss and gradient on the train shards,
+    against the solo kernel path by ``tp20_drift_rule``. Rank 0 also runs
+    the plain path (``ops.set_mode("ref")``) fed the solo run's tokens.
+    Rank 0 holds the readings: the prefill logits within BF16_TOL x the solo
+    run's max |logit| and the first tokens equal where its top-two gap
+    exceeds TP20_GAP; every step's logits within the larger of BF16_TOL and
+    DRIFT_FACTOR x the plain path's drift from the solo run (rows whose MoE
+    route flips in either left out, and counted; the steps' argmax agreement
+    counted); every layer within BF16_TOL x its max |output| (an MoE layer's
+    tokens whose route flips left out, and counted); the first layer's cache
+    after the last step (a ring: wrapped) within BF16_TOL x its max, slot for
+    slot; seamless's memory within DRIFT_FACTOR x the larger of the plain
+    path's drifts from the kernel path and from its fp32-attention self, its
+    loss within BF16_TOL. Returns {"held", "failed", the
+    readings, the launches, the kernels' records}."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import constraint
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models import encdec, get_model, lm
+    from repro_torch.rl import rollout, trainer
+
+    t_arm = time.perf_counter()
+    flags, depth, Bs, L, new = TP20_ARMS[name]
+    cfg = get_config(flags[1])
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    model = get_model(cfg, device=DEV)
+    rank, MODEL = mesh.coords["model"], ("model",)
+    full = model.init(torch.Generator(device=DEV).manual_seed(0))
+
+    def shards(specs):
+        return shr.map_with_specs(lambda p, s: C.shard(mesh, p, s, axes=MODEL).clone(), full,
+                                  specs)
+
+    serve = shards(shr.param_specs(cfg, mesh, full, "serve"))
+    train_specs = shr.param_specs(cfg, mesh, full, "train") if cfg.is_encoder_decoder else None
+    train = shards(train_specs) if train_specs is not None else None
+    if rank:
+        full = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=DEV).manual_seed(20)
+    prompt = torch.randint(3, cfg.vocab_size, (Bs, L), generator=g, device=DEV,
+                           dtype=torch.int32)
+    extra, P = {}, 0
+    if cfg.num_prefix_embeds > 1 and not cfg.is_encoder_decoder:
+        P = cfg.num_prefix_embeds
+        extra["prefix_embeds"] = (torch.randn((Bs, P, cfg.d_model), generator=g, device=DEV)
+                                  * 0.02).to(torch.bfloat16)
+    if cfg.is_encoder_decoder:
+        extra["frames"] = torch.randn((Bs, cfg.encoder_len, cfg.d_model), generator=g,
+                                      device=DEV).to(torch.bfloat16)
+    smax, V = P + L + new, cfg.vocab_size
+
+    def from0(t):  # rank 0's tensor on every rank
+        return C.all_gather(mesh, t[None], MODEL, axes=MODEL)[0]
+
+    # ---- the solo run, on rank 0 ----
+    solo = {}
+    with torch.inference_mode():
+        if rank == 0:
+            with routes_recorded(torch) as routes, block_io(torch) as io:
+                logits, caches, cl = model.prefill(full, prompt, smax=smax, **extra)
+                steps, toks = [logits], [logits.argmax(-1).to(torch.int32)]
+                for _ in range(new - 1):
+                    logits, caches, cl = model.decode_step(full, toks[-1], caches, cl)
+                    steps.append(logits)
+                    toks.append(logits.argmax(-1).to(torch.int32))
+            solo = {"steps": steps, "cache0": caches[0], "routes": list(routes), "io": io}
+            forced = torch.stack(toks, 1)
+            del caches
+            # the plain path fed the same tokens: the drift of an equally
+            # valid rounding of the same model, step by step
+            ops.set_mode("ref")
+            try:
+                with routes_recorded(torch) as routes_p:
+                    logits, caches, cl = model.prefill(full, prompt, smax=smax, **extra)
+                    solo["plain_steps"] = [logits]
+                    for j in range(new - 1):
+                        logits, caches, cl = model.decode_step(full, forced[:, j], caches, cl)
+                        solo["plain_steps"].append(logits)
+                del caches
+                if cfg.is_encoder_decoder:
+                    solo["memory_plain"] = encdec.encode(cfg, full, extra["frames"])
+                    with fp32_attention(ref):
+                        solo["memory_fp32"] = encdec.encode(cfg, full, extra["frames"])
+            finally:
+                ops.set_mode(None)
+            solo["plain_routes"] = list(routes_p)
+            if cfg.is_encoder_decoder:
+                solo["memory"] = encdec.encode(cfg, full, extra["frames"])
+        else:
+            forced = torch.zeros((Bs, new), dtype=torch.int32, device=DEV)
+        forced = from0(forced)
+    # ---- the rank mesh ----
+    names = (("rmsnorm",) if cfg.norm_type == "rmsnorm" else ()) + ("flash_attention",
+                                                                     "decode_attention")
+    first = {"mixtral": ("decode_attention",), "seamless": ("flash_attention",)}.get(name, ())
+    _build.reset_launches()
+    with torch.inference_mode(), constraint.use_mesh(mesh), \
+            held_to_plain(torch, ops, ref, names) as held, \
+            first_calls(torch, ops, first) as calls, routes_recorded(torch) as routes_tp:
+        (logits, caches, cl), prefill_ms = sync_ms(
+            torch, lambda: model.prefill(serve, prompt, smax=smax, **extra))
+        steps_tp = [logits]
+        t0 = time.perf_counter()
+        for j in range(new - 1):
+            logits, caches, cl = model.decode_step(serve, forced[:, j], caches, cl)
+            steps_tp.append(logits)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / max(new - 1, 1)
+        cache0 = {k: C.all_gather(mesh, v, (None, "model"), axes=MODEL)
+                  for k, v in caches[0].items() if k in ("k", "v")}
+        del caches
+        layer_out, n_steps = [], len(routes_tp)
+        if not cfg.is_encoder_decoder:
+            positions = torch.arange(P + L, device=DEV)[None, :]
+            for i, (blk, kind) in enumerate(zip(serve["blocks"], cfg.layer_kinds())):
+                h_in = solo["io"][i][0] if rank == 0 else torch.zeros(
+                    (Bs, P + L, cfg.d_model), dtype=torch.bfloat16, device=DEV)
+                layer_out.append(lm._apply_block(cfg, blk, kind, from0(h_in), positions,
+                                                 "prefill", None, None, smax)[0])
+        else:
+            memory = encdec.encode(cfg, serve, extra["frames"])
+    routes_steps, routes_layers = routes_tp[:n_steps], routes_tp[n_steps:]
+    launches = dict(_build.LAUNCHES)
+    # ---- the sampler on the rank mesh ----
+    drawn = []
+    _build.reset_launches()
+    with torch.inference_mode(), constraint.use_mesh(mesh):
+        if name == "nemotron":
+            sample = ops.sample_logits
+
+            def recording(z, seeds, inv_temp, **kw):
+                tok, lp = sample(z, seeds, inv_temp, **kw)
+                drawn.append((z.clone(), inv_temp.clone(), tok.clone()))
+                return tok, lp
+            with patched(ops, "sample_logits", recording):
+                gen_tp = rollout.generate(model, serve, prompt,
+                                          torch.Generator(device=DEV).manual_seed(5),
+                                          max_new=new, temperature=TOP_P_TEMPERATURE,
+                                          top_p=TOP_P)
+        elif not cfg.is_encoder_decoder:
+            gen_tp = rollout.generate(model, serve, prompt,
+                                      torch.Generator(device=DEV).manual_seed(5),
+                                      max_new=TP20_SAMPLED, temperature=0.0, **extra)
+    sampler_launches = dict(_build.LAUNCHES)
+    # ---- seamless: one loss and gradient ----
+    grads = None
+    if cfg.is_encoder_decoder:
+        labels = torch.cat([prompt[:, 1:], torch.full((Bs, 1), -1, dtype=torch.int32,
+                                                      device=DEV)], dim=1)
+        batch = {"frames": extra["frames"], "tokens": prompt, "labels": labels}
+        with constraint.use_mesh(mesh):
+            (loss_t, _), g_t = trainer.value_and_grad(lambda p: model.loss(p, batch), train)
+        grads = trainer.gather_params(mesh, g_t, train_specs)
+        del g_t
+    out = {"batch": Bs, "prompt": L, "prefix": P, "new": new, "layers": cfg.num_layers,
+           "launches": launches, "sampler_launches": sampler_launches,
+           "held_to_plain": held, "prefill_ms": prefill_ms, "decode_step_ms": step_ms}
+    if rank:
+        return dict(out, held=True, failed=[])
+    # ---- the readings, on rank 0 ----
+    failed = []
+
+    def hold(ok, what):
+        if not ok:
+            failed.append(what)
+
+    n_routes = len(solo["routes"])
+    moe_layers = sum(k[1] == "moe" for k in cfg.layer_kinds())
+
+    def flips(j, other):
+        """Rows of step j (0: the prefill's last position) whose route in
+        ``other`` differs from the solo run's in any MoE layer."""
+        rows = torch.zeros(Bs, dtype=torch.bool, device=DEV)
+        for m in range(moe_layers):
+            a, b = solo["routes"][j * moe_layers + m], other[j * moe_layers + m]
+            if j == 0:  # the prefill routes every position: its last
+                a, b = a.reshape(Bs, -1, a.shape[-1])[:, -1], b.reshape(Bs, -1, b.shape[-1])[:, -1]
+            rows |= (a != b).any(dim=-1)
+        return rows
+
+    require(n_routes == len(routes_steps) == len(solo["plain_routes"]),
+            f"tp20 {name}: {n_routes} routings solo, {len(routes_steps)} on the mesh, "
+            f"{len(solo['plain_routes'])} on the plain path")
+
+    def row_err(a, b, keep):
+        e = (a - b).abs().amax(dim=-1)
+        return float(e[keep].max()) if bool(keep.any()) else 0.0
+
+    step_errs, drifts, flipped, parted = [], [], 0, []
+    for j, (a, b, c) in enumerate(zip(steps_tp, solo["steps"], solo["plain_steps"])):
+        a, b, c = a[:, :V].float(), b[:, :V].float(), c[:, :V].float()
+        keep = ~flips(j, routes_steps) & ~flips(j, solo["plain_routes"])
+        flipped += int((~keep).sum())
+        scale = float(b.abs().max())
+        step_errs.append(row_err(a, b, keep) / scale)
+        drifts.append(row_err(c, b, keep) / scale)
+        top2 = b.topk(2, dim=-1).values
+        must = keep & ((top2[:, 0] - top2[:, 1]) > TP20_GAP)
+        if not bool((a.argmax(-1) == b.argmax(-1))[must].all()):
+            parted.append(j)
+    step_limit = max(BF16_TOL, DRIFT_FACTOR * max(drifts))
+    hold(step_errs[0] <= BF16_TOL, "prefill logits")
+    hold(0 not in parted, "first tokens")
+    hold(max(step_errs) <= step_limit, "decode step logits")
+    # every layer on the solo run's input of that layer: an MoE layer's
+    # tokens whose route differs from the solo run's are left out (the
+    # attention's roundings move a token whose k-th and (k+1)-th router
+    # logits lie that close), and counted
+    layer_errs, layer_flips = [], []
+    for i, got in enumerate(layer_out):
+        want = solo["io"][i][1]
+        keep = torch.ones(got.shape[:2], dtype=torch.bool, device=DEV)
+        if cfg.layer_kinds()[i][1] == "moe":
+            m = sum(k[1] == "moe" for k in cfg.layer_kinds()[:i])
+            keep = ~(solo["routes"][m] != routes_layers[m]).any(dim=-1).reshape(got.shape[:2])
+        layer_flips.append(int((~keep).sum()))
+        layer_errs.append(row_err(got.float(), want.float(), keep)
+                          / float(want.float().abs().max()))
+    hold(all(e <= BF16_TOL for e in layer_errs), "layer by layer")
+    W = solo["cache0"]["k"].shape[1]
+    cache_errs = {k: float((cache0[k][:, :W].float() - solo["cache0"][k].float()).abs().max())
+                  / float(solo["cache0"][k].float().abs().max()) for k in ("k", "v")}
+    padding = {k: int(bool(cache0[k][:, W:].any())) for k in ("k", "v")}
+    hold(max(cache_errs.values()) <= BF16_TOL and not any(padding.values()),
+         "first layer's cache")
+    out.update(step_rel_errs_max=max(step_errs), prefill_rel_err=step_errs[0],
+               plain_drift_rel_max=max(drifts), step_limit=step_limit,
+               steps_argmax_parted=len(parted), first_parted_steps=parted[:8],
+               route_flipped_rows=flipped, layer_rel_errs=layer_errs,
+               layer_route_flipped_tokens=layer_flips,
+               cache_rel_errs=cache_errs, cache_slots=[W, cache0["k"].shape[1]],
+               nonzero_padding=padding)
+    if name == "nemotron":
+        inside = sum(int(ref.nucleus(lm.mask_padded_vocab(cfg, z) * it[:, None], TOP_P)
+                         .gather(1, tok[:, None].long()).sum()) for z, it, tok in drawn)
+        draws = sum(int(t.numel()) for _, _, t in drawn)
+        with torch.inference_mode():
+            gen_one = rollout.generate(model, full, prompt,
+                                       torch.Generator(device=DEV).manual_seed(5),
+                                       max_new=new, temperature=TOP_P_TEMPERATURE, top_p=TOP_P)
+        hold(len(drawn) == new - 1 and inside == draws == Bs * (new - 1), "top_p nucleus")
+        hold(sampler_launches["fused_sample"] == 0, "top_p launches no fused_sample")
+        out["top_p"] = {"top_p": TOP_P, "temperature": TOP_P_TEMPERATURE, "draws": draws,
+                        "inside_nucleus": inside, "gathered_width": int(drawn[0][0].shape[1]),
+                        "rows_equal_solo": int((gen_tp.tokens == gen_one.tokens).all(1).sum())}
+    elif not cfg.is_encoder_decoder:
+        hold(sampler_launches["fused_sample"] == TP20_SAMPLED - 1, "the sharded sampler")
+        resp = gen_tp.tokens[:, L:]
+        out["sampled"] = {"tokens": TP20_SAMPLED,
+                          "equal_solo_prefix": int((resp == forced[:, :TP20_SAMPLED])
+                                                   .all(1).sum())}
+    if cfg.is_encoder_decoder:
+        # the memory within DRIFT_FACTOR x the larger drift of two equally
+        # valid roundings: the plain path against the kernel path and
+        # against its fp32-attention self
+        mem = solo["memory"].float()
+        m_err = float((memory.float() - mem).abs().max())
+        m_drift = max(float((solo["memory_plain"].float() - mem).abs().max()),
+                      float((solo["memory_fp32"].float()
+                             - solo["memory_plain"].float()).abs().max()))
+        hold(m_err <= DRIFT_FACTOR * m_drift, "encoder memory")
+        (loss_k, _), g_k = trainer.value_and_grad(lambda p: model.loss(p, batch), full)
+        ops.set_mode("ref")
+        try:
+            (loss_r, _), g_r = trainer.value_and_grad(lambda p: model.loss(p, batch), full)
+            with fp32_attention(ref):
+                (loss_v, _), g_v = trainer.value_and_grad(lambda p: model.loss(p, batch), full)
+        finally:
+            ops.set_mode(None)
+        bad, rule = tp20_drift_rule(leaf_names(grads), grads, g_k, g_r, g_v, ("cross_attn.b_k",))
+        # the loss within 2e-2 of the solo run's, as phase 14 holds it to
+        # the plain path's; its ratio to the fp32-attention drift reported
+        loss_err = abs(float(loss_t) - float(loss_k))
+        hold(loss_err <= BF16_TOL * abs(float(loss_k)), "seamless loss")
+        hold(not bad, "seamless gradient")
+        out["seamless"] = {"memory_max_abs_err": m_err, "memory_drift": m_drift,
+                           "memory_max_abs": float(mem.abs().max()),
+                           "loss_tp": float(loss_t), "loss_solo": float(loss_k),
+                           "loss_plain": float(loss_r),
+                           "loss_plain_fp32_attention": float(loss_v),
+                           "loss_err_over_drift": loss_err / max(abs(float(loss_v)
+                                                                   - float(loss_r)), 1e-30),
+                           "gradient": rule}
+        del g_k, g_r, g_v, grads
+    out["records"] = path_records(torch, ops, ref, F, calls, f"tp20/{name}_rank0")
+    out["arm_s"] = time.perf_counter() - t_arm
+    return dict(out, held=not failed, failed=failed)
+
+
+def tp20_phase(torch, _build, records, label="tp20", faults=()):
+    """Phase 20: tensor-parallel model stages of the remaining families, in
+    one (data 1, model 2) world of two ``chip_smoke.py --tp-rank`` processes
+    on ``cuda:0`` (one gloo group). Arm A: gemma-2b at full width on
+    TP20_LAYERS layers with the int8 KV cache (phase 8's experiment file,
+    ``kv_quant`` on) through ``launch.train --coordinator 127.0.0.1:PORT``,
+    TP20_ITERS GRPO iterations against its solo run in this process, held as
+    in phase 18 (launches an iteration equal the solo run's; metrics,
+    displacement, replicas, a fixed batch's gradient, logprobs) with each
+    rank's warm-up iteration held to plain (``decode_attention_quant`` on
+    the rank's slot shard among them), then each rank's int8 prefill cache
+    bit for bit the quantization of the gathered K/V (``tp20_int8``). Arm B:
+    in the same ranks, the pipeline freed, ``tp20_arm`` for each model of
+    TP20_ARMS in turn. ``faults`` (names of TP20_FAULTS) runs the world
+    again with each fault planted (arm A, and the arm B model the fault
+    touches), prints its readings and fails unless some hold rejects it.
+    The kernels' records at the new shapes join ``records`` (under
+    ``"phase20"``). Returns {path: launch counts}."""
+    from repro_torch import tree
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "tp20"
+    work.mkdir(parents=True, exist_ok=True)
+    spec = json.loads(experiment_file(f"{label}_gemma", ARCH_FLAGS, PIPE_RL).read_text())
+    spec["model"].update(num_layers=TP20_LAYERS, kv_quant=True)
+    spec["distributed"] = {"num_hosts": 1, "exchange_timeout_s": 600.0, "dead_after_s": 120.0}
+    solo_path = work / "solo_experiment.json"
+    solo_path.write_text(json.dumps(spec))
+    spec["mesh_shape"] = [1, TP_RANKS]
+    tp_path = work / "tp_experiment.json"
+    tp_path.write_text(json.dumps(spec))
+    solo_params = work / "solo_params.pt"
+    # the solo run in this process, each iteration synchronised with its
+    # launches; its final params saved for the ranks to be held against
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with observed_iterations(torch, _build) as seen:
+        res = train.main(["--experiment", str(solo_path), "--device", DEV, "--iters",
+                          str(TP20_ITERS), "--num-hosts", "1"])
+    torch.save([t.cpu() for t in tree.leaves(res["pipeline"].ctx.actor_state.params)],
+               solo_params)
+    solo = {"history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+            "iterations": [{"ms": r["ms"], "launches": r["launches"]}
+                           for r in seen["iterations"]],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del res, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def world(arm, fault=None, arms=tuple(TP20_ARMS)):
+        return run_hosts(label, arm, tp_world_args(
+            work, arm, tp_path, solo_params, TP20_ITERS, fault=fault, sampler=False,
+            extra={"tp20": list(arms), "held": list(TP20_HELD)}), mode="--tp-rank")
+
+    try:
+        arts = world("rank")
+        fault_arts = {f: world(f"fault_{f}", f, [a for a in (TP20_FAULTS[f],) if a])
+                      for f in faults}
+    finally:
+        solo_params.unlink(missing_ok=True)
+
+    def clean(history):
+        return [{k: v for k, v in m.items() if not k.startswith("time/")} for m in history]
+
+    exp = ExperimentSpec.from_json(tp_path.read_text())
+    limits = {"min_cosine": TP_MIN_COSINE, "max_rel_distance": TP_MAX_REL_DISTANCE,
+              "metric_rtol": TP_METRIC_RTOL, "max_replica_diff": TP_MAX_REPLICA_DIFF,
+              "max_grad_rel_err": TP_MAX_GRAD_REL_ERR, "logprob_tol": BF16_TOL}
+
+    def readings(ranks):
+        """(held, the failed holds, the readings) of one world's ranks."""
+        held, vs = tp_readings(ranks, solo["history"], limits)
+        failed = [] if held else ["arm A against the solo run"]
+        if not all(a["int8"]["equal"] for a in ranks):
+            failed.append("arm A int8 cache")
+        for name, arm in ranks[0]["arms"].items():
+            failed += [f"{name}: {f}" for f in arm["failed"]]
+        return not failed, failed, vs
+
+    counts, out = {}, {"layers": TP20_LAYERS, "ranks": TP_RANKS, "mesh": [1, TP_RANKS],
+                       "arms": {}}
+    for r, a in enumerate(arts):
+        require(a["backend"] == "gloo" and a["mesh"] == {"data": 1, "model": TP_RANKS}
+                and a["coords"]["model"] == r,
+                f"{label} rank {r}: backend {a['backend']}, mesh {a['mesh']}, {a['coords']}")
+        for i, (it, sit) in enumerate(zip(a["iterations"], solo["iterations"])):
+            require(it["launches"] == sit["launches"],
+                    f"{label} rank {r} iteration {i}: launches {it['launches']}, solo "
+                    f"{sit['launches']}")
+        require(all(a["iterations"][0]["launches"][n] == a["held"][n]["calls"] > 0
+                    for n in TP20_HELD),
+                f"{label} rank {r}: held calls {a['held']}, launches "
+                f"{a['iterations'][0]['launches']}")
+        st = a["stats"]
+        require(st["bytes_through_controller"] == 0 and st["redistributions"] > 0,
+                f"{label} rank {r}: buffer stats {st}")
+        timed = a["iterations"][1:]
+        row = {"rank": r, "params": a["params"], "local_params": a["local_params"],
+               "iteration_ms": [it["ms"] for it in a["iterations"]],
+               "timed_iteration_ms": statistics.median(it["ms"] for it in timed),
+               "solo_iteration_ms": [it["ms"] for it in solo["iterations"]],
+               "collectives_per_timed_iteration": {
+                   k: {f: statistics.median(it["collectives"][k][f] for it in timed)
+                       for f in ("calls", "ms", "bytes")} for k in ("all_reduce", "all_gather")},
+               "peak_gib": a["peak_gib"], "solo_peak_gib": solo["peak_gib"],
+               "peak_rss_gib": a["peak_rss_gib"], "launches": a["launches"],
+               "held_to_plain": a["held"], "vs_solo": a["vs_solo"], "replicas": a["replicas"],
+               "logprobs": a["logprobs"], "gradient": a["gradient"],
+               "int8": {k: v for k, v in a["int8"].items() if k != "records"}}
+        print(json.dumps({f"{label}_rank": row}), flush=True)
+        counts[f"tp20_gemma_int8_rank{r}"] = a["launches"]
+        for name, arm in a["arms"].items():
+            # the forced steps' launches and the sampler's generate's
+            counts[f"tp20_{name}_rank{r}"] = {k: v + arm["sampler_launches"][k]
+                                              for k, v in arm["launches"].items()}
+            print(json.dumps({f"{label}_arm": {"arm": name, "rank": r,
+                                               **{k: v for k, v in arm.items()
+                                                  if k != "records"}}}), flush=True)
+    require(clean(arts[0]["history"]) == clean(arts[1]["history"]),
+            f"{label}: the ranks' metrics differ")
+    require(all(m["actor/grad_norm"] > 0 for m in arts[0]["history"]), f"{label}: a zero gradient")
+    held, failed, vs = readings(arts)
+    print(json.dumps({"check": f"{label}_against_the_solo_runs", "held": held, "failed": failed,
+                      **vs, **limits}), flush=True)
+    fault_held = {}
+    for fault, fa in fault_arts.items():
+        fault_held[fault], ffailed, fvs = readings(fa)
+        print(json.dumps({"check": f"{label}_fault_{fault}_against_the_solo_runs",
+                          "held": fault_held[fault], "failed": ffailed, **fvs}), flush=True)
+    require(held, f"{label}: the tensor-parallel runs against the solo runs: {failed}")
+    for fault, fheld in fault_held.items():
+        require(not fheld, f"{label}: the holds do not reject the planted fault {fault}")
+    rec0 = arts[0]
+    kernel_recs = {"decode_attention_quant": rec0["int8"]["records"].get("decode_attention_quant",
+                                                                          {})}
+    for name, arm in rec0["arms"].items():
+        for kname, by_shape in arm["records"].items():
+            kernel_recs.setdefault(kname, {}).update(
+                {f"{name}_{tag}": r for tag, r in by_shape.items()})
+    for kname, by_shape in kernel_recs.items():
+        records.setdefault(kname, {})["phase20"] = by_shape
+    out["solo_history"] = solo["history"]
+    out["history"] = arts[0]["history"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18, 19],
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18, 19, 20],
                     default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
@@ -6027,19 +6705,21 @@ def main(argv=None) -> int:
     # one rank of phase 18's world, started by tp_phase
     ap.add_argument("--tp-rank", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-faults", default="",
-                    help="with --only-phase 18 (19): comma-separated faults of TP_FAULTS "
-                         "(TP19_FAULTS) to plant in the tensor-parallel model after the sound "
-                         "run, each of which the phase's holds must reject (how its limits "
-                         "were set)")
+                    help="with --only-phase 18 (19, 20): comma-separated faults of TP_FAULTS "
+                         "(TP19_FAULTS, TP20_FAULTS) to plant in the tensor-parallel model "
+                         "after the sound run, each of which the phase's holds must reject "
+                         "(how its limits were set)")
     opts = ap.parse_args(argv)
     faults = [f for f in opts.shard_faults.split(",") if f]
     if faults and (opts.only_phase != 17 or not set(faults) <= set(SHARD_FAULTS)):
         ap.error(f"--shard-faults takes {', '.join(SHARD_FAULTS)}, with --only-phase 17")
     tp_faults = [f for f in opts.tp_faults.split(",") if f]
-    known = {18: TP_FAULTS, 19: tuple(TP19_FAULTS)}.get(opts.only_phase, ())
+    known = {18: TP_FAULTS, 19: tuple(TP19_FAULTS), 20: tuple(TP20_FAULTS)}.get(
+        opts.only_phase, ())
     if tp_faults and not set(tp_faults) <= set(known):
-        ap.error(f"--tp-faults takes {', '.join(TP_FAULTS)} with --only-phase 18, or "
-                 f"{', '.join(TP19_FAULTS)} with --only-phase 19")
+        ap.error(f"--tp-faults takes {', '.join(TP_FAULTS)} with --only-phase 18, "
+                 f"{', '.join(TP19_FAULTS)} with --only-phase 19, or "
+                 f"{', '.join(TP20_FAULTS)} with --only-phase 20")
 
     import torch
 
@@ -6087,7 +6767,8 @@ def main(argv=None) -> int:
                  16: lambda: fleet_phase(torch, _build),
                  17: lambda: sharding_phase(torch, _build, faults=faults),
                  18: lambda: tp_phase(torch, ops, ref, _build, {}, faults=tp_faults),
-                 19: lambda: tp_moe_ssd_phase(torch, ref, F, _build, {}, faults=tp_faults)}
+                 19: lambda: tp_moe_ssd_phase(torch, ref, F, _build, {}, faults=tp_faults),
+                 20: lambda: tp20_phase(torch, _build, {}, faults=tp_faults)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -6206,6 +6887,14 @@ def main(argv=None) -> int:
     # (data 1, model 2) mesh on the card (each rank's counts start at 0 in its
     # process and are read after its run) ----
     paths.update(tp_moe_ssd_phase(torch, ref, F, _build, records))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 20: tensor-parallel model stages of the remaining families:
+    # gemma-2b's int8 KV cache through launch.train, then mixtral's ring,
+    # llava's prefix, seamless's encoder-decoder and nemotron's top_p in the
+    # same two ranks of a (data 1, model 2) mesh (each rank's counts start at
+    # 0 in its process and are read after each run) ----
+    paths.update(tp20_phase(torch, _build, records))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -6251,6 +6940,14 @@ def main(argv=None) -> int:
                                                "fused_sample") for r in range(TP_RANKS)},
                **{f"tp_mamba2_grpo_rank{r}": ("rmsnorm", "ssd", "fused_sample", "rmsnorm_sumsq",
                                               "rmsnorm_scaled") for r in range(TP_RANKS)},
+               **{f"tp20_gemma_int8_rank{r}": ("rmsnorm", "flash_attention",
+                                               "decode_attention_quant", "fused_sample")
+                  for r in range(TP_RANKS)},
+               **{f"tp20_{arm}_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
+                                          "fused_sample")
+                  for arm in ("mixtral", "llava") for r in range(TP_RANKS)},
+               **{f"tp20_{arm}_rank{r}": ("flash_attention", "decode_attention")
+                  for arm in ("seamless", "nemotron") for r in range(TP_RANKS)},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():

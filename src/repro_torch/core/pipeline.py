@@ -42,11 +42,13 @@ code's ambient one): the serve layout is no longer the full params, so the
 logprob stages and the actor step read the train layout gathered over the
 data axes (``WorkerContext.model_params``: this rank's ``model`` shards),
 and the reference params are cut once to the train specs' ``model``
-shards. The ranks of one data row share its rows and seeds. MoE and SSD
-layers run there too (expert and head tensor parallelism). An
-encoder-decoder, prefix embeddings, ``kv_quant``, a sliding window, the
-continuous engine and the async pipeline on such a mesh are ROADMAP queue
-1, item 8.
+shards. The ranks of one data row share its rows and seeds. Every
+architecture runs there: MoE and SSD layers (expert and head tensor
+parallelism), sliding-window rings, the int8 KV cache, prefix embeddings
+and ``top_p < 1``; an encoder-decoder's model code too, while its
+pipeline fails as on one device, at ``rollout.generate`` ("fused sampling
+is decoder-only"). The continuous engine and the async pipeline on such a
+mesh are ROADMAP queue 1, item 8.
 
 The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 ``compile()`` lands here.
@@ -181,20 +183,15 @@ def _seeds(seed: int):
     return [int(s) for s in np.random.SeedSequence(seed).generate_state(3)]
 
 
-def _refuse_unported_mesh(shape: Dict[str, int], cfg: ModelConfig,
+def _refuse_unported_mesh(shape: Dict[str, int],
                           async_pipeline: Optional[AsyncPipelineConfig],
                           rollout: Optional[RolloutEngineConfig]) -> None:
     """Raise for what a rank mesh cannot run yet: the async pipeline, and on
-    ``model`` > 1 an encoder-decoder, prefix embeddings, ``kv_quant``, a
-    sliding window and the continuous engine."""
+    ``model`` > 1 the continuous engine."""
     if math.prod(shape.values()) <= 1:
         return
     if shape.get("model", 1) > 1:
         unported = [what for what, hit in (
-            ("an encoder-decoder", cfg.is_encoder_decoder),
-            ("prefix embeddings", cfg.num_prefix_embeds > 1),
-            ("kv_quant", cfg.kv_quant),
-            ("a sliding window", cfg.sliding_window is not None),
             ("the continuous rollout engine",
              rollout is not None and rollout.engine == "continuous"),
             ("the async pipeline", async_pipeline is not None and async_pipeline.enabled),
@@ -247,7 +244,7 @@ def build_pipeline(
     # the rank mesh asked for (a given one, or ``mesh_shape`` over the
     # running world), refused before any world is touched
     asked = mesh_shape if mesh is None else (mesh.shape if mesh.torch_mesh is not None else None)
-    _refuse_unported_mesh(asked or {}, cfg, async_pipeline, rollout)
+    _refuse_unported_mesh(asked or {}, async_pipeline, rollout)
     if mesh is None and mesh_shape is not None:
         from repro_torch.launch.mesh import mesh_of
 

@@ -30,16 +30,16 @@ device that a collective's buffers lie on: the host for gloo, the mesh's
 device for NCCL. A card's tensors for a gloo group are copied to the host,
 moved there and copied back.
 
-``seq_sharded_decode_attention`` is the decode path for GQA archs whose
-kv_heads do not divide TP: the KV cache is sequence-sharded over `model`,
-each shard computes a partial flash decode (o, lse) with ``ops.
-decode_attention`` on its own slots, and the shards combine with the exact
-log-sum-exp merge.
+``seq_sharded_decode_attention`` is the decode path of a cache split by
+slot over `model`: each shard computes a partial flash decode (o, lse) with
+``ops.decode_attention`` on its own slots, and the shards combine with the
+exact log-sum-exp merge; ``seq_sharded_decode_attention_quant`` is the same
+over an int8 cache (``ops.decode_attention_quant``).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -240,7 +240,6 @@ def seq_sharded_decode_attention(
     cache_len: torch.Tensor,  # (B,) int32, global lengths
     *,
     axis: str = "model",
-    window: Optional[int] = None,
     return_lse: bool = False,
 ):
     """Flash decode over a cache whose slots are split over ``axis``: each
@@ -249,12 +248,47 @@ def seq_sharded_decode_attention(
     the ranks all-gather (o, lse) and merge them exactly. A shard that holds
     no live key of a row returns lse = -1e30 (the kernel) or -5e29 (the
     plain version) for it; either weighs exp(lse - max) = 0 in the merge.
-    With ``return_lse`` the merged lse comes back too."""
-    del window  # SWA archs bound the cache with a ring instead, as in JAX
-    shard_s = k.shape[1]
-    idx = mesh.coords[axis]
-    eff_len = torch.clamp(cache_len - idx * shard_s, 0, shard_s).to(torch.int32)
+    With ``return_lse`` the merged lse comes back too. No window mask is
+    applied: a sliding window's cache is a ring, whose live slots are all in
+    the window, and the caller passes their count as ``cache_len``
+    (``models/lm.py``)."""
+    eff_len = _shard_len(mesh, axis, cache_len, k.shape[1])
     o, lse = ops.decode_attention(q, k, v, eff_len)
+    return _merge_shards(mesh, axis, o, lse, return_lse)
+
+
+def seq_sharded_decode_attention_quant(
+    mesh,
+    q: torch.Tensor,  # (B, H, D) the same on every rank of `axis`
+    k: torch.Tensor,  # (B, S/n, KVH, D) int8: this rank's slots of the cache
+    v: torch.Tensor,
+    k_scale: torch.Tensor,  # (B, S/n, KVH) f32, the slots' scales
+    v_scale: torch.Tensor,
+    cache_len: torch.Tensor,  # (B,) int32, global lengths
+    *,
+    axis: str = "model",
+    return_lse: bool = False,
+):
+    """:func:`seq_sharded_decode_attention` over an int8 cache: each rank
+    runs ``ops.decode_attention_quant`` on its slots and their scales, and
+    the ranks merge (o, lse) in the same way. A row with no live slot in a
+    rank's shard gets lse = -1e30 from the kernel (its splits write
+    NEG_INF only, ``csrc/split_kv.cuh``) and -5e29 from the plain version,
+    as in the bf16 kernel: weight 0 in the merge."""
+    eff_len = _shard_len(mesh, axis, cache_len, k.shape[1])
+    o, lse = ops.decode_attention_quant(q, k, v, k_scale, v_scale, eff_len)
+    return _merge_shards(mesh, axis, o, lse, return_lse)
+
+
+def _shard_len(mesh, axis: str, cache_len: torch.Tensor, shard_s: int) -> torch.Tensor:
+    """The live slots of each row in this rank's ``shard_s`` slots."""
+    idx = mesh.coords[axis]
+    return torch.clamp(cache_len - idx * shard_s, 0, shard_s).to(torch.int32)
+
+
+def _merge_shards(mesh, axis: str, o, lse, return_lse: bool):
+    """The ranks' (o, lse) of disjoint slot ranges all-gathered over
+    ``axis`` and merged exactly (``ops.combine_decode_shards``)."""
     spec = (axis,)
     o_all = all_gather(mesh, o[None], spec)
     lse_all = all_gather(mesh, lse[None], spec)

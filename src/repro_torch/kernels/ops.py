@@ -158,6 +158,14 @@ def fused_sample(
     return _fused_sample(h, w_head, seeds, inv_temp, vocab_size=vocab_size)
 
 
+def sample_logits(z, seeds, inv_temp, *, vocab_size=None,
+                  top_p: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sampler's rule on the head's materialised fp32 logits (B, Vp): a
+    tensor-parallel head's, gathered over ``model``, under ``top_p < 1``.
+    Plain torch on every device, as :func:`fused_sample` takes it there."""
+    return _ref.sample_logits(z, seeds, inv_temp, vocab_size=vocab_size, top_p=top_p)
+
+
 def fused_sample_shard(mesh, h, w_head, seeds, inv_temp, *, vocab_size=None,
                        col_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sampler over a head whose vocab columns are split over ``model``

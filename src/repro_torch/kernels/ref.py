@@ -306,7 +306,20 @@ def sample_scores(
     JAX's sampler runs it). ``w_head`` may be the columns of a larger head
     that start at its column ``col_offset``: the hash and the padded-vocab
     mask then read the global column index."""
-    z = h.float() @ w_head.float()
+    return logit_scores(h.float() @ w_head.float(), seeds, inv_temp, vocab_size=vocab_size,
+                        top_p=top_p, col_offset=col_offset)
+
+
+def logit_scores(
+    z: torch.Tensor,  # (B, Vp) fp32 logits of the head's columns from col_offset on
+    seeds: torch.Tensor,
+    inv_temp: torch.Tensor,
+    *,
+    vocab_size: Optional[int] = None,
+    top_p: float = 1.0,
+    col_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sample_scores` from the head's fp32 logits ``z``."""
     Vp = z.shape[1]
     vocab = col_offset + Vp if vocab_size is None else vocab_size
     pos = torch.arange(col_offset, col_offset + Vp, device=z.device)
@@ -337,6 +350,24 @@ def fused_sample(
     has no such filter. Returns (token (B,) int32, logprob (B,) f32)."""
     z, y = sample_scores(h, w_head, seeds, inv_temp, vocab_size=vocab_size, top_p=top_p,
                          col_offset=col_offset)
+    return _draw(z, y)
+
+
+def sample_logits(
+    z: torch.Tensor,  # (B, Vp) fp32 logits of the whole head
+    seeds: torch.Tensor,
+    inv_temp: torch.Tensor,
+    *,
+    vocab_size: Optional[int] = None,
+    top_p: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_sample` from the head's fp32 logits (a tensor-parallel
+    head's, gathered over ``model``)."""
+    return _draw(*logit_scores(z, seeds, inv_temp, vocab_size=vocab_size, top_p=top_p))
+
+
+def _draw(z: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the first-max argmax of the scores y, its logprob under z)."""
     tok = torch.argmax(y, dim=-1)
     lp = z.gather(1, tok[:, None])[:, 0] - torch.logsumexp(z, dim=-1)
     return tok.to(torch.int32), lp

@@ -19,6 +19,22 @@ There is no fused sampler, no paged decode and no chunked prefill for this
 family (``models/api.py`` raises JAX's exceptions): a caller serves it
 through :func:`prefill` and :func:`decode_step` and samples from the logits
 itself.
+
+**Tensor parallelism.** On an ambient mesh with ``model`` = M > 1
+(``distributed.constraint``) both stacks run on this rank's ``model``
+shards as the decoder-only LM does (``models/lm.py``): the encoder's
+non-causal self-attention, the decoder's self- and cross-attention on this
+rank's query heads, the MLPs by ``d_ff``, the embedding and the head
+vocab-parallel (the loss's and logprobs' log-sum-exp summed over
+``model``, prefill's and a decode step's logits all-gathered). The
+self-attention cache is split by slot, as ``lm`` splits it. The memory's
+``{"mk", "mv"}`` hold this rank's KV heads, as :func:`layers.memory_kv`
+computes them (all of them where the KV heads do not split over M): each
+rank's cross-attention then reads only its own heads, written once a
+prefill, and a decode step makes no collective for it. JAX's
+``sharding.cache_specs`` splits ``mk``/``mv`` by sequence instead; that is
+a layout for GSPMD, which would attend the slot shards and merge them with
+two more collectives a layer and a step, and the port does not take it.
 """
 from __future__ import annotations
 
@@ -28,16 +44,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import constraint as tpc
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.lm import (
     Caches,
     _attn_mixer,
-    _head_matrix,
     ce_loss,
     embed_tokens,
-    mask_padded_vocab,
+    head_logits,
+    ring_width,
     token_stats,
+    tp_cache_width,
 )
 
 Params = Dict[str, Any]
@@ -174,21 +192,29 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, frames: torc
         h = _cross_and_mlp(cfg, p, h, (mk, mv))
         caches.append({**kv, "mk": mk, "mv": mv})
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    logits = mask_padded_vocab(cfg, (h[:, -1] @ _head_matrix(cfg, params)).float())
+    logits = head_logits(cfg, params, h[:, -1])
     return logits, caches, torch.full((B,), S, dtype=torch.int32, device=tokens.device)
 
 
 def init_caches(cfg: ModelConfig, batch: int, smax: int, *, device=None) -> Caches:
     """Zero bf16 caches (``encdec.init_caches``): per decoder layer the
     self-attention ``{"k", "v"}`` (B, smax, KVH, hd) and the memory's
-    ``{"mk", "mv"}`` (B, encoder_len, KVH, hd)."""
+    ``{"mk", "mv"}`` (B, encoder_len, KVH, hd). On a tensor-parallel mesh
+    the self-attention cache holds this rank's slots of all KV heads and the
+    memory this rank's KV heads (all of them where they do not split over
+    ``model``), as :func:`prefill` makes them."""
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    width, mem_kvh = ring_width(cfg, smax), kvh
+    if tpc.tp() is not None:
+        width = tp_cache_width(cfg, smax)
+        mem_kvh = kvh // tpc.tp_size() if kvh % tpc.tp_size() == 0 else kvh
 
-    def zeros(width):
-        return torch.zeros((batch, width, kvh, hd), dtype=torch.bfloat16, device=device)
+    def zeros(width, heads):
+        return torch.zeros((batch, width, heads, hd), dtype=torch.bfloat16, device=device)
 
-    return [{"k": zeros(smax), "v": zeros(smax), "mk": zeros(cfg.encoder_len),
-             "mv": zeros(cfg.encoder_len)} for _ in range(cfg.num_layers)]
+    return [{"k": zeros(width, kvh), "v": zeros(width, kvh),
+             "mk": zeros(cfg.encoder_len, mem_kvh), "mv": zeros(cfg.encoder_len, mem_kvh)}
+            for _ in range(cfg.num_layers)]
 
 
 def decode_step(cfg: ModelConfig, params: Params, token, caches: Caches,
@@ -205,11 +231,12 @@ def decode_step(cfg: ModelConfig, params: Params, token, caches: Caches,
         out, kv = _attn_mixer(cfg, p["self_attn"], hn, None, "decode", c, cache_len, 0)
         h = h + out
         hx = layers.apply_norm(cfg, p["norm_x"], h)
-        q = layers.q_proj(cfg, p["cross_attn"], hx).reshape(B, cfg.padded_heads, cfg.head_dim)
-        o, _ = ops.decode_attention(q, c["mk"], c["mv"], enc_valid)
+        # this rank's query heads against their KV heads of the memory
+        q = layers.q_proj(cfg, p["cross_attn"], hx).reshape(B, -1, cfg.head_dim)
+        mk, mv = layers.local_kv(cfg, p["cross_attn"], c["mk"], c["mv"])
+        o, _ = ops.decode_attention(q, mk, mv, enc_valid)
         h = h + layers.out_proj(cfg, p["cross_attn"], o)[:, None]
         h = h + layers.apply_mlp(cfg, p["mlp"], layers.apply_norm(cfg, p["norm2"], h))
         new_caches.append({**kv, "mk": c["mk"], "mv": c["mv"]})
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    logits = mask_padded_vocab(cfg, (h[:, 0] @ _head_matrix(cfg, params)).float())
-    return logits, new_caches, cache_len + 1
+    return head_logits(cfg, params, h[:, 0]), new_caches, cache_len + 1

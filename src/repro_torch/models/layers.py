@@ -255,8 +255,9 @@ def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torc
 def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     memory: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """A decoder's attention over the encoder memory's K/V (:func:`memory_kv`):
-    non-causal, no RoPE, every query against every memory position."""
+    non-causal, no RoPE, every query against every memory position. On a
+    tensor-parallel mesh this rank's query heads against their KV heads."""
     B, S, _ = x.shape
-    q = q_proj(cfg, p, x).reshape(B, S, cfg.padded_heads, cfg.head_dim)
-    k, v = memory
+    q = q_proj(cfg, p, x).reshape(B, S, -1, cfg.head_dim)
+    k, v = local_kv(cfg, p, *memory)
     return out_proj(cfg, p, ops.flash_attention(q, k, v, causal=False))

@@ -46,14 +46,23 @@ merges the ranks' online states (``ops.fused_sample_shard``), and prefill's
 logits are all-gathered. The residual stream is replicated. The decode
 cache is sharded by slot as ``sharding.cache_specs`` says: rank r holds the
 slots ``[r W/M, (r + 1) W/M)`` of all KV heads, its width W rounded up to a
-multiple of M (the slots past W are never attended); a decode step writes
-its token on the rank that owns its slot and attends all query heads,
-gathered, over each rank's slots (``collectives.seq_sharded_decode_attention``),
-keeping its own heads of the output. An SSD layer runs on this rank's
-heads and an MoE layer on this rank's ``f`` columns of every expert
-(``models/ssm.py``, ``models/moe.py``); an SSD layer's decode state holds
-this rank's heads (``ssm.ssm_state_shapes``). Sliding windows, ``kv_quant``,
-chunked prefill, paged decode and ``top_p < 1`` raise there.
+multiple of M (the slots past W are never written or attended); a decode
+step writes its token on the rank that owns its slot and attends all query
+heads, gathered, over each rank's slots
+(``collectives.seq_sharded_decode_attention``, or its ``_quant``
+counterpart over the int8 cache), keeping its own heads of the output.
+Under ``kv_quant`` prefill quantizes its slots after the KV heads are
+gathered, so every scale is taken over all KV heads of its token, and a
+decode step quantizes its new row once. A sliding window's ring keeps its
+global width W = ``ring_width``: a step writes slot ``cache_len % W`` on the
+rank that owns it and each rank attends its live slots of the
+``min(cache_len + 1, W)``. ``top_p < 1`` gathers the head's logits over
+``model`` and samples them with the plain sampler, as one device does.
+Prefix embeddings run ahead of the tokens as on one device, replicated over
+``model``. An SSD layer runs on this rank's heads and an MoE layer on this
+rank's ``f`` columns of every expert (``models/ssm.py``,
+``models/moe.py``); an SSD layer's decode state holds this rank's heads
+(``ssm.ssm_state_shapes``). Chunked prefill and paged decode raise there.
 """
 from __future__ import annotations
 
@@ -265,48 +274,89 @@ def tp_cache_width(cfg: ModelConfig, smax: int) -> int:
     return -(-ring_width(cfg, smax) // M)
 
 
+def _tp_prefill_slots(k: torch.Tensor, W: int, w: int) -> torch.Tensor:
+    """This rank's slots ``[r w, (r + 1) w)`` of a prefill cache of ``W``
+    slots, made from k (B, S, KVH, hd) of every KV head: slot s holds the
+    token at position s, or in a ring that the prompt fills (S >= W) the
+    one of the last W tokens with position = s mod W; the slots past the
+    prompt and past W hold zeros."""
+    S = k.shape[1]
+    lo = tpc.tp_rank() * w
+    n = max(min(w, min(S, W) - lo), 0)
+    kc = k.new_zeros((k.shape[0], w) + tuple(k.shape[2:]))
+    slots = torch.arange(lo, lo + n, device=k.device)
+    kc[:, :n] = k[:, slots if S < W else S - W + (slots - (S - W)) % W]
+    return kc
+
+
+def _tp_ring_slot(cfg: ModelConfig, cache_len: torch.Tensor, w: int):
+    """(the global slot a decode step writes, the live slots it attends) on a
+    tensor-parallel mesh whose ranks hold ``w`` slots each. A ring's residue
+    is taken modulo its global width W = ``ring_width``: with a window W is
+    ``min(smax, window)``, which ``min(window, w M)`` equals wherever a
+    step's position lies inside the cache (the slots that rounding W up to
+    a multiple of M adds are never written or attended). Without a window
+    the step writes slot ``cache_len``."""
+    if cfg.sliding_window is None:
+        return cache_len, cache_len + 1
+    W = min(cfg.sliding_window, w * tpc.tp_size())
+    return cache_len % W, torch.clamp(cache_len + 1, max=W)
+
+
 def _attn_mixer_tp(cfg, p, h, positions, mode, cache, cache_len, smax, page_tables):
     """The attention mixer on a tensor-parallel mesh: prefill and full mode
-    attend this rank's query heads to their KV heads; prefill writes this
-    rank's slots of all KV heads; decode as the module docstring says."""
+    attend this rank's query heads to their KV heads (under the sliding
+    window); prefill writes this rank's slots of all KV heads, quantized
+    after they are gathered under ``kv_quant`` (each scale over every KV
+    head of its token, as on one device); decode as the module docstring
+    says."""
     if mode == "prefill_chunk" or page_tables is not None:
         tpc.require_dense("chunked prefill and paged decode")
-    if cfg.kv_quant or cfg.sliding_window is not None:
-        tpc.require_dense("the int8 KV cache and sliding-window rings")
     if mode == "prefill":
         q, k, v = layers.qkv_proj(cfg, p, h, positions)
         kl, vl = layers.local_kv(cfg, p, k, v)
-        o = ops.flash_attention(q, kl, vl, causal=True)
-        B, S = h.shape[0], h.shape[1]
-        if S > smax:
+        o = ops.flash_attention(q, kl, vl, causal=True, window=cfg.sliding_window)
+        S = h.shape[1]
+        if S > smax and cfg.sliding_window is None:
             raise ValueError(f"prompt of {S} tokens does not fit a cache of {smax}")
         k, v = layers.all_kv(cfg, k, v)
-        W = tp_cache_width(cfg, smax)
-        lo = tpc.tp_rank() * W
-        kc = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
-        vc = torch.zeros_like(kc)
-        n = max(min(S - lo, W), 0)
-        kc[:, :n] = k[:, lo:lo + n]
-        vc[:, :n] = v[:, lo:lo + n]
+        W, w = ring_width(cfg, smax), tp_cache_width(cfg, smax)
+        kc, vc = _tp_prefill_slots(k, W, w), _tp_prefill_slots(v, W, w)
+        if cfg.kv_quant:
+            kq, ks = quant_kv(kc)
+            vq, vs = quant_kv(vc)
+            return layers.out_proj(cfg, p, o), {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         return layers.out_proj(cfg, p, o), {"k": kc, "v": vc}
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
     q, k_new, v_new = layers.qkv_proj(cfg, p, h, cache_len[:, None])
     k_new, v_new = layers.all_kv(cfg, k_new, v_new)
-    kc, vc = cache["k"], cache["v"]
-    W = kc.shape[1]
-    local = cache_len - tpc.tp_rank() * W
-    inside = (local >= 0) & (local < W)  # the rank that owns slot cache_len writes it
-    rows, slot = torch.arange(kc.shape[0], device=kc.device), local.clamp(0, W - 1).long()
-    kc[rows, slot] = _keep_outside(inside, k_new[:, 0].to(kc.dtype), kc[rows, slot])
-    vc[rows, slot] = _keep_outside(inside, v_new[:, 0].to(vc.dtype), vc[rows, slot])
+    w = cache["k"].shape[1]
+    slot, live = _tp_ring_slot(cfg, cache_len, w)
+    local = slot - tpc.tp_rank() * w
+    inside = (local >= 0) & (local < w)  # the rank that owns the slot writes it
+    rows, local = torch.arange(cache_len.shape[0], device=h.device), local.clamp(0, w - 1).long()
+    if cfg.kv_quant:
+        leaves = ((cache["k"], cache["k_scale"], k_new), (cache["v"], cache["v_scale"], v_new))
+        for cq, cs, new_row in leaves:
+            nq, ns = quant_kv(new_row[:, 0])
+            cq[rows, local] = _keep_outside(inside, nq, cq[rows, local])
+            cs[rows, local] = _keep_outside(inside, ns, cs[rows, local])
+    else:
+        for c, new_row in ((cache["k"], k_new), (cache["v"], v_new)):
+            c[rows, local] = _keep_outside(inside, new_row[:, 0].to(c.dtype), c[rows, local])
     from repro_torch.distributed import collectives
 
     hq = q.shape[2]
     q_all = tpc.gather_from_model(q[:, 0], -2)  # (B, Hp, hd): every query head
-    o = collectives.seq_sharded_decode_attention(tpc.tp(), q_all, kc, vc, cache_len + 1)
+    if cfg.kv_quant:
+        o = collectives.seq_sharded_decode_attention_quant(
+            tpc.tp(), q_all, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"], live)
+    else:
+        o = collectives.seq_sharded_decode_attention(tpc.tp(), q_all, cache["k"], cache["v"],
+                                                     live)
     o = o[:, tpc.tp_rank() * hq:(tpc.tp_rank() + 1) * hq]
-    return layers.out_proj(cfg, p, o)[:, None], {"k": kc, "v": vc}
+    return layers.out_proj(cfg, p, o)[:, None], cache
 
 
 def _write_slot(cfg: ModelConfig, cache_len: torch.Tensor, width: int):
@@ -735,13 +785,17 @@ def decode_step_sample(
     (``ops.fused_sample``): the (B, Vp) logits never exist as a tensor on the
     kernel path. Returns (token (B,) int32, behaviour logprob (B,) under the
     untempered masked distribution, caches, cache_len + 1)."""
-    if tpc.tp() is not None and top_p < 1.0:
-        tpc.require_dense("top_p sampling")
     h, new_caches = _decode_hidden(cfg, params, token, caches, cache_len)
     B = h.shape[0]
     inv_temp = torch.full((B,), 0.0 if temperature == 0.0 else 1.0 / temperature,
                           dtype=torch.float32, device=h.device)
     head = _head_matrix(cfg, params)
+    if tpc.tp() is not None and top_p < 1.0:
+        # the nucleus needs the whole sorted distribution: the ranks' fp32
+        # logits gathered over model, then the plain sampler one device takes
+        z = tpc.gather_from_model(h.float() @ head.float(), -1)
+        tok, lp = ops.sample_logits(z, seeds, inv_temp, vocab_size=cfg.vocab_size, top_p=top_p)
+        return tok, lp, new_caches, cache_len + 1
     if tpc.tp() is not None:  # the ranks' online states over their vocab columns
         tok, lp = ops.fused_sample_shard(tpc.tp(), h, head, seeds, inv_temp,
                                          vocab_size=cfg.vocab_size,

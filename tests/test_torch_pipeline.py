@@ -416,13 +416,15 @@ def test_unported_flags_raise(flag, tmp_path):
 
 @pytest.mark.parametrize("option", ["distributed", "mesh_shape"])
 def test_unported_options_raise(option):
-    # a fleet host of several devices and tensor-parallel stages of an int8
-    # KV cache wait for the rest of the sharding layer
+    # a fleet host of several devices and tensor-parallel stages on the
+    # continuous engine wait for the rest of the sharding layer
     value = {"distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c",
                                               devices_per_host=2),
              "mesh_shape": (2, 2)}[option]
-    cfg = reduced(get_config("gemma-2b"), **SMOKE, kv_quant=option == "mesh_shape")
-    exp = ExperimentSpec(model=cfg, **{option: value})
+    engine = ({"rollout": RolloutEngineConfig(engine="continuous", num_slots=4)}
+              if option == "mesh_shape" else {})
+    exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value},
+                         **engine)
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
         exp.compile(device="cpu")
 
@@ -507,49 +509,26 @@ def _launch_experiment(**kw):
         return train.main(["--experiment", path, "--device", "cpu", "--iters", "1"])
 
 
-def _tensor_parallel_spec(arch="gemma-2b", cfg_kw=None, **spec_kw):
-    cfg = reduced(get_config(arch), **dict(SMOKE, **(cfg_kw or {})))
-    return ExperimentSpec(model=cfg, mesh_shape=(1, 2), **spec_kw).compile(device="cpu")
+def _tensor_parallel_spec(**spec_kw):
+    return ExperimentSpec(model=_layer_cfg(), mesh_shape=(1, 2), **spec_kw).compile(device="cpu")
 
 
 _TP_UNPORTED = {
-    "window": dict(arch="mixtral-8x7b"),
-    "encdec": dict(arch="seamless-m4t-medium"),
-    "prefix": dict(arch="llava-next-34b"),
-    "kv_quant": dict(cfg_kw=dict(kv_quant=True)),
     "continuous": dict(rollout=RolloutEngineConfig(engine="continuous", num_slots=4)),
     "async": dict(async_pipeline=AsyncPipelineConfig(enabled=True)),
 }
-
-def _tensor_parallel_top_p():
-    """A ``top_p < 1`` decode step on an ambient (1, 2) rank mesh (a stand-in
-    whose collectives are never reached: the refusal comes first)."""
-    import types
-
-    from repro_torch.distributed import constraint
-    from repro_torch.models import lm
-
-    cfg = _layer_cfg()
-    mesh = types.SimpleNamespace(torch_mesh=object(), shape={"data": 1, "model": 2},
-                                 coords={"data": 0, "model": 0})
-    with constraint.use_mesh(mesh):
-        lm.decode_step_sample(cfg, {}, torch.zeros(1, dtype=torch.int32), [],
-                              torch.zeros(1, dtype=torch.int32),
-                              torch.zeros(1, dtype=torch.int32), 1.0, top_p=0.5)
-
 
 NOT_PORTED_CASES = {
     "devices_per_host": (8, lambda: ExperimentSpec(
         model=_layer_cfg(), distributed=DistributedConfig(
             num_hosts=2, coordinator="/unused", devices_per_host=2)).compile(device="cpu")),
     "fleet_model_parallel": (8, lambda: make_fleet_mesh(2, model_parallel=2, device="cpu")),
-    # tensor-parallel model stages of everything but a dense decoder on the
-    # lockstep engine, refused before any world is touched
+    # tensor-parallel model stages on the continuous engine or in the async
+    # pipeline, refused before any world is touched
     **{f"model_parallel_{what}": (8, functools.partial(_tensor_parallel_spec, **kw))
        for what, kw in _TP_UNPORTED.items()},
-    "model_parallel_top_p": (8, _tensor_parallel_top_p),
     "model_parallel_launch": (8, lambda: _launch_experiment(
-        mesh_shape=(1, 2), model=_layer_cfg(kv_quant=True))),
+        mesh_shape=(1, 2), rollout=RolloutEngineConfig(engine="continuous", num_slots=4))),
     "async_rank_mesh": (8, lambda: ExperimentSpec(
         model=_layer_cfg(), mesh_shape=(2, 1),
         async_pipeline=AsyncPipelineConfig(enabled=True)).compile(device="cpu")),
