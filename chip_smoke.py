@@ -45,7 +45,9 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      (``generate`` through ``serve.run_lockstep``); the decode steps must go
      through the fused-dequant kernel and never the bf16 one.
   6. mamba2-2.7b end to end: ``serve --arch mamba2-2.7b --lockstep`` at full
-     width and depth (64 SSD layers), the checks of phase 3; the scan kernel
+     width on 16 of its 64 SSD layers (``MAMBA2_LAYERS``; the depths of
+     phases 6, 9, 13 and 14 are cut to keep the script inside its time
+     limit), the checks of phase 3; the scan kernel
      once per layer and prefill, no attention kernel. The gemma-2b weights
      are freed before mamba2's are drawn.
   7. Training, on full gemma-2b again (mamba2 freed), in the order of
@@ -67,7 +69,7 @@ Phases (any mismatch or error raises, and the run exits non-zero):
   8. The GRPO pipeline, phase 7's model freed: ``repro_torch.launch.train``
      called in-process at full gemma-2b width and depth, random weights from
      ``--seed 0``, phase 7's shape (2 prompts x 8 rollouts of 16 new
-     tokens), one warm-up iteration then 3 timed ones, through the DAG
+     tokens), one warm-up iteration then 2 timed ones, through the DAG
      worker over the databuffer and the dataloader. One experiment file
      (``--dump-experiment``, then ``--experiment``): the default
      ``RLConfig`` but an entropy bonus of 0.01 and lr 1e-4, so that every
@@ -88,7 +90,7 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      continuous rollout engine at the GENERATE stage (16 rollouts over 4
      slots), its first iteration held to plain and every iteration's
      launches equal to the engine's prefills and decode steps.
-  9. mamba2-2.7b training at full width and depth (gemma freed): GRPO through
+  9. mamba2-2.7b training at full width on 16 layers (gemma freed): GRPO through
      ``launch.train --arch mamba2-2.7b`` with phase 8's experiment file and
      checks, distributed twice then centralized (the scan under autograd in
      every actor step and its remat recompute); then on lockstep rollouts of
@@ -103,7 +105,7 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      phase 8's checks and a finite critic loss, a nonzero critic gradient
      and some critic weights changed; reports the critic's stage times and
      the peak memory of actor, reference, critic and two sets of moments.
- 11. The continuous rollout engine on qwen2.5-7b at full width on 10 of its
+ 11. The continuous rollout engine on qwen2.5-7b at full width on 4 of its
      28 layers (28 query heads on 4 KV heads of 128, an untied head;
      PPO's models freed): with one slot a prompt and one bucket, sampled,
      its tokens, masks and lengths bit-equal to lockstep ``generate``'s
@@ -117,7 +119,7 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      prefills and decode steps.
  12. The async off-policy pipeline and multi-turn episodes (qwen freed):
      ``launch.train`` at full gemma-2b width on phase 8's experiment file
-     and RL settings, one warm-up and 3 timed iterations an arm, each arm's
+     and RL settings, one warm-up and 2 timed iterations an arm, each arm's
      warm-up held to plain and its launches checked per iteration: a
      synchronous arm and ``--max-staleness 0``, bitwise equal (metrics,
      rollouts, a bit checksum of every actor leaf); ``--max-staleness 1``,
@@ -131,8 +133,8 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      observation tokens out of ``response_mask``, continuations through
      ``decode_attention`` at each row's own offset.
  13. The MoE family (the async models freed), each model freed before the
-     next is drawn: granite-moe-3b-a800m at full width and depth (32
-     layers, 40 experts of 512, top-8, 24 heads padded to 32 on 8 KV heads
+     next is drawn: granite-moe-3b-a800m at full width on 8 of its 32
+     layers (40 experts of 512, top-8, 24 heads padded to 32 on 8 KV heads
      of 64, a tied head of 49,408) through ``serve --arch
      granite-moe-3b-a800m --lockstep`` with phase 3's checks (routes flip
      between the kernel and the plain path and the flips compound, so the
@@ -156,9 +158,10 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      the top two are clear by 0.05 and no route of the row flipped up to
      that position).
  14. The remaining families (the MoE models freed), each model freed before
-     the next is drawn: nemotron-4-15b at full width and depth, command-r-
+     the next is drawn: nemotron-4-15b at full width on 8 of its 32 layers, command-r-
      plus-104b at full width on 4 of its 64 layers, seamless-m4t-medium
-     (serving and one training step) and llava-next-34b at B = 1 behind
+     (serving and one training step) and llava-next-34b on 8 of its 60
+     layers at B = 1 behind
      2,880 prefix embeddings (``families_phase`` says what each is held to).
  15. Checkpoints and telemetry (``ckpt_phase``): ``launch.train`` at full
      gemma-2b width on 2 of its 18 layers (phase 8's experiment file cut to
@@ -213,7 +216,8 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      at mamba2's and jamba's shard widths, and the scan on 40 and 64 heads,
      each against its plain version and timed. B: granite-moe-3b and then
      mamba2-2.7b at full width on 2 layers, each a solo run and two ranks of
-     one gloo group on the card on a (data 1, model 2) mesh, 3 GRPO
+     one gloo group on the card on a (data 1, model 2) mesh (both models'
+     worlds at once), 3 GRPO
      iterations, held as phase 18 holds its run (granite's tokens whose
      route flips left out of the logprob hold, and counted).
 
@@ -235,6 +239,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -258,7 +263,9 @@ MAMBA2_FLAGS = ["--arch", "mamba2-2.7b"]
 B, PROMPT, MAX_NEW = 8, 128, 32
 SMAX = PROMPT + MAX_NEW
 D_MODEL, VOCAB, HEADS, REAL_HEADS, HEAD_DIM = 2048, 256_000, 16, 8, 256
-TIMED_BATCHES = 4
+# timed batches a lockstep run (a warm-up first; 4 before the script outgrew
+# its time limit, cut with the depths below)
+TIMED_BATCHES = 2
 # the streaming path: the engine's ServingConfig and its synthetic workload
 SLOTS, MAX_LEN, STREAM_NEW, PAGE, N_REQUESTS = 8, 256, 64, 16, 32
 STREAM_FLAGS = ["--slots", str(SLOTS), "--max-len", str(MAX_LEN), "--max-new", str(STREAM_NEW),
@@ -268,6 +275,11 @@ STREAM_FLAGS = ["--slots", str(SLOTS), "--max-len", str(MAX_LEN), "--max-new", s
 # the mamba2-2.7b lockstep path (configs/mamba2_2_7b.py): 64 SSD layers of
 # 80 heads of 64, state 128, one group, vocab 50,280 tied
 M_D_MODEL, M_HEADS, M_HEADDIM, M_STATE, M_VOCAB = 2560, 80, 64, 128, 50_280
+# the depths at which phases 6, 9, 13 and 14 draw their models (full width;
+# full depth before the script outgrew its time limit): mamba2-2.7b on 16
+# of its 64 layers, granite-moe-3b on 8 of 32,
+# nemotron-4-15b on 8 of 32, llava-next-34b on 8 of 60
+MAMBA2_LAYERS, GRANITE_LAYERS, NEMOTRON_LAYERS, LLAVA_LAYERS = 16, 8, 8, 8
 # qwen2.5-7b (configs/qwen2_5_7b.py): 28 layers, d_model 3584, 28 query heads
 # on 4 KV heads of 128, d_ff 18,944, an untied lm_head (3584, 152,064)
 QWEN_FLAGS = ["--arch", "qwen2.5-7b"]
@@ -806,17 +818,19 @@ def split_decode_edges(torch, ops, ref, quant_kv, randn):
     print(json.dumps({"check": "split_decode_edges", "ok": True}), flush=True)
 
 
-def check_sample(torch, ref, got, h, head, seeds, it, vocab, what: str) -> float:
+def check_sample(torch, ref, got, h, head, seeds, it, vocab, what: str,
+                 col_offset: int = 0) -> float:
     """fused_sample's (tokens, logprobs) ``got`` against its plain version's:
     no token past the vocab, greedy rows equal, sampled rows equal where the
-    top two scores are clear by SAMPLE_GAP, logprobs at LOGPROB_TOL. Returns
-    the max logprob error."""
+    top two scores are clear by SAMPLE_GAP, logprobs at LOGPROB_TOL. ``head``
+    may be a vocab shard that starts at the head's column ``col_offset``,
+    and the tokens its own column indices. Returns the max logprob error."""
     tok_k, lp_k = got
-    tok_r, lp_r = ref.fused_sample(h, head, seeds, it, vocab_size=vocab)
-    _, y = ref.sample_scores(h, head, seeds, it, vocab_size=vocab)
+    tok_r, lp_r = ref.fused_sample(h, head, seeds, it, vocab_size=vocab, col_offset=col_offset)
+    _, y = ref.sample_scores(h, head, seeds, it, vocab_size=vocab, col_offset=col_offset)
     top2 = y.topk(2, dim=-1).values
     must = (it == 0) | ((top2[:, 0] - top2[:, 1]) > SAMPLE_GAP)
-    require(bool((tok_k < (vocab or head.shape[1])).all()),
+    require(bool((tok_k + col_offset < (vocab or col_offset + head.shape[1])).all()),
             f"fused_sample {what}: a token past the vocab")
     require(bool((tok_k == tok_r)[must].all()),
             f"fused_sample {what}: {tok_k.tolist()} vs {tok_r.tolist()}")
@@ -996,11 +1010,19 @@ def serve_args(serve, temperature: float, arch_flags=ARCH_FLAGS, batches=TIMED_B
         "--requests", str(batches), "--temperature", str(temperature)])
 
 
-def build_model(torch, serve, arch_flags=ARCH_FLAGS):
-    """A model at full width and depth on the card, random bf16 weights
-    from ``--seed 0``, through the serve entry point's own setup."""
+def build_model(torch, serve, arch_flags=ARCH_FLAGS, layers=None):
+    """A model at full width on the card, random bf16 weights from ``--seed
+    0``, through the serve entry point's own setup: at full depth, or on its
+    first ``layers`` layers."""
     t0 = time.perf_counter()
-    model, params, tok = serve.setup(serve_args(serve, 0.0, arch_flags))
+    args = serve_args(serve, 0.0, arch_flags)
+    if layers is None:
+        model, params, tok = serve.setup(args)
+    else:
+        full = serve.get_config
+        with patched(serve, "get_config",
+                     lambda name: dataclasses.replace(full(name), num_layers=layers)):
+            model, params, tok = serve.setup(args)
     torch.cuda.synchronize()
     cfg = model.cfg
     if cfg.ssm_state:
@@ -1359,8 +1381,8 @@ def plain_agreement(torch, ops, model, params, prompt, smax: int, label: str,
 
 def end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
                      label="e2e", profile_name="profile.txt", layerwise=False,
-                     batches=TIMED_BATCHES, reps=5):
-    """Lockstep serving of ``model`` (full width and depth) on the card,
+                     batches=TIMED_BATCHES, reps=3):
+    """Lockstep serving of ``model`` (full width) on the card,
     through ``serve.run_lockstep`` (a warm-up and ``batches`` timed
     batches a run; the decode rate from ``reps`` generates of each length).
     With ``layerwise``, the kernel path's free-running logits are held
@@ -1631,10 +1653,14 @@ def held_to_plain(torch, ops, ref, names):
     held against the kernel's plain version on that call's own inputs, at
     the kernel checks' tolerances (norm and flash BF16_TOL, both decode
     kernels ``check_decode``, the sampler ``check_sample``, the scan SSD_Y_TOL and
-    SSD_STATE_TOL); the caller gets the kernel's result. Yields {name:
-    {"calls", "max_abs_err"}}."""
+    SSD_STATE_TOL); the caller gets the kernel's result. ``fused_sample_shard``
+    holds each vocab shard's kernel call of ``ops.fused_sample_shard`` (the
+    shard's own draw from its online state, by ``check_sample``'s rule),
+    counted among ``fused_sample``'s launches. Yields {name: {"calls",
+    "max_abs_err"}}."""
     seen = {n: {"calls": 0, "max_abs_err": 0.0} for n in names}
-    kernel = {n: getattr(ops, n) for n in names}
+    attr = {n: {"fused_sample_shard": "_fused_sample"}.get(n, n) for n in names}
+    kernel = {n: getattr(ops, attr[n]) for n in names}
 
     def note(name, err):
         seen[name]["calls"] += 1
@@ -1684,6 +1710,19 @@ def held_to_plain(torch, ops, ref, names):
                                               vocab_size, f"B={h.shape[0]} on the path"))
         return got
 
+    def fused_sample_shard(h, w_head, seeds, inv_temp, *, vocab_size=None, col_offset=0,
+                           state=False):
+        got = kernel["fused_sample_shard"](h, w_head, seeds, inv_temp, vocab_size=vocab_size,
+                                           col_offset=col_offset, state=state)
+        if state:  # a vocab shard's online state: the shard's own draw
+            floats, idx = got
+            tok, lp = ref.merge_sample_states([tuple(floats[:, k] for k in range(4))
+                                               + (idx.long(),)])
+            note("fused_sample_shard", check_sample(
+                torch, ref, (tok - col_offset, lp), h, w_head, seeds, inv_temp, vocab_size,
+                f"shard at {col_offset} B={h.shape[0]} on the path", col_offset=col_offset))
+        return got
+
     def ssd(x, dt, A, Bm, Cm, D, *, chunk=128, return_state=False):
         y, h = kernel["ssd"](x, dt, A, Bm, Cm, D, chunk=chunk, return_state=True)
         with torch.no_grad():
@@ -1698,14 +1737,14 @@ def held_to_plain(torch, ops, ref, names):
     checked = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                "decode_attention": decode_attention,
                "decode_attention_quant": decode_attention_quant, "fused_sample": fused_sample,
-               "ssd": ssd}
+               "fused_sample_shard": fused_sample_shard, "ssd": ssd}
     for n in names:
-        setattr(ops, n, checked[n])
+        setattr(ops, attr[n], checked[n])
     try:
         yield seen
     finally:
         for n in names:
-            setattr(ops, n, kernel[n])
+            setattr(ops, attr[n], kernel[n])
 
 
 def path_kernels(cfg):
@@ -2169,8 +2208,9 @@ def training_phase(torch, ops, ref, F, _build, serve, generate, records, profile
 
 # phase 8: the GRPO pipeline through the training entry point
 # (repro_torch.launch.train) at phase 7's shape: one warm-up iteration, then
-# PIPE_TIMED timed ones, in each coordinator arm
-PIPE_TIMED = 3
+# PIPE_TIMED timed ones, in each coordinator arm (3 before the script
+# outgrew its time limit; phases 9, 10, 12 and 13's GRPO too)
+PIPE_TIMED = 2
 PIPE_FLAGS = ["--seed", "0", "--prompts-per-iter", str(GRPO_PROMPTS),
               "--group-size", "8", "--max-new-tokens", "16"]
 PIPE_ITERS = ["--iters", str(1 + PIPE_TIMED)]
@@ -2255,10 +2295,10 @@ def observed_iterations(torch, _build, hold=None):
         ContinuousRolloutEngine.__call__ = engine_call
 
 
-def experiment_file(label: str, flags, rl) -> Path:
+def experiment_file(label: str, flags, rl, layers=None) -> Path:
     """``build/<label>_experiment.json``: the spec ``launch.train`` dumps for
     ``flags`` (the arch, the algorithm, the env) and PIPE_FLAGS, with ``rl``
-    written over its RLConfig."""
+    written over its RLConfig (and the model cut to ``layers`` layers)."""
     from repro_torch.launch import train
 
     path = ROOT / "build" / f"{label}_experiment.json"
@@ -2266,6 +2306,8 @@ def experiment_file(label: str, flags, rl) -> Path:
     train.main(flags + PIPE_FLAGS + ["--dump-experiment", str(path)])
     spec = json.loads(path.read_text())
     spec["rl"].update(rl)
+    if layers is not None:
+        spec["model"]["num_layers"] = layers
     path.write_text(json.dumps(spec))
     return path
 
@@ -2273,9 +2315,10 @@ def experiment_file(label: str, flags, rl) -> Path:
 def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAGS, rl=PIPE_RL,
                    arms=(("distributed", 0), ("distributed", 1),
                          ("double_buffer_prefetch", 0), ("centralized", 0)),
-                   hand_rows=None):
-    """An RL algorithm through ``launch.train.main`` at full width and depth
-    (``flags``: the arch and the algorithm), in the coordinator ``arms`` one
+                   hand_rows=None, layers=None):
+    """An RL algorithm through ``launch.train.main`` at full width and depth,
+    or on ``layers`` layers (``flags``: the arch and the algorithm), in the
+    coordinator ``arms`` one
     after another (each pipeline freed before the next is built), the
     distributed arm twice to measure the run-to-run spread. Every arm runs
     one experiment file (``rl`` on top of the flags' spec) with the arm's
@@ -2306,7 +2349,7 @@ def pipeline_phase(torch, ops, ref, _build, *, label="pipeline", flags=ARCH_FLAG
     from repro_torch.rl import critic as critic_mod
 
     t_phase = time.perf_counter()
-    exp_path = experiment_file(label, flags, rl)
+    exp_path = experiment_file(label, flags, rl, layers)
     exp = ExperimentSpec.from_json(exp_path.read_text())
     cfg, algorithm = exp.model, algorithms.get_algorithm(exp.rl.algorithm)
     critic = algorithm.uses_critic
@@ -2577,7 +2620,7 @@ def engine_pipeline_arm(torch, ops, ref, _build, label="pipeline"):
     return counts
 
 
-# phase 9: mamba2-2.7b training at full width and depth. The GRPO pipeline
+# phase 9: mamba2-2.7b training at full width on MAMBA2_LAYERS layers. The GRPO pipeline
 # runs through launch.train (pipeline_phase); then the gradient check on
 # lockstep rollouts of M_GRAD_PROMPT + M_GRAD_NEW positions (one chunk of the
 # scan), one actor step at LONG_B x LONG_S (16 chunks), and the scan and the
@@ -2683,7 +2726,7 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model, params, tok = build_model(torch, serve, MAMBA2_FLAGS)
+    model, params, tok = build_model(torch, serve, MAMBA2_FLAGS, MAMBA2_LAYERS)
     cfg = model.cfg
     rl = trainer.RLConfig()
     ref_params = tree.map(torch.clone, params)
@@ -2799,8 +2842,9 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
 
 
 # phase 11: the continuous rollout engine at qwen2.5-7b's full width on
-# Q_LAYERS of its 28 layers (full depth until PR 30, cut to keep the whole
-# script inside its time with phase 20). The ragged comparison: Q_PROMPTS prompts of true lengths
+# Q_LAYERS of its 28 layers (cut from full depth, then from 10 layers, to
+# keep the whole script inside its time as phases 20 and 21 came). The
+# ragged comparison: Q_PROMPTS prompts of true lengths
 # Q_MIN_PROMPT..Q_PROMPT tokens (padded to Q_PROMPT), Q_NEW new tokens at
 # most, prefill buckets of Q_BUCKET, per-row budgets of Q_MIN_BUDGET..Q_NEW,
 # all drawn from Q_SEED; lockstep generate against the engine with one slot
@@ -2809,21 +2853,22 @@ def mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records):
 Q_PROMPTS, Q_MIN_PROMPT, Q_PROMPT, Q_NEW, Q_BUCKET = 32, 32, 128, 128, 32
 Q_MIN_BUDGET, Q_SLOTS, Q_TIMED, Q_SEED = 8, 16, 2, 11
 Q_TEMPERATURE = 1.0  # RLConfig's default: rollouts are sampled
-Q_LAYERS = 10
+Q_LAYERS = 4
 
 
-def ragged_inputs(torch, tok):
-    """(prompts (Q_PROMPTS, Q_PROMPT) on the card, budgets (Q_PROMPTS,) int32
-    on the card, true lengths) from Q_SEED: byte tokens up to each row's
-    true length, PAD after."""
+def ragged_inputs(torch, tok, n_prompts=Q_PROMPTS, new=Q_NEW):
+    """(prompts (n_prompts, Q_PROMPT) on the card, budgets (n_prompts,)
+    int32 of Q_MIN_BUDGET..new on the card, true lengths of
+    Q_MIN_PROMPT..Q_PROMPT) from Q_SEED: byte tokens up to each row's true
+    length, PAD after."""
     import numpy as np
 
     rng = np.random.default_rng(Q_SEED)
-    true_len = rng.integers(Q_MIN_PROMPT, Q_PROMPT + 1, Q_PROMPTS)
-    prompts = np.full((Q_PROMPTS, Q_PROMPT), tok.pad_id, np.int32)
+    true_len = rng.integers(Q_MIN_PROMPT, Q_PROMPT + 1, n_prompts)
+    prompts = np.full((n_prompts, Q_PROMPT), tok.pad_id, np.int32)
     for i, n in enumerate(true_len):
         prompts[i, :n] = rng.integers(tok.SPECIALS, 256 + tok.SPECIALS, n)
-    budgets = rng.integers(Q_MIN_BUDGET, Q_NEW + 1, Q_PROMPTS).astype(np.int32)
+    budgets = rng.integers(Q_MIN_BUDGET, new + 1, n_prompts).astype(np.int32)
     return (torch.from_numpy(prompts).to(DEV), torch.from_numpy(budgets).to(DEV),
             true_len)
 
@@ -3395,8 +3440,8 @@ def async_phase(torch, ops, ref, _build, label="async"):
     return {f"{'async_' if arm == 'sync' else ''}{arm}_pipeline": c for arm, c in counts.items()}
 
 
-# phase 13: the MoE family. granite-moe-3b-a800m at full width and depth
-# (configs/granite_moe_3b.py: 32 layers, d_model 1536, 24 query heads padded
+# phase 13: the MoE family. granite-moe-3b-a800m at full width on
+# GRANITE_LAYERS layers (configs/granite_moe_3b.py: 32 layers, d_model 1536, 24 query heads padded
 # to 32 on 8 KV heads of 64, 40 SwiGLU experts of 512, top-8, vocab 49,155
 # tied); mixtral-8x7b (configs/mixtral_8x7b.py: d_model 4096, 32 query heads
 # on 8 KV heads of 128, 8 SwiGLU experts of 14,336, top-2, a window of 4,096,
@@ -3481,7 +3526,8 @@ def path_records(torch, ops, ref, F, calls, label: str):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
             tag = (f"B{Bq}_S{Sq}" + (f"_Sk{Sk}" if Sk != Sq else "") + f"_H{H}_KVH{KVH}_D{HD}"
-                   + (f"_window{win}" if win else "") + ("" if causal else "_noncausal"))
+                   + (f"_window{win}" if win else "") + ("" if causal else "_noncausal")
+                   + (f"_qoffset{off}" if off else ""))
         elif name == "decode_attention":
             q, k, v, n = args
             Bq, H, HD = q.shape
@@ -3617,7 +3663,7 @@ def moe_phase(torch, ops, ref, F, _build, serve, generate, records, label="moe")
     """The MoE family at full width (random bf16 weights from ``--seed 0``),
     each model freed before the next is drawn:
 
-    1. granite-moe-3b lockstep at full depth (``serve --arch
+    1. granite-moe-3b lockstep on GRANITE_LAYERS layers (``serve --arch
        granite-moe-3b-a800m --lockstep``, phase 3's shape and checks): the
        launch counters, tokens in range and repeatable, the plain path's
        agreement, with the route flips between the two paths per layer;
@@ -3628,7 +3674,7 @@ def moe_phase(torch, ops, ref, F, _build, serve, generate, records, label="moe")
        2e-2 of the plain path's);
     2. GRPO through ``launch.train --arch granite-moe-3b-a800m`` on phase
        8's experiment file, distributed arm: the warm-up iteration held to
-       plain, then 3 timed ones, each with phase 8's checks;
+       plain, then 2 timed ones, each with phase 8's checks;
     3. mixtral-8x7b at 4 of its 32 layers: two greedy generates of B = 2
        (``MIXTRAL_PROMPTS``, 32 new tokens) with every kernel call held to
        plain and timed as in 1, then ``logprobs_fn`` over each whole
@@ -3651,7 +3697,7 @@ def moe_phase(torch, ops, ref, F, _build, serve, generate, records, label="moe")
     counts, summary = {}, {}
     # ---- 1. granite lockstep ----
     torch.cuda.reset_peak_memory_stats()
-    model, params, tok = build_model(torch, serve, GRANITE_FLAGS)
+    model, params, tok = build_model(torch, serve, GRANITE_FLAGS, GRANITE_LAYERS)
     cfg = model.cfg
     # the route flips first: they are what an agreement check would miss on
     _, ids = serve.prompts(tok, B, PROMPT)
@@ -3697,7 +3743,7 @@ def moe_phase(torch, ops, ref, F, _build, serve, generate, records, label="moe")
     # ---- 2. granite GRPO through launch.train ----
     counts["granite_grpo_pipeline"], summary["granite_pipeline"] = pipeline_phase(
         torch, ops, ref, _build, label="granite_pipeline", flags=GRANITE_FLAGS,
-        arms=(("distributed", 0),))
+        arms=(("distributed", 0),), layers=GRANITE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     # ---- 3. mixtral-8x7b at 4 layers, across its window ----
@@ -3964,7 +4010,7 @@ def families_phase(torch, ops, ref, F, _build, serve, generate, records, label="
     """The remaining families at full width (random bf16 weights from
     ``--seed 0``), each model freed before the next is drawn:
 
-    1. nemotron-4-15b at full width and depth (32 layers, layernorm, squared
+    1. nemotron-4-15b at full width on NEMOTRON_LAYERS of its 32 layers (layernorm, squared
        ReLU, 48 heads on 8 KV heads of 128, an untied 6,144 x 256,000 head)
        through ``serve --arch nemotron-4-15b --lockstep``, phase 3's shape
        and checks, held to the plain path as a deep dense stack is (the
@@ -3981,7 +4027,7 @@ def families_phase(torch, ops, ref, F, _build, serve, generate, records, label="
        decoder tokens held by ``grad_check`` (the fp32-attention drift; the
        loss also within 2e-2 of plain) and one AdamW step of
        ``trainer.make_lm_train_step``;
-    4. llava-next-34b at full width and depth, B = 1: random prefix
+    4. llava-next-34b at full width on LLAVA_LAYERS of its 60 layers, B = 1: random prefix
        embeddings (1, 2,880, 7,168) ahead of a 128-token prompt, 32 new
        tokens through ``generate(prefix_embeds=...)`` held to plain call by
        call; the agreement of 1 with the prefix; ``logprobs_fn`` with the
@@ -4022,7 +4068,7 @@ def families_phase(torch, ops, ref, F, _build, serve, generate, records, label="
 
     # ---- 1. nemotron-4-15b ----
     free()
-    model, params, tok = build_model(torch, serve, NEMOTRON_FLAGS)
+    model, params, tok = build_model(torch, serve, NEMOTRON_FLAGS, NEMOTRON_LAYERS)
     prompt, summary["nemotron"] = lockstep(model, params, tok, "nemotron")
     summary["nemotron"]["top_p"] = top_p_checks(torch, ops, ref, _build, generate, model,
                                                 params, prompt, "nemotron")
@@ -4088,7 +4134,7 @@ def families_phase(torch, ops, ref, F, _build, serve, generate, records, label="
     del model, params, state, batch, frames, before, leaf
     free()
     # ---- 4. llava-next-34b, B = 1, with its prefix ----
-    model, params, tok = build_model(torch, serve, LLAVA_FLAGS)
+    model, params, tok = build_model(torch, serve, LLAVA_FLAGS, LLAVA_LAYERS)
     cfg = model.cfg
     P = cfg.num_prefix_embeds
     prefix = (torch.randn((LLAVA_B, P, cfg.d_model), generator=torch.Generator(
@@ -4574,18 +4620,90 @@ def fleet_host(torch, args_path: str) -> int:
     return 0
 
 
+# host and rank processes started ahead of the arm that takes them
+# (``chip_smoke.py --pooled``): each has imported torch and the port and made
+# its CUDA context while the arm before it ran (seconds of a fresh process's
+# start); POOL_SIZE are kept waiting from phase 15 on
+POOL_SIZE = 2
+_POOL: list = []
+
+
+def pool_fill() -> None:
+    """Start pooled processes until POOL_SIZE wait (their output, until they
+    take an arm, to ``build/pool.log``)."""
+    import atexit
+
+    if not _POOL:
+        atexit.register(pool_stop)
+    (ROOT / "build").mkdir(exist_ok=True)
+    while len(_POOL) < POOL_SIZE:
+        with open(ROOT / "build" / "pool.log", "ab") as f:
+            _POOL.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--pooled"],
+                stdin=subprocess.PIPE, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+
+
+def pool_stop() -> None:
+    """End the pooled processes that took no arm."""
+    while _POOL:
+        proc = _POOL.pop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def host_process(mode: str, args_path, log):
+    """A process running ``chip_smoke.py <mode> <args_path>`` into ``log``: a
+    pooled one where one waits, else a new one."""
+    while _POOL:
+        proc = _POOL.pop(0)
+        if proc.poll() is None:
+            proc.stdin.write(f"{mode}\n{args_path}\n{log}\n".encode())
+            proc.stdin.close()
+            return proc
+    with open(log, "wb") as f:
+        return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), mode,
+                                 str(args_path)], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT)
+
+
+def pooled(torch) -> int:
+    """The body of ``chip_smoke.py --pooled``: the port imported and a CUDA
+    context made, wait for "mode, ARGS, log" on stdin (``host_process``),
+    then write to the log and run that host or rank (``fleet_host``,
+    ``shard_rank`` or ``tp_rank``). Exits 0 where stdin closes first."""
+    import torch.distributed  # noqa: F401  (what every rank imports, ahead)
+
+    from repro_torch.launch import train  # noqa: F401
+
+    x = torch.ones((64, 64), device=DEV)
+    (x @ x).sum().item()
+    words = [sys.stdin.readline().strip() for _ in range(3)]
+    if not all(words):
+        return 0
+    mode, args_path, log = words
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    body = {"--fleet-host": fleet_host, "--shard-rank": shard_rank, "--tp-rank": tp_rank}[mode]
+    return body(torch, args_path)
+
+
 def run_hosts(label: str, arm: str, host_args, mode: str = "--fleet-host") -> list:
     """Start one ``chip_smoke.py --fleet-host`` (or ``mode``) process a host,
-    all at once, and join them. A host that exits non-zero (or outlives
-    FLEET_HOST_TIMEOUT_S) fails the arm with the tail of its log; the others
-    are killed. Returns the hosts' artifacts."""
+    all at once (pooled ones first, ``host_process``), and join them; once
+    they run, start the pool's next processes. A host that exits non-zero
+    (or outlives FLEET_HOST_TIMEOUT_S) fails the arm with the tail of its
+    log; the others are killed. Returns the hosts' artifacts."""
     procs = []
     try:
+        pooling = bool(_POOL)
         for args_path, log in host_args:
-            with open(log, "wb") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"), mode,
-                     str(args_path)], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+            procs.append(host_process(mode, args_path, log))
+        if pooling:
+            pool_fill()
         deadline = time.monotonic() + FLEET_HOST_TIMEOUT_S
         for h, (proc, (_, log)) in enumerate(zip(procs, host_args)):
             try:
@@ -5393,10 +5511,12 @@ def tp_rank(torch, args_path: str) -> int:
             return ssm.tpc.reduce_from_model(yn @ p["w_out"])
         patches.append((ssm, "_gated_out", local_gated_out))
     elif fault in TP20_FAULTS:
-        from repro_torch.models import lm
-
         patches.append({"ring_rank_residue": (lm, "_tp_ring_slot", tp20_rank_residue),
                         "quant_before_gather": (lm, "quant_kv", tp20_quant_half)}[fault])
+    elif fault in TP21_FAULTS:
+        patches.append({"chunk_own_prefix": (lm, "_tp_gather_slots", tp21_own_prefix),
+                        "chunk_write_everywhere": (lm, "_tp_chunk_span",
+                                                   tp21_write_everywhere)}[fault])
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches + observers]
     for obj, name, value in patches + observers:
         setattr(obj, name, value)
@@ -5478,7 +5598,7 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
     # with MoE layers, a token whose predicting position routes to other
     # experts in the two (bf16 sums in another order) is left out and
     # counted ----
-    tokens = seen["tokens"][-1].clone()
+    tokens = (seen["tokens"] or [c["result"].tokens for c in seen["engine"]])[-1].clone()
     with torch.no_grad():
         with constraint.use_mesh(mesh), routes_recorded(torch) as routes_tp:
             lp_tp, _ = model.logprobs(ctx.model_params(), tokens)
@@ -5537,6 +5657,22 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
             art["arms"][name] = tp20_arm(torch, mesh, name)
             gc.collect()
             torch.cuda.empty_cache()
+        Path(spec["artifact"]).write_text(json.dumps(art))
+        return 0
+    if "tp21" in spec:
+        # phase 21: the engine's calls on these ranks directly, A's pipeline
+        # freed but its serve shards, then the dialog iteration
+        cfg, serve = res["experiment"].model, ctx.serve_params()
+        art["engine"] = tp21_engine_readings(seen["engine"], rl.max_new_tokens)
+        del res, pipe, ctx, model, batch, tokens, lp_tp, lp_one, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        art["direct"] = tp21_direct(torch, mesh, cfg, serve, short=fault is not None)
+        del serve
+        gc.collect()
+        torch.cuda.empty_cache()
+        if fault is None:
+            art["dialog"] = tp21_dialog(torch, _build, spec)
         Path(spec["artifact"]).write_text(json.dumps(art))
         return 0
     if fault or not spec.get("sampler", True):
@@ -5603,12 +5739,13 @@ def ensure_solo(label: str, work: Path):
 
 
 def tp_world_args(work: Path, arm: str, exp_path: Path, solo_params: Path, iters: int,
-                  fault=None, sampler: bool = True, extra=None) -> list:
+                  fault=None, sampler: bool = True, extra=None, flags=()) -> list:
     """The ``run_hosts`` arguments of TP_RANKS ``chip_smoke.py --tp-rank``
     processes of ``launch.train --experiment exp_path --coordinator
-    127.0.0.1:PORT`` (a free port), each held against ``solo_params``
-    (``tp_rank``), with ``fault`` planted and the sampler read unless
-    ``sampler`` is False; ``extra`` joins each rank's arguments."""
+    127.0.0.1:PORT`` (a free port) and ``flags``, each held against
+    ``solo_params`` (``tp_rank``), with ``fault`` planted and the sampler
+    read unless ``sampler`` is False; ``extra`` joins each rank's
+    arguments."""
     import socket
 
     with socket.socket() as s:
@@ -5620,7 +5757,7 @@ def tp_world_args(work: Path, arm: str, exp_path: Path, solo_params: Path, iters
         args.write_text(json.dumps({
             "argv": ["--experiment", str(exp_path), "--device", DEV, "--iters", str(iters),
                      "--num-hosts", str(TP_RANKS), "--process-id", str(r),
-                     "--coordinator", f"127.0.0.1:{port}"],
+                     "--coordinator", f"127.0.0.1:{port}", *flags],
             "artifact": str(work / f"{arm}{r}.artifact.json"), "rank": r,
             "solo_params": str(solo_params), "fault": fault, "sampler": sampler,
             **(extra or {})}))
@@ -5996,10 +6133,11 @@ def tp_moe_ssd_phase(torch, ref, F, _build, records, label="tp19", faults=()):
         return {key: arts[i * TP_RANKS:(i + 1) * TP_RANKS] for i, key in enumerate(runs)}
 
     try:
-        # one world after the other, so that each rank's ms and peak are its own
-        arts, fault_arts = {}, {}
-        for name in TP19_MODELS:
-            arts.update(worlds({name: (name, None)}))
+        # both models' worlds at once (one after the other before the script
+        # outgrew its time limit): a rank's peak is its
+        # own process's, its ms shares the card and the host with the other
+        # world's ranks
+        arts, fault_arts = worlds({name: (name, None) for name in TP19_MODELS}), {}
         for f in faults:
             fault_arts.update(worlds({f: (TP19_FAULTS[f], f)}))
     finally:
@@ -6080,11 +6218,13 @@ TP20_ITERS = 3  # one warm-up iteration held to plain, then two timed
 # vocab-sharded sampler is held in phase 18)
 TP20_HELD = ("rmsnorm", "flash_attention", "decode_attention_quant")
 # arm B, model level in arm A's world: (flags, layers or None for the full
-# depth, batch, prompt, new tokens). mixtral's 4,080-token prompt and 272 new
-# tokens wrap its 4,096-slot ring (phase 13's shape) and run 256 past it
-TP20_ARMS = {"mixtral": (["--arch", "mixtral-8x7b"], 2, 2, 4080, 272),
+# depth, batch, prompt, new tokens). mixtral's 4,080-token prompt and 32 new
+# tokens wrap its 4,096-slot ring (phase 13's shape) and run 16 past it (272
+# new and 256 past, and seamless at its full 12 decoder layers, before the
+# script outgrew its time limit)
+TP20_ARMS = {"mixtral": (["--arch", "mixtral-8x7b"], 2, 2, 4080, MAX_NEW),
              "llava": (LLAVA_FLAGS, 2, LLAVA_B, PROMPT, MAX_NEW),
-             "seamless": (SEAMLESS_FLAGS, None, SEAMLESS_B, PROMPT, MAX_NEW),
+             "seamless": (SEAMLESS_FLAGS, 2, SEAMLESS_B, PROMPT, MAX_NEW),
              "nemotron": (NEMOTRON_FLAGS, 2, B, PROMPT, MAX_NEW)}
 TP20_GAP = 0.05  # tokens equal where the solo run's top-two gap exceeds this
 TP20_SAMPLED = 8  # new tokens of the greedy generate that runs the sharded sampler
@@ -6686,10 +6826,413 @@ def tp20_phase(torch, _build, records, label="tp20", faults=()):
     return counts
 
 
+# ---- phase 21: the continuous rollout engine on tensor-parallel ranks ----
+# qwen2.5-7b at full width (28 heads padded to 32 on 4 KV heads: 16 query
+# heads and 2 KV heads a rank; the untied 152,064-column head split by
+# vocab) on TP21_LAYERS of its 28 layers, random bf16 weights from --seed 0,
+# in a (data 1, model 2) world of two gloo ranks on cuda:0. A: GRPO through
+# launch.train on the
+# continuous engine, TP_ITERS iterations (one warm-up held to plain, two
+# timed) against its solo run; the loader's prompts have 6 tokens, so each
+# refill runs two chunks of TP21_CHUNK
+TP21_LAYERS = 2
+TP21_SLOTS = 8
+TP21_CHUNK = 4
+TP21_HELD = ("rmsnorm", "flash_attention", "decode_attention", "fused_sample_shard")
+# B, on the same ranks: the fixed schedule (phase 3's B and prompt, TP21_NEW
+# new tokens, per-row budgets) against lockstep generate; a chunked refill
+# of TP21_CHUNK_B prompts of TP21_CHUNK_L tokens in chunks of TP21_CHUNK_C
+# into caches of TP21_CHUNK_SMAX slots (96 a rank: the last chunk lands on
+# rank 1) against whole-prompt prefill; the ragged arm (phase 11's inputs cut
+# to TP21_RAGGED prompts and budgets of at most TP21_RAGGED_NEW, 8 slots,
+# buckets and chunks of Q_BUCKET) against lockstep, one warm-up and one
+# timed run each
+TP21_NEW = 16
+TP21_CHUNK_B, TP21_CHUNK_L, TP21_CHUNK_C, TP21_CHUNK_SMAX = 4, 128, 32, 192
+TP21_RAGGED, TP21_RAGGED_NEW = 16, 64
+# A is held against its solo run by phase 18's limits (TP_MIN_COSINE and
+# the rest), which sit between the sound run and the planted faults of
+# --tp-faults here too (on an H100 80GB HBM3 at 700 W: cosine 0.994 against
+# 0.535 under chunk_own_prefix; PERF.md)
+# faults planted for --tp-faults with --only-phase 21: a chunk attends only
+# the prefix slots its own rank holds (the others read as zeros), and every
+# rank writes the chunk's K/V at its local index instead of only the slot's
+# owner at the slot's
+TP21_FAULTS = ("chunk_own_prefix", "chunk_write_everywhere")
+# C: one 3-turn dialog iteration through launch.train (phase 12's env
+# flags) on the ranks against its solo run: the episodes and these counts
+# exact
+TP21_DIALOG_COUNTS = ("env/turns_mean", "rollout/turns", "rollout/tool_calls")
+
+
+def tp21_own_prefix(c):
+    """``lm._tp_gather_slots`` with every slot that another rank holds read
+    as zeros (the ``chunk_own_prefix`` fault)."""
+    import torch
+
+    from repro_torch.distributed import constraint
+
+    w, r = c.shape[1], constraint.tp_rank()
+    out = torch.zeros((c.shape[0], w * constraint.tp_size()) + tuple(c.shape[2:]),
+                      dtype=c.dtype, device=c.device)
+    out[:, r * w:(r + 1) * w] = c
+    return out
+
+
+def tp21_write_everywhere(off, hi, w):
+    """``lm._tp_chunk_span`` with every rank writing the chunk's positions
+    at the local index of their position (the ``chunk_write_everywhere``
+    fault)."""
+    b = max(min(hi, w), off)
+    return slice(off, b), slice(0, b - off)
+
+
+def tp21_engine_readings(calls, max_new: int):
+    """The continuous engine's calls of A's iterations (``observed_iterations``'
+    ``engine``): the prompts' true lengths seen, the refills' chunks and the
+    slot counts of each call."""
+    out = []
+    for call in calls:
+        res, st = call["result"], call["stats"]
+        Lp = res.tokens.shape[1] - max_new
+        lens = (res.tokens[:, :Lp] != 0).sum(1)
+        out.append({"prompt_width": Lp, "prompt_lengths": sorted(set(lens.tolist())),
+                    "chunks_per_refill": -(-Lp // TP21_CHUNK),
+                    **{k: st[k] for k in ("refills", "decode_steps", "bursts", "num_slots",
+                                          "slot_occupancy", "tokens")}})
+    return out
+
+
+def tp21_direct(torch, mesh, cfg, serve, short: bool = False):
+    """Part B of phase 21 on this rank, on A's serve shards, every call made
+    on both ranks in the same order. The chunked refill of TP21_CHUNK_B
+    prompts against whole-prompt ``prefill`` on the same ranks, every kernel
+    call held to plain (the chunks' ``flash_attention`` at ``q_offset``
+    against the gathered prefix kept for ``path_records``): the last chunk's
+    logits within BF16_TOL of max |logit|, this rank's slot shard of the
+    first layer's cache within BF16_TOL of its max. Unless ``short`` (a
+    planted fault's run): the engine under a fixed schedule (one slot a
+    prompt, one bucket), greedy and then sampled at 0.8 from one seed,
+    against the ranks' lockstep ``generate``: tokens, masks and lengths bit
+    for bit, logprobs within LOGPROB_TOL; then the ragged arm, the engine
+    with chunked refills against lockstep, one warm-up and one timed run
+    each (wall ms, response tokens/s, decode steps, slot occupancy). Returns
+    {"held", "failed", the readings; on rank 0 "records"}."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.distributed import constraint
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import get_model
+    from repro_torch.rl.rollout import generate
+    from repro_torch.rl.rollout_engine import ContinuousRolloutEngine, lockstep_waste
+
+    t0 = time.perf_counter()
+    model, tok = get_model(cfg, device=DEV), ByteTokenizer()
+    kw = dict(eos_id=tok.eos_id, pad_id=tok.pad_id)
+    rank, failed, out = mesh.coords["model"], [], {}
+
+    def hold(ok, what):
+        if not ok:
+            failed.append(what)
+
+    def seed(s):
+        return torch.Generator(device=DEV).manual_seed(s)
+
+    # ---- the chunked refill against whole-prompt prefill ----
+    prompt = torch.randint(tok.SPECIALS, 256 + tok.SPECIALS, (TP21_CHUNK_B, TP21_CHUNK_L),
+                           generator=seed(21), device=DEV, dtype=torch.int32)
+    names = ("rmsnorm", "flash_attention")
+    with torch.inference_mode(), constraint.use_mesh(mesh):
+        want, want_caches, _ = model.prefill(serve, prompt, smax=TP21_CHUNK_SMAX)
+        caches = model.init_caches(TP21_CHUNK_B, TP21_CHUNK_SMAX)
+        with held_to_plain(torch, ops, ref, names) as held, \
+                first_calls(torch, ops, ("flash_attention",)) as calls:
+            for off in range(0, TP21_CHUNK_L, TP21_CHUNK_C):
+                logits, caches = model.prefill_chunk(serve, prompt[:, off:off + TP21_CHUNK_C],
+                                                     caches, offset=off)
+    V = cfg.vocab_size
+    logit_err = (float((logits[:, :V] - want[:, :V]).abs().max())
+                 / float(want[:, :V].abs().max()))
+    cache_err = {k: float((caches[0][k].float() - want_caches[0][k].float()).abs().max())
+                 / max(float(want_caches[0][k].float().abs().max()), 1e-30) for k in ("k", "v")}
+    hold(logit_err <= BF16_TOL, "chunked refill logits")
+    hold(max(cache_err.values()) <= BF16_TOL, "chunked refill cache shard")
+    last = max(calls, key=lambda key: calls[key][1].get("q_offset", 0))
+    out["chunked_refill"] = {"prompts": TP21_CHUNK_B, "prompt": TP21_CHUNK_L,
+                             "chunk": TP21_CHUNK_C, "slots": TP21_CHUNK_SMAX,
+                             "slots_a_rank": int(caches[0]["k"].shape[1]),
+                             "logit_rel_err": logit_err, "cache_rel_err": cache_err,
+                             "held_to_plain": held}
+    del want, want_caches, caches, logits
+    if rank == 0:
+        out["records"] = path_records(torch, ops, ref, F, {last: calls[last]},
+                                      "tp21/qwen_chunk_rank0")
+    if short:
+        return dict(out, held=not failed, failed=failed, direct_s=time.perf_counter() - t0)
+
+    # ---- a fixed schedule is the ranks' lockstep generate, bit for bit ----
+    _, ids = serve_mod.prompts(tok, B, PROMPT)
+    prompt = torch.from_numpy(ids).to(DEV)
+    budgets = torch.randint(1, TP21_NEW + 1, (B,), generator=torch.Generator().manual_seed(5),
+                            dtype=torch.int32).to(DEV)
+    out["parity"] = {}
+    for temp in (0.0, 0.8):
+        with torch.inference_mode(), constraint.use_mesh(mesh):
+            lock = generate(model, serve, prompt, seed(Q_SEED), max_new=TP21_NEW,
+                            temperature=temp, budgets=budgets, **kw)
+            fixed = ContinuousRolloutEngine(model, max_new=TP21_NEW, temperature=temp,
+                                            num_slots=B, **kw)
+            got = fixed(serve, prompt, seed(Q_SEED), budgets=budgets)
+        equal = all(torch.equal(getattr(got, f), getattr(lock, f))
+                    for f in ("tokens", "response_mask", "lengths"))
+        ok, lp_err = close(got.old_logprob, lock.old_logprob, LOGPROB_TOL)
+        hold(equal and ok, f"fixed schedule at temperature {temp}")
+        out["parity"][str(temp)] = {"bits_equal": equal, "old_logprob_max_abs_err": lp_err,
+                                    "lengths": got.lengths.tolist(),
+                                    "decode_steps": fixed.last_stats["decode_steps"]}
+
+    # ---- the ragged arm: the engine with chunked refills against lockstep ----
+    prompts, budgets, true_len = ragged_inputs(torch, tok, TP21_RAGGED, TP21_RAGGED_NEW)
+    engine = ContinuousRolloutEngine(model, max_new=TP21_RAGGED_NEW, temperature=Q_TEMPERATURE,
+                                     num_slots=TP21_SLOTS, prefill_bucket=Q_BUCKET,
+                                     prefill_chunk=Q_BUCKET, **kw)
+    arms = {"lockstep": lambda: generate(model, serve, prompts, seed(Q_SEED),
+                                         max_new=TP21_RAGGED_NEW, temperature=Q_TEMPERATURE,
+                                         budgets=budgets, **kw),
+            "engine": lambda: engine(serve, prompts, seed(Q_SEED), budgets=budgets)}
+    out["ragged"] = {"prompts": TP21_RAGGED, "true_prompt_tokens": int(true_len.sum()),
+                     "budget_tokens": int(budgets.sum()), "max_new": TP21_RAGGED_NEW,
+                     "slots": TP21_SLOTS, "bucket": Q_BUCKET, "chunk": Q_BUCKET, "arms": {}}
+    for name, run in arms.items():
+        with torch.inference_mode(), constraint.use_mesh(mesh):
+            sync_ms(torch, run)
+            res, wall = sync_ms(torch, run)
+        lens = res.lengths
+        hold(bool((lens >= 1).all() and (lens <= budgets).all()), f"ragged {name} lengths")
+        n_tok = int(lens.sum())
+        row = {"wall_ms": wall, "response_tokens": n_tok, "response_tok_per_s": n_tok / wall * 1e3}
+        if name == "lockstep":
+            waste = lockstep_waste(lens.cpu().numpy(), TP21_RAGGED_NEW)
+            row.update(decode_steps=TP21_RAGGED_NEW - 1, slot_occupancy=1.0 - waste)
+        else:
+            row.update({k: engine.last_stats[k] for k in (
+                "decode_steps", "bursts", "refills", "slot_occupancy", "padding_waste",
+                "prefill_lane_tokens", "prefill_true_tokens")})
+        out["ragged"]["arms"][name] = row
+    return dict(out, held=not failed, failed=failed, direct_s=time.perf_counter() - t0)
+
+
+def tp21_dialog(torch, _build, spec):
+    """Part C of phase 21 on this rank: one 3-turn dialog iteration through
+    ``launch.train`` on the experiment file ``spec["tp21"]["dialog"]``, the
+    rank's own argv otherwise (the world is up already). Returns the
+    iteration's metrics, its engine's counts, its launches and ms."""
+    from repro_torch.launch import train
+
+    argv = list(spec["argv"])
+    argv[argv.index("--experiment") + 1] = spec["tp21"]["dialog"]
+    argv[argv.index("--iters") + 1] = "1"
+    _build.reset_launches()
+    with observed_iterations(torch, _build) as seen:
+        res = train.main(argv)
+    call = seen["engine"][0]
+    out = {"history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+           "episodes": int(call["result"].lengths.shape[0]), "stats": call["stats"],
+           "ms": seen["iterations"][0]["ms"], "launches": dict(_build.LAUNCHES)}
+    del res, seen, call
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp21_phase(torch, _build, records, label="tp21", faults=()):
+    """Phase 21: the continuous rollout engine on tensor-parallel ranks, two
+    ``chip_smoke.py --tp-rank`` processes on ``cuda:0`` (one gloo group) of
+    ``launch.train --coordinator 127.0.0.1:PORT --rollout-slots
+    TP21_SLOTS`` on qwen2.5-7b at full width on TP21_LAYERS layers with
+    ``mesh_shape`` [1, 2] and ``prefill_chunk`` TP21_CHUNK. The solo runs of
+    A and C first, in this process. A: TP_ITERS GRPO iterations held as phase
+    18's, but each iteration's launches against ``iteration_launches`` with
+    the lockstep generate replaced by the engine's chunked refills and decode
+    steps (its own ``rollout/refills`` and ``rollout/decode_steps``), and the
+    warm-up's calls of TP21_HELD held to plain (the sampler's on the rank's
+    vocab shard). B: ``tp21_direct``. C: ``tp21_dialog`` against its solo
+    run, TP21_DIALOG_COUNTS and the episodes exact. ``faults`` (names of
+    TP21_FAULTS) runs A and B's chunked refill again with each fault planted,
+    and fails unless a hold rejects it. The chunked ``flash_attention``
+    record joins ``records`` (under ``"phase21"``). Returns {path: launch
+    counts}."""
+    from repro_torch import tree
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.launch import train
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "tp21"
+    work.mkdir(parents=True, exist_ok=True)
+    flags = ["--rollout-slots", str(TP21_SLOTS)]
+    paths = {}
+    for name, env_flags in (("qwen", []), ("dialog", MT_FLAGS)):
+        spec = json.loads(experiment_file(f"{label}_{name}", QWEN_FLAGS + env_flags,
+                                          PIPE_RL).read_text())
+        spec["model"]["num_layers"] = TP21_LAYERS
+        spec["rollout"].update(engine="continuous", num_slots=TP21_SLOTS,
+                               prefill_chunk=TP21_CHUNK)
+        spec["distributed"] = {"num_hosts": 1, "exchange_timeout_s": 600.0,
+                               "dead_after_s": 120.0}
+        paths[f"{name}_solo"] = work / f"{name}_solo_experiment.json"
+        paths[f"{name}_solo"].write_text(json.dumps(spec))
+        spec["mesh_shape"] = [1, TP_RANKS]
+        paths[name] = work / f"{name}_tp_experiment.json"
+        paths[name].write_text(json.dumps(spec))
+    solo_params = work / "solo_params.pt"
+    # the solo runs in this process, each iteration synchronised with its
+    # launches; A's final params saved for the ranks to be held against
+    solo = {}
+    for name, iters in (("qwen", TP_ITERS), ("dialog", 1)):
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with observed_iterations(torch, _build) as seen:
+            res = train.main(["--experiment", str(paths[f"{name}_solo"]), "--device", DEV,
+                              "--iters", str(iters), "--num-hosts", "1", *flags])
+        if name == "qwen":
+            torch.save([t.cpu() for t in tree.leaves(res["pipeline"].ctx.actor_state.params)],
+                       solo_params)
+        solo[name] = {"history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+                      "iterations": [{"ms": r["ms"], "launches": r["launches"]}
+                                     for r in seen["iterations"]],
+                      "episodes": int(seen["engine"][0]["result"].lengths.shape[0]),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del res, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def world(arm, fault=None):
+        return run_hosts(label, arm, tp_world_args(
+            work, arm, paths["qwen"], solo_params, TP_ITERS, fault=fault, sampler=False,
+            extra={"tp21": {"dialog": str(paths["dialog"])}, "held": list(TP21_HELD)},
+            flags=flags), mode="--tp-rank")
+
+    try:
+        arts = world("rank")
+        fault_arts = {f: world(f"fault_{f}", f) for f in faults}
+    finally:
+        solo_params.unlink(missing_ok=True)
+
+    exp = ExperimentSpec.from_json(paths["qwen"].read_text())
+    cfg, max_new = exp.model, exp.rl.max_new_tokens
+    per_iter, _ = iteration_launches(cfg, _build.LAUNCHES, max_new,
+                                     algorithms.get_algorithm(exp.rl.algorithm).dag_factory())
+    lockstep = forward_launches(cfg, _build.LAUNCHES, 1, max_new - 1)
+
+    def expected(m, chunks):
+        """An iteration's launches: the lockstep generate's replaced by the
+        engine's chunked refills and decode steps."""
+        engine = forward_launches(cfg, _build.LAUNCHES, int(m["rollout/refills"]) * chunks,
+                                  int(m["rollout/decode_steps"]))
+        return {n: per_iter[n] - lockstep[n] + engine[n] for n in per_iter}
+
+    limits = {"min_cosine": TP_MIN_COSINE, "max_rel_distance": TP_MAX_REL_DISTANCE,
+              "metric_rtol": TP_METRIC_RTOL, "max_replica_diff": TP_MAX_REPLICA_DIFF,
+              "max_grad_rel_err": TP_MAX_GRAD_REL_ERR, "logprob_tol": BF16_TOL}
+
+    def readings(ranks):
+        """(held, the failed holds, the readings) of one world's ranks."""
+        held, vs = tp_readings(ranks, solo["qwen"]["history"], limits)
+        failed = [] if held else ["A against the solo run"]
+        for a in ranks:
+            failed += [f"rank {a['rank']} B: {f}" for f in a["direct"]["failed"]]
+        return not failed, failed, vs
+
+    def clean(history):
+        """The metrics but the host clock's (the stages' and the engine's)."""
+        return [{k: v for k, v in m.items() if not k.startswith("time/")
+                 and k not in ("rollout/wall_s", "rollout/tokens_per_s")} for m in history]
+
+    counts, out = {}, {"layers": TP21_LAYERS, "ranks": TP_RANKS, "mesh": [1, TP_RANKS],
+                       "slots": TP21_SLOTS, "prefill_chunk": TP21_CHUNK,
+                       "solo": {k: {f: v[f] for f in ("iterations", "peak_gib")}
+                                for k, v in solo.items()}}
+    held_calls = {n: ("fused_sample" if n == "fused_sample_shard" else n) for n in TP21_HELD}
+    for r, a in enumerate(arts):
+        require(a["backend"] == "gloo" and a["mesh"] == {"data": 1, "model": TP_RANKS}
+                and a["coords"]["model"] == r,
+                f"{label} rank {r}: backend {a['backend']}, mesh {a['mesh']}, {a['coords']}")
+        for i, (it, m, e) in enumerate(zip(a["iterations"], a["history"], a["engine"])):
+            want = expected(m, e["chunks_per_refill"])
+            require(it["launches"] == want and e["chunks_per_refill"] >= 2,
+                    f"{label} rank {r} iteration {i}: launches {it['launches']}, expected "
+                    f"{want} ({e})")
+        first = a["iterations"][0]["launches"]
+        require(all(first[c] == a["held"][n]["calls"] > 0 for n, c in held_calls.items()),
+                f"{label} rank {r}: held calls {a['held']}, launches {first}")
+        st = a["stats"]
+        require(st["bytes_through_controller"] == 0 and st["redistributions"] > 0,
+                f"{label} rank {r}: buffer stats {st}")
+        timed = a["iterations"][1:]
+        row = {"rank": r, "params": a["params"], "local_params": a["local_params"],
+               "iteration_ms": [it["ms"] for it in a["iterations"]],
+               "timed_iteration_ms": statistics.median(it["ms"] for it in timed),
+               "node_ms_median": {k[5:]: statistics.median(m[k] * 1e3 for m in a["history"][1:])
+                                  for k in sorted(a["history"][0]) if k.startswith("time/")},
+               "collectives_per_timed_iteration": {
+                   k: {f: statistics.median(it["collectives"][k][f] for it in timed)
+                       for f in ("calls", "ms", "bytes")} for k in ("all_reduce", "all_gather")},
+               "peak_gib": a["peak_gib"], "peak_rss_gib": a["peak_rss_gib"],
+               "launches": a["launches"], "engine": a["engine"], "held_to_plain": a["held"],
+               "vs_solo": a["vs_solo"], "replicas": a["replicas"], "logprobs": a["logprobs"],
+               "gradient": a["gradient"]}
+        print(json.dumps({f"{label}_rank": row}), flush=True)
+        print(json.dumps({f"{label}_direct": {"rank": r, **{k: v for k, v in a["direct"].items()
+                                                           if k != "records"}}}), flush=True)
+        counts[f"tp21_qwen_rank{r}"] = a["launches"]
+    require(clean(arts[0]["history"]) == clean(arts[1]["history"]),
+            f"{label}: the ranks' metrics differ")
+    require(all(m["actor/grad_norm"] > 0 for m in arts[0]["history"]), f"{label}: a zero gradient")
+    held, failed, vs = readings(arts)
+    print(json.dumps({"check": f"{label}_against_the_solo_runs", "held": held, "failed": failed,
+                      **vs, **limits}), flush=True)
+    # C: the dialog iteration's counts against its solo run's
+    dialogs = [a["dialog"] for a in arts]
+    sm = solo["dialog"]["history"][0]
+    counts_equal = all(d["episodes"] == solo["dialog"]["episodes"]
+                       and all(d["history"][0][k] == sm[k] for k in TP21_DIALOG_COUNTS)
+                       for d in dialogs)
+    shown = TP21_DIALOG_COUNTS + ("rollout/cont_refills", "rollout/obs_tokens",
+                                  "rollout/decode_steps")
+    print(json.dumps({"check": f"{label}_dialog_counts_equal_the_solo_run", "held": counts_equal,
+                      "episodes": [d["episodes"] for d in dialogs],
+                      "solo": {k: sm[k] for k in shown},
+                      "ranks": [{k: d["history"][0][k] for k in shown} for d in dialogs],
+                      "iteration_ms": [d["ms"] for d in dialogs],
+                      "solo_iteration_ms": solo["dialog"]["iterations"][0]["ms"]}), flush=True)
+    fault_held = {}
+    for fault, fa in fault_arts.items():
+        fault_held[fault], ffailed, fvs = readings(fa)
+        print(json.dumps({"check": f"{label}_fault_{fault}_against_the_solo_runs",
+                          "held": fault_held[fault], "failed": ffailed, **fvs,
+                          "direct": [{k: v for k, v in f["direct"].items() if k != "records"}
+                                     for f in fa]}), flush=True)
+    require(held, f"{label}: the tensor-parallel runs against the solo runs: {failed}")
+    require(counts_equal, f"{label}: the dialog iteration's counts differ from the solo run's")
+    for fault, fheld in fault_held.items():
+        require(not fheld, f"{label}: the holds do not reject the planted fault {fault}")
+    print(json.dumps({f"{label}_records": arts[0]["direct"]["records"]}), flush=True)
+    for kname, by_shape in arts[0]["direct"]["records"].items():
+        records.setdefault(kname, {})["phase21"] = by_shape
+    out["history"] = arts[0]["history"]
+    out["solo_history"] = solo["qwen"]["history"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18, 19, 20],
+    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18, 19, 20, 21],
                     default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
@@ -6704,9 +7247,12 @@ def main(argv=None) -> int:
                          "which phase 17's hold must reject (how its limits were set)")
     # one rank of phase 18's world, started by tp_phase
     ap.add_argument("--tp-rank", default=None, help=argparse.SUPPRESS)
+    # a host or rank process started ahead of its arm, by pool_fill
+    ap.add_argument("--pooled", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tp-faults", default="",
-                    help="with --only-phase 18 (19, 20): comma-separated faults of TP_FAULTS "
-                         "(TP19_FAULTS, TP20_FAULTS) to plant in the tensor-parallel model "
+                    help="with --only-phase 18 (19, 20, 21): comma-separated faults of "
+                         "TP_FAULTS (TP19_FAULTS, TP20_FAULTS, TP21_FAULTS) to plant in the "
+                         "tensor-parallel model "
                          "after the sound run, each of which the phase's holds must reject "
                          "(how its limits were set)")
     opts = ap.parse_args(argv)
@@ -6714,12 +7260,13 @@ def main(argv=None) -> int:
     if faults and (opts.only_phase != 17 or not set(faults) <= set(SHARD_FAULTS)):
         ap.error(f"--shard-faults takes {', '.join(SHARD_FAULTS)}, with --only-phase 17")
     tp_faults = [f for f in opts.tp_faults.split(",") if f]
-    known = {18: TP_FAULTS, 19: tuple(TP19_FAULTS), 20: tuple(TP20_FAULTS)}.get(
-        opts.only_phase, ())
+    known = {18: TP_FAULTS, 19: tuple(TP19_FAULTS), 20: tuple(TP20_FAULTS),
+             21: TP21_FAULTS}.get(opts.only_phase, ())
     if tp_faults and not set(tp_faults) <= set(known):
         ap.error(f"--tp-faults takes {', '.join(TP_FAULTS)} with --only-phase 18, "
-                 f"{', '.join(TP19_FAULTS)} with --only-phase 19, or "
-                 f"{', '.join(TP20_FAULTS)} with --only-phase 20")
+                 f"{', '.join(TP19_FAULTS)} with --only-phase 19, "
+                 f"{', '.join(TP20_FAULTS)} with --only-phase 20, or "
+                 f"{', '.join(TP21_FAULTS)} with --only-phase 21")
 
     import torch
 
@@ -6741,6 +7288,8 @@ def main(argv=None) -> int:
         return shard_rank(torch, opts.shard_rank)
     if opts.tp_rank is not None:
         return tp_rank(torch, opts.tp_rank)
+    if opts.pooled:
+        return pooled(torch)
 
     t_start = time.perf_counter()
     # ---- phase 1: device and build ----
@@ -6768,7 +7317,8 @@ def main(argv=None) -> int:
                  17: lambda: sharding_phase(torch, _build, faults=faults),
                  18: lambda: tp_phase(torch, ops, ref, _build, {}, faults=tp_faults),
                  19: lambda: tp_moe_ssd_phase(torch, ref, F, _build, {}, faults=tp_faults),
-                 20: lambda: tp20_phase(torch, _build, {}, faults=tp_faults)}
+                 20: lambda: tp20_phase(torch, _build, {}, faults=tp_faults),
+                 21: lambda: tp21_phase(torch, _build, {}, faults=tp_faults)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -6796,8 +7346,8 @@ def main(argv=None) -> int:
     del model, int8_model, params, lockstep, streaming, int8
     gc.collect()
     torch.cuda.empty_cache()
-    # mamba2-2.7b at full width and depth, through `serve --arch mamba2-2.7b --lockstep`
-    model, params, tok = build_model(torch, serve, MAMBA2_FLAGS)
+    # mamba2-2.7b at full width on MAMBA2_LAYERS layers, through `serve --arch mamba2-2.7b --lockstep`
+    model, params, tok = build_model(torch, serve, MAMBA2_FLAGS, MAMBA2_LAYERS)
     mamba2 = end_to_end_phase(torch, ops, _build, serve, generate, model, params, tok,
                               label="e2e_mamba2", profile_name="profile_mamba2.txt",
                               layerwise=True)
@@ -6823,7 +7373,8 @@ def main(argv=None) -> int:
     # run, read just after), then the gradient check, the long actor step and
     # the scan under autograd ----
     paths["mamba2_grpo_pipeline"], _ = pipeline_phase(
-        torch, ops, ref, _build, label="mamba2_pipeline", flags=MAMBA2_FLAGS, arms=PIPE_ARMS_SHORT)
+        torch, ops, ref, _build, label="mamba2_pipeline", flags=MAMBA2_FLAGS, arms=PIPE_ARMS_SHORT,
+        layers=MAMBA2_LAYERS)
     mamba2_training_phase(torch, ops, ref, F, _build, serve, generate, records)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6847,7 +7398,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # ---- phase 13: the MoE family, granite-moe-3b lockstep and GRPO at full
-    # width and depth, mixtral-8x7b's ring at full width (the counts set to 0
+    # width on GRANITE_LAYERS layers, mixtral-8x7b's ring at full width (the counts set to 0
     # just before each path, read just after) ----
     paths.update(moe_phase(torch, ops, ref, F, _build, serve, generate, records))
     gc.collect()
@@ -6858,6 +7409,8 @@ def main(argv=None) -> int:
     paths.update(families_phase(torch, ops, ref, F, _build, serve, generate, records))
     gc.collect()
     torch.cuda.empty_cache()
+    # the processes of phase 16's first arm, started while phase 15 runs
+    pool_fill()
     # ---- phase 15: checkpoints and telemetry through launch.train at gemma-2b's
     # full width (the counts set to 0 just before each run, read just after) ----
     paths.update(ckpt_phase(torch, ops, ref, _build,
@@ -6895,6 +7448,14 @@ def main(argv=None) -> int:
     # same two ranks of a (data 1, model 2) mesh (each rank's counts start at
     # 0 in its process and are read after each run) ----
     paths.update(tp20_phase(torch, _build, records))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 21: the continuous rollout engine on tensor-parallel ranks:
+    # qwen2.5-7b's GRPO with chunked refills through launch.train, the
+    # engine's calls directly and a dialog iteration in the same two ranks of
+    # a (data 1, model 2) mesh (each rank's counts start at 0 in its process
+    # and are read after its GRPO run) ----
+    paths.update(tp21_phase(torch, _build, records))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -6948,6 +7509,8 @@ def main(argv=None) -> int:
                   for arm in ("mixtral", "llava") for r in range(TP_RANKS)},
                **{f"tp20_{arm}_rank{r}": ("flash_attention", "decode_attention")
                   for arm in ("seamless", "nemotron") for r in range(TP_RANKS)},
+               **{f"tp21_qwen_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
+                                         "fused_sample") for r in range(TP_RANKS)},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():

@@ -184,25 +184,11 @@ def _seeds(seed: int):
 
 
 def _refuse_unported_mesh(shape: Dict[str, int],
-                          async_pipeline: Optional[AsyncPipelineConfig],
-                          rollout: Optional[RolloutEngineConfig]) -> None:
-    """Raise for what a rank mesh cannot run yet: the async pipeline, and on
-    ``model`` > 1 the continuous engine."""
-    if math.prod(shape.values()) <= 1:
-        return
-    if shape.get("model", 1) > 1:
-        unported = [what for what, hit in (
-            ("the continuous rollout engine",
-             rollout is not None and rollout.engine == "continuous"),
-            ("the async pipeline", async_pipeline is not None and async_pipeline.enabled),
-        ) if hit]
-        if unported:
-            raise NotImplementedError(
-                f"tensor-parallel model stages with {unported[0]} (a mesh {shape} with "
-                "model > 1) are not ported yet (ROADMAP queue 1, item 8: distributed)")
-    if async_pipeline is not None and async_pipeline.enabled:
+                          async_pipeline: Optional[AsyncPipelineConfig]) -> None:
+    """Raise for what a rank mesh cannot run yet: the async pipeline."""
+    if math.prod(shape.values()) > 1 and async_pipeline is not None and async_pipeline.enabled:
         raise NotImplementedError(
-            "the async pipeline on a rank mesh is not ported yet "
+            f"the async pipeline on a rank mesh ({shape}) is not ported yet "
             "(ROADMAP queue 1, item 8: distributed)")
 
 
@@ -244,7 +230,7 @@ def build_pipeline(
     # the rank mesh asked for (a given one, or ``mesh_shape`` over the
     # running world), refused before any world is touched
     asked = mesh_shape if mesh is None else (mesh.shape if mesh.torch_mesh is not None else None)
-    _refuse_unported_mesh(asked or {}, async_pipeline, rollout)
+    _refuse_unported_mesh(asked or {}, async_pipeline)
     if mesh is None and mesh_shape is not None:
         from repro_torch.launch.mesh import mesh_of
 

@@ -22,7 +22,9 @@ the ranks to their global values.
 
 ``actor_generate`` drives lockstep ``generate`` or the continuous engine and
 reports the engine's ``last_stats`` as ``rollout/*`` (on a rank mesh the
-rank's own engine's, but for ``rollout/tokens``, the global batch's); episodes the engine
+rank's own engine's, its data row's counts, which the ranks of that row
+share and which are not summed over ``model``; but for ``rollout/tokens``,
+the global batch's); episodes the engine
 stepped put their ``role_mask``, ``env_rewards`` and ``env_turns`` for
 ``env_compute``, the (ENV, COMPUTE) stage of ``repro_torch.rl.envs``.
 """

@@ -14,7 +14,10 @@ package) and dumped with ``--dump-experiment``. The Data Coordinator flags
 file runs in every coordinator arm.
 
 ``--rollout-slots N`` generates with the continuous rollout engine over N
-decode slots (0: one a sequence), on top of either. ``--max-staleness W``
+decode slots (0: one a sequence), on top of either; an experiment file's
+other engine settings (``prefill_chunk``, the buckets) stand, and an
+experiment's ``mesh_shape`` with ``model`` > 1 runs it on tensor-parallel
+ranks. ``--max-staleness W``
 runs the staleness-bounded async pipeline (0: the lockstep scheduler,
 bitwise equal to the synchronous worker), and overrides an experiment
 file's setting. ``--env NAME`` (with ``--max-turns`` and ``--turn-budget``)
@@ -229,8 +232,9 @@ def build_experiment(args: argparse.Namespace) -> ExperimentSpec:
         exp = dataclasses.replace(exp, async_pipeline=AsyncPipelineConfig(
             enabled=True, max_staleness=args.max_staleness))
     if args.rollout_slots is not None:
-        exp = dataclasses.replace(exp, rollout=RolloutEngineConfig(
-            engine="continuous", num_slots=args.rollout_slots))
+        # the file's other engine settings (prefill_chunk, the buckets) stand
+        exp = dataclasses.replace(exp, rollout=dataclasses.replace(
+            exp.rollout, engine="continuous", num_slots=args.rollout_slots))
     fleet = {k: getattr(args, k) for k in FLEET_FLAGS if getattr(args, k) is not None}
     if fleet:
         exp = dataclasses.replace(exp, distributed=dataclasses.replace(

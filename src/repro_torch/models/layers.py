@@ -15,8 +15,9 @@ call sites of JAX's ``constrain`` become explicit collectives: ``w_q``,
 ``w_o`` and ``w_out`` row-parallel before ``reduce_from_model``, and a
 row-parallel output bias is added once, after the sum. K/V come whole heads
 a rank (``num_kv_heads`` divides ``model``), replicated (every rank computes
-them all, and ``copy_to_model`` on K and V where they meet the local query
-heads sums their gradient over the ranks), or, in the serve layout, as
+them all; ``copy_to_model`` on the whole K and V, before they are cut to
+the KV heads of the local query heads, sums each head's gradient over the
+ranks), or, in the serve layout, as
 columns split within a head, which are all-gathered before RoPE.
 """
 from __future__ import annotations
@@ -216,14 +217,18 @@ def qkv_proj(
 
 
 def local_kv(cfg: ModelConfig, p: Params, k: torch.Tensor, v: torch.Tensor):
-    """K/V of all ``num_kv_heads`` cut to the heads this rank's query heads
-    attend, behind ``copy_to_model`` (every rank computed them: their
-    gradient is the sum of the ranks'). K/V of this rank's heads already
-    pass as they are."""
-    if tpc.tp() is None or k.shape[-2] != cfg.num_kv_heads or cfg.num_kv_heads % tpc.tp_size() == 0:
+    """K/V of all ``num_kv_heads`` (every rank computed or gathered them)
+    cut to the heads this rank's query heads attend: the whole K and V go
+    through ``copy_to_model`` first and are cut after it, so that the
+    backward all-reduce over ``model`` sums each KV head's cotangent into
+    that same head, whichever ranks' query heads attend it. (Cut first, the
+    ranks of different GQA groups would sum the cotangents of different
+    heads into one another.) K/V of this rank's heads already pass as they
+    are."""
+    if tpc.tp() is None or k.shape[-2] != cfg.num_kv_heads:
         return k, v
     sl = kv_heads_of(cfg, local_heads(cfg, p))
-    return tpc.copy_to_model(k[..., sl, :]), tpc.copy_to_model(v[..., sl, :])
+    return tpc.copy_to_model(k)[..., sl, :], tpc.copy_to_model(v)[..., sl, :]
 
 
 def all_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):

@@ -62,7 +62,9 @@ Prefix embeddings run ahead of the tokens as on one device, replicated over
 ``model``. An SSD layer runs on this rank's heads and an MoE layer on this
 rank's ``f`` columns of every expert (``models/ssm.py``,
 ``models/moe.py``); an SSD layer's decode state holds this rank's heads
-(``ssm.ssm_state_shapes``). Chunked prefill and paged decode raise there.
+(``ssm.ssm_state_shapes``). A chunk of a chunked prefill writes each of
+its positions on the rank that owns its slot and attends its prefix
+gathered over ``model`` (``_prefill_chunk_tp``). Paged decode raises there.
 """
 from __future__ import annotations
 
@@ -188,7 +190,7 @@ def _attn_mixer(
 
     if tpc.tp() is not None:
         return _attn_mixer_tp(cfg, p, h, positions, mode, cache, cache_len, smax,
-                              page_tables)
+                              chunk_offset)
 
     if mode == "prefill_chunk":
         # one chunk of a chunked prefill: write this chunk's K/V into the
@@ -303,15 +305,66 @@ def _tp_ring_slot(cfg: ModelConfig, cache_len: torch.Tensor, w: int):
     return cache_len % W, torch.clamp(cache_len + 1, max=W)
 
 
-def _attn_mixer_tp(cfg, p, h, positions, mode, cache, cache_len, smax, page_tables):
+def _tp_gather_slots(c: torch.Tensor) -> torch.Tensor:
+    """A decode cache leaf (B, w, ...) of this rank's slots, the ranks'
+    slot shards concatenated over ``model`` in slot order: (B, w M, ...)."""
+    return tpc.gather_from_model(c, 1)
+
+
+def _tp_chunk_span(off: int, hi: int, w: int) -> Tuple[slice, slice]:
+    """(this rank's local slots, the chunk's rows) of the positions of a
+    chunk ``[off, hi)`` that fall in the rank's slots ``[r w, (r + 1) w)``:
+    both empty where it holds none."""
+    lo = tpc.tp_rank() * w
+    a = max(off, lo)
+    b = max(min(hi, lo + w), a)
+    return slice(a - lo, b - lo), slice(a - off, b - off)
+
+
+def _prefill_chunk_tp(cfg, p, h, cache, off: int):
+    """One chunk ``[off, off + C)`` of a chunked prefill on a tensor-parallel
+    mesh, over the slot-sharded cache: q of this rank's query heads and K/V
+    of all KV heads (``layers.all_kv``); each position written only on the
+    rank that owns its slot (under ``kv_quant`` quantized once, after the KV
+    heads are gathered, as prefill does); then the prefix ``[0,
+    off + C)`` gathered over ``model``, dequantized under ``kv_quant``, cut
+    to this rank's KV heads (``layers.local_kv``) and attended at
+    ``q_offset`` = off. A chunk past the cache's global width ``w M``
+    raises the ValueError of one device."""
+    C = h.shape[1]
+    pos = (off + torch.arange(C, device=h.device))[None, :]
+    q, k, v = layers.qkv_proj(cfg, p, h, pos)
+    k, v = layers.all_kv(cfg, k, v)
+    hi, w = off + C, cache["k"].shape[1]
+    if hi > w * tpc.tp_size():
+        raise ValueError(f"chunk [{off}, {hi}) past the cache width {w * tpc.tp_size()}")
+    slots, rows = _tp_chunk_span(off, hi, w)
+    if cfg.kv_quant:
+        for name, new in (("k", k), ("v", v)):
+            cache[name][:, slots], cache[name + "_scale"][:, slots] = quant_kv(new[:, rows])
+        kp, vp = (dequant_kv(_tp_gather_slots(cache[n])[:, :hi],
+                             _tp_gather_slots(cache[n + "_scale"])[:, :hi]) for n in ("k", "v"))
+    else:
+        for name, new in (("k", k), ("v", v)):
+            cache[name][:, slots] = new[:, rows].to(cache[name].dtype)
+        kp, vp = (_tp_gather_slots(cache[n])[:, :hi] for n in ("k", "v"))
+    # the kernel reads whole rows: the cut of the gathered heads is a strided view
+    kp, vp = (t.contiguous() for t in layers.local_kv(cfg, p, kp, vp))
+    o = ops.flash_attention(q, kp, vp, causal=True, window=cfg.sliding_window, q_offset=off)
+    return layers.out_proj(cfg, p, o), cache
+
+
+def _attn_mixer_tp(cfg, p, h, positions, mode, cache, cache_len, smax, chunk_offset):
     """The attention mixer on a tensor-parallel mesh: prefill and full mode
     attend this rank's query heads to their KV heads (under the sliding
     window); prefill writes this rank's slots of all KV heads, quantized
     after they are gathered under ``kv_quant`` (each scale over every KV
-    head of its token, as on one device); decode as the module docstring
-    says."""
-    if mode == "prefill_chunk" or page_tables is not None:
-        tpc.require_dense("chunked prefill and paged decode")
+    head of its token, as on one device); a chunk of a chunked prefill as
+    :func:`_prefill_chunk_tp` says; decode as the module docstring says
+    (paged decode is refused before it, in :func:`_decode_hidden`)."""
+    if mode == "prefill_chunk":
+        assert cache is not None and chunk_offset is not None
+        return _prefill_chunk_tp(cfg, p, h, cache, chunk_offset)
     if mode == "prefill":
         q, k, v = layers.qkv_proj(cfg, p, h, positions)
         kl, vl = layers.local_kv(cfg, p, k, v)
@@ -755,7 +808,11 @@ def _decode_hidden(cfg, params, token, caches, cache_len, page_tables=None,
                    write_enable=None):
     """Shared decode-step body: embed -> backbone -> last hidden (B, d).
     With ``page_tables``, ``caches`` is the serving page pool and attention
-    runs through the block table (see :func:`_decode_paged`)."""
+    runs through the block table (see :func:`_decode_paged`), on one device
+    only: a tensor-parallel mesh refuses it before the embedding's
+    collective."""
+    if page_tables is not None:
+        tpc.require_dense("paged decode")
     h = embed_tokens(cfg, params, token.reshape(-1, 1))
     h, _, new_caches = backbone(cfg, params, h, None, mode="decode", caches=caches,
                              cache_len=cache_len, page_tables=page_tables,

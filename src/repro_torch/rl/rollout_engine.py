@@ -54,6 +54,16 @@ the same shapes, so the engine is token for token equal to lockstep
 threefry keys, so sampled parity with it holds in distribution only; greedy
 streams match it token for token, episodes included.
 
+On a tensor-parallel rank mesh (``model`` > 1) every rank of a data row
+runs this engine on the same rows over its slot shard of the arena
+(``model.init_caches`` under the ambient mesh): the model's calls are the
+ranks' collectives, and every host-side decision (the burst's done count,
+the refill schedule, the queue's order, the episodes' env steps, the seed
+draws) reads a value that is equal on every rank, since the sampler's
+tokens are merged over ``model`` (``ops.fused_sample_shard``) and the
+prefill's logits gathered. So the ranks take the same schedule, and each
+rank's ``last_stats`` are its data row's counts, once.
+
 Metrics (``engine.last_stats``, surfaced by the GENERATE stage as
 ``rollout/*``): tokens/s, padding waste, slot occupancy, decode steps,
 bursts and refills, the prefill token accounting per turn, and under an env

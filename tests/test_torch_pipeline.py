@@ -50,7 +50,7 @@ from repro_torch.launch import train
 from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.rl import trainer
 from repro_torch.rl.rollout_engine import ContinuousRolloutEngine
-from torch_arena import fp32_arena, jax_fp32_arena
+from torch_arena import Recorded, fp32_arena, jax_fp32_arena
 
 # tiny CPU shapes run best on one intra-op thread: torch's default pool
 # spins against the other test processes and slows every test severalfold
@@ -83,23 +83,6 @@ def jax_spec(arch="gemma-2b", model_kw=SMOKE, **kw):
 
 def counts(stats):
     return {**dataclasses.asdict(stats), "max_host_inbound_bytes": stats.max_host_inbound_bytes}
-
-
-class Recorded:
-    """A generate engine that keeps each call's tokens (``np_of`` of them)
-    in ``seen``; every other attribute (``last_stats``, ``model``) is the
-    engine's."""
-
-    def __init__(self, engine, np_of):
-        self.engine, self.np_of, self.seen = engine, np_of, []
-
-    def __call__(self, params, prompts, key):
-        res = self.engine(params, prompts, key)
-        self.seen.append(self.np_of(res.tokens))
-        return res
-
-    def __getattr__(self, name):
-        return getattr(self.engine, name)
 
 
 def record_rollouts(pipe, np_of):
@@ -416,15 +399,16 @@ def test_unported_flags_raise(flag, tmp_path):
 
 @pytest.mark.parametrize("option", ["distributed", "mesh_shape"])
 def test_unported_options_raise(option):
-    # a fleet host of several devices and tensor-parallel stages on the
-    # continuous engine wait for the rest of the sharding layer
+    # a fleet host of several devices and tensor-parallel stages in the async
+    # pipeline wait for the rest of the sharding layer (the continuous
+    # engine runs on a tensor-parallel mesh: tests/test_torch_tp_engine.py)
     value = {"distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c",
                                               devices_per_host=2),
              "mesh_shape": (2, 2)}[option]
-    engine = ({"rollout": RolloutEngineConfig(engine="continuous", num_slots=4)}
-              if option == "mesh_shape" else {})
+    pipeline = ({"async_pipeline": AsyncPipelineConfig(enabled=True)}
+                if option == "mesh_shape" else {})
     exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value},
-                         **engine)
+                         **pipeline)
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
         exp.compile(device="cpu")
 
@@ -490,6 +474,21 @@ def test_rollout_slots_flag_builds_the_continuous_engine(tmp_path):
     assert_continuous_iterations_match(jpipe.run(1), tpipe.run(1), jtoks, ttoks)
 
 
+def test_rollout_slots_flag_keeps_the_files_engine_settings(tmp_path):
+    """``--rollout-slots`` on an experiment file sets the engine and its
+    slots; the file's ``prefill_chunk``, buckets and refill threshold stand."""
+    base, path = tmp_path / "base.json", tmp_path / "exp.json"
+    train.main(SMALL + ["--dump-experiment", str(base)])
+    d = json.loads(base.read_text())
+    d["rollout"].update(prefill_chunk=4, prefill_bucket=2, refill_threshold=2)
+    base.write_text(json.dumps(d))
+    train.main(["--experiment", str(base), "--rollout-slots", "3", "--dump-experiment",
+                str(path)])
+    assert json.loads(path.read_text())["rollout"] == dataclasses.asdict(RolloutEngineConfig(
+        engine="continuous", num_slots=3, prefill_chunk=4, prefill_bucket=2,
+        refill_threshold=2))
+
+
 def _layer_cfg(**kw):
     return dataclasses.replace(reduced(get_config("gemma-2b"), **SMOKE), **kw)
 
@@ -513,8 +512,26 @@ def _tensor_parallel_spec(**spec_kw):
     return ExperimentSpec(model=_layer_cfg(), mesh_shape=(1, 2), **spec_kw).compile(device="cpu")
 
 
+def _paged_decode_on_model_ranks():
+    """The serving engine's paged decode step under an ambient mesh that
+    splits ``model`` over 2 ranks: refused before its first collective, so
+    the mesh needs no world behind it."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed import constraint
+
+    model = get_model_cpu(_layer_cfg())
+    params = model.init(torch.Generator().manual_seed(0))
+    pool = model.init_caches(5, 4)  # 4 pages of 4 slots and the sink
+    mesh = SimpleNamespace(torch_mesh=object(), shape={"data": 1, "model": 2},
+                           coords={"data": 0, "model": 0}, axis_names=("data", "model"))
+    with constraint.use_mesh(mesh):
+        model.decode_step_paged(params, torch.zeros(2, dtype=torch.int32), pool,
+                                torch.zeros(2, dtype=torch.int32),
+                                torch.zeros((2, 2), dtype=torch.int32))
+
+
 _TP_UNPORTED = {
-    "continuous": dict(rollout=RolloutEngineConfig(engine="continuous", num_slots=4)),
     "async": dict(async_pipeline=AsyncPipelineConfig(enabled=True)),
 }
 
@@ -523,12 +540,15 @@ NOT_PORTED_CASES = {
         model=_layer_cfg(), distributed=DistributedConfig(
             num_hosts=2, coordinator="/unused", devices_per_host=2)).compile(device="cpu")),
     "fleet_model_parallel": (8, lambda: make_fleet_mesh(2, model_parallel=2, device="cpu")),
-    # tensor-parallel model stages on the continuous engine or in the async
-    # pipeline, refused before any world is touched
+    # tensor-parallel model stages in the async pipeline, refused before any
+    # world is touched, through ExperimentSpec and through launch.train
     **{f"model_parallel_{what}": (8, functools.partial(_tensor_parallel_spec, **kw))
        for what, kw in _TP_UNPORTED.items()},
     "model_parallel_launch": (8, lambda: _launch_experiment(
-        mesh_shape=(1, 2), rollout=RolloutEngineConfig(engine="continuous", num_slots=4))),
+        mesh_shape=(1, 2), async_pipeline=AsyncPipelineConfig(enabled=True))),
+    # the serving engine's paged decode on model > 1 (the continuous engine,
+    # which this case pinned before, runs on a tensor-parallel mesh)
+    "model_parallel_continuous": (8, _paged_decode_on_model_ranks),
     "async_rank_mesh": (8, lambda: ExperimentSpec(
         model=_layer_cfg(), mesh_shape=(2, 1),
         async_pipeline=AsyncPipelineConfig(enabled=True)).compile(device="cpu")),

@@ -5,7 +5,7 @@ Both engines' cache arenas are bf16 (``init_caches``). On fp32 weights the
 JAX engine cannot run on one at all (its decode writes turn the
 ``while_loop`` carry's caches fp32), and the port's would hold lockstep's
 fp32 prefill caches rounded, so the fp32 comparisons give both engines an
-fp32 arena.
+fp32 arena. ``Recorded`` keeps an engine's rollouts of every call.
 """
 import jax
 import jax.numpy as jnp
@@ -38,3 +38,20 @@ def fp32_arena(model):
     """A port model whose cache arena is fp32."""
     return Fp32Arena(model, lambda c: tree.map(
         lambda t: t.float() if t.dtype == torch.bfloat16 else t, c))
+
+
+class Recorded:
+    """A generate engine of either package that keeps each call's tokens
+    (``np_of`` of them) in ``seen``; every other attribute (``last_stats``,
+    ``model``) is the engine's."""
+
+    def __init__(self, engine, np_of):
+        self.engine, self.np_of, self.seen = engine, np_of, []
+
+    def __call__(self, params, prompts, key):
+        res = self.engine(params, prompts, key)
+        self.seen.append(self.np_of(res.tokens))
+        return res
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
