@@ -220,6 +220,21 @@ Phases (any mismatch or error raises, and the run exits non-zero):
      worlds at once), 3 GRPO
      iterations, held as phase 18 holds its run (granite's tokens whose
      route flips left out of the logprob hold, and counted).
+ 20. Tensor-parallel stages of the remaining families (``tp20_phase``):
+     gemma-2b's int8 cache through ``launch.train``, then mixtral's ring,
+     llava's prefix, seamless's encoder-decoder and nemotron's ``top_p`` in
+     the same two ranks.
+ 21. The continuous rollout engine on tensor-parallel ranks
+     (``tp21_phase``): qwen2.5-7b's GRPO with chunked refills, the engine's
+     calls directly and a dialog iteration, against solo runs.
+ 22. The staleness-bounded async pipeline on a rank mesh (``tp22_phase``):
+     in one world of two ranks (``chip_smoke.py --tp22-rank``), phase 18's
+     gemma-2b synchronous and at ``--max-staleness`` 0 and 1 (and under
+     truncated IS) on a (1, 2) mesh, then granite-moe-3b at staleness 1 on
+     a (2, 1) mesh: staleness 0 bit for bit the synchronous arm, versions
+     exact on both ranks, generation on the published copies, the
+     recompute and the logprobs against one device, every consume on its
+     own rows, launches of every iteration.
 
 Output: the nvidia-smi line, JSON lines per kernel and per phase, a
 ``{"kernels": [...]}`` line, and as the last line ``{"ok": true, "device":
@@ -4670,7 +4685,7 @@ def pooled(torch) -> int:
     """The body of ``chip_smoke.py --pooled``: the port imported and a CUDA
     context made, wait for "mode, ARGS, log" on stdin (``host_process``),
     then write to the log and run that host or rank (``fleet_host``,
-    ``shard_rank`` or ``tp_rank``). Exits 0 where stdin closes first."""
+    ``shard_rank``, ``tp_rank`` or ``tp22_rank``). Exits 0 where stdin closes first."""
     import torch.distributed  # noqa: F401  (what every rank imports, ahead)
 
     from repro_torch.launch import train  # noqa: F401
@@ -4687,14 +4702,17 @@ def pooled(torch) -> int:
     os.dup2(fd, 1)
     os.dup2(fd, 2)
     os.close(fd)
-    body = {"--fleet-host": fleet_host, "--shard-rank": shard_rank, "--tp-rank": tp_rank}[mode]
+    body = {"--fleet-host": fleet_host, "--shard-rank": shard_rank, "--tp-rank": tp_rank,
+            "--tp22-rank": tp22_rank}[mode]
     return body(torch, args_path)
 
 
-def run_hosts(label: str, arm: str, host_args, mode: str = "--fleet-host") -> list:
+def run_hosts(label: str, arm: str, host_args, mode: str = "--fleet-host",
+              refill: bool = True) -> list:
     """Start one ``chip_smoke.py --fleet-host`` (or ``mode``) process a host,
     all at once (pooled ones first, ``host_process``), and join them; once
-    they run, start the pool's next processes. A host that exits non-zero
+    they run, start the pool's next processes (unless not ``refill``: the
+    last phase's). A host that exits non-zero
     (or outlives FLEET_HOST_TIMEOUT_S) fails the arm with the tail of its
     log; the others are killed. Returns the hosts' artifacts."""
     procs = []
@@ -4702,7 +4720,7 @@ def run_hosts(label: str, arm: str, host_args, mode: str = "--fleet-host") -> li
         pooling = bool(_POOL)
         for args_path, log in host_args:
             procs.append(host_process(mode, args_path, log))
-        if pooling:
+        if pooling and refill:
             pool_fill()
         deadline = time.monotonic() + FLEET_HOST_TIMEOUT_S
         for h, (proc, (_, log)) in enumerate(zip(procs, host_args)):
@@ -5409,6 +5427,56 @@ def tp_sampler_phase(torch, ops, ref):
     return out
 
 
+@contextlib.contextmanager
+def observed_collectives(torch):
+    """While open, every ``collectives.all_reduce`` and ``all_gather`` that
+    moves data is synchronised, timed and its bytes counted, one record a
+    ``run_iteration`` of either worker (as ``tp_rank`` counts them), but
+    while ``"paused"`` is set. Yields {"iters": the records, "paused"}."""
+    from repro_torch.core import async_worker as async_mod
+    from repro_torch.core import worker as worker_mod
+    from repro_torch.distributed import collectives
+
+    rec = {"iters": [], "paused": False}
+    iters = rec["iters"]
+    saved = {"all_reduce": collectives.all_reduce, "all_gather": collectives.all_gather}
+    workers = (worker_mod.DAGWorker, async_mod.AsyncDAGWorker)
+    run_iterations = [cls.__dict__["run_iteration"] for cls in workers]
+
+    def counted(kind):
+        def run(mesh, x, *args, **kw):
+            out, ms = sync_ms(torch, lambda: saved[kind](mesh, x, *args, **kw))
+            if kind == "all_reduce":
+                axes = kw.get("axes", args[0] if args else None)
+                names = [a for a in mesh.axis_names if axes is None or a in axes]
+                moved = any(mesh.shape[a] > 1 for a in names) * x.numel() * x.element_size()
+            else:
+                moved = (out.numel() - x.numel()) * x.element_size()
+            if moved and iters and not rec["paused"]:
+                c = iters[-1][kind]
+                c["calls"] += 1
+                c["ms"] += ms
+                c["bytes"] += moved
+            return out
+        return run
+
+    def opened(run_iteration):
+        def run(self):
+            iters.append({k: {"calls": 0, "ms": 0.0, "bytes": 0} for k in saved})
+            return run_iteration(self)
+        return run
+
+    collectives.all_reduce, collectives.all_gather = counted("all_reduce"), counted("all_gather")
+    for cls, run_iteration in zip(workers, run_iterations):
+        cls.run_iteration = opened(run_iteration)
+    try:
+        yield rec
+    finally:
+        collectives.all_reduce, collectives.all_gather = saved["all_reduce"], saved["all_gather"]
+        for cls, run_iteration in zip(workers, run_iterations):
+            cls.run_iteration = run_iteration
+
+
 def tp_rank(torch, args_path: str) -> int:
     """The body of ``chip_smoke.py --tp-rank ARGS``: rank r of phase 18's or
     phase 19's (data 1, model 2) world on the card (``tp_world``). ARGS is a
@@ -5432,41 +5500,11 @@ def tp_rank(torch, args_path: str) -> int:
     TP19_FAULTS) the fault is planted for the run and the readings after
     it. Writes the artifact."""
     from repro_torch import tree
-    from repro_torch.core import worker as worker_mod
-    from repro_torch.distributed import collectives
     from repro_torch.models import layers
     from repro_torch.rl import trainer
 
     spec = json.loads(Path(args_path).read_text())
-    rank = spec["rank"]
-    # one record an iteration: calls, ms and bytes of each collective that
-    # moves data (a reduce over axes of size 1 moves none and is not counted)
-    coll_iters = []
-    saved = {"all_reduce": collectives.all_reduce, "all_gather": collectives.all_gather}
     init = {}
-
-    def counted(kind):
-        def run(mesh, x, *args, **kw):
-            out, ms = sync_ms(torch, lambda: saved[kind](mesh, x, *args, **kw))
-            if kind == "all_reduce":
-                axes = kw.get("axes", args[0] if args else None)
-                names = [a for a in mesh.axis_names if axes is None or a in axes]
-                moved = any(mesh.shape[a] > 1 for a in names) * x.numel() * x.element_size()
-            else:
-                moved = (out.numel() - x.numel()) * x.element_size()
-            if moved and coll_iters:
-                c = coll_iters[-1][kind]
-                c["calls"] += 1
-                c["ms"] += ms
-                c["bytes"] += moved
-            return out
-        return run
-
-    run_iteration = worker_mod.DAGWorker.run_iteration
-
-    def run_counted(self):
-        coll_iters.append({k: {"calls": 0, "ms": 0.0, "bytes": 0} for k in saved})
-        return run_iteration(self)
 
     kept_shard_state = trainer.shard_state
 
@@ -5478,10 +5516,7 @@ def tp_rank(torch, args_path: str) -> int:
     from repro_torch.models import lm
 
     spec["quant"] = lm.quant_kv  # the int8 check's reference, whatever fault is planted
-    observers = [(collectives, "all_reduce", counted("all_reduce")),
-                 (collectives, "all_gather", counted("all_gather")),
-                 (trainer, "shard_state", kept_init),
-                 (worker_mod.DAGWorker, "run_iteration", run_counted)]
+    observers = [(trainer, "shard_state", kept_init)]
     patches = []  # the fault, planted for the run and every reading after it
     if fault == "kv_copy":
         def local_kv(cfg, p, k, v):
@@ -5521,13 +5556,13 @@ def tp_rank(torch, args_path: str) -> int:
     for obj, name, value in patches + observers:
         setattr(obj, name, value)
     try:
-        return tp_rank_body(torch, spec, originals[len(patches):], coll_iters, init)
+        return tp_rank_body(torch, spec, originals[len(patches):], init)
     finally:
         for obj, name, value in originals:
             setattr(obj, name, value)
 
 
-def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
+def tp_rank_body(torch, spec, observed, init) -> int:
     """``tp_rank`` with its patches in place: the run, then every reading,
     the observers (``observed``: their original attributes) taken out and a
     planted fault left in."""
@@ -5548,7 +5583,8 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
     hold = ((lambda: held_to_plain(torch, ops, ref, spec["held"])) if spec.get("held")
             else None)
     try:
-        with rss_sampled() as rss, observed_iterations(torch, _build, hold) as seen:
+        with (rss_sampled() as rss, observed_iterations(torch, _build, hold) as seen,
+              observed_collectives(torch) as colls):
             res = train.main(spec["argv"])
     finally:
         for obj, name, value in observed:
@@ -5565,7 +5601,7 @@ def tp_rank_body(torch, spec, observed, coll_iters, init) -> int:
            "local_params": sum(t.numel() for t in tree.leaves(ctx.actor_state.params)),
            "history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
            "iterations": [{"ms": r["ms"], "launches": r["launches"], "collectives": c}
-                          for r, c in zip(seen["iterations"], coll_iters)],
+                          for r, c in zip(seen["iterations"], colls["iters"])],
            "launches": launches, "peak_gib": peak_gib, "peak_rss_gib": rss["peak_gib"],
            "stats": dataclasses.asdict(pipe.buffer.stats),
            "rows_loaded": int(ctx.dataloader.rows_loaded), "held": seen["held"]}
@@ -7229,10 +7265,481 @@ def tp21_phase(torch, _build, records, label="tp21", faults=()):
     return counts
 
 
+# ---- phase 22: the staleness-bounded async pipeline on a rank mesh ----
+TP22_ITERS = 3  # A: one warm-up iteration, then two timed
+TP22_B_ITERS = 4
+# B at 2 layers took 3.5-4.3 s an iteration on an H100 80GB HBM3 at 700 W,
+# over the 3 s it may take: its data-parallel step moves the params and the
+# fp32 grads through gloo (PERF.md)
+TP22_B_LAYERS = 1
+# arm -> (experiment, flags on top of it); A's on a (1, 2) mesh, B's on (2, 1)
+TP22_ARMS = {"sync": ("A", []), "s0": ("A", ["--max-staleness", "0"]),
+             "s1": ("A", ["--max-staleness", "1"]),
+             "tis": ("A_tis", ["--max-staleness", "1"]),
+             "B": ("B", ["--max-staleness", "1"])}
+# faults planted for --tp-faults with --only-phase 22, each with the arms that
+# show it: the consume puts the popped keys back without their specs (on a
+# mesh whose data axis splits the rows, a key then reads as held whole), and
+# generation reads the live params instead of the published copy
+TP22_FAULTS = {"async_spec_dropped": ("B",), "async_live_generation": ("s1",)}
+# the scheduler's counts, exact and equal on both ranks
+TP22_COUNTS = ("async/staleness", "async/weight_version", "async/is_corrected",
+               "async/inflight", "pipeline/staleness")
+
+
+@contextlib.contextmanager
+def observed_consumes(torch, model, colls):
+    """While open, every ``consume_and_train`` of the async worker records
+    whether the actor step trained on the rows its batch was dispatched with
+    (this rank's tokens, bit for bit), and for a corrected batch the
+    truncated-IS recompute against ``model.logprobs`` on one device, on the
+    live params gathered whole and the same tokens: the largest
+    |difference| over the response tokens, and the check's synchronised ms
+    (``check_ms``; its gather is not counted in ``colls``, the
+    ``observed_collectives`` record; its launches are not counted). Yields
+    the list of records, the last one's tokens kept."""
+    from repro_torch import tree
+    from repro_torch.core.async_worker import AsyncDAGWorker
+    from repro_torch.kernels import _build
+    from repro_torch.rl import algorithms, trainer
+
+    seen = []
+    consume = AsyncDAGWorker.consume_and_train
+
+    def consume_checked(self, metrics=None):
+        pending = self._inflight[0] if self._inflight else None
+        if pending is None:
+            return consume(self, metrics)
+        ctx = self.ctx
+        engines = dict(ctx.engines)
+        rec = {"dispatched_rows": int(pending.data["tokens"].shape[0])}
+        tokens = pending.data["tokens"].clone()
+        live = None
+        if (algorithms.resolve(ctx).is_correction == "truncated"
+                and self.weights.version > pending.behavior_version):
+            # every rank takes part in the gather: the ranks consume alike
+            colls["paused"] = True
+            # a copy: the leaves no axis splits come back as the live tensors
+            # themselves, which the step then writes in place
+            live, rec["check_ms"] = sync_ms(torch, lambda: tree.map(torch.clone, (
+                trainer.gather_params(ctx.mesh, ctx.actor_state.params, ctx.param_specs))))
+            colls["paused"] = False
+
+        def step(state, batch):
+            rec["step_rows"] = int(batch["tokens"].shape[0])
+            rec["step_is_the_batch"] = bool(torch.equal(batch["tokens"], tokens))
+            return engines["actor_step"](state, batch)
+
+        def logprobs(params, toks):
+            lp, ent = engines["logprobs"](params, toks)
+            rec["recomputed"] = lp.detach().clone()
+            return lp, ent
+
+        ctx.engines["actor_step"], ctx.engines["logprobs"] = step, logprobs
+        try:
+            out = consume(self, metrics)
+        finally:
+            ctx.engines["actor_step"], ctx.engines["logprobs"] = (engines["actor_step"],
+                                                                 engines["logprobs"])
+        if "recomputed" in rec:
+            counted = dict(_build.LAUNCHES)
+            with torch.no_grad():
+                (want, _), ms = sync_ms(torch, lambda: model.logprobs(live, tokens))
+            _build.LAUNCHES.update(counted)
+            rec["check_ms"] += ms
+            mask = pending.data["response_mask"].bool()
+            got = rec.pop("recomputed")
+            ok, err = close(got[mask], want[mask], BF16_TOL)
+            rec["recompute"] = {"held": ok, "max_abs_err": err, "tokens": int(mask.sum())}
+        del live
+        for r in seen:
+            r.pop("tokens", None)
+        rec["tokens"] = tokens
+        seen.append(rec)
+        return out
+
+    AsyncDAGWorker.consume_and_train = consume_checked
+    try:
+        yield seen
+    finally:
+        AsyncDAGWorker.consume_and_train = consume
+
+
+def tp22_trainer_ahead(torch, pipe):
+    """After an A arm at staleness 1 (one batch still queued): one actor step
+    on the live state that the scheduler does not publish (a trainer running
+    ahead of generation), then one dispatch. Returns whether that dispatch
+    generated on the published copy, which the in-place step did not reach,
+    and not on the live params, which it moved (``pick_leaf`` of each)."""
+    from repro_torch.distributed import constraint
+
+    w, ctx = pipe.worker, pipe.ctx
+    p = w._inflight[0]
+    keys = ("tokens", "response_mask", "old_logprob", "ref_logprob", "advantages")
+    with constraint.use_mesh(ctx.mesh):
+        batch = {k: w._rows(p.data, p.specs, k, w._model_spec()) for k in keys}
+        ctx.actor_state, _ = ctx.engines["actor_step"](ctx.actor_state, batch)
+    ctx.drop_switched()
+    del batch
+    published = pick_leaf(w.weights.current.params).clone()
+    live = pick_leaf(ctx.actor_state.params).clone()
+    with observed_versions(torch) as versions:
+        w.dispatch_generation({})
+    ran = versions["ran"][0]
+    return {"behaviour_version": versions["behaviour"][0][0],
+            "live_moved": not torch.equal(live, published),
+            "ran_equals_published": torch.equal(ran, published),
+            "ran_differs_from_live": not torch.equal(ran, live)}
+
+
+def tp22_rank(torch, args_path: str) -> int:
+    """The body of ``chip_smoke.py --tp22-rank ARGS``: rank r of phase 22's
+    world on the card. ARGS is a json file {"argv", "files", "arms",
+    "artifact", "rank", "fault"}. Each arm of TP22_ARMS in ``"arms"`` runs
+    ``launch.train.main`` on its experiment file (A: (1, 2); B: (2, 1)) in
+    this one world, inside ``observed_iterations``,
+    ``observed_collectives``, ``observed_versions`` and ``observed_consumes``,
+    the launch counters at 0 and the peak reset before it. Then per arm: the
+    history, each iteration's ms, launches and collectives, the publish ms,
+    the peak, a bit checksum of the rank's final shards (and, for B, of the
+    params gathered whole), the rollouts' equality with the sync arm's, the
+    versions each dispatch ran, the consumes' rows and recomputes; after s1
+    ``tp22_trainer_ahead``; after B the last consumed batch's logprobs on
+    this rank's rows against the one-device model on the gathered params.
+    With ``"fault"`` (one of TP22_FAULTS) the fault is planted for every arm.
+    Writes the artifact."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core.async_worker import AsyncDAGWorker
+    from repro_torch.distributed import constraint
+    from repro_torch.distributed.weight_sync import VersionedWeights
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.rl import algorithms, trainer
+
+    spec = json.loads(Path(args_path).read_text())
+    fault = spec.get("fault")
+    algorithms.register_algorithm(dataclasses.replace(
+        algorithms.get_algorithm("grpo"), name=TIS_ALGORITHM, is_correction="truncated"),
+        override=True)
+    patches = []
+    if fault == "async_spec_dropped":
+        consume = AsyncDAGWorker.consume_and_train
+
+        def dropped(self, metrics=None):
+            for p in self._inflight:
+                p.specs.clear()
+            return consume(self, metrics)
+        patches.append((AsyncDAGWorker, "consume_and_train", dropped))
+    elif fault == "async_live_generation":
+        behavior = AsyncDAGWorker._behavior_weights
+
+        def live(self):
+            out = behavior(self)
+            return VersionedWeights(params=self.ctx.actor_state.params, version=out.version)
+        patches.append((AsyncDAGWorker, "_behavior_weights", live))
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    art = {"rank": spec["rank"], "fault": fault, "arms": {}}
+    sync = {}
+    try:
+        for arm in spec["arms"]:
+            file_key, flags = TP22_ARMS[arm]
+            argv = list(spec["argv"])
+            argv[argv.index("--experiment") + 1] = spec["files"][file_key]
+            if arm == "B":
+                argv[argv.index("--iters") + 1] = str(TP22_B_ITERS)
+            exp = ExperimentSpec.from_json(Path(spec["files"][file_key]).read_text())
+            model = get_model(exp.model, device=DEV)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t_arm = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                seen = stack.enter_context(observed_iterations(torch, _build))
+                colls = stack.enter_context(observed_collectives(torch))
+                versions = stack.enter_context(observed_versions(torch))
+                consumes = stack.enter_context(observed_consumes(torch, model, colls))
+                res = train.main(argv + flags)
+            run_s = time.perf_counter() - t_arm
+            pipe = res["pipeline"]
+            ctx, mesh = pipe.ctx, pipe.ctx.mesh
+            checks = iter([c.get("check_ms", 0.0) for c in consumes])
+            a = {"mesh": mesh.shape, "coords": mesh.coords, "run_s": run_s,
+                 "iteration_ms_less_check": [
+                     r["ms"] - (next(checks, 0.0) if "actor/loss" in m else 0.0)
+                     for r, m in zip(seen["iterations"], res["history"])],
+                 "launches": dict(_build.LAUNCHES),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "history": [{k: float(v) for k, v in m.items()} for m in res["history"]],
+                 "iterations": [{"ms": r["ms"], "launches": r["launches"], "collectives": c}
+                                for r, c in zip(seen["iterations"], colls["iters"])],
+                 "publish_ms": versions["publish_ms"],
+                 "checksum": bit_checksum(torch, ctx.actor_state.params),
+                 "local_params": sum(t.numel() for t in tree.leaves(ctx.actor_state.params)),
+                 "consumes": [{k: v for k, v in c.items() if k != "tokens"} for c in consumes],
+                 "stats": dataclasses.asdict(pipe.buffer.stats)}
+            tokens = [t.clone() for t in seen["tokens"]]
+            if arm == "sync":
+                sync["tokens"] = tokens
+            else:
+                a["rollouts_equal_sync"] = (len(tokens) == len(sync.get("tokens", ()))
+                                            and all(torch.equal(x, y) for x, y in
+                                                    zip(tokens, sync["tokens"])))
+            if arm in ("s1", "tis", "B"):
+                # each dispatch t >= 1 ran the copy published at the update
+                # before it, unchanged by the in-place steps since, and unlike
+                # the live leaf after the tick's update
+                after = dict(versions["live_after_update"])
+                checks = []
+                for t, ((version, now), ran) in enumerate(zip(versions["behaviour"],
+                                                              versions["ran"])):
+                    if t == 0:
+                        continue
+                    saved = versions["published"][version]
+                    checks.append({"tick": t, "behaviour_version": version,
+                                   "ran_equals_saved": torch.equal(ran, saved),
+                                   "snapshot_unchanged": torch.equal(now, saved),
+                                   "differs_from_live": (t not in after
+                                                         or not torch.equal(now, after[t]))})
+                a["versions"] = checks
+            if arm == "s1":
+                a["trainer_ahead"] = tp22_trainer_ahead(torch, pipe)
+            if arm == "B":
+                full = trainer.gather_params(mesh, ctx.actor_state.params, ctx.param_specs)
+                a["gathered_checksum"] = bit_checksum(torch, full)
+                rows = consumes[-1]["tokens"]
+                with torch.no_grad():
+                    with constraint.use_mesh(mesh):
+                        lp_tp, _ = model.logprobs(ctx.model_params(), rows)
+                    lp_one, _ = model.logprobs(full, rows)
+                ok, err = close(lp_tp[:, 1:], lp_one[:, 1:], BF16_TOL)
+                a["logprobs"] = {"held": ok, "max_abs_err": err, "shape": list(rows.shape)}
+                del full, lp_tp, lp_one
+            art["arms"][arm] = a
+            del res, pipe, ctx, seen, versions, consumes, tokens, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for obj, name, value in originals:
+            setattr(obj, name, value)
+    art["backend"] = dist.get_backend()  # the world the first arm's launch.train started
+    Path(spec["artifact"]).write_text(json.dumps(art))
+    return 0
+
+
+def tp22_phase(torch, _build, records, label="tp22", faults=()):
+    """Phase 22: the staleness-bounded async pipeline on a rank mesh. Two
+    ``chip_smoke.py --tp22-rank`` processes on ``cuda:0`` (one gloo group),
+    each running every arm of TP22_ARMS through ``launch.train --coordinator
+    127.0.0.1:PORT --num-hosts 2 --process-id r`` in the one world
+    (``tp22_rank``). A: phase 18's experiment (gemma-2b at full width on
+    FLEET_LAYERS layers) on a (1, 2) mesh, TP22_ITERS iterations synchronous,
+    at ``--max-staleness`` 0 and 1, and at 1 under phase 12's truncated-IS
+    algorithm. B: granite-moe-3b-a800m at full width on TP22_B_LAYERS layers
+    on a (2, 1) mesh (the data axis splits the rows), TP22_B_ITERS iterations
+    at staleness 1. Held, every hold hard:
+
+    - A at staleness 0: every iteration's metrics (the clock's and the
+      scheduler's own aside), the rollouts and each rank's final shards (a
+      bit checksum) equal the synchronous arm's;
+    - every async arm: the staleness and the weight versions exact and
+      equal on both ranks, each dispatch from the second on generated on the
+      copy published at the update before it, which no in-place step
+      changed; after s1, a step the scheduler does not publish, then a
+      dispatch: it generates on the published copy, not the live params;
+    - tis: each corrected batch's recomputed ``old_logprob`` within BF16_TOL
+      of the one-device model on the live params gathered whole;
+    - every consume: the step trains on the rows its batch was dispatched
+      with (this rank's, bit for bit);
+    - launches: every A iteration the synchronous arm's, less the actor
+      step in a tick that only generates, plus a forward where a batch is
+      corrected; every B iteration ``iteration_launches`` of granite, so;
+    - B: the params that the ranks gather bit for bit equal, and the last
+      consumed batch's logprobs on each rank's rows within BF16_TOL of the
+      one-device model on the gathered params and rows.
+
+    ``faults`` (names of TP22_FAULTS) runs the world again with each fault
+    planted, in the arms that show it, and fails unless a hold rejects it.
+    Prints per arm and rank the iteration ms (median after the warm-up), the
+    publish ms, the collectives an iteration, the peak GiB, then ``phase_s``.
+    Returns {path: launch counts}."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.rl import algorithms
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "tp22"
+    work.mkdir(parents=True, exist_ok=True)
+    files = {}
+    for key, (flags, layers, shape, algo) in {
+            "A": (ARCH_FLAGS, FLEET_LAYERS, [1, TP_RANKS], None),
+            "A_tis": (ARCH_FLAGS, FLEET_LAYERS, [1, TP_RANKS], TIS_ALGORITHM),
+            "B": (GRANITE_FLAGS, TP22_B_LAYERS, [TP_RANKS, 1], None)}.items():
+        spec = json.loads(experiment_file(f"{label}_{key}", flags, PIPE_RL, layers).read_text())
+        spec["mesh_shape"] = shape
+        if algo is not None:
+            spec["rl"]["algorithm"] = algo
+        files[key] = work / f"{key}_experiment.json"
+        files[key].write_text(json.dumps(spec))
+
+    def world(name, arms, fault=None):
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        host_args = []
+        for r in range(TP_RANKS):
+            args = work / f"{name}{r}.args.json"
+            args.write_text(json.dumps({
+                "argv": ["--experiment", "", "--device", DEV, "--iters", str(TP22_ITERS),
+                         "--num-hosts", str(TP_RANKS), "--process-id", str(r),
+                         "--coordinator", f"127.0.0.1:{port}"],
+                "files": {k: str(v) for k, v in files.items()}, "arms": list(arms),
+                "artifact": str(work / f"{name}{r}.artifact.json"), "rank": r,
+                "fault": fault}))
+            host_args.append((args, work / f"{name}{r}.log"))
+        return run_hosts(label, name, host_args, mode="--tp22-rank", refill=False)
+
+    arts = world("rank", TP22_ARMS)
+    fault_arts = {f: world(f"fault_{f}", TP22_FAULTS[f], f) for f in faults}
+
+    def launches_of(key):
+        exp = ExperimentSpec.from_json(files[key].read_text())
+        dag = algorithms.get_algorithm("grpo").dag_factory()
+        per_iter, step = iteration_launches(exp.model, _build.LAUNCHES, exp.rl.max_new_tokens,
+                                            dag)
+        return per_iter, step, forward_launches(exp.model, _build.LAUNCHES, 1, 0)
+
+    expected = {"A": launches_of("A"), "B": launches_of("B")}
+
+    def counts_of(history):
+        return [{k: m.get(k) for k in TP22_COUNTS} for m in history]
+
+    def clean(history):
+        return [{k: v for k, v in m.items() if not k.startswith(("time/", "async/"))
+                 and k != "pipeline/staleness"} for m in history]
+
+    def readings(ranks):
+        """(the failed holds, per arm the readings) of one world's ranks."""
+        failed, out = [], {}
+        for arm in ranks[0]["arms"]:
+            per = [r["arms"][arm] for r in ranks]
+            a0 = per[0]
+            n = len(a0["history"])
+            rd = {"iterations": n,
+                  "counts": counts_of(a0["history"]),
+                  "counts_equal_on_ranks": all(counts_of(a["history"]) == counts_of(
+                      a0["history"]) for a in per),
+                  "metrics_equal_on_ranks": all(clean(a["history"]) == clean(a0["history"])
+                                                for a in per),
+                  "steps_on_their_rows": all(c["step_is_the_batch"]
+                                             and c["step_rows"] == c["dispatched_rows"]
+                                             for a in per for c in a["consumes"])}
+            if arm == "sync":
+                rd["trains"] = all("actor/loss" in m for m in a0["history"])
+            else:
+                w = 0 if arm == "s0" else 1
+                stale = [m.get("async/staleness") for m in a0["history"]]
+                want = ([0.0] * n if w == 0 else [None] + [float(min(i, 1)) for i in range(n - 1)])
+                rd["staleness_exact"] = stale == want
+                ver = [m.get("async/weight_version") for m in a0["history"]]
+                rd["versions_exact"] = ver == ([float(i + 1) for i in range(n)] if w == 0 else
+                                               [None] + [float(i) for i in range(1, n)])
+            if arm == "s0":
+                sync = [r["arms"]["sync"] for r in ranks]
+                rd["bitwise_sync"] = all(
+                    clean(a["history"]) == clean(s["history"]) and a["rollouts_equal_sync"]
+                    and a["checksum"] == s["checksum"] for a, s in zip(per, sync))
+            if "versions" in a0:
+                rd["versions_ran"] = [c for a in per for c in a["versions"]]
+                rd["behaviour_copies_held"] = all(
+                    c["behaviour_version"] == c["tick"] - 1 and c["ran_equals_saved"]
+                    and c["snapshot_unchanged"] and c["differs_from_live"]
+                    for c in rd["versions_ran"])
+            if "trainer_ahead" in a0:
+                rd["trainer_ahead"] = [a["trainer_ahead"] for a in per]
+                rd["generates_on_the_published_copy"] = all(
+                    t["live_moved"] and t["ran_equals_published"] and t["ran_differs_from_live"]
+                    for t in rd["trainer_ahead"])
+            if arm == "tis":
+                rc = [c["recompute"] for a in per for c in a["consumes"] if "recompute" in c]
+                rd["recomputes"] = rc
+                rd["recompute_held"] = len(rc) == TP_RANKS * (n - 2) and all(
+                    c["held"] for c in rc)
+                rd["corrected"] = [m.get("async/is_corrected") for m in a0["history"]]
+            if arm == "B":
+                rd["gathered_equal_on_ranks"] = all(a["gathered_checksum"]
+                                                    == a0["gathered_checksum"] for a in per)
+                rd["logprobs"] = [a["logprobs"] for a in per]
+                rd["logprobs_held"] = all(a["logprobs"]["held"] for a in per)
+            # the launches of every iteration
+            per_iter, step, fwd = expected["B" if arm == "B" else "A"]
+            base = ([it["launches"] for it in ranks[0]["arms"]["sync"]["iterations"]]
+                    if arm != "B" and "sync" in ranks[0]["arms"] else [per_iter] * n)
+            ok = True
+            for a in per:
+                for i, (it, m) in enumerate(zip(a["iterations"], a["history"])):
+                    want = dict(base[min(i, len(base) - 1)])
+                    if "actor/loss" not in m:
+                        want = {k: v - step.get(k, 0) for k, v in want.items()}
+                    if m.get("async/is_corrected"):
+                        want = {k: v + fwd.get(k, 0) for k, v in want.items()}
+                    ok &= it["launches"] == want
+            rd["launches_as_expected"] = ok
+            holds = [k for k, v in rd.items() if isinstance(v, bool)]
+            failed += [f"{arm}: {k}" for k in holds if not rd[k]]
+            out[arm] = rd
+        return failed, out
+
+    failed, vs = readings(arts)
+    counts, out = {}, {"A": {"layers": FLEET_LAYERS, "mesh": [1, TP_RANKS],
+                             "iterations": TP22_ITERS},
+                       "B": {"layers": TP22_B_LAYERS, "mesh": [TP_RANKS, 1],
+                             "iterations": TP22_B_ITERS}}
+    for r, art in enumerate(arts):
+        require(art["backend"] == "gloo", f"{label} rank {r}: backend {art['backend']}")
+        for arm, a in art["arms"].items():
+            timed = a["iterations"][1:]
+            row = {"arm": arm, "rank": r, "mesh": a["mesh"], "coords": a["coords"],
+                   "iteration_ms": [it["ms"] for it in a["iterations"]],
+                   "timed_iteration_ms": statistics.median(it["ms"] for it in timed),
+                   "timed_iteration_ms_less_check": statistics.median(
+                       a["iteration_ms_less_check"][1:]),
+                   "publish_ms": a["publish_ms"],
+                   "collectives_per_timed_iteration": {
+                       k: {f: statistics.median(it["collectives"][k][f] for it in timed)
+                           for f in ("calls", "ms", "bytes")}
+                       for k in ("all_reduce", "all_gather")},
+                   "peak_gib": a["peak_gib"], "local_params": a["local_params"],
+                   "run_s": a["run_s"], "buffer_stats": a["stats"], "launches": a["launches"]}
+            print(json.dumps({f"{label}_arm": row}), flush=True)
+            counts[f"tp22_{arm}_rank{r}"] = a["launches"]
+    print(json.dumps({"check": f"{label}_holds", "held": not failed, "failed": failed,
+                      **vs}), flush=True)
+    fault_failed = {}
+    for fault, fa in fault_arts.items():
+        fault_failed[fault], fvs = readings(fa)
+        print(json.dumps({"check": f"{label}_fault_{fault}", "rejected": bool(fault_failed[fault]),
+                          "failed": fault_failed[fault], **fvs}), flush=True)
+    require(not failed, f"{label}: {failed}")
+    for fault, ff in fault_failed.items():
+        require(bool(ff), f"{label}: the holds do not reject the planted fault {fault}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({label: out}), flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--only-phase", type=int, choices=[12, 13, 14, 15, 16, 17, 18, 19, 20, 21],
+    ap.add_argument("--only-phase", type=int,
+                    choices=[12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22],
                     default=None,
                     help="build the kernels, run this phase alone and stop, without "
                          "the kernels line and the last line (a quick check of one "
@@ -7247,12 +7754,14 @@ def main(argv=None) -> int:
                          "which phase 17's hold must reject (how its limits were set)")
     # one rank of phase 18's world, started by tp_phase
     ap.add_argument("--tp-rank", default=None, help=argparse.SUPPRESS)
+    # one rank of phase 22's world, started by tp22_phase
+    ap.add_argument("--tp22-rank", default=None, help=argparse.SUPPRESS)
     # a host or rank process started ahead of its arm, by pool_fill
     ap.add_argument("--pooled", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tp-faults", default="",
-                    help="with --only-phase 18 (19, 20, 21): comma-separated faults of "
-                         "TP_FAULTS (TP19_FAULTS, TP20_FAULTS, TP21_FAULTS) to plant in the "
-                         "tensor-parallel model "
+                    help="with --only-phase 18 (19, 20, 21, 22): comma-separated faults of "
+                         "TP_FAULTS (TP19_FAULTS, TP20_FAULTS, TP21_FAULTS, TP22_FAULTS) to "
+                         "plant in the tensor-parallel model or the async pipeline "
                          "after the sound run, each of which the phase's holds must reject "
                          "(how its limits were set)")
     opts = ap.parse_args(argv)
@@ -7261,12 +7770,13 @@ def main(argv=None) -> int:
         ap.error(f"--shard-faults takes {', '.join(SHARD_FAULTS)}, with --only-phase 17")
     tp_faults = [f for f in opts.tp_faults.split(",") if f]
     known = {18: TP_FAULTS, 19: tuple(TP19_FAULTS), 20: tuple(TP20_FAULTS),
-             21: TP21_FAULTS}.get(opts.only_phase, ())
+             21: TP21_FAULTS, 22: tuple(TP22_FAULTS)}.get(opts.only_phase, ())
     if tp_faults and not set(tp_faults) <= set(known):
         ap.error(f"--tp-faults takes {', '.join(TP_FAULTS)} with --only-phase 18, "
                  f"{', '.join(TP19_FAULTS)} with --only-phase 19, "
-                 f"{', '.join(TP20_FAULTS)} with --only-phase 20, or "
-                 f"{', '.join(TP21_FAULTS)} with --only-phase 21")
+                 f"{', '.join(TP20_FAULTS)} with --only-phase 20, "
+                 f"{', '.join(TP21_FAULTS)} with --only-phase 21, or "
+                 f"{', '.join(TP22_FAULTS)} with --only-phase 22")
 
     import torch
 
@@ -7288,6 +7798,8 @@ def main(argv=None) -> int:
         return shard_rank(torch, opts.shard_rank)
     if opts.tp_rank is not None:
         return tp_rank(torch, opts.tp_rank)
+    if opts.tp22_rank is not None:
+        return tp22_rank(torch, opts.tp22_rank)
     if opts.pooled:
         return pooled(torch)
 
@@ -7318,7 +7830,8 @@ def main(argv=None) -> int:
                  18: lambda: tp_phase(torch, ops, ref, _build, {}, faults=tp_faults),
                  19: lambda: tp_moe_ssd_phase(torch, ref, F, _build, {}, faults=tp_faults),
                  20: lambda: tp20_phase(torch, _build, {}, faults=tp_faults),
-                 21: lambda: tp21_phase(torch, _build, {}, faults=tp_faults)}
+                 21: lambda: tp21_phase(torch, _build, {}, faults=tp_faults),
+                 22: lambda: tp22_phase(torch, _build, {}, faults=tp_faults)}
         counts = phase[opts.only_phase]()
         print(json.dumps({"only_phase": opts.only_phase, "launches": counts,
                           "script_s": time.perf_counter() - t_start}), flush=True)
@@ -7456,6 +7969,14 @@ def main(argv=None) -> int:
     # a (data 1, model 2) mesh (each rank's counts start at 0 in its process
     # and are read after its GRPO run) ----
     paths.update(tp21_phase(torch, _build, records))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 22: the staleness-bounded async pipeline on a rank mesh:
+    # gemma-2b synchronous and at staleness 0 and 1 (and under truncated IS)
+    # on a (data 1, model 2) mesh, then granite-moe-3b at staleness 1 on a
+    # (data 2, model 1) mesh, all in one world of two ranks (each rank's
+    # counts set to 0 in its process just before each arm, read just after)
+    paths.update(tp22_phase(torch, _build, records))
     if opts.profile:
         # last, so that no timed phase runs in a process that torch.profiler
         # has traced (the profiles keep their models alive until then)
@@ -7511,6 +8032,9 @@ def main(argv=None) -> int:
                   for arm in ("seamless", "nemotron") for r in range(TP_RANKS)},
                **{f"tp21_qwen_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
                                          "fused_sample") for r in range(TP_RANKS)},
+               **{f"tp22_{arm}_rank{r}": ("rmsnorm", "flash_attention", "decode_attention",
+                                          "fused_sample")
+                  for arm in TP22_ARMS for r in range(TP_RANKS)},
                "seamless_serving": ("flash_attention", "decode_attention"),
                "seamless_training": ("flash_attention",)}
     for path, names in on_path.items():

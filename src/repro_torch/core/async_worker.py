@@ -33,12 +33,29 @@ the one generated this iteration; that is a projection, not a measured
 overlap. Generation runs on the published copy of the weights
 (``WeightVersionStore.publish`` clones), never on the live tensors that the
 in-place AdamW step writes.
+
+On a rank mesh (``torch.distributed``, one process a device) every rank runs
+the same scheduler over its own shards and rows. Each half enters the mesh
+as the model code's ambient one (``constraint.use_mesh``), so
+``dispatch_generation`` and ``consume_and_train`` may be driven alone. A
+published version is a copy of the rank's train-layout shards; generation
+reaches the serve layout through ``WorkerContext.serve_params`` of the
+behaviour state, and the step and the truncated-IS recompute read the live
+state through ``WorkerContext.model_params``, each once a half: the switched
+copies are dropped when their half ends, so a rank holds no switched copy of
+a version past its use. A queued batch keeps every key's databuffer spec
+(``PendingRollout.specs``) and is put back under it, so a mesh whose data
+axes split the rows hands each stage this rank's rows, as JAX's popped global
+arrays keep their sharding. The gate counts, so every rank takes the same
+dispatch and consume decision in every tick and enters the same collectives,
+and every count metric (``async/staleness``, ``weight_version``,
+``inflight``, ``is_corrected``, ``gen_stalled``) is equal on every rank.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, Optional
 
 import torch
@@ -46,6 +63,7 @@ import torch
 from repro_torch.configs.base import AsyncPipelineConfig
 from repro_torch.core.dag import NodeType
 from repro_torch.core.worker import DAGWorker
+from repro_torch.distributed import constraint
 from repro_torch.distributed.weight_sync import WeightVersionStore
 from repro_torch.obs.trace import get_tracer
 
@@ -53,12 +71,15 @@ from repro_torch.obs.trace import get_tracer
 @dataclass
 class PendingRollout:
     """One generated batch waiting for the trainer: the popped buffer
-    contents, the weight version of the behaviour policy that produced it,
-    and the wall-clock the generation half took (for overlap accounting)."""
+    contents and the spec each key was put under (``DistributedDatabuffer.
+    spec_of``; on a rank mesh the value is this rank's shard under it), the
+    weight version of the behaviour policy that produced it, and the
+    wall-clock the generation half took (for overlap accounting)."""
 
     data: Dict[str, Any]
     behavior_version: int
     gen_seconds: float = 0.0
+    specs: Dict[str, Any] = field(default_factory=dict)
 
 
 class AsyncDAGWorker(DAGWorker):
@@ -132,33 +153,38 @@ class AsyncDAGWorker(DAGWorker):
         if not self.can_dispatch_generation():
             metrics["async/gen_stalled"] = 1.0
             return None
-        t0 = self.clock()
-        behavior = self._behavior_weights()
-        live = self.ctx.actor_state
-        if (behavior is not None and behavior.params is not None and live is not None
-                and behavior.params is not live.params):
-            # generation runs the published snapshot, never the live trainer
-            # state (the in-place AdamW step writes the live tensors)
-            self.ctx.actor_state = live._replace(params=behavior.params)
-        try:
-            # one span over the whole generation half: on a trace timeline
-            # its width against async/train shows what overlap_ratio projects
-            with get_tracer().span("async/generate", cat="async",
-                                   behavior_version=self.weights.version,
-                                   inflight=len(self._inflight)):
-                for node, fn in self.gen_queue:
-                    self.execute_node(node, fn, metrics)
-        finally:
-            self.ctx.actor_state = live
+        with constraint.use_mesh(self.ctx.mesh):  # the model code's ambient mesh
+            t0 = self.clock()
+            behavior = self._behavior_weights()
+            live = self.ctx.actor_state
+            if (behavior is not None and behavior.params is not None and live is not None
+                    and behavior.params is not live.params):
+                # generation runs the published snapshot, never the live trainer
+                # state (the in-place AdamW step writes the live tensors)
+                self.ctx.actor_state = live._replace(params=behavior.params)
+            try:
+                # one span over the whole generation half: on a trace timeline
+                # its width against async/train shows what overlap_ratio projects
+                with get_tracer().span("async/generate", cat="async",
+                                       behavior_version=self.weights.version,
+                                       inflight=len(self._inflight)):
+                    for node, fn in self.gen_queue:
+                        self.execute_node(node, fn, metrics)
+            finally:
+                self.ctx.actor_state = live
+                # no later stage reads the behaviour state's switched copy
+                self.ctx.drop_switched()
         # continuous rollout engine: its measured generation throughput is the
         # gen-side capacity the staleness window buys overlap against
         stats = getattr(self.ctx.engines.get("generate"), "last_stats", None)
         if stats:
             metrics["async/gen_tokens_per_s"] = stats.get("tokens_per_s", 0.0)
             metrics["async/gen_slot_occupancy"] = stats.get("slot_occupancy", 1.0)
-        data = {k: self.buffer.pop(k) for k in list(self.buffer.keys())}
+        keys = list(self.buffer.keys())
+        specs = {k: self.buffer.spec_of(k) for k in keys}  # read before the pop drops them
+        data = {k: self.buffer.pop(k) for k in keys}
         pending = PendingRollout(data=data, behavior_version=self.weights.version,
-                                 gen_seconds=self.clock() - t0)
+                                 gen_seconds=self.clock() - t0, specs=specs)
         self._inflight.append(pending)
         metrics["async/inflight"] = float(len(self._inflight))
         return pending
@@ -184,28 +210,38 @@ class AsyncDAGWorker(DAGWorker):
                 f"{pending.behavior_version} consumed at version "
                 f"{self.weights.version} (max_staleness={self.max_staleness})")
         t0 = self.clock()
-        data = dict(pending.data)
+        data, specs = dict(pending.data), dict(pending.specs)
         from repro_torch.rl import algorithms
 
         spec = algorithms.resolve(self.ctx)
         corrected = (spec.is_correction == "truncated" and staleness > 0
                      and "old_logprob" in data and "tokens" in data
                      and "response_mask" in data)
-        if corrected:
-            # decoupled correction: old_logprob becomes the train-time
-            # (proximal) policy's logprobs; the behaviour policy's move to
-            # behavior_logprob for the truncated-IS weight
-            with torch.no_grad():
-                lp, _ = self.ctx.engines["logprobs"](self.ctx.actor_state.params,
-                                                     data["tokens"])
-            data["behavior_logprob"] = data["old_logprob"]
-            data["old_logprob"] = lp * data["response_mask"]
-        for k, v in data.items():
-            self.buffer.put(k, v)
-        with get_tracer().span("async/train", cat="async", staleness=staleness,
-                               is_corrected=corrected):
-            for node, fn in self.train_queue:
-                self.execute_node(node, fn, metrics)
+        with constraint.use_mesh(self.ctx.mesh):  # the model code's ambient mesh
+            if corrected:
+                # decoupled correction: old_logprob becomes the train-time
+                # (proximal) policy's logprobs, on the live params and the
+                # rows a model stage reads (stages.actor_logprobs); the
+                # behaviour policy's move to behavior_logprob for the
+                # truncated-IS weight
+                model_spec = self._model_spec()
+                tokens, mask = (self._rows(data, specs, k, model_spec)
+                                for k in ("tokens", "response_mask"))
+                with torch.no_grad():
+                    lp, _ = self.ctx.engines["logprobs"](self.ctx.model_params(), tokens)
+                data["behavior_logprob"] = self._rows(data, specs, "old_logprob", model_spec)
+                data["old_logprob"] = lp * mask
+                specs["behavior_logprob"] = specs["old_logprob"] = model_spec
+            for k, v in data.items():
+                self.buffer.put(k, v, specs.get(k))
+            try:
+                with get_tracer().span("async/train", cat="async", staleness=staleness,
+                                       is_corrected=corrected):
+                    for node, fn in self.train_queue:
+                        self.execute_node(node, fn, metrics)
+            finally:
+                # the pre-step state's switched copy goes before the publish
+                self.ctx.drop_switched()
         # self-clean the consumed batch: run_iteration clears the buffer per
         # tick anyway, but a driver of the decoupled dispatch/consume API
         # must not have this batch's keys (behavior_logprob in particular)
@@ -221,6 +257,19 @@ class AsyncDAGWorker(DAGWorker):
         metrics["async/weight_version"] = float(self.weights.version)
         metrics["async/is_corrected"] = float(corrected)
         return pending
+
+    def _model_spec(self):
+        """The batch spec of the model stages (``stages._specs``)."""
+        from repro_torch.core import stages
+
+        return stages._specs(self.ctx)[0]
+
+    def _rows(self, data, specs, key: str, spec):
+        """``data[key]`` (this rank's shard under ``specs[key]``) as its
+        shard under ``spec``."""
+        from repro_torch.distributed import collectives
+
+        return collectives.repartition(self.ctx.mesh, data[key], spec, specs.get(key))
 
     # ------------------------------------------------------------------ #
     def run_iteration(self) -> Dict[str, float]:

@@ -47,8 +47,15 @@ architecture runs there: MoE and SSD layers (expert and head tensor
 parallelism), sliding-window rings, the int8 KV cache, prefix embeddings
 and ``top_p < 1``; an encoder-decoder's model code too, while its
 pipeline fails as on one device, at ``rollout.generate`` ("fused sampling
-is decoder-only"). The continuous engine and the async pipeline on such a
-mesh are ROADMAP queue 1, item 8.
+is decoder-only"). The continuous engine runs there too.
+
+The async pipeline runs on every rank mesh, as JAX's ``build_pipeline``
+builds its ``AsyncDAGWorker`` on any mesh: each rank schedules its own
+shards and rows, and a published version is a copy of the rank's
+train-layout shards (``core.async_worker``). Over a ``host:port``
+coordinator too, where the step's reduce-scatter takes the place of the
+fleet's exchange; a fleet over a directory refuses it, with the JAX
+package's message, as it refuses the centralized baseline.
 
 The user-facing entry point is :class:`repro_torch.api.ExperimentSpec`, whose
 ``compile()`` lands here.
@@ -183,15 +190,6 @@ def _seeds(seed: int):
     return [int(s) for s in np.random.SeedSequence(seed).generate_state(3)]
 
 
-def _refuse_unported_mesh(shape: Dict[str, int],
-                          async_pipeline: Optional[AsyncPipelineConfig]) -> None:
-    """Raise for what a rank mesh cannot run yet: the async pipeline."""
-    if math.prod(shape.values()) > 1 and async_pipeline is not None and async_pipeline.enabled:
-        raise NotImplementedError(
-            f"the async pipeline on a rank mesh ({shape}) is not ported yet "
-            "(ROADMAP queue 1, item 8: distributed)")
-
-
 def build_pipeline(
     cfg: ModelConfig,
     rl: RLConfig,
@@ -222,15 +220,16 @@ def build_pipeline(
             raise ValueError(
                 "a multi-host fleet has no single controller to centralize "
                 "through; distributed cannot be combined with centralized=True")
-        if async_pipeline is not None and async_pipeline.enabled:
+        from repro_torch.launch.mesh import is_rank_coordinator
+
+        # a host:port coordinator makes a rank mesh whose step reduces its
+        # grads itself; the file plane's exchange is what cannot go async
+        if (async_pipeline is not None and async_pipeline.enabled
+                and not is_rank_coordinator(distributed.coordinator)):
             raise ValueError(
                 "the fleet gradient exchange is a per-iteration collective; "
                 "combine it with the async pipeline once the exchange is "
                 "staleness-aware (not yet supported)")
-    # the rank mesh asked for (a given one, or ``mesh_shape`` over the
-    # running world), refused before any world is touched
-    asked = mesh_shape if mesh is None else (mesh.shape if mesh.torch_mesh is not None else None)
-    _refuse_unported_mesh(asked or {}, async_pipeline)
     if mesh is None and mesh_shape is not None:
         from repro_torch.launch.mesh import mesh_of
 

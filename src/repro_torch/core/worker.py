@@ -93,7 +93,6 @@ class WorkerContext:
             self._serve_cache = (state, params)
         return self._serve_cache[1]
 
-
     def model_params(self, state=None):
         """The params of ``state`` (the actor's by default) that the logprob
         stages and the actor step read: with ``model`` > 1 its train-layout
@@ -111,6 +110,14 @@ class WorkerContext:
                                            axes=trainer.data_axes(self.mesh))
             self._model_cache = (state, params)
         return self._model_cache[1]
+
+    def drop_switched(self) -> None:
+        """Drop the copies that :meth:`serve_params` and :meth:`model_params`
+        keep, and with them the state they were made for. The async worker
+        calls it as each of its halves ends: generation reads the behaviour
+        version and the step the live state, so neither half's copy serves
+        the other, and a rank holds no switched copy past its half."""
+        self._serve_cache = self._model_cache = None
 
 
 class PromptSource:

@@ -1,8 +1,9 @@
 """The distributed layer of the PyTorch port: the version store of the async
 pipeline (``weight_sync``), and the data-parallel fleet: its file-plane
 runtime and gradient exchange (``fleet``) and the exchange's int8 wire form
-(``compression``). The sharding layer and the train -> serve reshard are
-ROADMAP queue 1, item 8."""
+(``compression``); the rank mesh's sharding layer (``sharding``,
+``collectives``, ``constraint``) and the train -> serve reshard
+(``weight_sync.switch``)."""
 from repro_torch.distributed import compression, fleet
 from repro_torch.distributed.weight_sync import VersionedWeights, WeightVersionStore
 

@@ -6,8 +6,9 @@ and the ambient mesh (``use_mesh``) resolves them for GSPMD, which inserts
 the collectives. The port has no GSPMD: each rank computes on its own shards
 and the model code calls the collectives itself, at the same call sites.
 So the ambient mesh here is a rank mesh, set with :func:`use_mesh` (the DAG
-worker enters its context's mesh for every iteration), and the helpers
-below are what the model code asks of it:
+worker enters its context's mesh for every iteration, the async worker for
+each of its halves), and the helpers below are what the model code asks of
+it:
 
 - :func:`tp` is the ambient mesh when it splits ``model`` over more than one
   rank of a ``torch.distributed`` world, else None. Without such a mesh

@@ -20,8 +20,12 @@ keeps the trainer's live pytree; the port's AdamW updates the parameters in
 place (``optim/adamw.py``), so a store that kept the live tensors would see
 every later step written into the version it calls published. ``publish``
 therefore clones every leaf (strides kept), and drops its reference to the
-previous version before it does, so that on one device the store adds one
-copy of the weights to the peak, not two.
+previous version before it does, so that the store adds one copy of the
+weights to the peak, not two. On a rank mesh the async worker publishes the
+rank's own train-layout shards: a version is a clone of them (one rank's
+share of one copy), and generation reaches the serve layout from it
+through ``WorkerContext.serve_params`` of the behaviour state, one
+:func:`switch` a dispatch.
 
 ``publish(mesh=, target_specs=)`` publishes through the train -> serve
 switch, the version tag riding along. Port tensors carry no layout of their

@@ -91,6 +91,12 @@ def make_local_mesh(shape=None, axes=("data", "model"), *, device="cuda") -> Dev
     return _rank_mesh(device, shape)
 
 
+def is_rank_coordinator(coordinator: str) -> bool:
+    """Whether ``coordinator`` is a ``host:port`` address (a
+    ``torch.distributed`` world of ranks), not a fleet's shared directory."""
+    return ":" in coordinator and "/" not in coordinator
+
+
 def init_distributed(coordinator: str, num_processes: int = 1, process_id: int = 0, *,
                      device="cuda", **overrides):
     """Bring up the multi-process runtime. Returns the registered
@@ -105,7 +111,7 @@ def init_distributed(coordinator: str, num_processes: int = 1, process_id: int =
     plane (e.g. ``grad_compression``, ``dead_after_s``)."""
     if num_processes <= 1:
         return None
-    if ":" in coordinator and "/" not in coordinator:
+    if is_rank_coordinator(coordinator):
         import torch.distributed as dist
 
         if not dist.is_initialized():

@@ -19,8 +19,8 @@ other engine settings (``prefill_chunk``, the buckets) stand, and an
 experiment's ``mesh_shape`` with ``model`` > 1 runs it on tensor-parallel
 ranks. ``--max-staleness W``
 runs the staleness-bounded async pipeline (0: the lockstep scheduler,
-bitwise equal to the synchronous worker), and overrides an experiment
-file's setting. ``--env NAME`` (with ``--max-turns`` and ``--turn-budget``)
+bitwise equal to the synchronous worker), on one device or on the ranks
+below, and overrides an experiment file's setting. ``--env NAME`` (with ``--max-turns`` and ``--turn-budget``)
 runs a registered environment of ``repro_torch.rl.envs``; more than one
 turn selects the continuous engine's episode loop. As in the JAX package,
 ``--experiment`` takes the file's env, and these three flags shape only a
@@ -55,7 +55,11 @@ a card, NCCL where each has its own): the JAX package's
 with FSDP state: each rank computes its rows of the batch, and the grads
 are reduce-scattered into the param shards (``trainer.make_dp_step``).
 ``--resume`` restores each rank's shard from any checkpoint (elastic), and
-``--ckpt-dir`` writes each rank's shards.
+``--ckpt-dir`` writes each rank's shards. An experiment's ``mesh_shape``
+lays the same ranks out as ``(data, model)`` instead (``model`` > 1:
+tensor-parallel). ``--max-staleness W`` runs the async pipeline on either
+layout, each rank scheduling its own shards and rows; under ``--resume`` the
+restored shards are what the first dispatch publishes as version 0.
 
 The default arch is gemma-2b, the port's main model.
 
@@ -75,6 +79,9 @@ Usage:
       --num-hosts 2 --process-id $h --coordinator /tmp/coord --grad-compression int8_ef & done
   for r in 0 1; do python -m repro_torch.launch.train --smoke --device cpu --iters 2 \
       --num-hosts 2 --process-id $r --coordinator 127.0.0.1:29500 & done
+  for r in 0 1; do python -m repro_torch.launch.train --experiment tp.json --device cpu \
+      --iters 3 --num-hosts 2 --process-id $r --coordinator 127.0.0.1:29501 \
+      --max-staleness 1 & done
 """
 from __future__ import annotations
 

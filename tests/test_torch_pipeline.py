@@ -20,7 +20,6 @@ bf16, on which fp32 weights cannot run its decode ``while_loop``. Its slot
 counts (``rollout/*``) are equal.
 """
 import dataclasses
-import functools
 import json
 
 import jax
@@ -38,7 +37,6 @@ from repro.rl import trainer as jtrainer
 from repro_torch import bridge
 from repro_torch.api import ExperimentSpec
 from repro_torch.configs import (
-    AsyncPipelineConfig,
     DataCoordinatorConfig,
     DistributedConfig,
     RolloutEngineConfig,
@@ -397,18 +395,14 @@ def test_unported_flags_raise(flag, tmp_path):
         train.main(["--experiment", str(path), "--device", "cpu", "--iters", "1", *flag])
 
 
-@pytest.mark.parametrize("option", ["distributed", "mesh_shape"])
+@pytest.mark.parametrize("option", ["distributed"])
 def test_unported_options_raise(option):
-    # a fleet host of several devices and tensor-parallel stages in the async
-    # pipeline wait for the rest of the sharding layer (the continuous
-    # engine runs on a tensor-parallel mesh: tests/test_torch_tp_engine.py)
+    # a fleet host of several devices waits for the rest of the sharding
+    # layer (the async pipeline runs on a rank mesh:
+    # tests/test_torch_tp_async.py)
     value = {"distributed": DistributedConfig(num_hosts=2, coordinator="/tmp/c",
-                                              devices_per_host=2),
-             "mesh_shape": (2, 2)}[option]
-    pipeline = ({"async_pipeline": AsyncPipelineConfig(enabled=True)}
-                if option == "mesh_shape" else {})
-    exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value},
-                         **pipeline)
+                                              devices_per_host=2)}[option]
+    exp = ExperimentSpec(model=reduced(get_config("gemma-2b"), **SMOKE), **{option: value})
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item \d"):
         exp.compile(device="cpu")
 
@@ -495,23 +489,6 @@ def _layer_cfg(**kw):
 
 # every NotImplementedError of the port, and the ROADMAP queue 1 item that
 # ports its subsystem
-def _launch_experiment(**kw):
-    """``launch.train`` on an experiment file of the smoke gemma-2b with the
-    spec fields ``kw``."""
-    import tempfile
-
-    exp = dataclasses.replace(ExperimentSpec(model=_layer_cfg()), **kw)
-    with tempfile.TemporaryDirectory() as d:
-        path = f"{d}/exp.json"
-        with open(path, "w") as f:
-            f.write(exp.to_json())
-        return train.main(["--experiment", path, "--device", "cpu", "--iters", "1"])
-
-
-def _tensor_parallel_spec(**spec_kw):
-    return ExperimentSpec(model=_layer_cfg(), mesh_shape=(1, 2), **spec_kw).compile(device="cpu")
-
-
 def _paged_decode_on_model_ranks():
     """The serving engine's paged decode step under an ambient mesh that
     splits ``model`` over 2 ranks: refused before its first collective, so
@@ -531,27 +508,14 @@ def _paged_decode_on_model_ranks():
                                 torch.zeros((2, 2), dtype=torch.int32))
 
 
-_TP_UNPORTED = {
-    "async": dict(async_pipeline=AsyncPipelineConfig(enabled=True)),
-}
-
 NOT_PORTED_CASES = {
     "devices_per_host": (8, lambda: ExperimentSpec(
         model=_layer_cfg(), distributed=DistributedConfig(
             num_hosts=2, coordinator="/unused", devices_per_host=2)).compile(device="cpu")),
     "fleet_model_parallel": (8, lambda: make_fleet_mesh(2, model_parallel=2, device="cpu")),
-    # tensor-parallel model stages in the async pipeline, refused before any
-    # world is touched, through ExperimentSpec and through launch.train
-    **{f"model_parallel_{what}": (8, functools.partial(_tensor_parallel_spec, **kw))
-       for what, kw in _TP_UNPORTED.items()},
-    "model_parallel_launch": (8, lambda: _launch_experiment(
-        mesh_shape=(1, 2), async_pipeline=AsyncPipelineConfig(enabled=True))),
     # the serving engine's paged decode on model > 1 (the continuous engine,
     # which this case pinned before, runs on a tensor-parallel mesh)
     "model_parallel_continuous": (8, _paged_decode_on_model_ranks),
-    "async_rank_mesh": (8, lambda: ExperimentSpec(
-        model=_layer_cfg(), mesh_shape=(2, 1),
-        async_pipeline=AsyncPipelineConfig(enabled=True)).compile(device="cpu")),
 }
 ITEM_NAMES = {8: "distributed"}
 
